@@ -17,6 +17,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "filterwarnings",
         "ignore:Some donated buffers were not usable")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU (CUDA kernels have no CPU "
+        "mode); skips without one")
 
 
 @pytest.fixture(scope="session")
