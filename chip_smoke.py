@@ -17,7 +17,19 @@ Phases, in order; any failure exits non-zero before the final line:
      the keep-packed serve is compared with a serve of the same artifact
      with weights dequantized at load time, and two of layer 0's GPTQ
      solves (Hessians from the kernels, solver on the card) are compared
-     with the same solves done on the host CPU with the plain versions.
+     with the same solves done on the host CPU with the plain versions;
+     then the quantized-KV serving path on the same artifact, for kv8 and
+     kv2: ``generate`` through the flat quantized cache, and the
+     continuous-batching ``Engine`` over paged pools on a Poisson trace in
+     three admission modes (whole prompt, chunked exact, chunked paged),
+     its launches counted apart.  It fails unless every request ends ok,
+     every drain returns every page, each request's first token is its
+     solo ``generate`` first token (kv2's paged chunked prefill reads its
+     earlier chunks back from 2-bit codes, so there each final chunk's
+     logits are held to the same step with the plain extend instead), no
+     helper that holds the cache in fp is ever called, and sampled calls
+     of the three quantized-KV kernels on this path agree with their plain
+     versions on the same inputs.
 The last two lines are the ``kernels`` JSON object and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 reference package.
@@ -45,6 +57,23 @@ BITS, GROUP, SEED = 3, 128, 0
 # layer 0's attention-input and FFN-input weights, solved again on the CPU
 SOLVE_CHECK = ("mixer/wk", "ffn/wi")
 
+# quantized-KV serving path: generate at batch 4, then the engine
+KV_BITS = (8, 2)
+KV_PROMPT, KV_GEN = 1024, 32
+ENGINE_REQUESTS, ENGINE_PROMPT, ENGINE_BUDGETS = 8, 512, (16, 64)
+ENGINE_SLOTS, ENGINE_PAGES, ENGINE_BURST, ENGINE_CHUNK = 4, 48, 8, 128
+ENGINE_RATE = 0.5  # Poisson arrivals per scheduling round
+ENGINE_MODES = (("whole", None, "exact"), ("chunked-exact", ENGINE_CHUNK,
+                                           "exact"),
+                ("chunked-paged", ENGINE_CHUNK, "paged"))
+# phase 2 shapes of the quantized-KV kernels (llama3-8b heads)
+FD_B, FD_S, FD_KV, FD_G, FD_DH, FD_TAIL = 4, 8192, 8, 4, 128, 37
+FE_L, FE_PAST = 256, 16
+# phase 3 holds the quantized-KV kernels to their plain versions on the main
+# path's own calls: of each kernel's calls in each run, the first
+# AUDIT_FIRST and then every AUDIT_EVERY-th (odd, so both layers are drawn)
+AUDIT_FIRST, AUDIT_EVERY = 8, 7
+
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
@@ -53,6 +82,15 @@ PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 TOL_FP32 = 1e-5  # fp32 products summed in another order
 TOL_COLSUM = 1e-4  # exp in two passes, fp32 atomics in run-dependent order
 TOL_BF16 = 8e-3  # one bf16 rounding (2^-8) of the fp32 result
+# quantized-KV attention: the same dequantized fp32 terms, each row's scale
+# applied after its dot product, sums in another order
+TOL_KV = 1e-5
+# kv2 paged chunked prefill: the final chunk's logits against the same step
+# with the extend kernel replaced by its plain version (TOL_KV apart in fp32).
+# The two differ only where a bf16 rounding downstream flips; the head
+# rounds each logit to bf16, so one flip already shows as a whole ulp, up to
+# 2^-7 of the largest logit.  Two ulps of it:
+TOL_CHUNK_LOGITS = 2.0 ** -6
 # keep-packed (fp32 dequant + sums in the kernel, bf16 out) vs weights
 # dequantized to fp32 at load (cuBLAS fp32, bf16 out): every projection's
 # bf16 rounding may land one ulp (2^-8) apart, compounding over 2 layers
@@ -133,9 +171,39 @@ def errors(got, want) -> tuple[float, float]:
     return d, d / max(want.float().abs().max().item(), 1e-30)
 
 
-def check_kernels(torch, timer) -> dict:
-    """Phase 2: every kernel vs its plain version at the main path's
-    shapes.  Returns the representative row of each kernel."""
+class Checks:
+    """Phase 2's record: one logged row per (kernel, shape) against its
+    plain version, the representative row of each kernel in ``rows``, and
+    the disagreements in ``bad``."""
+
+    def __init__(self, timer):
+        self.timer = timer
+        self.rows: dict = {}
+        self.bad: list = []
+
+    def record(self, name, shape, got, want, tol, ms, plain_ms, library_ms,
+               nbytes, flops, dtype, representative):
+        abs_err, rel_err = errors(got, want)
+        b_ms, b_by = bound(nbytes, flops, dtype)
+        row = {"name": name, "shape": shape, "max_abs_err": abs_err,
+               "rel_err": rel_err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
+               "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+        log({"check": row})
+        if not (rel_err <= tol):
+            self.bad.append(f"{name} {shape}: rel err {rel_err:.3g} > {tol}")
+        if representative:
+            self.rows[name] = row
+
+    def clones(self, tensors, nbytes):
+        """Independent copies of ``tensors`` so timed calls run cold."""
+        n = self.timer.copies(nbytes)
+        return [tensors] + [tuple(t.clone() for t in tensors)
+                            for _ in range(n - 1)]
+
+
+def check_kernels(torch, checks: Checks) -> None:
+    """Phase 2, first slice: gram, attn_colsum and quant_matmul vs their
+    plain versions at the main path's shapes."""
     from repro_torch.core.quantizer import QuantSpec, quantize_weight_rtn
     from repro_torch.kernels.attn_colsum.ops import attn_colsum
     from repro_torch.kernels.attn_colsum.ref import attn_colsum_ref
@@ -146,26 +214,7 @@ def check_kernels(torch, timer) -> dict:
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    rows, bad = {}, []
-
-    def record(name, shape, got, want, tol, ms, plain_ms, library_ms, nbytes,
-               flops, dtype, representative):
-        abs_err, rel_err = errors(got, want)
-        b_ms, b_by = bound(nbytes, flops, dtype)
-        row = {"name": name, "shape": shape, "max_abs_err": abs_err,
-               "rel_err": rel_err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
-        log({"check": row})
-        if not (rel_err <= tol):
-            bad.append(f"{name} {shape}: rel err {rel_err:.3g} > {tol}")
-        if representative:
-            rows[name] = row
-
-    def clones(tensors, nbytes):
-        """Independent copies of ``tensors`` so timed calls run cold."""
-        n = timer.copies(nbytes)
-        return [tensors] + [tuple(t.clone() for t in tensors)
-                            for _ in range(n - 1)]
+    timer, record, clones = checks.timer, checks.record, checks.clones
 
     # gram: one calibration batch (B*T tokens) of the 4096- and 14336-wide
     # weight inputs, fp32, accumulated into the weight's Hessian
@@ -253,9 +302,170 @@ def check_kernels(torch, timer) -> dict:
                 del sets, pws, libs
             del pw, w_bf16
     torch.cuda.empty_cache()
-    if bad:
-        fail("kernel disagrees with its plain version: " + "; ".join(bad))
-    return rows
+
+
+def check_kv_kernels(torch, checks: Checks) -> None:
+    """Phase 2, quantized-KV slice: flat and paged flash decode (kv8, kv2)
+    at B 4, S 8192, KV 8, G 4, Dh 128, pos = S - 37, the paged call through
+    a shuffled page table with a trash entry and held bitwise to the flat
+    call; then the chunked-prefill extend at L 256 over 16 past pages.
+    The yardstick is ``scaled_dot_product_attention`` (GQA) on the cache
+    already dequantized to bf16; the dequantization is not timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                      paged_flash_decode,
+                                                      paged_flash_extend)
+    from repro_torch.kernels.flash_decode.ref import (dequant_kv,
+                                                      flash_decode_ref,
+                                                      paged_flash_decode_ref,
+                                                      paged_flash_extend_ref)
+    from repro_torch.models.attention import kv_codec
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    timer, record, clones = checks.timer, checks.record, checks.clones
+    b, s, kv, grp, dh = FD_B, FD_S, FD_KV, FD_G, FD_DH
+    page, h = 64, FD_KV * FD_G
+    pos_v = s - FD_TAIL
+    n_tiles = s // page
+
+    def finalized(acc, l):
+        return acc / l.clamp_min(1e-30)
+
+    def dequantized(codes, scales, codec, rows):
+        """(B, S, KV, w) codes -> the first ``rows`` as (B, KV, rows, D)
+        bf16, for the yardstick."""
+        x = dequant_kv(codes.transpose(1, 2), scales.transpose(1, 2),
+                       kv_bits=codec.kv_bits, chunk=codec.chunk, d=dh)
+        return x[:, :, :rows].to(torch.bfloat16).contiguous()
+
+    for bits in KV_BITS:
+        codec = kv_codec(bits, page)
+        kq, ks = codec.encode(torch.randn((b, s, kv, dh), generator=g,
+                                          device=dev))
+        vq, vs = codec.encode(torch.randn((b, s, kv, dh), generator=g,
+                                          device=dev))
+        q = torch.randn((b, kv, grp, dh), generator=g, device=dev) * dh ** -0.5
+        pos = torch.full((b,), pos_v, dtype=torch.int32, device=dev)
+        kw = dict(kv_bits=bits, chunk=codec.chunk, dv=dh)
+        rows = pos_v + 1
+        code_b = kq[0, 0, 0].numel() * kq.element_size()
+        scale_rows = -(-rows // codec.chunk)
+        nbytes = (2 * b * kv * (rows * code_b + scale_rows * 2)
+                  + 2 * q.numel() * 4)
+        flops = 4.0 * b * h * rows * dh
+        cache_b = 2 * (kq.numel() * kq.element_size() + ks.numel() * 2)
+        shape = {"kv_bits": bits, "B": b, "S": s, "KV": kv, "G": grp,
+                 "Dh": dh, "pos": pos_v}
+
+        # flat
+        rkw = dict(kv_bits=bits, chunk=codec.chunk, dh=dh, dv=dh)
+        want = finalized(*flash_decode_ref(q, kq, ks, vq, vs, pos, tile=page,
+                                           **rkw)[::2])
+        flat = flash_decode(q, kq, ks, vq, vs, pos, tile=page, **kw)
+        sets = clones((q, kq, ks, vq, vs, pos), cache_b)
+        ms = timer.ms(lambda a=a: flash_decode(*a, tile=page, **kw)
+                      for a in sets)
+        plain_ms = timer.ms((lambda a=a: flash_decode_ref(
+            *a, tile=page, **rkw) for a in sets), iters=len(sets))
+        sdpa = [(a[0].reshape(b, h, 1, dh).to(torch.bfloat16) * dh ** 0.5,
+                 dequantized(a[1], a[2], codec, rows),
+                 dequantized(a[3], a[4], codec, rows)) for a in sets]
+        library_ms = timer.ms(lambda a=a: F.scaled_dot_product_attention(
+            *a, enable_gqa=True) for a in sdpa)
+        del sdpa
+        record("flash_decode", shape, flat, want, TOL_KV, ms, plain_ms,
+               library_ms, nbytes, flops, "float32", bits == 8)
+
+        # paged: the same codes through a shuffled table + a trash entry
+        perm = torch.randperm(b * n_tiles, generator=torch.Generator()
+                              .manual_seed(2)) + 1
+        tbl = perm.reshape(b, n_tiles).to(torch.int32)
+        pools = []
+        for codes, scales in ((kq, ks), (vq, vs)):
+            cp = torch.zeros((b * n_tiles + 1, page) + codes.shape[2:],
+                             dtype=codes.dtype, device=dev)
+            sp = torch.zeros((b * n_tiles + 1, page // codec.chunk, kv),
+                             dtype=scales.dtype, device=dev)
+            cp[perm.to(dev)] = codes.reshape(cp[1:].shape)
+            sp[perm.to(dev)] = scales.reshape(sp[1:].shape)
+            pools += [cp, sp]
+        tbl = torch.cat([tbl, torch.zeros((b, 1), dtype=torch.int32)],
+                        1).to(dev)
+        want = finalized(*paged_flash_decode_ref(tbl, pos, q, *pools,
+                                                 page=page, **rkw)[::2])
+        got = paged_flash_decode(tbl, pos, q, *pools, page=page, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, flat):
+            checks.bad.append(f"paged_flash_decode kv{bits}: not bitwise "
+                              f"equal to flash_decode at tile = page")
+        log({"paged_equals_flat": {"kv_bits": bits,
+                                   "bitwise": bool(torch.equal(got, flat))}})
+        sets = clones((tbl, pos, q) + tuple(pools), cache_b)
+        ms = timer.ms(lambda a=a: paged_flash_decode(*a, page=page, **kw)
+                      for a in sets)
+        plain_ms = timer.ms((lambda a=a: paged_flash_decode_ref(
+            *a, page=page, **rkw) for a in sets), iters=len(sets))
+        record("paged_flash_decode", dict(shape, table="shuffled + trash"),
+               got, want, TOL_KV, ms, plain_ms, library_ms, nbytes, flops,
+               "float32", bits == 8)
+        del kq, ks, vq, vs, pools, sets, flat, got, want
+        torch.cuda.empty_cache()
+
+        # extend: an L-token chunk over FE_PAST past pages, bf16 inputs
+        L, n_past = FE_L, FE_PAST
+        n_pages = n_past + 1
+        kq, ks = codec.encode(torch.randn((1, n_pages * page, kv, dh),
+                                          generator=g, device=dev))
+        vq, vs = codec.encode(torch.randn((1, n_pages * page, kv, dh),
+                                          generator=g, device=dev))
+        pools = [kq.reshape((n_pages, page) + kq.shape[2:]),
+                 ks.reshape(n_pages, page // codec.chunk, kv),
+                 vq.reshape((n_pages, page) + vq.shape[2:]),
+                 vs.reshape(n_pages, page // codec.chunk, kv)]
+        tbl = (torch.randperm(n_past, generator=torch.Generator()
+                              .manual_seed(3)) + 1).to(torch.int32).to(dev)
+        q, k_new, v_new = (torch.randn(shp, generator=g, device=dev).to(
+            torch.bfloat16) for shp in ((1, L, h, dh), (1, L, kv, dh),
+                                        (1, L, kv, dh)))
+        ekw = dict(kv_bits=bits, chunk=codec.chunk, dh=dh, dv=dh, page=page)
+        want = paged_flash_extend_ref(tbl, q, k_new, v_new, *pools, **ekw)
+        got = paged_flash_extend(tbl, q, k_new, v_new, *pools, **ekw)
+        past_rows = n_past * page
+        nbytes = (2 * kv * (past_rows * code_b
+                            + -(-past_rows // codec.chunk) * 2)
+                  + (q.numel() + k_new.numel() + v_new.numel()) * 2
+                  + L * h * dh * 4)
+        flops = 4.0 * h * dh * L * (past_rows + (L + 1) / 2)
+        sets = clones((tbl, q, k_new, v_new) + tuple(pools), nbytes)
+        ms = timer.ms(lambda a=a: paged_flash_extend(*a, **ekw)
+                      for a in sets)
+        plain_ms = timer.ms((lambda a=a: paged_flash_extend_ref(
+            *a, **ekw) for a in sets), iters=len(sets))
+        mask = torch.ones((L, past_rows + L), dtype=torch.bool, device=dev)
+        mask[:, past_rows:] = torch.ones((L, L), dtype=torch.bool,
+                                         device=dev).tril()
+
+        def past_kv(codes, scales, a):
+            flat_c = codes[a[0].long()].reshape(1, past_rows, kv, -1)
+            flat_s = scales[a[0].long()].reshape(1, -1, kv)
+            return dequantized(flat_c, flat_s, codec, past_rows)
+
+        sdpa = [(a[1].transpose(1, 2),
+                 torch.cat([past_kv(a[4], a[5], a),
+                            a[2].transpose(1, 2)], 2).contiguous(),
+                 torch.cat([past_kv(a[6], a[7], a),
+                            a[3].transpose(1, 2)], 2).contiguous())
+                for a in sets]
+        library_ms = timer.ms(lambda a=a: F.scaled_dot_product_attention(
+            *a, attn_mask=mask, enable_gqa=True) for a in sdpa)
+        record("paged_flash_extend",
+               {"kv_bits": bits, "L": L, "n_past": n_past, "H": h, "KV": kv,
+                "Dh": dh}, got, want, TOL_KV, ms, plain_ms, library_ms,
+               nbytes, flops, "float32", bits == 8)
+        del kq, ks, vq, vs, pools, sets, sdpa, got, want
+        torch.cuda.empty_cache()
 
 
 def check_solves(torch, entries: dict, proxy_card: dict) -> dict:
@@ -367,6 +577,359 @@ def check_solves(torch, entries: dict, proxy_card: dict) -> dict:
     return rows
 
 
+def profile_engine(torch, run) -> dict:
+    """Device time by kernel over one traced engine run (``run()``), and
+    the summed device-busy time; the profiler slows the host, so the idle
+    share is taken against an untraced run of the same work."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    rows = [{"name": ev.key[:60], "ms": ev.self_device_time_total / 1e3,
+             "calls": ev.count} for ev in prof.key_averages()
+            if ev.device_type == DeviceType.CUDA
+            and ev.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r["ms"])
+    return {"device_busy_ms": sum(r["ms"] for r in rows), "top": rows[:10]}
+
+
+class KvAudit:
+    """Holds the three quantized-KV kernels to their plain versions on the
+    main path's own calls, at the shapes, positions and page tables the runs
+    give them (a flat cache whose last split holds one tile, a different
+    position per slot, inactive slots whose table rows point at the trash
+    page, extend with n_past = 0 and > 0).  Each wrapper is replaced in
+    ``models.attention`` by one that calls it, so its launch count moves as
+    before, and that keeps a copy of a sampled call's inputs (the caches
+    and pools are written in place by later steps) with its result.
+    ``settle()`` runs the plain versions on the copies after each run,
+    outside its timing; the copies are device-to-device, a few per sampled
+    call.  No call is sampled while ``label`` is None."""
+
+    NAMES = ("flash_decode", "paged_flash_decode", "paged_flash_extend")
+
+    def __init__(self, torch, att):
+        from repro_torch.kernels.flash_decode import ref
+
+        def flash_plain(q, kq, ks, vq, vs, pos, *, kv_bits, chunk, dv, tile):
+            acc, _, l = ref.flash_decode_ref(
+                q, kq, ks, vq, vs, pos, kv_bits=kv_bits, chunk=chunk,
+                dh=q.shape[-1], dv=dv, tile=tile)
+            return acc / l.clamp_min(1e-30)
+
+        def paged_plain(tbl, pos, q, kq, ks, vq, vs, *, kv_bits, chunk, dv,
+                        page):
+            acc, _, l = ref.paged_flash_decode_ref(
+                tbl, pos, q, kq, ks, vq, vs, kv_bits=kv_bits, chunk=chunk,
+                dh=q.shape[-1], dv=dv, page=page)
+            return acc / l.clamp_min(1e-30)
+
+        self.torch, self.att = torch, att
+        self.plain = {"flash_decode": flash_plain,
+                      "paged_flash_decode": paged_plain,
+                      "paged_flash_extend": ref.paged_flash_extend_ref}
+        self.real = {name: getattr(att, name) for name in self.NAMES}
+        self.label = None
+        self.calls: dict = {}
+        self.pending: list = []
+        self.rows = {name: {"checked": 0, "max_abs_err": 0.0,
+                            "max_rel_err": 0.0, "runs": []}
+                     for name in self.NAMES}
+        self.n_past: set = set()
+        self.bad: list = []
+
+    def install(self) -> None:
+        for name in self.NAMES:
+            setattr(self.att, name, self._wrap(name))
+
+    def restore(self) -> None:
+        for name, fn in self.real.items():
+            setattr(self.att, name, fn)
+
+    def _wrap(self, name):
+        real, torch = self.real[name], self.torch
+
+        def audited(*args, **kw):
+            out = real(*args, **kw)
+            if self.label is not None:
+                key = (name, self.label)
+                i = self.calls[key] = self.calls.get(key, -1) + 1
+                if i < AUDIT_FIRST or i % AUDIT_EVERY == 0:
+                    kept = tuple(a.clone() if isinstance(a, torch.Tensor)
+                                 else a for a in args)
+                    self.pending.append((name, self.label, kept, kw, out))
+            return out
+        return audited
+
+    def settle(self) -> None:
+        for name, label, args, kw, got in self.pending:
+            want = self.plain[name](*args, **kw)
+            abs_err, rel_err = errors(got, want)
+            row = self.rows[name]
+            row["checked"] += 1
+            row["max_abs_err"] = max(row["max_abs_err"], abs_err)
+            row["max_rel_err"] = max(row["max_rel_err"], rel_err)
+            if label not in row["runs"]:
+                row["runs"].append(label)
+            if name == "paged_flash_extend":
+                self.n_past.add(int(args[0].shape[0]))
+            if not rel_err <= TOL_KV:
+                self.bad.append(f"{name} ({label}): rel err {rel_err:.3g} "
+                                f"> {TOL_KV} against its plain version")
+        self.pending = []
+
+    def report(self) -> dict:
+        out = {name: dict(row) for name, row in self.rows.items()}
+        out["paged_flash_extend"]["n_past"] = sorted(self.n_past)
+        out["tol"] = TOL_KV
+        return out
+
+
+class FinalChunks:
+    """kv2 paged chunked prefill: each request's final-chunk logits from the
+    card against the same ``Model.paged_extend_step`` with the extend
+    kernel replaced by its plain version, on copies of the pools taken
+    before the call (the engine writes the chunk's pages right after it).
+    The copies are kept and the step re-run in ``settle()``, after the
+    engine run, outside its timing."""
+
+    def __init__(self, model):
+        self.model = model
+        self.step = model.paged_extend_step
+        self.kept: list = []
+        model.paged_extend_step = self._keep  # this instance only
+
+    def _keep(self, params, tokens, start, state, *, t_total, last,
+              pools=None, page_tbl=None):
+        copies = None
+        if last and state is None:
+            copies = ([{k: v.clone() for k, v in c.items()} for c in pools],
+                      page_tbl.clone())
+        logits, cc = self.step(params, tokens, start, state, t_total=t_total,
+                               last=last, pools=pools, page_tbl=page_tbl)
+        if copies is not None:
+            self.kept.append((params, tokens, start, t_total, *copies,
+                              logits))
+        return logits, cc
+
+    def settle(self, att, plain_extend) -> dict:
+        del self.model.paged_extend_step
+        kernel = att.paged_flash_extend
+        att.paged_flash_extend = plain_extend
+        worst, same = 0.0, 0
+        try:
+            for params, tokens, start, t_total, pools, tbl, got in self.kept:
+                want, _ = self.step(params, tokens, start, None,
+                                    t_total=t_total, last=True, pools=pools,
+                                    page_tbl=tbl)
+                worst = max(worst, errors(got, want)[1])
+                same += int(got.argmax(-1).eq(want.argmax(-1)).all())
+        finally:
+            att.paged_flash_extend = kernel
+        return {"requests": len(self.kept), "max_rel_err": worst,
+                "argmax_equal": same, "tol": TOL_CHUNK_LOGITS}
+
+
+def kv_path(torch, art: Path) -> dict:
+    """Phase 3, quantized-KV slice, on the first slice's artifact (loaded
+    once, keep-packed), for each of kv8 and kv2: ``launch.serve.generate``
+    through the flat quantized cache (batch 4, prompt 1024, 32 new tokens,
+    after a 2-token warm-up), then the ``Engine`` on a Poisson trace of 8
+    requests (prompt 512, budgets 16-64, the last one sampled) in each
+    admission mode.  The fp materializers of the cache count their calls
+    throughout, and ``KvAudit`` holds sampled kernel calls of every run to
+    their plain versions.  Returns the launches of the three quantized-KV
+    kernels over this path."""
+    import numpy as np
+
+    from repro_torch.checkpoint.packed import load_packed_forward_params
+    from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                      paged_flash_decode,
+                                                      paged_flash_extend)
+    from repro_torch.kernels.flash_decode.ref import paged_flash_extend_ref
+    from repro_torch.launch import serve
+    from repro_torch.launch.quantize import model_config
+    from repro_torch.models import attention as att
+    from repro_torch.models.lm import Model
+    from repro_torch.serving import (Engine, SamplingParams, ServeRequest,
+                                     poisson_trace, run_trace)
+
+    counted = {"flash_decode": flash_decode,
+               "paged_flash_decode": paged_flash_decode,
+               "paged_flash_extend": paged_flash_extend}
+    fp_calls: list = []
+    real = {name: getattr(att, name)
+            for name in ("kv_dequantize", "kv_log_decode")}
+
+    def guard(name):
+        def counting(*a, **k):
+            fp_calls.append(name)
+            return real[name](*a, **k)
+        return counting
+
+    dev = torch.device("cuda")
+    bad, report = [], {}
+    n = ENGINE_REQUESTS
+    audit = KvAudit(torch, att)
+    try:
+        for name in real:
+            setattr(att, name, guard(name))
+        audit.install()
+        for fn in counted.values():
+            fn.launches = 0
+        params, _ = load_packed_forward_params(art, device=dev,
+                                               dtype=torch.bfloat16)
+        for bits in KV_BITS:
+            t0 = time.perf_counter()
+            cfg = dataclasses.replace(model_config(ARCH, N_LAYERS,
+                                                   "bfloat16"), kv_bits=bits)
+            model = Model(cfg, dev)
+            prompts = torch.randint(
+                2, cfg.vocab_size, (SERVE_BATCH, KV_PROMPT), device=dev,
+                generator=torch.Generator(device=dev).manual_seed(SEED))
+            audit.label = f"kv{bits} generate"
+            serve.generate(model, params, prompts, 2)  # warm-up
+            stats: dict = {}
+            toks = serve.generate(model, params, prompts, KV_GEN,
+                                  stats=stats)
+            audit.settle()
+            if toks.shape != (SERVE_BATCH, KV_GEN) or not bool(
+                    torch.isfinite(stats["first_logits"]).all()):
+                bad.append(f"kv{bits} generate: tokens {tuple(toks.shape)} "
+                           f"or non-finite logits")
+            cache_b, fp_b = serve.kv_cache_bytes(model, SERVE_BATCH,
+                                                 KV_PROMPT + KV_GEN)
+            row = {"generate": {
+                "prefill_tok_s": SERVE_BATCH * KV_PROMPT / stats["prefill_s"],
+                "decode_tok_s": SERVE_BATCH * (KV_GEN - 1) / stats["decode_s"],
+                "kv_cache_bytes": cache_b, "kv_cache_fp_bytes": fp_b,
+                "seconds": time.perf_counter() - t0}}
+            t1 = time.perf_counter()
+            rng = np.random.default_rng(SEED + bits)
+            prompts = rng.integers(2, cfg.vocab_size, (n, ENGINE_PROMPT))
+            budgets = [int(x) for x in rng.integers(
+                ENGINE_BUDGETS[0], ENGINE_BUDGETS[1] + 1, n)]
+            sps = [SamplingParams(temperature=0.8 if i == n - 1 else 0.0,
+                                  seed=SEED + i) for i in range(n)]
+            audit.label = f"kv{bits} solo generate"
+            solo = [serve.generate(
+                model, params, torch.tensor(prompts[i:i + 1], device=dev),
+                budgets[i], temperature=sps[i].temperature,
+                seed=sps[i].seed)[0].tolist() for i in range(n)]
+            audit.settle()
+            row["solo_generate_s"] = time.perf_counter() - t1
+            need = -(-(ENGINE_PROMPT + ENGINE_BUDGETS[1]) // cfg.kv_chunk)
+
+            def engine_run(chunk, attn):
+                reqs = [ServeRequest(tokens=prompts[i].tolist(),
+                                     max_new_tokens=budgets[i],
+                                     sampling=sps[i]) for i in range(n)]
+                engine = Engine(model, params, max_slots=ENGINE_SLOTS,
+                                n_pages=ENGINE_PAGES,
+                                max_pages_per_request=need,
+                                burst_steps=ENGINE_BURST,
+                                prefill_chunk=chunk, prefill_attn=attn)
+                # run_trace drains and checks that every page came back
+                return run_trace(engine, poisson_trace(
+                    reqs, rate=ENGINE_RATE, seed=SEED))
+
+            for mode, chunk, attn in ENGINE_MODES:
+                t1 = time.perf_counter()
+                # the paged prefill reads earlier chunks back from their
+                # codes: at kv2 (lossy) its first token need not be solo
+                # generate's, so there the final chunk's logits are held to
+                # the plain extend instead
+                lossy = bits == 2 and attn == "paged"
+                finals = FinalChunks(model) if lossy else None
+                audit.label = f"kv{bits} {mode}"
+                st = engine_run(chunk, attn)
+                audit.settle()
+                outs = [st["outputs"].get(i) for i in range(n)]
+                ok = [o is not None and o.status == "ok"
+                      and len(o.tokens) == budgets[i]
+                      for i, o in enumerate(outs)]
+                first = [bool(ok[i] and outs[i].tokens[0] == solo[i][0])
+                         for i in range(n)]
+                later = [a == b for i in range(n) if ok[i]
+                         for a, b in zip(outs[i].tokens[1:], solo[i][1:])]
+                if not all(ok):
+                    bad.append(f"kv{bits} {mode}: requests not ok: "
+                               f"{[i for i in range(n) if not ok[i]]}")
+                if not lossy and not all(first):
+                    bad.append(f"kv{bits} {mode}: first token differs from "
+                               f"solo generate for requests "
+                               f"{[i for i in range(n) if not first[i]]}")
+                row[mode] = {
+                    k: st[k] for k in (
+                        "sustained_tok_s", "ttft_p50_s", "ttft_p99_s",
+                        "p50_latency_s", "p99_latency_s", "wall_s",
+                        "n_tokens", "rounds", "admission_stall_s",
+                        "statuses")}
+                row[mode].update(
+                    first_token_match_solo_generate=sum(first) / n,
+                    first_token_enforced=not lossy,
+                    later_token_agreement=(sum(later) / len(later)
+                                           if later else None))
+                if finals is not None:
+                    fc = finals.settle(att, paged_flash_extend_ref)
+                    row[mode]["final_chunk_logits"] = fc
+                    if fc["requests"] != n or not (
+                            fc["max_rel_err"] <= TOL_CHUNK_LOGITS):
+                        bad.append(f"kv{bits} {mode}: final-chunk logits of "
+                                   f"{fc['requests']} requests differ from "
+                                   f"the plain extend's by "
+                                   f"{fc['max_rel_err']:.3g} > "
+                                   f"{TOL_CHUNK_LOGITS}")
+                row[mode]["seconds"] = time.perf_counter() - t1
+            if bits == KV_BITS[0]:  # one traced run: ~15 s of profiler
+                audit.label = None
+                traced = profile_engine(torch,
+                                        lambda: engine_run(None, "exact"))
+                traced["untraced_wall_ms"] = row["whole"]["wall_s"] * 1e3
+                traced["idle_share"] = 1.0 - (traced["device_busy_ms"]
+                                              / traced["untraced_wall_ms"])
+                row["whole_profile"] = traced
+            row["seconds"] = time.perf_counter() - t0
+            report[f"kv{bits}"] = row
+            log({"kv_serve": {"kv_bits": bits, **row}})
+            del model
+        launches = {name: fn.launches for name, fn in counted.items()}
+        del params
+        torch.cuda.empty_cache()
+    finally:
+        audit.restore()
+        for name, fn in real.items():
+            setattr(att, name, fn)
+    log({"kv_path": {"launches": launches, "fp_cache_calls": len(fp_calls),
+                     "kernel_vs_plain": audit.report(),
+                     "engine": {"requests": n, "prompt": ENGINE_PROMPT,
+                                "budgets": list(ENGINE_BUDGETS),
+                                "slots": ENGINE_SLOTS,
+                                "pages": ENGINE_PAGES,
+                                "burst": ENGINE_BURST,
+                                "prefill_chunk": ENGINE_CHUNK,
+                                "arrival_rate": ENGINE_RATE}}})
+    if fp_calls:
+        bad.append(f"the cache was materialized in fp: {sorted(set(fp_calls))}")
+    missing = [name for name, c in launches.items() if c <= 0]
+    if missing:
+        bad.append(f"quantized-KV path never launched: {missing}")
+    unchecked = [name for name, r in audit.rows.items() if not r["checked"]]
+    if unchecked:
+        bad.append(f"never held to the plain version on the main path: "
+                   f"{unchecked}")
+    if not {0} < audit.n_past:
+        bad.append(f"extend checked only at n_past {sorted(audit.n_past)}")
+    bad += audit.bad
+    if bad:
+        fail("quantized-KV serving: " + "; ".join(bad))
+    return launches
+
+
 def main_path(torch) -> tuple[dict, dict]:
     """Phase 3: quantize -> artifact -> keep-packed serve, launches counted."""
     from repro_torch.checkpoint.packed import load_packed_artifact
@@ -403,6 +966,9 @@ def main_path(torch) -> tuple[dict, dict]:
         launches = {name: fn.launches for name, fn in counted.items()}
         dequant = serve.main(serve_args + ["--no-keep-packed"])
         traced = serve.main(serve_args + ["--profile"])["profile"]
+        t0 = time.perf_counter()
+        launches.update(kv_path(torch, art))
+        log({"phase_seconds": {"kv_path": time.perf_counter() - t0}})
     finally:
         shutil.rmtree(art, ignore_errors=True)
 
@@ -482,17 +1048,32 @@ def main() -> None:
                            "max_registers": max(regs),
                            "max_spill_store_bytes": max(spills or [0])}})
 
-    rows = check_kernels(torch, Timer(torch))
+    checks = Checks(Timer(torch))
+    for phase in (check_kernels, check_kv_kernels):
+        t0 = time.perf_counter()
+        phase(torch, checks)
+        log({"phase_seconds": {phase.__name__: time.perf_counter() - t0}})
+    if checks.bad:
+        fail("kernel disagrees with its plain version: "
+             + "; ".join(checks.bad))
+    rows = checks.rows
     launches, _ = main_path(torch)
 
+    fd = "src/repro/kernels/flash_decode/kernel.py"
     sources = {"gram": "src/repro_torch/csrc/gram.cu",
                "attn_colsum": "src/repro_torch/csrc/attn_colsum.cu",
-               "quant_matmul": "src/repro_torch/csrc/quant_matmul.cu"}
+               "quant_matmul": "src/repro_torch/csrc/quant_matmul.cu",
+               "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
+               "paged_flash_decode": "src/repro_torch/csrc/flash_decode.cu",
+               "paged_flash_extend": "src/repro_torch/csrc/flash_decode.cu"}
     replaces = {"gram": "src/repro/kernels/gram/kernel.py:33",
                 "attn_colsum": "src/repro/kernels/attn_colsum/kernel.py:74",
-                "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:66"}
+                "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:66",
+                "flash_decode": f"{fd}:125",
+                "paged_flash_decode": f"{fd}:207",
+                "paged_flash_extend": f"{fd}:323"}
     kernels = []
-    for name in ("gram", "attn_colsum", "quant_matmul"):
+    for name in sources:
         row = rows[name]
         kernels.append({
             "name": name, "route": "cuda", "source": sources[name],

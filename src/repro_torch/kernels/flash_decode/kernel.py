@@ -1,0 +1,71 @@
+"""ctypes launchers of the CUDA quantized-KV attention kernels
+(``csrc/flash_decode.cu``).  Shapes, types and contiguity are checked by
+``ops``; these allocate the outputs and scratch and launch."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+TILES_PER_SPLIT = 4  # decode: tiles one block walks (a fixed run: see .cu)
+MAX_G = 16  # query heads per KV head
+MAX_D = 256  # head dim
+
+
+def _decode_fn():
+    fn = build.library("flash_decode").fd_decode_launch
+    fn.argtypes = [build.P] * 11 + [build.I] * 15 + [build.P]
+    fn.restype = build.I
+    return fn
+
+
+def _extend_fn():
+    fn = build.library("flash_decode").fe_extend_launch
+    fn.argtypes = ([build.P] * 8 + [build.I, build.P] + [build.I] * 10
+                   + [build.P])
+    fn.restype = build.I
+    return fn
+
+
+def flash_decode_cuda(q, kq, ks, vq, vs, pos, tbl, *, kv_bits: int,
+                      chunk: int, dv: int, tile: int, n_tiles: int,
+                      seq_len: int) -> torch.Tensor:
+    """(B, KV, G, Dv) fp32 normalized attention on the card.  ``pos``: a
+    (B,) int32 tensor, each request's last valid row; ``tbl`` an int32 (B,
+    n_tiles) page table, or None for a flat cache of ``seq_len`` rows."""
+    b, kv, g, dh = q.shape
+    n_split = -(-n_tiles // TILES_PER_SPLIT)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    part_acc = torch.empty((b, kv, n_split, g, dv), **f32)
+    part_m = torch.empty((b, kv, n_split, g), **f32)
+    part_l = torch.empty((b, kv, n_split, g), **f32)
+    out = torch.empty((b, kv, g, dv), **f32)
+    err = _decode_fn()(
+        q.data_ptr(), kq.data_ptr(), ks.data_ptr(), vq.data_ptr(),
+        vs.data_ptr(), pos.data_ptr(),
+        None if tbl is None else tbl.data_ptr(), part_acc.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(), b, kv, g, dh,
+        dv, seq_len, ks.shape[1], n_tiles, tile, chunk, kv_bits,
+        kq.shape[-1], vq.shape[-1], TILES_PER_SPLIT, n_split,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "flash_decode")
+    return out
+
+
+def flash_extend_cuda(q, kf, vf, kq, ks, vq, vs, tbl, *, kv_bits: int,
+                      chunk: int, page: int, L: int, g: int) -> torch.Tensor:
+    """(L, KV*G, Dv) fp32 normalized chunk attention on the card.  q: (KV,
+    L*G, Dh) fp32 scaled; kf/vf: (KV, L, Dh|Dv) fp32; tbl: (n_past,)
+    int32."""
+    kv, _, dh = q.shape
+    dv = vf.shape[-1]
+    out = torch.empty((L, kv * g, dv), dtype=torch.float32, device=q.device)
+    n_past = tbl.shape[0]
+    err = _extend_fn()(
+        q.data_ptr(), kf.data_ptr(), vf.data_ptr(), kq.data_ptr(),
+        ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
+        tbl.data_ptr() if n_past else None, n_past, out.data_ptr(), kv, g,
+        L, dh, dv, page, chunk, kv_bits, kq.shape[-1], vq.shape[-1],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    build.check(err, "paged_flash_extend")
+    return out

@@ -1,0 +1,186 @@
+"""Plain PyTorch versions of the quantized-KV flash-decode kernels.
+
+Each walks the cache tile by tile with the reference's running
+``(m, l, acc)`` triple: a tile is dequantized on its own (the cache is
+never materialized in fp), scored against the query group and folded in by
+:func:`tile_update`.  The flat and the paged versions share one tile loop
+(:func:`_decode_tiles`) and differ only in where a tile's rows come from,
+so at tile = page they give bitwise the same partials for the same codes.
+Masked tiles are exact no-ops of :func:`tile_update`, so tiles past
+``pos`` and trash or stale page-table entries never reach the result.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.device import matmul
+
+NEG_INF = -1e30
+
+
+def kv_unpack(words: torch.Tensor, d: int) -> torch.Tensor:
+    """(..., ceil(D/16)) int32 words (uint32 bits) -> (..., D) int32 codes
+    in 0..3; code j of a word sits at bits [2j, 2j+2)."""
+    shifts = torch.arange(16, dtype=torch.int64, device=words.device) * 2
+    w64 = words.to(torch.int64) & 0xFFFFFFFF  # uint32 bits, never negative
+    c = (w64[..., None] >> shifts) & 3
+    return c.reshape(*words.shape[:-1], -1)[..., :d].to(torch.int32)
+
+
+def dequant_kv(codes: torch.Tensor, scale: torch.Tensor, *, kv_bits: int,
+               chunk: int, d: int) -> torch.Tensor:
+    """Dequantize a tile.  codes: (..., rows, d) int8 or (..., rows,
+    ceil(d/16)) int32 words; scale: (..., rows // chunk) bf16, one per row
+    (kv8) or per ``chunk`` rows (kv2).  Returns (..., rows, d) fp32."""
+    s = scale.float()
+    if chunk > 1:
+        s = s.repeat_interleave(chunk, dim=-1)
+    s = s[..., None]
+    if kv_bits == 8:  # kv_quantize folds the /127 into the stored scale
+        return codes.float() * s
+    c = kv_unpack(codes, d)
+    # log levels scale * [-1, -0.25, +0.25, +1] for codes 0..3
+    mag = torch.where((c == 1) | (c == 2), 0.25, 1.0)
+    sgn = torch.where(c >= 2, 1.0, -1.0)
+    return sgn * mag * s
+
+
+def tile_update(scores, v, valid, m_prev, l_prev, acc_prev):
+    """One tile's streaming-softmax update of ``(m, l, acc)``.
+
+    scores: (..., rows_q, T) raw scores; v: (..., T, Dv) dequantized
+    values; valid: a mask broadcastable to ``scores``.  Masked columns get
+    an explicit zero probability: in decode the masked region is the tail,
+    and exp(NEG_INF - NEG_INF) = 1 there would survive to the output."""
+    s = torch.where(valid, scores, NEG_INF)
+    m_new = torch.maximum(m_prev, s.amax(-1, keepdim=True))
+    p = torch.where(valid, torch.exp(s - m_new), 0.0)
+    alpha = torch.exp(m_prev - m_new)
+    l_new = alpha * l_prev + p.sum(-1, keepdim=True)
+    acc_new = alpha * acc_prev + matmul(p, v)
+    return m_new, l_new, acc_new
+
+
+def _decode_tiles(q, tiles, n_tiles: int, tile: int, pos, *, kv_bits: int,
+                  chunk: int, dh: int, dv: int):
+    """The tile loop shared by the flat and paged decode versions.
+
+    q: (B, KV, G, Dh); ``tiles(kk)`` -> contiguous (kc, ksc, vc, vsc) of
+    shapes (B, KV, T, w), (B, KV, T // chunk); pos: (B,) int last valid
+    row of each request.  Returns fp32 (acc, m, l)."""
+    b, kv, g, _ = q.shape
+    qf = q.float()
+    px = pos.reshape(b, 1, 1, 1)
+    col = torch.arange(tile, device=q.device)
+    acc = torch.zeros((b, kv, g, dv), dtype=torch.float32, device=q.device)
+    m = torch.full((b, kv, g, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, kv, g, 1), device=q.device)
+    for kk in range(n_tiles):
+        kc, ksc, vc, vsc = tiles(kk)
+        k = dequant_kv(kc, ksc, kv_bits=kv_bits, chunk=chunk, d=dh)
+        v = dequant_kv(vc, vsc, kv_bits=kv_bits, chunk=chunk, d=dv)
+        scores = matmul(qf, k.transpose(-1, -2))        # (B, KV, G, T)
+        valid = (kk * tile + col) <= px
+        m, l, acc = tile_update(scores, v, valid, m, l, acc)
+    return acc, m, l
+
+
+def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
+    """Zero-pad the sequence axis (1) to ``rows``; padded rows are always
+    position-masked."""
+    if x.shape[1] >= rows:
+        return x
+    pad = x.new_zeros((x.shape[0], rows - x.shape[1]) + x.shape[2:])
+    return torch.cat([x, pad], dim=1)
+
+
+def flash_decode_ref(q, kq, ks, vq, vs, pos, *, kv_bits: int, chunk: int,
+                     dh: int, dv: int, tile: int):
+    """GQA flash decode over a flat quantized cache -> raw partials.
+
+    q: (B, KV, G, Dh) fp32, attention scale folded in; kq/vq: (B, S, KV,
+    Dh) int8 or (B, S, KV, ceil(D/16)) int32 words; ks/vs: (B, ceil(S /
+    chunk), KV) bf16; pos: int, 0-d or (B,) — last valid row.  ``tile``
+    must hold whole scale chunks; a ragged S is padded and masked.
+    Returns fp32 ``(acc, m, l)``: (B, KV, G, Dv), (B, KV, G, 1) x 2."""
+    b = q.shape[0]
+    n_tiles = -(-kq.shape[1] // tile)
+    rows_c = tile // chunk
+    kq, vq = _pad_rows(kq, n_tiles * tile), _pad_rows(vq, n_tiles * tile)
+    ks = _pad_rows(ks, n_tiles * rows_c)
+    vs = _pad_rows(vs, n_tiles * rows_c)
+    px = torch.as_tensor(pos, device=q.device).reshape(-1).expand(b)
+
+    def tiles(kk):
+        sl, sc = slice(kk * tile, (kk + 1) * tile), \
+            slice(kk * rows_c, (kk + 1) * rows_c)
+        return (kq[:, sl].transpose(1, 2).contiguous(),
+                ks[:, sc].transpose(1, 2).contiguous(),
+                vq[:, sl].transpose(1, 2).contiguous(),
+                vs[:, sc].transpose(1, 2).contiguous())
+
+    return _decode_tiles(q, tiles, n_tiles, tile, px, kv_bits=kv_bits,
+                         chunk=chunk, dh=dh, dv=dv)
+
+
+def paged_flash_decode_ref(tbl, pos, q, kq, ks, vq, vs, *, kv_bits: int,
+                           chunk: int, dh: int, dv: int, page: int):
+    """GQA flash decode over block-paged pools -> raw partials.
+
+    tbl: (B, n_tiles) int page table (tile kk of request b is physical
+    page ``tbl[b, kk]``); pos: (B,) int per-request last valid row;
+    kq/vq: (n_pages, page, KV, w) code pools; ks/vs: (n_pages, page //
+    chunk, KV) scale pools.  Pages are gathered codes to codes, one tile
+    at a time.  Same return as :func:`flash_decode_ref`."""
+    b = q.shape[0]
+    px = torch.as_tensor(pos, device=q.device).reshape(b)
+
+    def tiles(kk):
+        pid = tbl[:, kk].long()
+        return (kq[pid].transpose(1, 2).contiguous(),
+                ks[pid].transpose(1, 2).contiguous(),
+                vq[pid].transpose(1, 2).contiguous(),
+                vs[pid].transpose(1, 2).contiguous())
+
+    return _decode_tiles(q, tiles, tbl.shape[1], page, px, kv_bits=kv_bits,
+                         chunk=chunk, dh=dh, dv=dv)
+
+
+def paged_flash_extend_ref(tbl, q, k_new, v_new, kq, ks, vq, vs, *,
+                           kv_bits: int, chunk: int, dh: int, dv: int,
+                           page: int):
+    """Chunked-prefill GQA attention: an L-token chunk attends to the
+    quantized pages of its own request's earlier chunks (``tbl``:
+    (n_past,) int, every page full since chunks are page-aligned) and then
+    to its own fp keys and values under a causal mask.
+
+    q: (1, L, H, Dh) unscaled; k_new/v_new: (1, L, KV, Dh|Dv).  The
+    chunk's offset (n_past * page) shifts queries and keys alike and
+    cancels from the mask, so it is not an argument.  Query row i of a KV
+    head is chunk token i // G.  Returns (1, L, H, Dv) fp32, normalized."""
+    _, L, h, _ = q.shape
+    kv = k_new.shape[2]
+    g = h // kv
+    qf = (q.float() * dh ** -0.5)[0].reshape(L, kv, g, dh)
+    qf = qf.permute(1, 0, 2, 3).reshape(kv, L * g, dh)      # rows = (l, g)
+    kf = k_new[0].float().permute(1, 0, 2)                  # (KV, L, Dh)
+    vf = v_new[0].float().permute(1, 0, 2)                  # (KV, L, Dv)
+    acc = torch.zeros((kv, L * g, dv), dtype=torch.float32, device=q.device)
+    m = torch.full((kv, L * g, 1), NEG_INF, device=q.device)
+    l = torch.zeros((kv, L * g, 1), device=q.device)
+    every = torch.ones((), dtype=torch.bool, device=q.device)
+    for kk in range(tbl.shape[0]):
+        pid = tbl[kk:kk + 1].long()  # a tensor index: no host sync
+        k = dequant_kv(kq[pid][0].transpose(0, 1), ks[pid][0].transpose(0, 1),
+                       kv_bits=kv_bits, chunk=chunk, d=dh)  # (KV, page, Dh)
+        v = dequant_kv(vq[pid][0].transpose(0, 1), vs[pid][0].transpose(0, 1),
+                       kv_bits=kv_bits, chunk=chunk, d=dv)
+        scores = matmul(qf, k.transpose(-1, -2))            # (KV, L*g, page)
+        m, l, acc = tile_update(scores, v, every, m, l, acc)
+    row_tok = torch.arange(L * g, device=q.device) // g
+    causal = row_tok[:, None] >= torch.arange(L, device=q.device)[None, :]
+    scores = matmul(qf, kf.transpose(-1, -2))               # (KV, L*g, L)
+    m, l, acc = tile_update(scores, vf, causal, m, l, acc)
+    out = acc / torch.clamp_min(l, 1e-30)                   # (KV, L*g, Dv)
+    out = out.reshape(kv, L, g, dv).permute(1, 0, 2, 3)     # (L, KV, g, Dv)
+    return out.reshape(1, L, h, dv)

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.quantizer import unpack_codes
+from repro_torch.device import matmul
 
 
 def quant_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
@@ -19,4 +20,4 @@ def quant_matmul_ref(x: torch.Tensor, w_packed: torch.Tensor,
     codes = unpack_codes(w_packed, bits, k).float()
     wg = codes.reshape(g, group_size, n) - zero.float()[:, None]
     w = (wg * scale.float()[:, None]).reshape(k, n)
-    return (x.float() @ w).to(x.dtype)
+    return matmul(x.float(), w).to(x.dtype)

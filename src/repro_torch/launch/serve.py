@@ -1,8 +1,9 @@
-"""Greedy serving entry point of the PyTorch port: prefill + a plain Python
-decode loop over an fp KV cache.
+"""Serving entry point of the PyTorch port: prefill + a plain Python decode
+loop (``--mode batch``), or the continuous-batching engine over paged
+quantized KV pools (``--mode engine``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
-      --n-layers 2 --packed /tmp/rsq_art --dtype bfloat16
+      --n-layers 2 --packed /tmp/rsq_art --dtype bfloat16 --kv-bits 8
 
 ``--packed DIR`` serves a packed RSQ artifact (from launch.quantize
 --pack-out).  The default keeps the codes packed on the device
@@ -10,10 +11,25 @@ decode loop over an fp KV cache.
 ``quant_matmul`` kernel.  ``--no-keep-packed`` dequantizes the weights once
 at load time instead, for comparison.  Runs on ``cuda`` unless
 ``--device cpu`` is given.
+
+``--kv-bits 8|2`` quantizes the KV cache (int8 codes with per-(token, head)
+scales, or 2-bit log codes with per-(``kv_chunk``, head) scales): prefill
+writes codes, decode appends codes and attends on them through the
+``flash_decode`` kernels; the cache is never held in fp.  ``--mode engine``
+serves ``--batch`` requests arriving on a Poisson trace (``--arrival-rate``
+per scheduling round) through ``serving.Engine``: ``--max-slots`` decode
+slots over ``--n-pages`` shared pages (page = ``kv_chunk`` tokens), bursts
+of ``--burst-steps`` decode steps, and ``--prefill-chunk N`` to admit
+prompts in page-aligned chunks between bursts, with the tokens of
+whole-prompt admission (the lossy ``prefill_attn="paged"`` mode is the
+``Engine``'s, from Python).  The engine needs ``--kv-bits 8`` or ``2``.  ``--temperature`` samples every token, the first included, from
+the (seed, token index) stream of ``serving.sampling``; request ``i``
+uses seed ``--seed + i``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -26,6 +42,9 @@ from repro_torch.data.calibration import SyntheticCorpus
 from repro_torch.device import generator, resolve_device
 from repro_torch.launch.quantize import model_config
 from repro_torch.models.lm import Model
+from repro_torch.serving import (Engine, SamplingParams, ServeRequest,
+                                 poisson_trace, run_trace)
+from repro_torch.serving.sampling import sample_tokens
 
 
 def _sync(device: torch.device) -> None:
@@ -35,29 +54,83 @@ def _sync(device: torch.device) -> None:
 
 @torch.no_grad()
 def generate(model: Model, params: dict, prompts: torch.Tensor, n_gen: int,
-             *, stats: dict | None = None) -> torch.Tensor:
-    """prompts: (B, T) -> (B, n_gen) greedy tokens.  Token 0 comes from the
-    prefill logits, then n_gen - 1 decode steps.  ``stats`` (optional)
-    receives ``prefill_s``, ``decode_s`` and the prefill ``first_logits``."""
+             *, temperature: float = 0.0, seed: int = 0,
+             stats: dict | None = None) -> torch.Tensor:
+    """prompts: (B, T) -> (B, n_gen) tokens.  Token 0 comes from the
+    prefill logits, then n_gen - 1 decode steps, through the quantized
+    cache when the model's ``kv_bits`` is set.  Greedy at temperature 0;
+    otherwise row ``i`` draws token ``j`` from the (seed + i, j) stream,
+    the engine's for a request with that seed.  ``stats`` (optional)
+    receives ``prefill_s``, ``decode_s`` and the prefill
+    ``first_logits``."""
     b, t = prompts.shape
+    dev = model.device
+    temp = torch.full((b,), float(temperature), device=dev)
+    seeds = seed + torch.arange(b, device=dev)
+    sampled = temperature > 0
+
+    def draw(logits, j: int) -> torch.Tensor:
+        index = torch.full((b,), j, dtype=torch.int64, device=dev)
+        return sample_tokens(logits, temp, seeds, index,
+                             sampled=sampled)[:, None]
+
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, prompts, cache_len=t + n_gen)
-    tok = logits.argmax(-1, keepdim=True)
+    tok = draw(logits, 0)
     if stats is not None:
-        _sync(model.device)
+        _sync(dev)
         stats["prefill_s"] = time.perf_counter() - t0
         stats["first_logits"] = logits
     t1 = time.perf_counter()
     toks = [tok]
     for i in range(n_gen - 1):
         logits = model.decode_step(params, cache, tok, t + i)
-        tok = logits.argmax(-1, keepdim=True)
+        tok = draw(logits, i + 1)
         toks.append(tok)
     out = torch.cat(toks, dim=1)
     if stats is not None:
-        _sync(model.device)
+        _sync(dev)
         stats["decode_s"] = time.perf_counter() - t1
     return out
+
+
+def kv_cache_bytes(model: Model, batch: int,
+                   cache_len: int) -> tuple[int, int]:
+    """Bytes of a flat cache of ``batch`` x ``cache_len`` tokens as
+    ``model.init_cache`` lays it out (codes and scales for a quantized
+    cache), and of the same cache held in the activation dtype; from the
+    codec's layout alone, no tensor allocated."""
+    cfg, codec = model.cfg, model.codec
+    heads = 2 * cfg.n_layers * batch * cfg.n_kv_heads  # K and V
+    fp = heads * cache_len * cfg.head_dim * model.dtype.itemsize
+    if not codec.quantized:
+        return fp, fp
+    s = model._cache_len(cache_len)
+    per_head = (s * codec.code_cols(cfg.head_dim) * codec.code_dtype.itemsize
+                + codec.scale_rows(s) * codec.scale_dtype.itemsize)
+    return heads * per_head, fp
+
+
+def serve_engine(model: Model, params: dict, prompts: torch.Tensor,
+                 n_gen: int, *, temperature: float = 0.0, seed: int = 0,
+                 max_slots: int = 4, n_pages: int = 64,
+                 burst_steps: int = 8, arrival_rate: float = 0.5,
+                 prefill_chunk: int | None = None,
+                 prefill_attn: str = "exact") -> tuple[Engine, dict]:
+    """Serve each prompt row as one request of ``n_gen`` tokens through the
+    engine on a Poisson trace; returns the engine and ``run_trace``'s
+    summary (every page is back on the free list when it returns)."""
+    reqs = [ServeRequest(tokens=prompts[i].tolist(), max_new_tokens=n_gen,
+                         sampling=SamplingParams(temperature=temperature,
+                                                 seed=seed + i))
+            for i in range(prompts.shape[0])]
+    need = -(-(prompts.shape[1] + n_gen) // model.codec.page_tokens)
+    engine = Engine(model, params, max_slots=max_slots, n_pages=n_pages,
+                    max_pages_per_request=need, burst_steps=burst_steps,
+                    prefill_chunk=prefill_chunk, prefill_attn=prefill_attn)
+    stats = run_trace(engine, poisson_trace(reqs, rate=arrival_rate,
+                                            seed=seed))
+    return engine, stats
 
 
 @torch.no_grad()
@@ -111,6 +184,33 @@ def main(argv=None) -> dict:
                     "(default); --no-keep-packed dequantizes at load time")
     ap.add_argument("--no-verify", action="store_true",
                     help="with --packed: skip the SHA-256 integrity check")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0 = greedy); every token, "
+                    "the first included, is drawn from the (seed, token "
+                    "index) stream; request i uses seed --seed + i")
+    ap.add_argument("--kv-bits", type=int, default=None,
+                    help="KV-cache precision: 0 = activation dtype "
+                    "(default), 8 = int8 codes + per-token scales, 2 = "
+                    "packed log codes + per-chunk scales; decode attends on "
+                    "the codes (kernels.flash_decode)")
+    ap.add_argument("--mode", choices=("batch", "engine"), default="batch",
+                    help="'batch' (default): one fixed-shape generate(); "
+                    "'engine': continuous batching on block-paged quantized "
+                    "KV pools, requests on a Poisson trace (needs --kv-bits "
+                    "8 or 2)")
+    ap.add_argument("--max-slots", type=int, default=4,
+                    help="engine mode: concurrent decode slots")
+    ap.add_argument("--n-pages", type=int, default=64,
+                    help="engine mode: allocatable KV pages shared by all "
+                    "requests (page = kv_chunk tokens, every layer)")
+    ap.add_argument("--burst-steps", type=int, default=8,
+                    help="engine mode: decode steps per scheduling round")
+    ap.add_argument("--arrival-rate", type=float, default=0.5,
+                    help="engine mode: Poisson arrivals per scheduling round")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="engine mode: admit prompts in chunks of this many "
+                    "tokens (rounded up to a page multiple) between decode "
+                    "bursts; 0 (default) admits whole prompts")
     ap.add_argument("--profile", action="store_true",
                     help="after the timed run, trace one more generate with "
                     "torch.profiler and report device time by kernel and "
@@ -119,9 +219,14 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     cfg = model_config(args.arch, args.n_layers, args.dtype)
-    model = Model(cfg, device)
+    if args.kv_bits is not None:
+        cfg = dataclasses.replace(cfg, kv_bits=args.kv_bits)
+    if args.mode == "engine" and not cfg.kv_bits:
+        ap.error("--mode engine pages *quantized* KV codes — pass "
+                 "--kv-bits 8 or --kv-bits 2")
+    model = Model(cfg, device)  # raises on an unsupported --kv-bits
     result: dict = {"arch": args.arch, "n_layers": cfg.n_layers,
-                    "device": str(device)}
+                    "device": str(device), "kv_bits": cfg.kv_bits}
     if args.packed:
         loader = (load_packed_forward_params if args.keep_packed
                   else load_packed_params)
@@ -146,15 +251,38 @@ def main(argv=None) -> dict:
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seed=args.seed)
     prompts = corpus.sample(generator(args.seed + 1), args.batch,
                             args.prompt_len).to(device)
-    generate(model, params, prompts, min(args.gen, 2))  # warm-up, untimed
+    if args.mode == "engine":
+        engine, st = serve_engine(
+            model, params, prompts, args.gen, temperature=args.temperature,
+            seed=args.seed, max_slots=args.max_slots, n_pages=args.n_pages,
+            burst_steps=args.burst_steps, arrival_rate=args.arrival_rate,
+            prefill_chunk=args.prefill_chunk or None)
+        admit = (f"chunked ({engine.prefill_chunk} tokens/chunk, "
+                 f"{engine.prefill_attn})" if engine.prefill_chunk
+                 else "whole-prompt")
+        result.update({k: v for k, v in st.items() if k != "outputs"},
+                      admission=admit,
+                      free_pages=engine.pools.free_pages(),
+                      tokens={rid: o.tokens
+                              for rid, o in st["outputs"].items()})
+        print(json.dumps({k: v for k, v in result.items()
+                          if k != "tokens"}))
+        print(f"all {st['n_requests']} requests finished "
+              f"{st['statuses']}; pages quiescent")
+        return result
+    sampling = dict(temperature=args.temperature, seed=args.seed)
+    generate(model, params, prompts, min(args.gen, 2), **sampling)  # warm-up
     stats: dict = {}
-    out = generate(model, params, prompts, args.gen, stats=stats)
+    out = generate(model, params, prompts, args.gen, stats=stats, **sampling)
     result.update(
         tokens=out.cpu().tolist(), first_logits=stats["first_logits"],
         prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
         prefill_tok_s=args.batch * args.prompt_len / stats["prefill_s"],
         decode_tok_s=(args.batch * (args.gen - 1) / stats["decode_s"]
                       if args.gen > 1 else 0.0))
+    if cfg.kv_bits:
+        result["kv_cache_bytes"], result["kv_cache_fp_bytes"] = kv_cache_bytes(
+            model, args.batch, args.prompt_len + args.gen)
     if args.profile:
         prof = profile_generate(model, params, prompts, args.gen)
         wall_ms = (stats["prefill_s"] + stats["decode_s"]) * 1e3

@@ -1,16 +1,31 @@
 """GQA attention: chunked (flash-style) prefill attention, fp decode
-attention and the GQA projections.
+attention, the quantized KV cache (codecs, flat and paged appends) with
+attention on its codes, and the GQA projections.
 
 ``flash_attention`` scans KV chunks with a running (max, denominator,
 accumulator) triple and never forms the (T, T) score matrix, as the
 reference does in jnp; it is plain PyTorch here because the reference's
 version is not a Pallas kernel either.  The AttnCon column sums come from
 the ``attn_colsum`` kernel (``models.lm.capture_block``), not from here.
+
+The quantized cache never leaves codes + scales on the serving path: prefill
+encodes, decode appends one encoded token, and attention reads the codes
+through ``kernels.flash_decode``.  ``kv_dequantize`` and ``kv_log_decode``
+materialize a cache in fp and exist for tests only.  Unlike the reference,
+appends write into the cache tensors in place.
 """
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
 
+from repro_torch.device import matmul
+from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                  paged_flash_decode,
+                                                  paged_flash_extend)
+from repro_torch.kernels.flash_decode.ref import kv_unpack
 from repro_torch.models.layers import apply_rope, dense_init, linear
 
 NEG_INF = -1e30
@@ -25,34 +40,35 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    kv_chunk: int = 512) -> torch.Tensor:
-    """Causal self-attention.  q: (B, T, H, Dh); k: (B, T, KV, Dh);
-    v: (B, T, KV, Dv).  Returns (B, T, H, Dv) in q's dtype (fp32 softmax
-    math)."""
+                    kv_chunk: int = 512, q_offset: int = 0) -> torch.Tensor:
+    """Causal self-attention.  q: (B, Tq, H, Dh) at positions ``q_offset +
+    arange(Tq)``; k: (B, Tk, KV, Dh); v: (B, Tk, KV, Dv).  Returns
+    (B, Tq, H, Dv) in q's dtype (fp32 softmax math).  A chunk of queries
+    with its offset walks the same KV chunks as the whole prompt does, so
+    its rows are bitwise the whole prompt's (exact chunked prefill)."""
     b, tq, h, dh = q.shape
     tk, kv_heads = k.shape[1], k.shape[2]
     n_rep = h // kv_heads
     kv_chunk = min(kv_chunk, tk)
-    qf = q.float() * (dh ** -0.5)
-    q_pos = torch.arange(tq, device=q.device)
-    m = torch.full((b, tq, h), NEG_INF, device=q.device)
-    l = torch.zeros((b, tq, h), device=q.device)
-    acc = torch.zeros((b, tq, h, v.shape[-1]), device=q.device)
+    qf = (q.float() * (dh ** -0.5)).transpose(1, 2)       # (B, H, Tq, Dh)
+    q_pos = q_offset + torch.arange(tq, device=q.device)
+    m = torch.full((b, h, tq, 1), NEG_INF, device=q.device)
+    l = torch.zeros((b, h, tq, 1), device=q.device)
+    acc = torch.zeros((b, h, tq, v.shape[-1]), device=q.device)
     for off in range(0, tk, kv_chunk):
         k_r = _repeat_kv(k[:, off:off + kv_chunk], n_rep).float()
         v_r = _repeat_kv(v[:, off:off + kv_chunk], n_rep).float()
-        s = torch.einsum("bthd,bchd->bthc", qf, k_r)
+        s = matmul(qf, k_r.permute(0, 2, 3, 1))           # (B, H, Tq, c)
         kv_pos = off + torch.arange(k_r.shape[1], device=q.device)
-        mask = q_pos[:, None] >= kv_pos[None, :]
-        s = torch.where(mask[None, :, None, :], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
+        s = torch.where(q_pos[:, None] >= kv_pos[None, :], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        l = l * alpha + p.sum(-1)
-        acc = acc * alpha[..., None] + torch.einsum("bthc,bchd->bthd", p, v_r)
+        p = torch.exp(s - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + matmul(p, v_r.transpose(1, 2))
         m = m_new
-    out = acc / torch.clamp_min(l[..., None], 1e-30)
-    return out.to(q.dtype)
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -73,6 +89,298 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     out = torch.einsum("bkgs,bskd->bkgd", p, v_cache.float())
     out = out / torch.clamp_min(denom, 1e-30)
     return out.reshape(b, 1, h, v_cache.shape[-1]).to(q.dtype)
+
+
+# ------------------------------------------------------- quantized KV cache
+
+
+def kv_quantize(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B, T, KV, Dh) -> int8 codes + per-(token, head) bf16 scales.  The
+    code divides by the fp32 scale; the stored scale is its bf16 rounding
+    (both as the reference)."""
+    xf = x.float()
+    amax = xf.abs().amax(-1, keepdim=True)
+    scale = torch.clamp_min(amax, 1e-8) / 127.0
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale[..., 0].to(torch.bfloat16)
+
+
+def kv_dequantize(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """Full-tensor fp materialization of an int8 cache: tests only."""
+    return (q.to(torch.bfloat16) * scale[..., None].to(torch.bfloat16)
+            ).to(dtype)
+
+
+# 2-bit log codes: value = scale * LEVELS[code]; 16 codes per uint32 word
+# (held in int32) along the feature axis; one bf16 scale per (chunk, head).
+KV_LOG_LEVELS = (-1.0, -0.25, 0.25, 1.0)
+
+
+def kv_pack(codes: torch.Tensor) -> torch.Tensor:
+    """(..., D) 2-bit codes -> (..., ceil(D/16)) int32 words holding the
+    uint32 bits (code j at bits [2j, 2j+2); a ragged D is zero-padded)."""
+    d = codes.shape[-1]
+    c = codes.to(torch.int64)
+    pad = (-d) % 16
+    if pad:
+        c = torch.cat([c, c.new_zeros(c.shape[:-1] + (pad,))], dim=-1)
+    c = c.reshape(*c.shape[:-1], -1, 16)
+    shifts = torch.arange(16, dtype=torch.int64, device=codes.device) * 2
+    words = (c << shifts).sum(-1) & 0xFFFFFFFF
+    # reinterpret [0, 2^32) as the int32 with the same bit pattern
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(torch.int32)
+
+
+def kv_log_scales(x: torch.Tensor, chunk: int) -> torch.Tensor:
+    """Per-(chunk, head) scales: amax of |x| over each ``chunk``-token group
+    and the feature axis.  x: (B, T, ..., D) -> (B, ceil(T/chunk), ...)
+    bf16; a ragged T is zero-padded (padded rows never decode)."""
+    xf = x.float().abs()
+    b, t = x.shape[:2]
+    pad = (-t) % chunk
+    if pad:
+        xf = torch.cat([xf, xf.new_zeros((b, pad) + xf.shape[2:])], dim=1)
+    xf = xf.reshape(b, -1, chunk, *x.shape[2:])
+    amax = xf.amax(dim=-1).amax(dim=2)
+    return torch.clamp_min(amax, 1e-8).to(torch.bfloat16)
+
+
+def _kv_log_codes(xf: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """Encode fp32 values against a per-(token, head) scale (shape
+    ``xf.shape[:-1]``): |x| / scale > 0.5 picks the outer level, the sign
+    the half; values past the scale clip to the outer level."""
+    s = torch.clamp_min(scale.float(), 1e-8)[..., None]
+    magcode = (xf.abs() / s > 0.5).to(torch.int32)
+    return torch.where(xf >= 0, 2 + magcode, 1 - magcode)
+
+
+def kv_log_encode(x: torch.Tensor, scales: torch.Tensor,
+                  chunk: int) -> torch.Tensor:
+    """x: (B, T, ..., D) + per-chunk scales -> (B, T, ..., ceil(D/16))
+    packed words."""
+    t = x.shape[1]
+    s_tok = scales.repeat_interleave(chunk, dim=1)[:, :t]
+    return kv_pack(_kv_log_codes(x.float(), s_tok))
+
+
+def kv_log_decode(packed: torch.Tensor, scales: torch.Tensor, *, d: int,
+                  chunk: int, dtype=torch.float32) -> torch.Tensor:
+    """Full-tensor fp materialization of a 2-bit cache: tests only."""
+    c = kv_unpack(packed, d).long()
+    t = packed.shape[1]
+    s_tok = scales.float().repeat_interleave(chunk, dim=1)[:, :t]
+    lut = torch.tensor(KV_LOG_LEVELS, dtype=torch.float32,
+                       device=packed.device)
+    return (lut[c] * s_tok[..., None]).to(dtype)
+
+
+# --------------------------------------------------------------- KV codecs
+#
+# One object per cache representation owns its layout (``round_len``,
+# ``code_cols``/``code_dtype``, ``scale_rows``/``scale_dtype``,
+# ``page_tokens``), its prompt encoding (``encode``) and its one-token
+# encoding (``encode_token``, with the kv2 chunk-leader rule) so the flat
+# cache, the paged pools and the kernels never drift apart.
+
+
+@dataclasses.dataclass(frozen=True)
+class FpCodec:
+    """KV cache held in the activation dtype: no codes, no scales."""
+
+    kv_bits: int = 0
+    chunk: int = 1
+    align: int = 1
+    quantized: bool = False
+
+    def round_len(self, s: int) -> int:
+        return s
+
+    def scale_rows(self, s: int) -> int:
+        return 0
+
+
+@dataclasses.dataclass(frozen=True)
+class Kv8Codec:
+    """int8 codes + per-(token, head) bf16 scales (``kv_quantize``)."""
+
+    align: int  # cfg.kv_chunk: tile and page alignment although chunk = 1
+    kv_bits: int = 8
+    chunk: int = 1
+    quantized: bool = True
+    code_dtype = torch.int8
+    scale_dtype = torch.bfloat16
+
+    def round_len(self, s: int) -> int:
+        return -(-s // self.align) * self.align
+
+    def scale_rows(self, s: int) -> int:
+        return s // self.chunk
+
+    def code_cols(self, d: int) -> int:
+        return d
+
+    @property
+    def page_tokens(self) -> int:
+        return self.align
+
+    def encode(self, x):
+        return kv_quantize(x)
+
+    def encode_token(self, x, pos, cur_scale):
+        """One token (B, 1, ..., D) -> (codes, scale row); the position and
+        the current scale do not matter at per-token granularity."""
+        del pos, cur_scale
+        return kv_quantize(x)
+
+    def append(self, codes, scales, x, pos: int) -> None:
+        """Write one token's codes and scale at ``pos`` of a flat cache."""
+        q, sc = self.encode_token(x, pos, None)
+        codes[:, pos] = q[:, 0]
+        scales[:, pos] = sc[:, 0]
+
+
+@dataclasses.dataclass(frozen=True)
+class Kv2Codec:
+    """Packed 2-bit log codes + per-(chunk, head) bf16 scales.
+
+    Chunk-leader rule: the token at a chunk boundary stamps the chunk's
+    scale from its own amax; later tokens of the chunk reuse it (their
+    overflow clips to the outer level).  Revisiting the scale would
+    re-code earlier tokens: a rewrite of the cache per step."""
+
+    align: int  # cfg.kv_chunk == scale-group size == page size
+    kv_bits: int = 2
+    quantized: bool = True
+    code_dtype = torch.int32
+    scale_dtype = torch.bfloat16
+
+    @property
+    def chunk(self) -> int:
+        return self.align
+
+    def round_len(self, s: int) -> int:
+        return -(-s // self.align) * self.align
+
+    def scale_rows(self, s: int) -> int:
+        return s // self.chunk
+
+    def code_cols(self, d: int) -> int:
+        return -(-d // 16)
+
+    @property
+    def page_tokens(self) -> int:
+        return self.align
+
+    def encode(self, x):
+        scales = kv_log_scales(x, self.chunk)
+        return kv_log_encode(x, scales, self.chunk), scales
+
+    def encode_token(self, x, pos, cur_scale):
+        """One token (B, 1, ..., D) against the current scale of its chunk
+        (B, 1, ...); ``pos`` is an int (flat cache, shared by the batch) or
+        a (B,) tensor (paged cache)."""
+        xf = x.float()
+        lead = torch.clamp_min(xf.abs().amax(-1), 1e-8).to(cur_scale.dtype)
+        if isinstance(pos, torch.Tensor):
+            stamp = (pos % self.chunk == 0).reshape(
+                (-1,) + (1,) * (cur_scale.ndim - 1))
+            sc = torch.where(stamp, lead, cur_scale)
+        else:
+            sc = lead if pos % self.chunk == 0 else cur_scale
+        return kv_pack(_kv_log_codes(xf, sc)), sc
+
+    def append(self, codes, scales, x, pos: int) -> None:
+        ci = pos // self.chunk
+        tok, sc = self.encode_token(x, pos, scales[:, ci:ci + 1])
+        codes[:, pos] = tok[:, 0]
+        scales[:, ci] = sc[:, 0]
+
+
+@functools.lru_cache(maxsize=None)
+def kv_codec(kv_bits: int = 0, kv_chunk: int = 64):
+    """The codec of a (kv_bits, kv_chunk) cache config, one per config."""
+    if kv_bits == 0:
+        return FpCodec()
+    if kv_bits == 8:
+        return Kv8Codec(align=kv_chunk)
+    if kv_bits == 2:
+        return Kv2Codec(align=kv_chunk)
+    raise ValueError(
+        f"kv_bits={kv_bits} is not supported — use 0 (KV cache in the "
+        "activation dtype), 8 (int8 codes + per-token-head scales) or 2 "
+        "(packed log codes + per-chunk scales)")
+
+
+def _query_groups(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
+    """(B, 1, H, Dh) -> (B, KV, G, Dh) fp32 with the attention scale."""
+    b, _, h, dh = q.shape
+    return (q.float() * (dh ** -0.5)).reshape(b, kv_heads, h // kv_heads, dh)
+
+
+def decode_attention_quantized(q, k_codes, k_scales, v_codes, v_scales, pos,
+                               *, kv_bits: int, chunk: int,
+                               tile: int) -> torch.Tensor:
+    """Single-token attention on a flat quantized cache.  q: (B, 1, H, Dh);
+    codes/scales as the codec stores them; ``tile`` is the page size, so
+    this equals :func:`paged_decode_attention_quantized` bitwise.  The
+    cache stays codes all the way into the kernel's tiles."""
+    b, _, h, dh = q.shape
+    qf = _query_groups(q, k_codes.shape[2])
+    out = flash_decode(qf, k_codes, k_scales, v_codes, v_scales, pos,
+                       kv_bits=kv_bits, chunk=chunk, dv=dh, tile=tile)
+    return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def paged_decode_attention_quantized(q, k_pool, ks_pool, v_pool, vs_pool,
+                                     page_tbl, pos, *, kv_bits: int,
+                                     chunk: int) -> torch.Tensor:
+    """Single-token GQA attention on block-paged quantized pools.
+
+    q: (B, 1, H, Dh), one engine slot per row; pools: (n_pages, page, KV,
+    w) codes and (n_pages, page // chunk, KV) scales; page_tbl: (B,
+    n_tiles) int (trash page 0 in unused entries); pos: (B,) int."""
+    b, _, h, dh = q.shape
+    qf = _query_groups(q, k_pool.shape[2])
+    out = paged_flash_decode(page_tbl, pos, qf, k_pool, ks_pool, v_pool,
+                             vs_pool, kv_bits=kv_bits, chunk=chunk, dv=dh,
+                             page=k_pool.shape[1])
+    return out.reshape(b, 1, h, dh).to(q.dtype)
+
+
+def kv_paged_append(codec, c_pool, s_pool, x, page_ids, pos, active) -> None:
+    """Encode one new token per slot and write it into paged pools, in
+    place.
+
+    x: (B, 1, ..., D); page_ids: (B,) the page holding each slot's current
+    tile; pos: (B,) global positions; active: (B,) bool.  Inactive slots
+    write into the reserved trash page 0, so the fixed-shape write needs no
+    mask and never touches a live page.  The encoding is the codec's
+    ``encode_token``, as the flat cache's append, so paged and flat caches
+    hold the same codes for the same token stream."""
+    page = c_pool.shape[1]
+    row = pos % page
+    srow = row // codec.chunk
+    pid = torch.where(active, page_ids, torch.zeros_like(page_ids))
+    cur = s_pool[pid, srow][:, None]          # (B, 1, ...) current scales
+    tok, sc = codec.encode_token(x, pos, cur)
+    c_pool[pid, row] = tok[:, 0]
+    s_pool[pid, srow] = sc[:, 0]
+
+
+def paged_extend_attention_quantized(q, k_new, v_new, k_pool, ks_pool,
+                                     v_pool, vs_pool, tbl, *,
+                                     kv_bits: int, chunk: int):
+    """One prompt chunk's GQA attention against its request's quantized
+    pages plus the chunk's own fp keys and values (the "paged" chunked
+    prefill: past rows are read back as codes, so this is lossy against
+    the whole-prompt prefill).  q: (1, L, H, Dh); k_new/v_new: (1, L, KV,
+    Dh); tbl: (n_past,) pages of the earlier chunks (page-aligned chunks:
+    the chunk starts at n_past * page)."""
+    out = paged_flash_extend(tbl, q, k_new, v_new, k_pool, ks_pool, v_pool,
+                             vs_pool, kv_bits=kv_bits, chunk=chunk,
+                             dh=q.shape[-1], dv=v_new.shape[-1],
+                             page=k_pool.shape[1])
+    return out.to(q.dtype)
 
 
 # ------------------------------------------------------------------ GQA block

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.device import matmul
 from repro_torch.kernels.quant_matmul.ops import is_packed, quant_matmul
 
 
@@ -23,8 +24,8 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     time) multiplies in fp32 and returns x's dtype, as the kernel does."""
     if not is_packed(w):
         if w.dtype != x.dtype:
-            return (x.to(w.dtype) @ w).to(x.dtype)
-        return x @ w
+            return matmul(x.to(w.dtype), w).to(x.dtype)
+        return matmul(x, w)
     lead = x.shape[:-1]
     y = quant_matmul(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*lead, y.shape[-1])

@@ -10,9 +10,13 @@ for ``lax.scan``; ``convert.params_from_jax`` unstacks it)::
                  "ffn_norm", "ffn": {"wi", "wu", "wd"}}, ...]}
 
 Any projection weight may be a ``PackedWeight`` (keep-packed serving); the
-forward is the same code either way (``layers.linear``).  The fp KV cache
-is a list of per-layer ``{"k", "v"}`` tensors of shape (B, S, KV, Dh),
-updated in place by ``decode_step``.
+forward is the same code either way (``layers.linear``).  The KV cache is a
+list of per-layer dicts, updated in place by ``decode_step``: ``{"k", "v"}``
+of shape (B, S, KV, Dh) in the activation dtype (``kv_bits = 0``), or codes
+and scales ``{"k", "ks", "v", "vs"}`` as the layer's codec lays them out
+(``kv_bits`` 8 or 2; S rounded up to a ``kv_chunk`` multiple).  The paged
+pools of the serving engine (``serving.paged``) hold the same per-layer
+entries with a page axis in place of the batch and sequence axes.
 """
 from __future__ import annotations
 
@@ -61,20 +65,120 @@ def apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     return x, {"k": k, "v": v}
 
 
+def _mix_out(p: dict, cfg: ModelConfig, x: torch.Tensor,
+             out: torch.Tensor) -> torch.Tensor:
+    """Attention output projection, residual and the FFN half of a block."""
+    b, t = out.shape[:2]
+    x = x + linear(out.reshape(b, t, -1), p["mixer"]["wo"])
+    hf = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    return x + apply_dense_ffn(p["ffn"], hf)
+
+
 def decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
                  pos: int) -> torch.Tensor:
-    """One-token step. x: (B, 1, D); writes this token's K/V into the cache
-    at ``pos`` (in place) and attends over positions <= pos."""
-    b = x.shape[0]
+    """One-token step. x: (B, 1, D); writes this token's K/V (or its codes
+    and scales) into the cache at ``pos`` (in place) and attends over
+    positions <= pos, on the codes directly for a quantized cache."""
+    codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     positions = torch.full((1,), pos, device=x.device)
     q, k, v = att.gqa_qkv(p["mixer"], cfg, h, positions)
-    cache["k"][:, pos] = k[:, 0]
-    cache["v"][:, pos] = v[:, 0]
-    out = att.decode_attention(q, cache["k"], cache["v"], pos)
-    x = x + linear(out.reshape(b, 1, -1), p["mixer"]["wo"])
-    hf = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + apply_dense_ffn(p["ffn"], hf)
+    if codec.quantized:
+        codec.append(cache["k"], cache["ks"], k, pos)
+        codec.append(cache["v"], cache["vs"], v, pos)
+        out = att.decode_attention_quantized(
+            q, cache["k"], cache["ks"], cache["v"], cache["vs"], pos,
+            kv_bits=codec.kv_bits, chunk=codec.chunk,
+            tile=codec.page_tokens)
+    else:
+        cache["k"][:, pos] = k[:, 0]
+        cache["v"][:, pos] = v[:, 0]
+        out = att.decode_attention(q, cache["k"], cache["v"], pos)
+    return _mix_out(p, cfg, x, out)
+
+
+def paged_decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                       pools: dict, page_tbl: torch.Tensor, pos: torch.Tensor,
+                       active: torch.Tensor) -> torch.Tensor:
+    """One-token step of every engine slot against this layer's paged pools
+    (written in place).  x: (B, 1, D); page_tbl: (B, n_tiles); pos: (B,)
+    per-slot positions; active: (B,) bool.  Per-slot rope positions and
+    the per-slot mask of the paged kernel are the only differences from
+    :func:`decode_block`: a slot's output is the flat step's at the same
+    position."""
+    codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
+    b = x.shape[0]
+    h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    tile = torch.clamp(pos // codec.page_tokens, max=page_tbl.shape[1] - 1)
+    pid = page_tbl[torch.arange(b, device=x.device), tile.long()].long()
+    q, k, v = att.gqa_qkv(p["mixer"], cfg, h, pos[:, None])
+    pos_l = pos.long()
+    att.kv_paged_append(codec, pools["k"], pools["ks"], k, pid, pos_l, active)
+    att.kv_paged_append(codec, pools["v"], pools["vs"], v, pid, pos_l, active)
+    out = att.paged_decode_attention_quantized(
+        q, pools["k"], pools["ks"], pools["v"], pools["vs"], page_tbl, pos,
+        kv_bits=codec.kv_bits, chunk=codec.chunk)
+    return _mix_out(p, cfg, x, out)
+
+
+def pad_cache_entry(c: dict, codec, s: int) -> dict:
+    """Zero-pad one layer's cache entries along the sequence axis to ``s``
+    rows (codes) and ``codec.scale_rows(s)`` rows (scales).  Codes are
+    padded after encoding the real rows (a zero kv2 row would encode to
+    code 2, not 0); the zero rows are what the kernels mask out."""
+    out = {}
+    for key, a in c.items():
+        tgt = s if key in ("k", "v") else codec.scale_rows(s)
+        pad = a.new_zeros((a.shape[0], tgt - a.shape[1]) + a.shape[2:])
+        out[key] = torch.cat([a, pad], dim=1)
+    return out
+
+
+def _encode_kv(codec, k: torch.Tensor, v: torch.Tensor) -> dict:
+    kq, ks = codec.encode(k)
+    vq, vs = codec.encode(v)
+    return {"k": kq, "ks": ks, "v": vq, "vs": vs}
+
+
+def ingest_block(p: dict, cfg: ModelConfig, x: torch.Tensor, buf: dict,
+                 start: int, positions: torch.Tensor, t_total: int):
+    """One prompt chunk through one block against fp prefix buffers (exact
+    chunked prefill).
+
+    x: (1, L, D) chunk rows; buf: this layer's fp K/V buffers of the whole
+    prompt's length ``t_total`` (written in place); start: page-aligned
+    chunk offset.  flash_attention runs with ``q_offset=start`` and
+    ``kv_chunk=min(512, t_total)``: the same KV chunks in the same order
+    under the same mask as the whole-prompt prefill, and every other op is
+    row-wise, so hidden rows, codes and logits are the whole prompt's.
+    Returns (x, chunk_cache) with the chunk rows' codes."""
+    codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
+    h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    t = h.shape[1]
+    q, k, v = att.gqa_qkv(p["mixer"], cfg, h, positions)
+    buf["k"][:, start:start + t] = k
+    buf["v"][:, start:start + t] = v
+    out = att.flash_attention(q, buf["k"], buf["v"],
+                              kv_chunk=min(512, t_total), q_offset=start)
+    return _mix_out(p, cfg, x, out), _encode_kv(codec, k, v)
+
+
+def paged_extend_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                       pools: dict, tbl: torch.Tensor,
+                       positions: torch.Tensor):
+    """One prompt chunk through one block against the request's quantized
+    pages (the "paged" chunked prefill): earlier chunks are read back as
+    codes through the extend kernel, the chunk's own rows attend in fp.
+    No fp prefix buffer, but lossy against the whole-prompt prefill.
+    tbl: (n_past,) pages of the already-ingested chunks.  Returns
+    (x, chunk_cache)."""
+    codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
+    h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    q, k, v = att.gqa_qkv(p["mixer"], cfg, h, positions)
+    out = att.paged_extend_attention_quantized(
+        q, k, v, pools["k"], pools["ks"], pools["v"], pools["vs"], tbl,
+        kv_bits=codec.kv_bits, chunk=codec.chunk)
+    return _mix_out(p, cfg, x, out), _encode_kv(codec, k, v)
 
 
 def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
@@ -108,12 +212,12 @@ class Model:
     """Dense GQA decoder for one ``ModelConfig`` on one device."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if (cfg.family != "dense" or cfg.attn_kind != "gqa" or cfg.qkv_bias
-                or cfg.kv_bits != 0):
+        if cfg.family != "dense" or cfg.attn_kind != "gqa" or cfg.qkv_bias:
             raise NotImplementedError(
                 f"{cfg.name}: the port serves dense GQA decoders without qkv "
-                f"bias and with an fp KV cache (kv_bits=0)")
+                f"bias")
         self.cfg = cfg
+        self.codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)  # checks bits
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
 
@@ -156,25 +260,50 @@ class Model:
         return cross_entropy_chunked(x, params["head"], labels)
 
     # --------------------------------------------------------------- serving
+    def _cache_len(self, s: int) -> int:
+        """Allocated cache length: the codec's ``round_len`` (a quantized
+        cache rounds up to a ``kv_chunk`` multiple, which is also the page
+        size, so flat and paged capacity share one rule)."""
+        return self.codec.round_len(s)
+
     def init_cache(self, batch: int, cache_len: int) -> list[dict]:
-        cfg = self.cfg
-        shape = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-        return [{"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
-                for _ in range(cfg.n_layers)]
+        cfg, codec, dev = self.cfg, self.codec, self.device
+        s = self._cache_len(cache_len)
+        kvh, dh = cfg.n_kv_heads, cfg.head_dim
+
+        def entry() -> dict:
+            if not codec.quantized:
+                shape = (batch, s, kvh, dh)
+                return {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
+                        "v": torch.zeros(shape, dtype=self.dtype, device=dev)}
+            codes = (batch, s, kvh, codec.code_cols(dh))
+            scales = (batch, codec.scale_rows(s), kvh)
+            return {
+                "k": torch.zeros(codes, dtype=codec.code_dtype, device=dev),
+                "ks": torch.zeros(scales, dtype=codec.scale_dtype, device=dev),
+                "v": torch.zeros(codes, dtype=codec.code_dtype, device=dev),
+                "vs": torch.zeros(scales, dtype=codec.scale_dtype, device=dev)}
+
+        return [entry() for _ in range(cfg.n_layers)]
 
     def prefill(self, params: dict, tokens: torch.Tensor, *,
                 cache_len: Optional[int] = None):
         """Returns (last-token logits (B, V) fp32, cache of length
-        ``cache_len`` (default T))."""
+        ``cache_len`` (default T), rounded by the codec).  A quantized cache
+        is written already encoded: the prompt's K/V never sit in the cache
+        in fp."""
         b, t = tokens.shape
-        cache = self.init_cache(b, cache_len or t)
+        s = self._cache_len(cache_len or t)
         x = self.embed(params, tokens)
         positions = torch.arange(t, device=x.device)
-        for p_blk, c in zip(params["layers"], cache):
+        cache = []
+        for p_blk in params["layers"]:
             x, kv = apply_block(p_blk, self.cfg, x, positions=positions)
-            c["k"][:, :t] = kv["k"]
-            c["v"][:, :t] = kv["v"]
+            if self.codec.quantized:
+                cache.append(pad_cache_entry(
+                    _encode_kv(self.codec, kv["k"], kv["v"]), self.codec, s))
+            else:
+                cache.append(pad_cache_entry(kv, self.codec, s))
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self.head_logits(params, x[:, -1]), cache
 
@@ -188,3 +317,62 @@ class Model:
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self.head_logits(params, x[:, 0])
 
+    def paged_decode_step(self, params: dict, pools: list[dict],
+                          page_tbl: torch.Tensor, token: torch.Tensor,
+                          pos: torch.Tensor,
+                          active: torch.Tensor) -> torch.Tensor:
+        """One decode step of every engine slot against the paged pools
+        (written in place).  token: (B, 1); page_tbl: (B, n_tiles), one
+        table for every layer (a request holds the same pages in each);
+        pos/active: (B,) per-slot position and liveness, on the device.
+        Returns (B, V) fp32 logits."""
+        x = self.embed(params, token)
+        for p_blk, c in zip(params["layers"], pools):
+            x = paged_decode_block(p_blk, self.cfg, x, c, page_tbl, pos,
+                                   active)
+        x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+        return self.head_logits(params, x[:, 0])
+
+    # ------------------------------------------------------- chunked prefill
+    def init_ingest(self, t_total: int) -> list[dict]:
+        """Transient fp prefix buffers (post-rope K and V of every layer) for
+        the exact chunked prefill of one request of prompt length
+        ``t_total``; they live only while the request is ingesting."""
+        cfg = self.cfg
+        shape = (1, t_total, cfg.n_kv_heads, cfg.head_dim)
+        return [{"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+                for _ in range(cfg.n_layers)]
+
+    def paged_extend_step(self, params: dict, tokens: torch.Tensor,
+                          start: int, state: Optional[list], *,
+                          t_total: int, last: bool, pools=None,
+                          page_tbl: Optional[torch.Tensor] = None):
+        """Ingest one page-aligned prompt chunk of one request.
+
+        tokens: (1, L); start: chunk offset (a page multiple); ``state``:
+        the prefix buffers of :meth:`init_ingest` (exact mode, updated in
+        place), or None with ``pools`` and ``page_tbl`` (the request's
+        already-written pages, (n_past,)) for the paged mode.  Returns
+        (logits (1, V) when ``last`` else None, chunk_cache): the chunk's
+        codes in prefill-cache layout, padded to a page multiple, ready for
+        ``PagedPools.write_prefill``."""
+        cfg = self.cfg
+        L = tokens.shape[1]
+        s_pad = self._cache_len(L)
+        x = self.embed(params, tokens)
+        positions = start + torch.arange(L, device=x.device)
+        caches = []
+        for i, p_blk in enumerate(params["layers"]):
+            if state is not None:
+                x, cc = ingest_block(p_blk, cfg, x, state[i], start,
+                                     positions, t_total)
+            else:
+                x, cc = paged_extend_block(p_blk, cfg, x, pools[i], page_tbl,
+                                           positions)
+            caches.append(pad_cache_entry(cc, self.codec, s_pad))
+        logits = None
+        if last:
+            x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+            logits = self.head_logits(params, x[:, -1])
+        return logits, caches

@@ -13,7 +13,10 @@ Tolerances are relative to the largest reference magnitude:
   * attn_colsum: 1e-4 — two passes of exp and the column sums added with
     fp32 atomics in a run-dependent order;
   * bf16 outputs: 8e-3 — one rounding of the fp32 result to bf16
-    (2^-8 relative) at a different point.
+    (2^-8 relative) at a different point;
+  * quantized-KV attention: 1e-5 — the same dequantized fp32 terms, the
+    scale applied after each row's dot product and sums in another order;
+    the paged and the flat decode kernels are compared bitwise.
 """
 import numpy as np
 import pytest
@@ -22,10 +25,17 @@ import torch
 from repro_torch.core.quantizer import QuantSpec, quantize_weight_rtn
 from repro_torch.kernels.attn_colsum.ops import attn_colsum
 from repro_torch.kernels.attn_colsum.ref import attn_colsum_ref
+from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                  paged_flash_decode,
+                                                  paged_flash_extend)
+from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
+                                                  paged_flash_decode_ref,
+                                                  paged_flash_extend_ref)
 from repro_torch.kernels.gram.ops import weighted_gram
 from repro_torch.kernels.gram.ref import weighted_gram_ref
 from repro_torch.kernels.quant_matmul.ops import pack_weight, quant_matmul
 from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+from repro_torch.models.attention import kv_codec
 
 pytestmark = pytest.mark.cuda
 
@@ -97,3 +107,112 @@ def test_quant_matmul_kernel_vs_plain(cuda, bits, m, k, n, gs):
         assert got.dtype == dtype and got.shape == (m, n)
         assert _rel(got, want) < tol
 
+
+
+def _kv_cache(g, b, s, kv, d, kv_bits, device, page=64):
+    """Random K/V encoded by the port's codec: (kq, ks, vq, vs)."""
+    codec = kv_codec(kv_bits, page)
+    out = []
+    for _ in range(2):
+        x = torch.randn((b, s, kv, d), generator=g, device=device)
+        out.extend(codec.encode(x))
+    return out[0], out[1], out[2], out[3], codec.chunk
+
+
+def _finalized(acc, l):
+    return acc / l.clamp_min(1e-30)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("b,s,kv,grp,d,pos", [
+    (2, 192, 2, 4, 16, 150), (1, 100, 2, 2, 40, 99), (3, 700, 4, 4, 128, 37),
+    (2, 1088, 8, 4, 128, 1087)])
+def test_flash_decode_kernel_vs_plain(cuda, kv_bits, b, s, kv, grp, d, pos):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    kq, ks, vq, vs, chunk = _kv_cache(g, b, s, kv, d, kv_bits, cuda)
+    q = torch.randn((b, kv, grp, d), generator=g, device=cuda)
+    acc, _, l = flash_decode_ref(q, kq, ks, vq, vs, pos, kv_bits=kv_bits,
+                                 chunk=chunk, dh=d, dv=d, tile=64)
+    want = _finalized(acc, l)
+    for p in (pos, torch.full((b,), pos, dtype=torch.int32, device=cuda)):
+        before = flash_decode.launches
+        got = flash_decode(q, kq, ks, vq, vs, p, kv_bits=kv_bits,
+                           chunk=chunk, dv=d, tile=64)
+        torch.cuda.synchronize()
+        assert flash_decode.launches == before + 1
+        assert got.shape == (b, kv, grp, d)
+        assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("d,pos", [(16, [70, 191, 0]), (128, [37, 500, 255]),
+                                   (40, [64, 63, 129])])
+def test_paged_flash_decode_kernel_vs_plain_and_flat(cuda, kv_bits, d, pos):
+    """Pages scattered through a shuffled table with a trash entry past
+    every request's position: paged kernel == plain version within 1e-5
+    and == the flat kernel on the same codes bitwise (tile = page)."""
+    page, b, kv, grp = 64, len(pos), 2, 4
+    s = 512
+    g = torch.Generator(device=cuda).manual_seed(4)
+    kq, ks, vq, vs, chunk = _kv_cache(g, b, s, kv, d, kv_bits, cuda)
+    q = torch.randn((b, kv, grp, d), generator=g, device=cuda)
+    n_tiles = s // page
+    perm = torch.randperm(b * n_tiles, generator=torch.Generator()
+                          .manual_seed(5)) + 1     # page 0 stays trash
+    tbl = perm.reshape(b, n_tiles).to(torch.int32)
+    n_pages = b * n_tiles + 1
+    pools = []
+    for codes, scales in ((kq, ks), (vq, vs)):
+        cp = torch.zeros((n_pages, page) + codes.shape[2:], dtype=codes.dtype,
+                         device=cuda)
+        sp = torch.zeros((n_pages, page // chunk) + scales.shape[2:],
+                         dtype=scales.dtype, device=cuda)
+        cp[tbl.reshape(-1).long()] = codes.reshape((b * n_tiles, page)
+                                                   + codes.shape[2:])
+        sp[tbl.reshape(-1).long()] = scales.reshape(
+            (b * n_tiles, page // chunk) + scales.shape[2:])
+        pools += [cp, sp]
+    # stale data in the trash page, and a trash entry past every position
+    pools[0][0] = kq[0, :page]
+    tbl = torch.cat([tbl, torch.zeros((b, 1), dtype=torch.int32)], 1).to(cuda)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    acc, _, l = paged_flash_decode_ref(tbl, pos_t, q, *pools, kv_bits=kv_bits,
+                                       chunk=chunk, dh=d, dv=d, page=page)
+    before = paged_flash_decode.launches
+    got = paged_flash_decode(tbl, pos_t, q, *pools, kv_bits=kv_bits,
+                             chunk=chunk, dv=d, page=page)
+    flat = flash_decode(q, kq, ks, vq, vs, pos_t, kv_bits=kv_bits,
+                        chunk=chunk, dv=d, tile=page)
+    torch.cuda.synchronize()
+    assert paged_flash_decode.launches == before + 1
+    assert _rel(got, _finalized(acc, l)) < 1e-5
+    assert torch.equal(got, flat)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("n_past,L,d", [(0, 37, 16), (3, 64, 40),
+                                        (2, 1, 128), (4, 200, 128)])
+def test_paged_flash_extend_kernel_vs_plain(cuda, kv_bits, n_past, L, d):
+    page, kv, h = 64, 2, 8
+    g = torch.Generator(device=cuda).manual_seed(6)
+    n_pages = n_past + 3
+    kq, ks, vq, vs, chunk = _kv_cache(g, 1, n_pages * page, kv, d, kv_bits,
+                                      cuda)
+    pools = [kq.reshape((n_pages, page) + kq.shape[2:]),
+             ks.reshape((n_pages, page // chunk) + ks.shape[2:]),
+             vq.reshape((n_pages, page) + vq.shape[2:]),
+             vs.reshape((n_pages, page // chunk) + vs.shape[2:])]
+    tbl = torch.randperm(n_pages - 1, generator=torch.Generator()
+                         .manual_seed(7))[:n_past].to(torch.int32) + 1
+    tbl = tbl.to(cuda)
+    q = torch.randn((1, L, h, d), generator=g, device=cuda)
+    k_new = torch.randn((1, L, kv, d), generator=g, device=cuda)
+    v_new = torch.randn((1, L, kv, d), generator=g, device=cuda)
+    kw = dict(kv_bits=kv_bits, chunk=chunk, dh=d, dv=d, page=page)
+    want = paged_flash_extend_ref(tbl, q, k_new, v_new, *pools, **kw)
+    before = paged_flash_extend.launches
+    got = paged_flash_extend(tbl, q, k_new, v_new, *pools, **kw)
+    torch.cuda.synchronize()
+    assert paged_flash_extend.launches == before + 1
+    assert got.shape == (1, L, h, d)
+    assert _rel(got, want) < 1e-5

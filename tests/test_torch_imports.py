@@ -31,6 +31,16 @@ def test_sources_found():
     assert len(SOURCES) > 20 and (ROOT / "chip_smoke.py").exists()
 
 
+@pytest.mark.parametrize("module", [
+    "kernels/flash_decode/ops.py", "kernels/flash_decode/ref.py",
+    "kernels/flash_decode/kernel.py", "serving/engine.py",
+    "serving/paged.py", "serving/trace.py", "serving/sampling.py"])
+def test_quantized_kv_serving_modules_are_checked(module):
+    """The quantized-KV serving slice's modules are among the sources the
+    boundary check reads."""
+    assert ROOT / "src" / "repro_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = _imported_roots(path) & FORBIDDEN
