@@ -20,6 +20,12 @@ parameter path of each residual leaf (``residual_paths``) and, reading a
 reference-written artifact, rebuilds the reference's leaf order from the
 parameter names (JAX flattens dicts in sorted-key order).  The packed
 entries of either writer load bit for bit.
+
+Entry locations are the reference's: ``["prefix", i]`` for the first
+``first_dense_layers`` layers (unstacked in the reference's tree, a list of
+per-layer blocks), ``["groups", g, 0]`` for the stacked layers after them
+(``models.lm.layer_loc``); the port's flat layer index of a location is
+the number of prefix layers plus g.
 """
 from __future__ import annotations
 
@@ -129,30 +135,55 @@ def _flatten(tree: Any, prefix: str = "") -> dict[str, Any]:
     return out
 
 
+def _n_prefix(meta_entries: dict) -> int:
+    """Prefix layers of an artifact: one past its last prefix location."""
+    return 1 + max((em["loc"][1] for em in meta_entries.values()
+                    if em["loc"][0] == "prefix"), default=-1)
+
+
+def _layer_index(loc: list, n_prefix: int) -> int:
+    """The port's flat layer index of a reference location."""
+    if loc[0] == "prefix":
+        return int(loc[1])
+    if loc[0] != "groups" or loc[2] != 0:
+        raise NotImplementedError(
+            f"entry at {loc}: the port reads decoders with one block per "
+            f"layer group")
+    return n_prefix + int(loc[1])
+
+
 def _quantized_paths(meta_entries: dict) -> set[str]:
     """Port parameter paths ("layers/<i>/<sub>/<name>") of packed entries."""
-    out = set()
-    for em in meta_entries.values():
-        if em["loc"][0] != "groups" or em["loc"][2] != 0:
-            raise NotImplementedError(
-                f"entry at {em['loc']}: the port reads dense decoders with "
-                f"one block per layer group")
-        out.add(f"layers/{em['loc'][1]}/{em['path']}")
-    return out
+    n_prefix = _n_prefix(meta_entries)
+    return {f"layers/{_layer_index(em['loc'], n_prefix)}/{em['path']}"
+            for em in meta_entries.values()}
 
 
-def _reference_residual_paths(n_layers: int, block_paths: list[str]
+# norms a block keeps in the residual, by a quantized weight that marks the
+# block's kind (MLA's internal norms sit beside wq_b and wkv_b)
+_BLOCK_NORMS = {"mixer/wq_b": "mixer/q_norm", "mixer/wkv_b": "mixer/kv_norm"}
+
+
+def _reference_residual_paths(n_prefix: int, block_paths: list[str]
                               ) -> list[str]:
     """Leaf order of a reference-written residual tree: the reference's
-    {"embed", "final_norm", "groups": {"b0": block}, "head"} with stacked
-    group leaves, flattened in sorted-key order."""
-    skel: dict = {"embed": 0, "final_norm": 0, "head": 0, "groups": {"b0": {}}}
-    for p in block_paths:
-        node = skel["groups"]["b0"]
-        parts = p.split("/")
-        for part in parts[:-1]:
-            node = node.setdefault(part, {})
-        node[parts[-1]] = 0
+    {"embed", "final_norm", "groups": {"b0": block}, "head", "prefix":
+    [block, ...]} with stacked group leaves and ``n_prefix`` unstacked
+    prefix blocks, flattened in sorted-key order."""
+    def block() -> dict:
+        node_root: dict = {}
+        for p in block_paths:
+            node = node_root
+            parts = p.split("/")
+            for part in parts[:-1]:
+                node = node.setdefault(part, {})
+            node[parts[-1]] = 0
+        return node_root
+
+    skel: dict = {"embed": 0, "final_norm": 0, "head": 0,
+                  "groups": {"b0": block()}}
+    if n_prefix:
+        skel["prefix"] = [block() for _ in range(n_prefix)]
     return list(_flatten(skel))
 
 
@@ -229,23 +260,31 @@ def _load_residual(d: Path, meta: dict, verify: bool) -> dict[str, np.ndarray]:
                   for i, fm in enumerate(meta["residual_leaves"])]
     if "residual_paths" in meta:  # written by the port
         return dict(zip(meta["residual_paths"], leaves))
-    # written by the reference: stacked group leaves in sorted-key order;
-    # quantized leaves are empty markers
-    block = sorted({em["path"] for em in meta["entries"].values()}
-                   | {"mixer_norm", "ffn_norm"})
-    n_layers = 1 + max(em["loc"][1] for em in meta["entries"].values())
-    paths = _reference_residual_paths(n_layers, block)
+    # written by the reference: prefix blocks as they are, stacked group
+    # leaves in sorted-key order; quantized leaves are empty markers
+    quantized = {em["path"] for em in meta["entries"].values()}
+    block = sorted(quantized | {"mixer_norm", "ffn_norm"}
+                   | {norm for w, norm in _BLOCK_NORMS.items()
+                      if w in quantized})
+    n_prefix = _n_prefix(meta["entries"])
+    paths = _reference_residual_paths(n_prefix, block)
     if len(paths) != len(leaves):
         raise NotImplementedError(
             f"{d}: {len(leaves)} residual leaves, expected {len(paths)} for "
-            f"a dense decoder ({paths})")
+            f"a decoder of {n_prefix} prefix blocks and one stacked group "
+            f"({paths})")
     out = {}
     for path, leaf in zip(paths, leaves):
-        if not path.startswith("groups/b0/"):
+        if path.startswith("prefix/"):
+            _, li, rest = path.split("/", 2)
+            if leaf.size:
+                out[f"layers/{li}/{rest}"] = leaf
+        elif not path.startswith("groups/b0/"):
             out[path] = leaf
-        elif leaf.size:  # stacked (n_layers, ...) leaf: unstack
-            for li in range(leaf.shape[0]):
-                out[f"layers/{li}/{path[len('groups/b0/'):]}"] = leaf[li]
+        elif leaf.size:  # stacked (n_groups, ...) leaf: unstack
+            for g in range(leaf.shape[0]):
+                out[f"layers/{n_prefix + g}/{path[len('groups/b0/'):]}"] = \
+                    leaf[g]
     return out
 
 
@@ -271,8 +310,9 @@ def _load(directory, device, dtype, verify: bool, keep_packed: bool):
         t = torch.from_numpy(np.array(a)).to(device)
         flat[path] = t.to(dtype) if dtype is not None else t
     spec = meta["spec"]
+    n_prefix = _n_prefix(meta["entries"])
     for name, em in meta["entries"].items():
-        path = f"layers/{em['loc'][1]}/{em['path']}"
+        path = f"layers/{_layer_index(em['loc'], n_prefix)}/{em['path']}"
         pw = packed_weight_from_artifact(entries[name], em, spec, device)
         if keep_packed:
             flat[path] = pw

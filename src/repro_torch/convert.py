@@ -1,10 +1,12 @@
 """Map the reference's parameter tree (as numpy arrays) to the port's.
 
-The reference stacks its decoder layers on a leading axis
+The reference keeps its first ``first_dense_layers`` decoder layers as a
+list (``params["prefix"]``) and stacks the rest on a leading axis
 (``params["groups"]["b0"][...]``, from ``jax.vmap(init_group)``); the port
-keeps them as a list.  ``embed``, ``head`` and ``final_norm`` carry over as
-they are.  The tests use this to run both packages on the same weights; the
-port's own entry points draw their weights from a ``torch.Generator``.
+keeps them all as one list, prefix layers first.  ``embed``, ``head`` and
+``final_norm`` carry over as they are.  The tests use this to run both
+packages on the same weights; the port's own entry points draw their
+weights from a ``torch.Generator``.
 """
 from __future__ import annotations
 
@@ -23,16 +25,18 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, *,
                     device="cuda") -> dict:
     """Reference params (nested dicts of numpy arrays) -> port params."""
     device = resolve_device(device)
-    if cfg.family != "dense" or "prefix" in np_params or \
-            set(np_params["groups"]) != {"b0"}:
-        raise NotImplementedError("params_from_jax maps dense decoders "
-                                  "(one block per scan group) only")
+    if set(np_params["groups"]) != {"b0"}:
+        raise NotImplementedError("params_from_jax maps decoders with one "
+                                  "block per scan group only")
     stacked = np_params["groups"]["b0"]
-    n_layers = np.asarray(stacked["mixer_norm"]).shape[0]
+    n_groups = np.asarray(stacked["mixer_norm"]).shape[0]
 
     def layer(i, tree):
+        """Block ``i`` of a stacked tree, or the whole of an unstacked one
+        (``i`` None)."""
         return {k: layer(i, v) if isinstance(v, dict)
-                else _tensor(np.asarray(v)[i], device)
+                else _tensor(np.asarray(v) if i is None else
+                             np.asarray(v)[i], device)
                 for k, v in tree.items()}
 
     head = np_params.get("head")
@@ -42,5 +46,6 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, *,
         "embed": _tensor(np_params["embed"], device),
         "final_norm": _tensor(np_params["final_norm"], device),
         "head": _tensor(head, device),
-        "layers": [layer(i, stacked) for i in range(n_layers)],
+        "layers": ([layer(None, blk) for blk in np_params.get("prefix", [])]
+                   + [layer(i, stacked) for i in range(n_groups)]),
     }

@@ -28,7 +28,7 @@ from repro_torch.core.importance import ImportanceInputs, get_strategy
 from repro_torch.core.quantizer import QuantSpec, pack_codes
 from repro_torch.core.rotation import rotate_model
 from repro_torch.device import generator
-from repro_torch.models.lm import Model, apply_block, capture_block
+from repro_torch.models.lm import Model, apply_block, capture_block, layer_loc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -164,7 +164,7 @@ class RSQPipeline:
                 meta[name] = {"path": path, "tag": tag, "d_in": d_in,
                               "group_size": d_in // int(sol["scale"].shape[-2]),
                               "dtype": sol["dtype"],
-                              "loc": ["groups", li, 0]}
+                              "loc": layer_loc(cfg, li)}
             t2 = clock()
             if li + 1 < len(params["layers"]):
                 acts = [apply_block(p_new, cfg, x_b)[0] for x_b in acts]

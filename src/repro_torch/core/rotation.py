@@ -20,8 +20,11 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-_MIXER_IN = ("wq", "wk", "wv")
+# stream-consuming and stream-producing mixer weights (GQA and MLA)
+_MIXER_IN = ("wq", "wk", "wv", "wq_a", "wkv_a")
 _MIXER_OUT = ("wo",)
+# MLA's internal norms and the up-projections that consume them
+_MLA_NORMS = (("q_norm", "wq_b"), ("kv_norm", "wkv_b"))
 _FFN_IN = ("wi", "wu")
 _FFN_OUT = ("wd",)
 
@@ -47,7 +50,8 @@ def random_orthogonal(gen: torch.Generator, n: int, dtype=torch.float32
                       ) -> torch.Tensor:
     a = torch.randn((n, n), generator=gen, device=gen.device)
     q, r = torch.linalg.qr(a)
-    return (q * torch.sign(torch.diagonal(r))[None, :]).to(dtype)
+    # QR hands back a column-major Q, which torch.kron cannot take
+    return (q * torch.sign(torch.diagonal(r))[None, :]).to(dtype).contiguous()
 
 
 def random_hadamard(gen: torch.Generator, n: int, dtype=torch.float32
@@ -67,10 +71,16 @@ def _scale_in(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 
 def fuse_norms_block(p: dict, cfg: ModelConfig) -> dict:
-    """Fold the block's RMSNorm γ into its consuming weights (new dict)."""
+    """Fold the block's RMSNorm γ into its consuming weights (new dict);
+    MLA's q_norm and kv_norm fold into wq_b and wkv_b."""
     mixer, ffn = dict(p["mixer"]), dict(p["ffn"])
     for name in _MIXER_IN:
-        mixer[name] = _scale_in(mixer[name], p["mixer_norm"])
+        if name in mixer:
+            mixer[name] = _scale_in(mixer[name], p["mixer_norm"])
+    for norm, name in _MLA_NORMS:
+        if norm in mixer:
+            mixer[name] = _scale_in(mixer[name], mixer[norm])
+            mixer[norm] = torch.ones_like(mixer[norm])
     for name in _FFN_IN:
         ffn[name] = _scale_in(ffn[name], p["ffn_norm"])
     return {**p, "mixer": mixer, "ffn": ffn,
@@ -90,7 +100,8 @@ def rotate_block(p: dict, cfg: ModelConfig, q: torch.Tensor) -> dict:
 
     mixer, ffn = dict(p["mixer"]), dict(p["ffn"])
     for name in _MIXER_IN:
-        mixer[name] = rot_in(mixer[name])
+        if name in mixer:
+            mixer[name] = rot_in(mixer[name])
     for name in _MIXER_OUT:
         mixer[name] = rot_out(mixer[name])
     for name in _FFN_IN:

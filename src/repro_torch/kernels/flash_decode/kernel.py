@@ -1,6 +1,7 @@
 """ctypes launchers of the CUDA quantized-KV attention kernels
-(``csrc/flash_decode.cu``).  Shapes, types and contiguity are checked by
-``ops``; these allocate the outputs and scratch and launch."""
+(``csrc/flash_decode.cu``: GQA; ``csrc/mla_decode.cu``: MLA's latent
+attention).  Shapes, types and contiguity are checked by ``ops``; these
+allocate the outputs and scratch and launch."""
 from __future__ import annotations
 
 import torch
@@ -10,6 +11,7 @@ from repro_torch.kernels import build
 TILES_PER_SPLIT = 4  # decode: tiles one block walks (a fixed run: see .cu)
 MAX_G = 16  # query heads per KV head
 MAX_D = 256  # head dim
+MLA_MAX_DL = 512  # MLA latent width (one column per thread of 512)
 
 
 def _decode_fn():
@@ -68,4 +70,64 @@ def flash_extend_cuda(q, kf, vf, kq, ks, vq, vs, tbl, *, kv_bits: int,
         L, dh, dv, page, chunk, kv_bits, kq.shape[-1], vq.shape[-1],
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_flash_extend")
+    return out
+
+
+def _mla_decode_fn():
+    fn = build.library("mla_decode").mla_decode_launch
+    fn.argtypes = [build.P] * 12 + [build.I] * 14 + [build.P]
+    fn.restype = build.I
+    return fn
+
+
+def _mla_extend_fn():
+    fn = build.library("mla_decode").mla_extend_launch
+    fn.argtypes = ([build.P] * 9 + [build.I, build.P] + [build.I] * 9
+                   + [build.P])
+    fn.restype = build.I
+    return fn
+
+
+def mla_decode_cuda(ql, qr, cq, cs, rq, rs, pos, tbl, *, kv_bits: int,
+                    chunk: int, tile: int, n_tiles: int,
+                    seq_len: int) -> torch.Tensor:
+    """(B, H, dl) fp32 normalized MLA latent attention on the card.  ``pos``
+    a (B,) int32 tensor; ``tbl`` an int32 (B, n_tiles) page table, or None
+    for a flat cache of ``seq_len`` rows."""
+    b, h, dl = ql.shape
+    dr = qr.shape[-1]
+    n_split = -(-n_tiles // TILES_PER_SPLIT)
+    f32 = dict(dtype=torch.float32, device=ql.device)
+    part_acc = torch.empty((b, h, n_split, dl), **f32)
+    part_m = torch.empty((b, h, n_split), **f32)
+    part_l = torch.empty((b, h, n_split), **f32)
+    out = torch.empty((b, h, dl), **f32)
+    err = _mla_decode_fn()(
+        ql.data_ptr(), qr.data_ptr(), cq.data_ptr(), cs.data_ptr(),
+        rq.data_ptr(), rs.data_ptr(), pos.data_ptr(),
+        None if tbl is None else tbl.data_ptr(), part_acc.data_ptr(),
+        part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(), b, h, dl, dr,
+        seq_len, cs.shape[1], n_tiles, tile, chunk, kv_bits, cq.shape[-1],
+        rq.shape[-1], TILES_PER_SPLIT, n_split,
+        torch.cuda.current_stream(ql.device).cuda_stream)
+    build.check(err, "mla_flash_decode")
+    return out
+
+
+def mla_extend_cuda(ql, qr, c_new, r_new, cq, cs, rq, rs, tbl, *,
+                    kv_bits: int, chunk: int, page: int) -> torch.Tensor:
+    """(L, H, dl) fp32 normalized chunk attention on the card.  ql/qr: (L,
+    H, dl|dr) fp32 scaled; c_new/r_new: (L, dl|dr) fp32; tbl: (n_past,)
+    int32."""
+    L, h, dl = ql.shape
+    dr = qr.shape[-1]
+    out = torch.empty((L, h, dl), dtype=torch.float32, device=ql.device)
+    n_past = tbl.shape[0]
+    err = _mla_extend_fn()(
+        ql.data_ptr(), qr.data_ptr(), c_new.data_ptr(), r_new.data_ptr(),
+        cq.data_ptr(), cs.data_ptr(), rq.data_ptr(), rs.data_ptr(),
+        tbl.data_ptr() if n_past else None, n_past, out.data_ptr(), h, L, dl,
+        dr, page, chunk, kv_bits, cq.shape[-1], rq.shape[-1],
+        torch.cuda.current_stream(ql.device).cuda_stream)
+    build.check(err, "paged_mla_flash_extend")
     return out

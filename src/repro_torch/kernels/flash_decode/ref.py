@@ -184,3 +184,119 @@ def paged_flash_extend_ref(tbl, q, k_new, v_new, kq, ks, vq, vs, *,
     out = acc / torch.clamp_min(l, 1e-30)                   # (KV, L*g, Dv)
     out = out.reshape(kv, L, g, dv).permute(1, 0, 2, 3)     # (L, KV, g, Dv)
     return out.reshape(1, L, h, dv)
+
+
+# ------------------------------------------------------------------- MLA
+#
+# MLA's absorbed decode is one-KV-head attention in latent space: scores
+# ql·c + qr·r over the latent (c, dl wide) and shared rope (r, dr wide)
+# rows, values the latents themselves (v = c).  The cache holds c and r
+# as separate codes with their own scales: (B, S, w) codes and (B, S /
+# chunk) scales, no head axis.
+
+
+def _mla_decode_tiles(ql, qr, tiles, n_tiles: int, tile: int, pos, *,
+                      kv_bits: int, chunk: int, dl: int, dr: int):
+    """The tile loop shared by the flat and paged MLA decode versions.
+
+    ql: (B, H, dl), qr: (B, H, dr); ``tiles(kk)`` -> (cc, csc, rc, rsc) of
+    shapes (B, T, wc), (B, T // chunk), (B, T, wr), (B, T // chunk);
+    pos: (B,) int.  Returns fp32 (acc (B, H, dl), m, l (B, H, 1))."""
+    b, h, _ = ql.shape
+    qlf, qrf = ql.float(), qr.float()
+    px = pos.reshape(b, 1, 1)
+    col = torch.arange(tile, device=ql.device)
+    acc = torch.zeros((b, h, dl), dtype=torch.float32, device=ql.device)
+    m = torch.full((b, h, 1), NEG_INF, device=ql.device)
+    l = torch.zeros((b, h, 1), device=ql.device)
+    for kk in range(n_tiles):
+        cc, csc, rc, rsc = tiles(kk)
+        c = dequant_kv(cc, csc, kv_bits=kv_bits, chunk=chunk, d=dl)
+        r = dequant_kv(rc, rsc, kv_bits=kv_bits, chunk=chunk, d=dr)
+        scores = (matmul(qlf, c.transpose(-1, -2))
+                  + matmul(qrf, r.transpose(-1, -2)))      # (B, H, T)
+        valid = (kk * tile + col) <= px
+        m, l, acc = tile_update(scores, c, valid, m, l, acc)
+    return acc, m, l
+
+
+def mla_flash_decode_ref(ql, qr, cq, cs, rq, rs, pos, *, kv_bits: int,
+                         chunk: int, dl: int, dr: int, tile: int):
+    """MLA latent decode over a flat quantized cache -> raw partials.
+
+    ql: (B, H, dl), qr: (B, H, dr) fp32 absorbed queries with the attention
+    scale folded in; cq/rq: (B, S, w) codes (int8, or int32 words of 2-bit
+    codes); cs/rs: (B, ceil(S / chunk)) bf16; pos: int, 0-d or (B,), the
+    last valid row.  A ragged S is padded and masked.  Returns fp32
+    ``(acc, m, l)``: (B, H, dl), (B, H, 1) x 2."""
+    b = ql.shape[0]
+    n_tiles = -(-cq.shape[1] // tile)
+    rows_c = tile // chunk
+    cq, rq = _pad_rows(cq, n_tiles * tile), _pad_rows(rq, n_tiles * tile)
+    cs, rs = _pad_rows(cs, n_tiles * rows_c), _pad_rows(rs, n_tiles * rows_c)
+    px = torch.as_tensor(pos, device=ql.device).reshape(-1).expand(b)
+
+    def tiles(kk):
+        sl, sc = slice(kk * tile, (kk + 1) * tile), \
+            slice(kk * rows_c, (kk + 1) * rows_c)
+        return (cq[:, sl].contiguous(), cs[:, sc].contiguous(),
+                rq[:, sl].contiguous(), rs[:, sc].contiguous())
+
+    return _mla_decode_tiles(ql, qr, tiles, n_tiles, tile, px,
+                             kv_bits=kv_bits, chunk=chunk, dl=dl, dr=dr)
+
+
+def paged_mla_flash_decode_ref(tbl, pos, ql, qr, cq, cs, rq, rs, *,
+                               kv_bits: int, chunk: int, dl: int, dr: int,
+                               page: int):
+    """MLA latent decode over block-paged pools -> raw partials.
+
+    tbl: (B, n_tiles) int page table; pos: (B,) int; cq/rq: (n_pages,
+    page, w) code pools; cs/rs: (n_pages, page // chunk) scale pools.
+    Pages are gathered codes to codes, one tile at a time; the same tile
+    loop as :func:`mla_flash_decode_ref`, so at tile = page the two agree
+    bitwise."""
+    b = ql.shape[0]
+    px = torch.as_tensor(pos, device=ql.device).reshape(b)
+
+    def tiles(kk):
+        pid = tbl[:, kk].long()
+        return cq[pid], cs[pid], rq[pid], rs[pid]
+
+    return _mla_decode_tiles(ql, qr, tiles, tbl.shape[1], page, px,
+                             kv_bits=kv_bits, chunk=chunk, dl=dl, dr=dr)
+
+
+def paged_mla_flash_extend_ref(tbl, ql, qr, c_new, r_new, cq, cs, rq, rs, *,
+                               kv_bits: int, chunk: int, dl: int, dr: int,
+                               page: int):
+    """Chunked-prefill MLA latent attention: an L-token chunk's absorbed
+    queries attend to the quantized latent pages of its request's earlier
+    chunks (``tbl``: (n_past,) int, every page full) and then to the
+    chunk's own fp latents under a causal mask.
+
+    ql/qr: (L, H, dl|dr) fp32, scale folded in; c_new/r_new: (L, dl|dr)
+    fp.  Query row i is chunk token i // H; the chunk's offset cancels from
+    the mask, so it is not an argument.  Returns (L, H, dl) fp32,
+    normalized."""
+    L, h, _ = ql.shape
+    qlf = ql.float().reshape(L * h, dl)
+    qrf = qr.float().reshape(L * h, dr)
+    acc = torch.zeros((L * h, dl), dtype=torch.float32, device=ql.device)
+    m = torch.full((L * h, 1), NEG_INF, device=ql.device)
+    l = torch.zeros((L * h, 1), device=ql.device)
+    every = torch.ones((), dtype=torch.bool, device=ql.device)
+    for kk in range(tbl.shape[0]):
+        pid = tbl[kk:kk + 1].long()  # a tensor index: no host sync
+        c = dequant_kv(cq[pid][0], cs[pid][0], kv_bits=kv_bits, chunk=chunk,
+                       d=dl)                                 # (page, dl)
+        r = dequant_kv(rq[pid][0], rs[pid][0], kv_bits=kv_bits, chunk=chunk,
+                       d=dr)
+        scores = matmul(qlf, c.T) + matmul(qrf, r.T)         # (L*H, page)
+        m, l, acc = tile_update(scores, c, every, m, l, acc)
+    cf, rf = c_new.float(), r_new.float()
+    row_tok = torch.arange(L * h, device=ql.device) // h
+    causal = row_tok[:, None] >= torch.arange(L, device=ql.device)[None, :]
+    scores = matmul(qlf, cf.T) + matmul(qrf, rf.T)           # (L*H, L)
+    m, l, acc = tile_update(scores, cf, causal, m, l, acc)
+    return (acc / torch.clamp_min(l, 1e-30)).reshape(L, h, dl)

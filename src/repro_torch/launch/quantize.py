@@ -8,7 +8,8 @@ the fp model and optionally writes the packed serving artifact.
       --n-layers 2 --n-calib 8 --calib-seq 512 --pack-out /tmp/rsq_art
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  ``--n-layers`` cuts the
-depth of the chosen architecture and keeps its widths.
+depth of the chosen architecture and keeps its widths; ``--arch
+deepseek-v3-671b --n-layers 2`` quantizes two of its dense MLA layers.
 """
 from __future__ import annotations
 

@@ -5,6 +5,9 @@ quantized KV pools (``--mode engine``).
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --n-layers 2 --packed /tmp/rsq_art --dtype bfloat16 --kv-bits 8
 
+``--arch deepseek-v3-671b --n-layers 2`` serves MLA layers (absorbed
+latent attention on a latent cache) the same way.
+
 ``--packed DIR`` serves a packed RSQ artifact (from launch.quantize
 --pack-out).  The default keeps the codes packed on the device
 (``--keep-packed``): every block projection runs through the
@@ -99,16 +102,24 @@ def kv_cache_bytes(model: Model, batch: int,
     """Bytes of a flat cache of ``batch`` x ``cache_len`` tokens as
     ``model.init_cache`` lays it out (codes and scales for a quantized
     cache), and of the same cache held in the activation dtype; from the
-    codec's layout alone, no tensor allocated."""
+    codec's layout alone, no tensor allocated.  GQA holds K and V of each
+    KV head (Dh values each) per token and layer; MLA the latent
+    (kv_lora_rank values) and the rope key (qk_rope_dim values)."""
     cfg, codec = model.cfg, model.codec
-    heads = 2 * cfg.n_layers * batch * cfg.n_kv_heads  # K and V
-    fp = heads * cache_len * cfg.head_dim * model.dtype.itemsize
+    if cfg.attn_kind == "mla":  # one row each of c and r, no head axis
+        rows, widths = cfg.n_layers * batch, (cfg.kv_lora_rank,
+                                              cfg.qk_rope_dim)
+    else:  # K and V of every KV head
+        rows, widths = 2 * cfg.n_layers * batch * cfg.n_kv_heads, \
+            (cfg.head_dim,)
+    fp = rows * cache_len * sum(widths) * model.dtype.itemsize
     if not codec.quantized:
         return fp, fp
     s = model._cache_len(cache_len)
-    per_head = (s * codec.code_cols(cfg.head_dim) * codec.code_dtype.itemsize
-                + codec.scale_rows(s) * codec.scale_dtype.itemsize)
-    return heads * per_head, fp
+    per_row = sum(s * codec.code_cols(w) * codec.code_dtype.itemsize
+                  + codec.scale_rows(s) * codec.scale_dtype.itemsize
+                  for w in widths)
+    return rows * per_row, fp
 
 
 def serve_engine(model: Model, params: dict, prompts: torch.Tensor,

@@ -1,6 +1,7 @@
-"""GQA attention: chunked (flash-style) prefill attention, fp decode
+"""Attention: chunked (flash-style) prefill attention, fp decode
 attention, the quantized KV cache (codecs, flat and paged appends) with
-attention on its codes, and the GQA projections.
+attention on its codes, the GQA projections and the MLA block (absorbed
+latent attention, flat and paged).
 
 ``flash_attention`` scans KV chunks with a running (max, denominator,
 accumulator) triple and never forms the (T, T) score matrix, as the
@@ -23,10 +24,17 @@ import torch
 
 from repro_torch.device import matmul
 from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                  mla_flash_decode,
                                                   paged_flash_decode,
-                                                  paged_flash_extend)
+                                                  paged_flash_extend,
+                                                  paged_mla_flash_decode,
+                                                  paged_mla_flash_extend)
 from repro_torch.kernels.flash_decode.ref import kv_unpack
-from repro_torch.models.layers import apply_rope, dense_init, linear
+from repro_torch.kernels.quant_matmul.ops import (is_packed,
+                                                  mla_latent_weights,
+                                                  quant_matmul,
+                                                  quant_matmul_t)
+from repro_torch.models.layers import apply_rope, dense_init, linear, rms_norm
 
 NEG_INF = -1e30
 
@@ -405,3 +413,199 @@ def gqa_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
+
+
+# ------------------------------------------------------------------ MLA block
+#
+# Multi-head latent attention (DeepSeek): keys and values are expanded per
+# head from a shared kv_lora_rank-wide latent c_kv through ``wkv_b``, plus
+# one rope key shared by every head.  Prefill and calibration attend on the
+# expanded per-head q, k, v (``mla_qkv``); decode and the paged prefill
+# absorb ``wkv_b`` into the queries and attend in latent space, so the cache
+# holds only c_kv (kvr) and the rope key (dr) per token.
+
+
+def init_mla(gen, cfg, dtype, device) -> dict:
+    d, h = cfg.d_model, cfg.n_heads
+    qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    p = {}
+    if qr:
+        p["wq_a"] = dense_init(gen, d, qr, dtype, device)
+        p["q_norm"] = torch.ones((qr,), dtype=dtype, device=device)
+        p["wq_b"] = dense_init(gen, qr, h * (dn + dr), dtype, device)
+    else:
+        p["wq"] = dense_init(gen, d, h * (dn + dr), dtype, device)
+    p["wkv_a"] = dense_init(gen, d, kvr + dr, dtype, device)
+    p["kv_norm"] = torch.ones((kvr,), dtype=dtype, device=device)
+    p["wkv_b"] = dense_init(gen, kvr, h * (dn + dv), dtype, device)
+    p["wo"] = dense_init(gen, h * dv, d, dtype, device)
+    return p
+
+
+def _mla_query(p: dict, cfg, x: torch.Tensor):
+    """(q, ql): per-head queries (B, T, H, dn + dr) before rope, and the
+    normed q_lora activation (wq_b's input; None without q_lora)."""
+    b, t, _ = x.shape
+    if "wq_a" in p:
+        ql = rms_norm(linear(x, p["wq_a"]), p["q_norm"], cfg.norm_eps)
+        return linear(ql, p["wq_b"]).reshape(b, t, cfg.n_heads, -1), ql
+    return linear(x, p["wq"]).reshape(b, t, cfg.n_heads, -1), None
+
+
+def mla_latent(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """The cache rows of x: (c_kv (B, T, kvr), k_rope (B, T, dr))."""
+    kvr = cfg.kv_lora_rank
+    kv = linear(x, p["wkv_a"])                                # (B, T, kvr+dr)
+    c_kv = rms_norm(kv[..., :kvr], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., None, kvr:], positions, cfg.rope_theta)
+    return c_kv, k_rope[..., 0, :]
+
+
+def mla_qkv_inputs(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """:func:`mla_qkv` plus the normed q_lora activation ``ql`` (wq_b's
+    input, None without q_lora), which calibration captures."""
+    b, t, _ = x.shape
+    h, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    q, ql = _mla_query(p, cfg, x)
+    q = torch.cat([q[..., :dn], apply_rope(q[..., dn:], positions,
+                                            cfg.rope_theta)], dim=-1)
+    c_kv, k_rope = mla_latent(p, cfg, x, positions)
+    kvb = linear(c_kv, p["wkv_b"]).reshape(b, t, h, dn + dv)
+    k = torch.cat([kvb[..., :dn],
+                   k_rope[:, :, None].expand(b, t, h, k_rope.shape[-1])],
+                  dim=-1)
+    return q, k, kvb[..., dn:], c_kv, k_rope, ql
+
+
+def mla_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
+    """Expanded per-head q (B, T, H, dn+dr), k (B, T, H, dn+dr), v (B, T,
+    H, dv), plus the latent cache rows c_kv and k_rope."""
+    return mla_qkv_inputs(p, cfg, x, positions)[:5]
+
+
+def apply_mla(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor, *,
+              kv_chunk: int = 512) -> torch.Tensor:
+    b, t, _ = x.shape
+    q, k, v, _, _ = mla_qkv(p, cfg, x, positions)
+    out = flash_attention(q, k, v, kv_chunk=min(kv_chunk, t))
+    return linear(out.reshape(b, t, -1), p["wo"])
+
+
+def _mla_q_and_expand(p: dict, cfg, x: torch.Tensor, positions):
+    """Absorbed-MLA queries shared by the flat, paged and extend paths:
+    (q_lat (B, T, H, kvr) fp32, q_rope (B, T, H, dr), expand_v).
+
+    ``q_lat`` is q_nope absorbed through each head's W_k, ``expand_v`` maps
+    a latent context (B, T, H, kvr) through each head's W_v to (B, T, H,
+    dv).  A packed ``wkv_b`` stays packed: its per-head views
+    (``mla_latent_weights``) go through ``quant_matmul_t`` (absorb) and
+    ``quant_matmul`` (expand), each one launch for all heads.  An fp
+    ``wkv_b`` contracts per head through ``device.matmul``."""
+    b, t, _ = x.shape
+    h, dn, dv = cfg.n_heads, cfg.qk_nope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    q, _ = _mla_query(p, cfg, x)
+    q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
+    # (B, T, H, ·) <-> (H, B*T, ·): the head-batched operand layout
+    def to_heads(a):
+        return a.float().reshape(b * t, h, a.shape[-1]).transpose(0, 1)
+
+    def from_heads(a):
+        return a.transpose(0, 1).reshape(b, t, h, a.shape[-1])
+
+    if is_packed(p["wkv_b"]):
+        pw_k, pw_v = mla_latent_weights(p["wkv_b"], h, dn, dv)
+        q_lat = from_heads(quant_matmul_t(to_heads(q[..., :dn]), pw_k))
+
+        def expand_v(cl):
+            return from_heads(quant_matmul(to_heads(cl).contiguous(), pw_v))
+    else:
+        w = p["wkv_b"].float().reshape(kvr, h, dn + dv)
+        w_k = w[..., :dn].permute(1, 2, 0)                   # (H, dn, kvr)
+        w_v = w[..., dn:].transpose(0, 1)                    # (H, kvr, dv)
+        q_lat = from_heads(matmul(to_heads(q[..., :dn]), w_k))
+
+        def expand_v(cl):
+            return from_heads(matmul(to_heads(cl), w_v))
+    return q_lat, q_rope, expand_v
+
+
+def _mla_scaled(cfg, q_lat, q_rope):
+    """Absorbed queries with the attention scale (dn + dr)^-0.5 folded in,
+    fp32."""
+    scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+    return q_lat.float() * scale, q_rope.float() * scale
+
+
+def mla_decode(p: dict, cfg, x: torch.Tensor, c_cache, rope_cache, pos: int,
+               *, c_scale=None, r_scale=None, kv_bits: int = 0,
+               chunk: int = 1, tile: int = 64) -> torch.Tensor:
+    """Latent-space ("absorbed") MLA decode of one token.  x: (B, 1, D);
+    c_cache (B, S, kvr) and rope_cache (B, S, dr) in the activation dtype,
+    or their codes with ``c_scale``/``r_scale`` for ``kv_bits`` 8 or 2,
+    attended on the codes through ``mla_flash_decode`` (``tile`` = the page
+    size, so this equals :func:`mla_decode_paged` bitwise).  Positions >
+    pos are masked."""
+    b = x.shape[0]
+    h, dv = cfg.n_heads, cfg.v_head_dim
+    positions = torch.full((1,), pos, device=x.device)
+    q_lat, q_rope, expand_v = _mla_q_and_expand(p, cfg, x, positions)
+    if kv_bits in (8, 2):
+        ql, qr = _mla_scaled(cfg, q_lat, q_rope)
+        ctx_lat = mla_flash_decode(
+            ql[:, 0], qr[:, 0], c_cache, c_scale, rope_cache, r_scale, pos,
+            kv_bits=kv_bits, chunk=chunk, dl=cfg.kv_lora_rank,
+            dr=cfg.qk_rope_dim, tile=tile)[:, None]        # (B, 1, H, kvr)
+    else:
+        scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
+        cf, rf = c_cache.float(), rope_cache.float()
+        scores = (matmul(q_lat[:, 0], cf.transpose(1, 2))
+                  + matmul(q_rope[:, 0].float(), rf.transpose(1, 2))) * scale
+        valid = torch.arange(c_cache.shape[1], device=x.device) <= pos
+        prob = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
+        ctx_lat = matmul(prob, cf)[:, None]                  # (B, 1, H, kvr)
+    return linear(expand_v(ctx_lat).reshape(b, 1, h * dv).to(x.dtype),
+                  p["wo"])
+
+
+def mla_decode_paged(p: dict, cfg, x: torch.Tensor, pools: dict,
+                     page_tbl: torch.Tensor, pos: torch.Tensor, *,
+                     kv_bits: int, chunk: int) -> torch.Tensor:
+    """Absorbed MLA decode of every engine slot against block-paged latent
+    pools {"c", "cs", "r", "rs"}: (n_pages, page, w) codes and (n_pages,
+    page // chunk) scales.  x: (B, 1, D); page_tbl: (B, n_tiles); pos:
+    (B,).  The query math is :func:`mla_decode`'s at per-slot positions,
+    so a slot's output is the flat step's."""
+    b = x.shape[0]
+    h, dv = cfg.n_heads, cfg.v_head_dim
+    q_lat, q_rope, expand_v = _mla_q_and_expand(p, cfg, x, pos[:, None])
+    ql, qr = _mla_scaled(cfg, q_lat, q_rope)
+    ctx_lat = paged_mla_flash_decode(
+        page_tbl, pos, ql[:, 0], qr[:, 0], pools["c"], pools["cs"],
+        pools["r"], pools["rs"], kv_bits=kv_bits, chunk=chunk,
+        dl=cfg.kv_lora_rank, dr=cfg.qk_rope_dim,
+        page=pools["c"].shape[1])[:, None]
+    return linear(expand_v(ctx_lat).reshape(b, 1, h * dv).to(x.dtype),
+                  p["wo"])
+
+
+def mla_extend_paged(p: dict, cfg, x: torch.Tensor, c_new: torch.Tensor,
+                     r_new: torch.Tensor, pools: dict, tbl: torch.Tensor,
+                     positions: torch.Tensor, *, kv_bits: int,
+                     chunk: int) -> torch.Tensor:
+    """One prompt chunk's absorbed MLA attention against its request's
+    quantized latent pages plus the chunk's own fp latents (the "paged"
+    chunked prefill).  x: (1, L, D); c_new/r_new: (1, L, kvr|dr) this
+    chunk's cache rows; tbl: (n_past,) pages of the earlier chunks."""
+    b, t, _ = x.shape
+    h, dv = cfg.n_heads, cfg.v_head_dim
+    q_lat, q_rope, expand_v = _mla_q_and_expand(p, cfg, x, positions)
+    ql, qr = _mla_scaled(cfg, q_lat, q_rope)
+    ctx_lat = paged_mla_flash_extend(
+        tbl, ql[0], qr[0], c_new[0].float(), r_new[0].float(), pools["c"],
+        pools["cs"], pools["r"], pools["rs"], kv_bits=kv_bits, chunk=chunk,
+        dl=cfg.kv_lora_rank, dr=cfg.qk_rope_dim,
+        page=pools["c"].shape[1])[None]                     # (1, L, H, kvr)
+    return linear(expand_v(ctx_lat).reshape(b, t, h * dv).to(x.dtype),
+                  p["wo"])

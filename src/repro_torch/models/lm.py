@@ -1,20 +1,26 @@
-"""Dense decoder LM: the GQA-attention + SwiGLU block stack of the
-reference's ``models/lm.py``, for the port's first slice.
+"""Decoder LM: the attention + SwiGLU block stack of the reference's
+``models/lm.py``, with GQA attention (llama3) or MLA (deepseek's dense
+layers) as the mixer.
 
 Parameters are a plain dict, laid out like the reference's with the layer
 stack unrolled into a list (the reference stacks layers on a leading axis
-for ``lax.scan``; ``convert.params_from_jax`` unstacks it)::
+for ``lax.scan``, after a list of ``first_dense_layers`` unstacked
+``prefix`` layers; ``convert.params_from_jax`` maps both)::
 
     {"embed": (V, D), "head": (D, V), "final_norm": (D,),
-     "layers": [{"mixer_norm", "mixer": {"wq", "wk", "wv", "wo"},
-                 "ffn_norm", "ffn": {"wi", "wu", "wd"}}, ...]}
+     "layers": [{"mixer_norm", "mixer": {...}, "ffn_norm",
+                 "ffn": {"wi", "wu", "wd"}}, ...]}
 
-Any projection weight may be a ``PackedWeight`` (keep-packed serving); the
-forward is the same code either way (``layers.linear``).  The KV cache is a
-list of per-layer dicts, updated in place by ``decode_step``: ``{"k", "v"}``
-of shape (B, S, KV, Dh) in the activation dtype (``kv_bits = 0``), or codes
-and scales ``{"k", "ks", "v", "vs"}`` as the layer's codec lays them out
-(``kv_bits`` 8 or 2; S rounded up to a ``kv_chunk`` multiple).  The paged
+with mixer ``{"wq", "wk", "wv", "wo"}`` (GQA) or ``{"wq_a", "q_norm",
+"wq_b", "wkv_a", "kv_norm", "wkv_b", "wo"}`` (MLA).  Any projection weight
+may be a ``PackedWeight`` (keep-packed serving); the forward is the same
+code either way (``layers.linear``).  The KV cache is a list of per-layer
+dicts, updated in place by ``decode_step``.  GQA: ``{"k", "v"}`` of shape
+(B, S, KV, Dh) in the activation dtype (``kv_bits = 0``), or codes and
+scales ``{"k", "ks", "v", "vs"}`` as the layer's codec lays them out
+(``kv_bits`` 8 or 2; S rounded up to a ``kv_chunk`` multiple).  MLA: the
+latent rows ``{"c", "r"}`` (B, S, kvr|dr), or ``{"c", "cs", "r", "rs"}``
+with codes (B, S, w) and scales (B, S / chunk), no head axis.  The paged
 pools of the serving engine (``serving.paged``) hold the same per-layer
 entries with a page axis in place of the batch and sequence axes.
 """
@@ -40,38 +46,68 @@ def _positions(x: torch.Tensor, positions) -> torch.Tensor:
     return positions
 
 
+def _is_mla(cfg: ModelConfig) -> bool:
+    return cfg.attn_kind == "mla"
+
+
+def layer_loc(cfg: ModelConfig, li: int) -> list:
+    """The reference's location of decoder layer ``li`` (packed artifact
+    entries): ``["prefix", li]`` for the first ``first_dense_layers``
+    layers, ``["groups", g, 0]`` for the stacked ones after them."""
+    if li < cfg.first_dense_layers:
+        return ["prefix", li]
+    return ["groups", li - cfg.first_dense_layers, 0]
+
+
 def init_block(gen, cfg: ModelConfig, dtype, device) -> dict:
     d = cfg.d_model
+    init_mixer = att.init_mla if _is_mla(cfg) else att.init_gqa
     return {
         "mixer_norm": torch.ones((d,), dtype=dtype, device=device),
-        "mixer": att.init_gqa(gen, cfg, dtype, device),
+        "mixer": init_mixer(gen, cfg, dtype, device),
         "ffn_norm": torch.ones((d,), dtype=dtype, device=device),
         "ffn": init_dense_ffn(gen, d, cfg.d_ff, dtype, device),
     }
 
 
+def _qkv(p: dict, cfg: ModelConfig, h: torch.Tensor, positions):
+    """Prefill-side (q, k, v, fp cache entry) of the block's mixer: GQA's
+    post-rope K/V, or MLA's expanded per-head q, k, v and its latent rows
+    ``{"c", "r"}``."""
+    if _is_mla(cfg):
+        q, k, v, c_kv, k_rope = att.mla_qkv(p["mixer"], cfg, h, positions)
+        return q, k, v, {"c": c_kv, "r": k_rope}
+    q, k, v = att.gqa_qkv(p["mixer"], cfg, h, positions)
+    return q, k, v, {"k": k, "v": v}
+
+
 def apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
                 positions=None):
     """Full-sequence forward (prefill / calibration).
-    Returns (x, cache) with the block's fp KV ``{"k", "v"}``."""
+    Returns (x, cache) with the block's fp cache entry (``{"k", "v"}`` or
+    MLA's ``{"c", "r"}``)."""
     positions = _positions(x, positions)
-    b, t, _ = x.shape
+    t = x.shape[1]
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
-    q, k, v = att.gqa_qkv(p["mixer"], cfg, h, positions)
+    q, k, v, cache = _qkv(p, cfg, h, positions)
     out = att.flash_attention(q, k, v, kv_chunk=min(512, t))
-    x = x + linear(out.reshape(b, t, -1), p["mixer"]["wo"])
+    return _mix_out(p, cfg, x, out), cache
+
+
+def _ffn_out(p: dict, cfg: ModelConfig, x: torch.Tensor,
+             mix: torch.Tensor) -> torch.Tensor:
+    """Residual of the mixer's output and the FFN half of a block."""
+    x = x + mix
     hf = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    x = x + apply_dense_ffn(p["ffn"], hf)
-    return x, {"k": k, "v": v}
+    return x + apply_dense_ffn(p["ffn"], hf)
 
 
 def _mix_out(p: dict, cfg: ModelConfig, x: torch.Tensor,
              out: torch.Tensor) -> torch.Tensor:
     """Attention output projection, residual and the FFN half of a block."""
     b, t = out.shape[:2]
-    x = x + linear(out.reshape(b, t, -1), p["mixer"]["wo"])
-    hf = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    return x + apply_dense_ffn(p["ffn"], hf)
+    return _ffn_out(p, cfg, x, linear(out.reshape(b, t, -1),
+                                      p["mixer"]["wo"]))
 
 
 def decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
@@ -82,6 +118,20 @@ def decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     positions = torch.full((1,), pos, device=x.device)
+    if _is_mla(cfg):
+        c_kv, k_rope = att.mla_latent(p["mixer"], cfg, h, positions)
+        if codec.quantized:
+            codec.append(cache["c"], cache["cs"], c_kv, pos)
+            codec.append(cache["r"], cache["rs"], k_rope, pos)
+        else:
+            cache["c"][:, pos] = c_kv[:, 0]
+            cache["r"][:, pos] = k_rope[:, 0]
+        mix = att.mla_decode(
+            p["mixer"], cfg, h, cache["c"], cache["r"], pos,
+            c_scale=cache.get("cs"), r_scale=cache.get("rs"),
+            kv_bits=codec.kv_bits, chunk=codec.chunk,
+            tile=codec.page_tokens if codec.quantized else 1)
+        return _ffn_out(p, cfg, x, mix)
     q, k, v = att.gqa_qkv(p["mixer"], cfg, h, positions)
     if codec.quantized:
         codec.append(cache["k"], cache["ks"], k, pos)
@@ -111,8 +161,17 @@ def paged_decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     tile = torch.clamp(pos // codec.page_tokens, max=page_tbl.shape[1] - 1)
     pid = page_tbl[torch.arange(b, device=x.device), tile.long()].long()
-    q, k, v = att.gqa_qkv(p["mixer"], cfg, h, pos[:, None])
     pos_l = pos.long()
+    if _is_mla(cfg):
+        c_kv, k_rope = att.mla_latent(p["mixer"], cfg, h, pos[:, None])
+        att.kv_paged_append(codec, pools["c"], pools["cs"], c_kv, pid, pos_l,
+                            active)
+        att.kv_paged_append(codec, pools["r"], pools["rs"], k_rope, pid,
+                            pos_l, active)
+        mix = att.mla_decode_paged(p["mixer"], cfg, h, pools, page_tbl, pos,
+                                   kv_bits=codec.kv_bits, chunk=codec.chunk)
+        return _ffn_out(p, cfg, x, mix)
+    q, k, v = att.gqa_qkv(p["mixer"], cfg, h, pos[:, None])
     att.kv_paged_append(codec, pools["k"], pools["ks"], k, pid, pos_l, active)
     att.kv_paged_append(codec, pools["v"], pools["vs"], v, pid, pos_l, active)
     out = att.paged_decode_attention_quantized(
@@ -128,16 +187,23 @@ def pad_cache_entry(c: dict, codec, s: int) -> dict:
     code 2, not 0); the zero rows are what the kernels mask out."""
     out = {}
     for key, a in c.items():
-        tgt = s if key in ("k", "v") else codec.scale_rows(s)
+        tgt = s if key in _SCALE_OF else codec.scale_rows(s)
         pad = a.new_zeros((a.shape[0], tgt - a.shape[1]) + a.shape[2:])
         out[key] = torch.cat([a, pad], dim=1)
     return out
 
 
-def _encode_kv(codec, k: torch.Tensor, v: torch.Tensor) -> dict:
-    kq, ks = codec.encode(k)
-    vq, vs = codec.encode(v)
-    return {"k": kq, "ks": ks, "v": vq, "vs": vs}
+# each sequence-indexed cache entry and the entry of its scales
+_SCALE_OF = {"k": "ks", "v": "vs", "c": "cs", "r": "rs"}
+
+
+def _encode_cache(codec, entry: dict) -> dict:
+    """{"k", "v"} or {"c", "r"} fp rows -> codes and scales,
+    {"k", "ks", "v", "vs"} or {"c", "cs", "r", "rs"}."""
+    out = {}
+    for key, a in entry.items():
+        out[key], out[_SCALE_OF[key]] = codec.encode(a)
+    return out
 
 
 def ingest_block(p: dict, cfg: ModelConfig, x: torch.Tensor, buf: dict,
@@ -146,7 +212,9 @@ def ingest_block(p: dict, cfg: ModelConfig, x: torch.Tensor, buf: dict,
     chunked prefill).
 
     x: (1, L, D) chunk rows; buf: this layer's fp K/V buffers of the whole
-    prompt's length ``t_total`` (written in place); start: page-aligned
+    prompt's length ``t_total`` (GQA: post-rope K/V; MLA: the expanded
+    per-head K/V, flash_attention's operands; written in place); start:
+    page-aligned
     chunk offset.  flash_attention runs with ``q_offset=start`` and
     ``kv_chunk=min(512, t_total)``: the same KV chunks in the same order
     under the same mask as the whole-prompt prefill, and every other op is
@@ -155,12 +223,12 @@ def ingest_block(p: dict, cfg: ModelConfig, x: torch.Tensor, buf: dict,
     codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     t = h.shape[1]
-    q, k, v = att.gqa_qkv(p["mixer"], cfg, h, positions)
+    q, k, v, cache = _qkv(p, cfg, h, positions)
     buf["k"][:, start:start + t] = k
     buf["v"][:, start:start + t] = v
     out = att.flash_attention(q, buf["k"], buf["v"],
                               kv_chunk=min(512, t_total), q_offset=start)
-    return _mix_out(p, cfg, x, out), _encode_kv(codec, k, v)
+    return _mix_out(p, cfg, x, out), _encode_cache(codec, cache)
 
 
 def paged_extend_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -174,11 +242,18 @@ def paged_extend_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     (x, chunk_cache)."""
     codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    if _is_mla(cfg):
+        c_kv, k_rope = att.mla_latent(p["mixer"], cfg, h, positions)
+        mix = att.mla_extend_paged(p["mixer"], cfg, h, c_kv, k_rope, pools,
+                                   tbl, positions, kv_bits=codec.kv_bits,
+                                   chunk=codec.chunk)
+        return _ffn_out(p, cfg, x, mix), _encode_cache(
+            codec, {"c": c_kv, "r": k_rope})
     q, k, v = att.gqa_qkv(p["mixer"], cfg, h, positions)
     out = att.paged_extend_attention_quantized(
         q, k, v, pools["k"], pools["ks"], pools["v"], pools["vs"], tbl,
         kv_bits=codec.kv_bits, chunk=codec.chunk)
-    return _mix_out(p, cfg, x, out), _encode_kv(codec, k, v)
+    return _mix_out(p, cfg, x, out), _encode_cache(codec, {"k": k, "v": v})
 
 
 def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
@@ -188,17 +263,25 @@ def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     Returns (y, caps, domains, colsum): ``caps`` maps each weight path to
     its input (B, T, d_in), ``domains`` to "stream" or "hidden", and
     ``colsum`` is the (B, T) AttnCon score from the ``attn_colsum`` kernel
-    (the reference takes it from ``flash_attention(colsum=True)``)."""
+    (the reference takes it from ``flash_attention(colsum=True)``; MLA's
+    from the expanded per-head q and k, H = KV heads of dn + dr)."""
     positions = _positions(x, positions)
     b, t, _ = x.shape
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
-    q, k, v = att.gqa_qkv(p["mixer"], cfg, h, positions)
+    if _is_mla(cfg):
+        q, k, v, c_kv, _, ql = att.mla_qkv_inputs(p["mixer"], cfg, h,
+                                                  positions)
+        caps = ({"mixer/wq_a": h, "mixer/wq_b": ql} if ql is not None
+                else {"mixer/wq": h})
+        caps.update({"mixer/wkv_a": h, "mixer/wkv_b": c_kv})
+    else:
+        q, k, v = att.gqa_qkv(p["mixer"], cfg, h, positions)
+        caps = {"mixer/wq": h, "mixer/wk": h, "mixer/wv": h}
     out = att.flash_attention(q, k, v, kv_chunk=min(512, t))
     colsum = attn_colsum(q, k)
     attn_out = out.reshape(b, t, -1)
     x = x + linear(attn_out, p["mixer"]["wo"])
-    caps = {"mixer/wq": h, "mixer/wk": h, "mixer/wv": h,
-            "mixer/wo": attn_out}
+    caps["mixer/wo"] = attn_out
     dom = {path: "stream" for path in caps}
     hf = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     y, f_caps = capture_dense_ffn(p["ffn"], hf)
@@ -209,13 +292,22 @@ def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 class Model:
-    """Dense GQA decoder for one ``ModelConfig`` on one device."""
+    """Decoder of GQA or MLA blocks with dense FFNs for one ``ModelConfig``
+    on one device."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if cfg.family != "dense" or cfg.attn_kind != "gqa" or cfg.qkv_bias:
+        if cfg.attn_kind == "mla":
+            if set(cfg.ffn_kinds()) != {"dense"} or \
+                    set(cfg.layer_kinds()) != {"attn"}:
+                raise NotImplementedError(
+                    f"{cfg.name}: the port serves MLA layers with a dense "
+                    f"FFN; the routed-expert (MoE) layers are a later slice "
+                    f"(cut the depth to the first {cfg.first_dense_layers} "
+                    f"layers, --n-layers {cfg.first_dense_layers})")
+        elif cfg.family != "dense" or cfg.attn_kind != "gqa" or cfg.qkv_bias:
             raise NotImplementedError(
                 f"{cfg.name}: the port serves dense GQA decoders without qkv "
-                f"bias")
+                f"bias and MLA layers with a dense FFN")
         self.cfg = cfg
         self.codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)  # checks bits
         self.device = resolve_device(device)
@@ -271,7 +363,25 @@ class Model:
         s = self._cache_len(cache_len)
         kvh, dh = cfg.n_kv_heads, cfg.head_dim
 
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        def mla_entry() -> dict:
+            kvr, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
+            if not codec.quantized:
+                return {"c": zeros((batch, s, kvr), self.dtype),
+                        "r": zeros((batch, s, dr), self.dtype)}
+            scales = (batch, codec.scale_rows(s))
+            return {"c": zeros((batch, s, codec.code_cols(kvr)),
+                               codec.code_dtype),
+                    "cs": zeros(scales, codec.scale_dtype),
+                    "r": zeros((batch, s, codec.code_cols(dr)),
+                               codec.code_dtype),
+                    "rs": zeros(scales, codec.scale_dtype)}
+
         def entry() -> dict:
+            if _is_mla(cfg):
+                return mla_entry()
             if not codec.quantized:
                 shape = (batch, s, kvh, dh)
                 return {"k": torch.zeros(shape, dtype=self.dtype, device=dev),
@@ -301,7 +411,7 @@ class Model:
             x, kv = apply_block(p_blk, self.cfg, x, positions=positions)
             if self.codec.quantized:
                 cache.append(pad_cache_entry(
-                    _encode_kv(self.codec, kv["k"], kv["v"]), self.codec, s))
+                    _encode_cache(self.codec, kv), self.codec, s))
             else:
                 cache.append(pad_cache_entry(kv, self.codec, s))
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
@@ -335,13 +445,22 @@ class Model:
 
     # ------------------------------------------------------- chunked prefill
     def init_ingest(self, t_total: int) -> list[dict]:
-        """Transient fp prefix buffers (post-rope K and V of every layer) for
-        the exact chunked prefill of one request of prompt length
-        ``t_total``; they live only while the request is ingesting."""
+        """Transient fp prefix buffers (flash_attention's K and V operands
+        of every layer: GQA's post-rope K/V, MLA's expanded per-head K of
+        dn + dr and V of dv) for the exact chunked prefill of one request
+        of prompt length ``t_total``; they live only while the request is
+        ingesting."""
         cfg = self.cfg
-        shape = (1, t_total, cfg.n_kv_heads, cfg.head_dim)
-        return [{"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
-                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+        if _is_mla(cfg):
+            k_shape = (1, t_total, cfg.n_heads,
+                       cfg.qk_nope_dim + cfg.qk_rope_dim)
+            v_shape = (1, t_total, cfg.n_heads, cfg.v_head_dim)
+        else:
+            k_shape = v_shape = (1, t_total, cfg.n_kv_heads, cfg.head_dim)
+        return [{"k": torch.zeros(k_shape, dtype=self.dtype,
+                                  device=self.device),
+                 "v": torch.zeros(v_shape, dtype=self.dtype,
+                                  device=self.device)}
                 for _ in range(cfg.n_layers)]
 
     def paged_extend_step(self, params: dict, tokens: torch.Tensor,

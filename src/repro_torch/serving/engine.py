@@ -99,6 +99,11 @@ class Engine:
                  n_pages: int = 64, max_pages_per_request: int = 8,
                  burst_steps: int = 8, prefill_chunk: Optional[int] = None,
                  prefill_attn: str = "exact"):
+        if model.cfg.attn_kind not in ("gqa", "mla"):
+            raise ValueError(
+                f"paged serving supports GQA and MLA attention, model has "
+                f"{model.cfg.attn_kind!r}; serve it through "
+                f"launch.serve.generate")
         if prefill_attn not in ("exact", "paged"):
             raise ValueError(f"prefill_attn must be 'exact' or 'paged', got "
                              f"{prefill_attn!r}")

@@ -36,9 +36,12 @@ class PagedPools:
     """Shared paged KV pools and their allocator for one model.
 
     ``n_pages`` counts allocatable pages; one trash page (id 0) is added.
-    ``pools`` is a list of per-layer dicts ``{"k", "ks", "v", "vs"}`` of
-    shapes (n_pages + 1, page, KV, w) and (n_pages + 1, page // chunk,
-    KV)."""
+    ``pools`` is a list of per-layer dicts with the entries of the layer's
+    own cache (``model.init_cache``) and a page axis in place of the batch
+    and sequence axes: GQA ``{"k", "ks", "v", "vs"}`` of shapes (n_pages +
+    1, page, KV, w) and (n_pages + 1, page // chunk, KV); MLA ``{"c",
+    "cs", "r", "rs"}`` of shapes (n_pages + 1, page, w) and (n_pages + 1,
+    page // chunk)."""
 
     def __init__(self, model, n_pages: int):
         codec = model.codec
@@ -139,7 +142,7 @@ class PagedPools:
         """Write a batch-1 prefill cache (per-layer entries of S rows, S a
         page multiple) into pages ``ids``, codes to codes."""
         idx = torch.as_tensor(list(ids), dtype=torch.long,
-                              device=self.pools[0]["k"].device)
+                              device=self.model.device)
         n = idx.numel()
         for pool, c in zip(self.pools, cache):
             for key, a in c.items():

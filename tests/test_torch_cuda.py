@@ -16,7 +16,12 @@ Tolerances are relative to the largest reference magnitude:
     (2^-8 relative) at a different point;
   * quantized-KV attention: 1e-5 — the same dequantized fp32 terms, the
     scale applied after each row's dot product and sums in another order;
-    the paged and the flat decode kernels are compared bitwise.
+    the paged and the flat decode kernels are compared bitwise;
+  * MLA: the head-batched quant_matmul (expand) and quant_matmul_t
+    (absorb) 1e-5 against each head's plain version (fp32 sums in another
+    order); the latent attention kernels 1e-5 against their plain
+    versions (the same dequantized fp32 terms, summed in another order),
+    the paged and the flat latent decode bitwise.
 """
 import numpy as np
 import pytest
@@ -26,15 +31,24 @@ from repro_torch.core.quantizer import QuantSpec, quantize_weight_rtn
 from repro_torch.kernels.attn_colsum.ops import attn_colsum
 from repro_torch.kernels.attn_colsum.ref import attn_colsum_ref
 from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                  mla_flash_decode,
                                                   paged_flash_decode,
-                                                  paged_flash_extend)
+                                                  paged_flash_extend,
+                                                  paged_mla_flash_decode,
+                                                  paged_mla_flash_extend)
 from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
+                                                  mla_flash_decode_ref,
                                                   paged_flash_decode_ref,
-                                                  paged_flash_extend_ref)
+                                                  paged_flash_extend_ref,
+                                                  paged_mla_flash_decode_ref,
+                                                  paged_mla_flash_extend_ref)
 from repro_torch.kernels.gram.ops import weighted_gram
 from repro_torch.kernels.gram.ref import weighted_gram_ref
-from repro_torch.kernels.quant_matmul.ops import pack_weight, quant_matmul
-from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+from repro_torch.kernels.quant_matmul.ops import (mla_latent_weights,
+                                                  pack_weight, quant_matmul,
+                                                  quant_matmul_t)
+from repro_torch.kernels.quant_matmul.ref import (quant_matmul_ref,
+                                                  quant_matmul_t_ref)
 from repro_torch.models.attention import kv_codec
 
 pytestmark = pytest.mark.cuda
@@ -215,4 +229,151 @@ def test_paged_flash_extend_kernel_vs_plain(cuda, kv_bits, n_past, L, d):
     torch.cuda.synchronize()
     assert paged_flash_extend.launches == before + 1
     assert got.shape == (1, L, h, d)
+    assert _rel(got, want) < 1e-5
+
+
+# ------------------------------------------------------------------- MLA
+
+
+def _wkv_b(cuda, bits, h, dn, dv, kvr, gs, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    w = torch.randn((kvr, h * (dn + dv)), generator=g, device=cuda)
+    spec = QuantSpec(bits, gs)
+    _, q, scale, zero = quantize_weight_rtn(w, spec)
+    return pack_weight(q, scale, zero, spec), g
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("h,m,kvr,gs", [(4, 1, 256, 128), (8, 4, 512, 128),
+                                        (3, 9, 130, 130), (128, 4, 512, 128),
+                                        (16, 70, 512, 128)])
+def test_mla_absorb_and_expand_kernels_vs_plain(cuda, bits, h, m, kvr, gs):
+    """One launch each for all heads, on strided views of one packed wkv_b:
+    quant_matmul_t (row 4) and the head-batched quant_matmul (row 3), each
+    head against its own plain call."""
+    dn, dv = 128, 128
+    pw, g = _wkv_b(cuda, bits, h, dn, dv, kvr, gs, seed=8)
+    pw_k, pw_v = mla_latent_weights(pw, h, dn, dv)
+    assert not pw_k.w_packed.is_contiguous()
+    qn = torch.randn((h, m, dn), generator=g, device=cuda)
+    cl = torch.randn((h, m, kvr), generator=g, device=cuda)
+    before = (quant_matmul_t.launches, quant_matmul.launches)
+    lat = quant_matmul_t(qn, pw_k)
+    ctx = quant_matmul(cl, pw_v)
+    torch.cuda.synchronize()
+    assert (quant_matmul_t.launches, quant_matmul.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert lat.shape == (h, m, kvr) and ctx.shape == (h, m, dv)
+    for i in range(h):
+        want_k = quant_matmul_t_ref(qn[i], pw_k.w_packed[i], pw_k.scale[i],
+                                    pw_k.zero[i], bits=bits, group_size=gs,
+                                    d_in=kvr)
+        want_v = quant_matmul_ref(cl[i], pw_v.w_packed[i], pw_v.scale[i],
+                                  pw_v.zero[i], bits=bits, group_size=gs,
+                                  d_in=kvr)
+        assert _rel(lat[i], want_k) < 1e-5, i
+        assert _rel(ctx[i], want_v) < 1e-5, i
+
+
+def _latent(g, b, s, d, kv_bits, device, page=64):
+    codec = kv_codec(kv_bits, page)
+    return codec.encode(torch.randn((b, s, d), generator=g, device=device))
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("b,s,h,dl,dr,pos", [
+    (2, 192, 4, 32, 16, 150), (1, 100, 3, 40, 8, 99),
+    (2, 1088, 128, 512, 64, 1087), (4, 700, 20, 512, 64, 37)])
+def test_mla_flash_decode_kernel_vs_plain(cuda, kv_bits, b, s, h, dl, dr,
+                                          pos):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    cq, cs = _latent(g, b, s, dl, kv_bits, cuda)
+    rq, rs = _latent(g, b, s, dr, kv_bits, cuda)
+    chunk = kv_codec(kv_bits, 64).chunk
+    ql = torch.randn((b, h, dl), generator=g, device=cuda) * 0.05
+    qr = torch.randn((b, h, dr), generator=g, device=cuda) * 0.05
+    kw = dict(kv_bits=kv_bits, chunk=chunk, dl=dl, dr=dr)
+    acc, _, l = mla_flash_decode_ref(ql, qr, cq, cs, rq, rs, pos, tile=64,
+                                     **kw)
+    want = _finalized(acc, l)
+    for p in (pos, torch.full((b,), pos, dtype=torch.int32, device=cuda)):
+        before = mla_flash_decode.launches
+        got = mla_flash_decode(ql, qr, cq, cs, rq, rs, p, tile=64, **kw)
+        torch.cuda.synchronize()
+        assert mla_flash_decode.launches == before + 1
+        assert got.shape == (b, h, dl)
+        assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("h,dl,dr,pos", [(4, 32, 16, [70, 511, 0]),
+                                         (128, 512, 64, [37, 500, 255])])
+def test_paged_mla_flash_decode_kernel_vs_plain_and_flat(cuda, kv_bits, h,
+                                                         dl, dr, pos):
+    """Shuffled page table with a trash entry past every position and stale
+    codes on the trash page: paged == plain within 1e-5 and == the flat
+    kernel bitwise (tile = page)."""
+    page, b, s = 64, len(pos), 512
+    g = torch.Generator(device=cuda).manual_seed(10)
+    cq, cs = _latent(g, b, s, dl, kv_bits, cuda)
+    rq, rs = _latent(g, b, s, dr, kv_bits, cuda)
+    chunk = kv_codec(kv_bits, 64).chunk
+    ql = torch.randn((b, h, dl), generator=g, device=cuda) * 0.05
+    qr = torch.randn((b, h, dr), generator=g, device=cuda) * 0.05
+    n_tiles = s // page
+    perm = torch.randperm(b * n_tiles, generator=torch.Generator()
+                          .manual_seed(11)) + 1
+    tbl = perm.reshape(b, n_tiles).to(torch.int32)
+    pools = []
+    for codes, scales in ((cq, cs), (rq, rs)):
+        cp = torch.zeros((b * n_tiles + 1, page, codes.shape[-1]),
+                         dtype=codes.dtype, device=cuda)
+        sp = torch.zeros((b * n_tiles + 1, page // chunk),
+                         dtype=scales.dtype, device=cuda)
+        cp[perm.to(cuda)] = codes.reshape(b * n_tiles, page, -1)
+        sp[perm.to(cuda)] = scales.reshape(b * n_tiles, page // chunk)
+        pools += [cp, sp]
+    pools[0][0] = cq[0, :page]
+    tbl = torch.cat([tbl, torch.zeros((b, 1), dtype=torch.int32)], 1).to(cuda)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    kw = dict(kv_bits=kv_bits, chunk=chunk, dl=dl, dr=dr)
+    acc, _, l = paged_mla_flash_decode_ref(tbl, pos_t, ql, qr, *pools,
+                                           page=page, **kw)
+    before = paged_mla_flash_decode.launches
+    got = paged_mla_flash_decode(tbl, pos_t, ql, qr, *pools, page=page, **kw)
+    flat = mla_flash_decode(ql, qr, cq, cs, rq, rs, pos_t, tile=page, **kw)
+    torch.cuda.synchronize()
+    assert paged_mla_flash_decode.launches == before + 1
+    assert _rel(got, _finalized(acc, l)) < 1e-5
+    assert torch.equal(got, flat)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("n_past,L,h,dl,dr", [
+    (0, 37, 4, 32, 16), (3, 64, 3, 40, 8), (2, 1, 128, 512, 64),
+    (4, 130, 128, 512, 64)])
+def test_paged_mla_flash_extend_kernel_vs_plain(cuda, kv_bits, n_past, L, h,
+                                                dl, dr):
+    page = 64
+    g = torch.Generator(device=cuda).manual_seed(12)
+    n_pages = n_past + 3
+    cq, cs = _latent(g, 1, n_pages * page, dl, kv_bits, cuda)
+    rq, rs = _latent(g, 1, n_pages * page, dr, kv_bits, cuda)
+    chunk = kv_codec(kv_bits, 64).chunk
+    pools = [cq.reshape(n_pages, page, -1), cs.reshape(n_pages, -1),
+             rq.reshape(n_pages, page, -1), rs.reshape(n_pages, -1)]
+    tbl = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(13))[:n_past].to(torch.int32)
+           + 1).to(cuda)
+    ql = torch.randn((L, h, dl), generator=g, device=cuda) * 0.05
+    qr = torch.randn((L, h, dr), generator=g, device=cuda) * 0.05
+    c_new = torch.randn((L, dl), generator=g, device=cuda)
+    r_new = torch.randn((L, dr), generator=g, device=cuda)
+    kw = dict(kv_bits=kv_bits, chunk=chunk, dl=dl, dr=dr, page=page)
+    want = paged_mla_flash_extend_ref(tbl, ql, qr, c_new, r_new, *pools, **kw)
+    before = paged_mla_flash_extend.launches
+    got = paged_mla_flash_extend(tbl, ql, qr, c_new, r_new, *pools, **kw)
+    torch.cuda.synchronize()
+    assert paged_mla_flash_extend.launches == before + 1
+    assert got.shape == (L, h, dl)
     assert _rel(got, want) < 1e-5

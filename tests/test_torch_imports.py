@@ -41,6 +41,16 @@ def test_quantized_kv_serving_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "kernels/quant_matmul/ops.py", "kernels/quant_matmul/ref.py",
+    "kernels/quant_matmul/kernel.py", "configs/deepseek_v3_671b.py",
+    "models/attention.py", "checkpoint/packed.py", "convert.py"])
+def test_mla_modules_are_checked(module):
+    """The MLA slice's modules are among the sources the boundary check
+    reads."""
+    assert ROOT / "src" / "repro_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = _imported_roots(path) & FORBIDDEN

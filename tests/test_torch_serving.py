@@ -388,3 +388,27 @@ def test_kv_cache_bytes_is_the_layout_of_init_cache(kv_bits, cache_len):
 
     assert serve.kv_cache_bytes(model, 3, cache_len) == (
         allocated(model), allocated(fp_model))
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8, 2])
+@pytest.mark.parametrize("cache_len", [70, 128])
+def test_kv_cache_bytes_is_the_layout_of_init_cache_mla(kv_bits, cache_len):
+    """The same for MLA's latent cache: per token and layer kv_lora_rank +
+    qk_rope_dim values (their codes and scales), no head axis."""
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config("deepseek-v3-671b-smoke"),
+                              kv_bits=kv_bits, dtype="bfloat16",
+                              n_routed_experts=0, n_shared_experts=0,
+                              moe_top_k=0, moe_d_ff=0)
+    model = Model(cfg, device="cpu")
+    fp_model = Model(dataclasses.replace(cfg, kv_bits=0), device="cpu")
+
+    def allocated(m):
+        return sum(a.numel() * a.element_size()
+                   for c in m.init_cache(3, cache_len) for a in c.values())
+
+    assert serve.kv_cache_bytes(model, 3, cache_len) == (
+        allocated(model), allocated(fp_model))
+    assert serve.kv_cache_bytes(fp_model, 3, cache_len)[0] == (
+        cfg.n_layers * 3 * cache_len
+        * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2)
