@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --compare-quant-matmul OTHER/src
 
 Phases, in order; any failure exits non-zero before the final line:
   1. card and build: the card's name and power limit, then every CUDA
@@ -12,9 +13,16 @@ Phases, in order; any failure exits non-zero before the final line:
      times for the kernel, the plain
      version, a one-call PyTorch yardstick (``library_ms``, used nowhere in
      the port) and the least time the card could take (``bound_ms``);
+     ``quant_matmul``'s three kernels each where a path runs it: the
+     split-k decode (m 4) and the tensor-core tile (bf16, m 256 and 512)
+     at llama3-8b's and deepseek-v3's projections, the fp32 tile on MLA's
+     head-batched expand of a prefill chunk; ``fwht`` (through
+     ``hadamard_transform``) at the models' widths, though no path of the
+     system runs it;
   3. the main path: RSQ quantize of llama3-8b at full width and 1 layer
      (random weights from a seed) -> packed artifact -> keep-packed greedy
-     serve in bf16, with every kernel's launches counted over that run;
+     serve in bf16, with every kernel's launches counted over that run
+     (``quant_matmul``'s by the kernel that ran, too);
      the keep-packed serve is compared with a serve of the same artifact
      with weights dequantized at load time, and two of layer 0's GPTQ
      solves (Hessians from the kernels, solver on the card) are compared
@@ -39,9 +47,19 @@ Phases, in order; any failure exits non-zero before the final line:
      path (``mla_flash_decode``, ``paged_mla_flash_decode``,
      ``paged_mla_flash_extend``) with the same checks, its launches
      counted from zero.
-The last two lines are the ``kernels`` JSON object (ten kernels) and
+Each path fails if a kernel it runs was never launched.  The last two
+lines are the ``kernels`` JSON object (eleven kernels; ``quant_matmul``'s
+entry is its decode row with ``prefill`` and ``prefill_fp32`` rows beside
+it, each with its kernel's launches on both paths) and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 reference package.
+
+``--compare-quant-matmul OTHER/src`` runs no phase: it times the packed
+matmul as phase 2 does at llama3-8b's down projection, bf16, 3 and 4 bits,
+m 4, 256 and 512, with ``repro_torch`` imported from OTHER/src (another
+checkout, e.g. the parent commit from ``git archive``) and from this one in
+turns (other, this, this, other; one process each) and prints the four
+runs as one JSON line.
 """
 from __future__ import annotations
 
@@ -76,6 +94,23 @@ ENGINE_RATE = 0.5  # Poisson arrivals per scheduling round
 ENGINE_MODES = (("whole", None, "exact"), ("chunked-exact", ENGINE_CHUNK,
                                            "exact"),
                 ("chunked-paged", ENGINE_CHUNK, "paged"))
+# phase 2's packed-matmul rows: decode (the serve batch), prefill (batch x
+# prompt) and the engine's whole prompt
+QMM_M = (SERVE_BATCH, SERVE_BATCH * PROMPT_LEN, ENGINE_PROMPT)
+# quant_matmul's launches are also counted by the CUDA kernel that ran: the
+# split-k decode (m <= 4), the tensor-core tile (bf16 x) and the fp32 tile
+# (fp32 x).  Both paths require each kernel they run; the main path serves
+# in bf16 only and never takes the fp32 tile, which MLA's head-batched
+# expand runs (fp32 x, m > 4) on the MLA path
+QMM_KERNELS = ("qmm_decode", "qmm_tc", "qmm_tile")
+MAIN_PATH_WITHOUT = ("qmm_tile",)
+# phase 2 widths of fwht: llama3-8b's d_model (a pure FWHT) and d_ff =
+# 2^11·7, deepseek-v3's d_model 2^10·7 and d_ff 2^11·9, each over one
+# calibration batch; and the reference benchmark's 512 x 512
+HADAMARD_SHAPES = ((CALIB_BATCH * CALIB_SEQ, 4096),
+                   (CALIB_BATCH * CALIB_SEQ, 14336),
+                   (CALIB_BATCH * CALIB_SEQ, 7168),
+                   (CALIB_BATCH * CALIB_SEQ, 18432), (512, 512))
 # phase 2 shapes of the quantized-KV kernels (llama3-8b heads)
 FD_B, FD_S, FD_KV, FD_G, FD_DH, FD_TAIL = 4, 8192, 8, 4, 128, 37
 FE_L, FE_PAST = 256, 16
@@ -127,6 +162,13 @@ TOL_SERVE_LOGITS = 2e-2
 # fewer codes equal than fp32 noise does.
 MIN_CODE_MATCH = 0.90
 TOL_PROXY = 0.01  # relative: proxy loss, and output error on the CPU's H
+
+# kernels that no path of the system launches, with the reason; every other
+# kernel must launch on the paths that count it
+NO_PATH = {"fwht": "no path runs it: core/rotation applies dense Hadamard "
+                   "matrices (in the reference too) and nothing outside "
+                   "kernels/hadamard calls fwht; held to its plain version "
+                   "in phase 2 only"}
 
 
 def fail(msg: str) -> None:
@@ -195,8 +237,9 @@ def errors(got, want) -> tuple[float, float]:
 
 class Checks:
     """Phase 2's record: one logged row per (kernel, shape) against its
-    plain version, the representative row of each kernel in ``rows``, and
-    the disagreements in ``bad``."""
+    plain version, the representative row of each kernel in ``rows`` (under
+    the kernel's name, or the key ``representative`` names), and the
+    disagreements in ``bad``."""
 
     def __init__(self, timer):
         self.timer = timer
@@ -214,7 +257,8 @@ class Checks:
         if not (rel_err <= tol):
             self.bad.append(f"{name} {shape}: rel err {rel_err:.3g} > {tol}")
         if representative:
-            self.rows[name] = row
+            key = representative if isinstance(representative, str) else name
+            self.rows[key] = row
 
     def clones(self, tensors, nbytes):
         """Independent copies of ``tensors`` so timed calls run cold."""
@@ -223,15 +267,45 @@ class Checks:
                             for _ in range(n - 1)]
 
 
+def rtn_packed(torch, g, kk: int, nn: int, bits: int):
+    """A random (kk, nn) weight drawn from ``g``, RTN-quantized at group
+    GROUP and packed: (PackedWeight, the dequantized weight in bf16)."""
+    from repro_torch.core.quantizer import QuantSpec, quantize_weight_rtn
+    from repro_torch.kernels.quant_matmul.ops import pack_weight
+
+    spec = QuantSpec(bits=bits, group_size=GROUP)
+    w = torch.randn((kk, nn), generator=g, device="cuda") * kk ** -0.5
+    _, qc, sc, zr = quantize_weight_rtn(w, spec)
+    pw = pack_weight(qc, sc, zr, spec)
+    w_bf16 = ((qc.float().reshape(-1, GROUP, nn) - zr[:, None])
+              * sc[:, None]).reshape(kk, nn).to(torch.bfloat16)
+    return pw, w_bf16
+
+
+def qmm_bytes(x, pw) -> int:
+    """Bytes a 2-D ``quant_matmul`` call must move: x, the packed weight
+    and y, each once."""
+    return (x.numel() + x.shape[0] * pw.w_packed.shape[-1]) \
+        * x.element_size() + pw.nbytes
+
+
+def packed_sets(checks: Checks, x, pw) -> list:
+    """Cold copies [(x, pw), ...] of a ``quant_matmul`` call's inputs for
+    the timer (``Checks.clones``)."""
+    sets = checks.clones((x, pw.w_packed, pw.scale, pw.zero),
+                         qmm_bytes(x, pw))
+    return [(a[0], dataclasses.replace(pw, w_packed=a[1], scale=a[2],
+                                       zero=a[3])) for a in sets]
+
+
 def check_kernels(torch, checks: Checks) -> None:
     """Phase 2, first slice: gram, attn_colsum and quant_matmul vs their
     plain versions at the main path's shapes."""
-    from repro_torch.core.quantizer import QuantSpec, quantize_weight_rtn
     from repro_torch.kernels.attn_colsum.ops import attn_colsum
     from repro_torch.kernels.attn_colsum.ref import attn_colsum_ref
     from repro_torch.kernels.gram.ops import weighted_gram
     from repro_torch.kernels.gram.ref import weighted_gram_ref
-    from repro_torch.kernels.quant_matmul.ops import pack_weight, quant_matmul
+    from repro_torch.kernels.quant_matmul.ops import quant_matmul
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 
     dev = torch.device("cuda")
@@ -287,42 +361,99 @@ def check_kernels(torch, checks: Checks) -> None:
     del q, k, want, got, sets
 
     # quant_matmul: every llama3-8b block projection, decode (m = serve
-    # batch) and prefill (m = batch * prompt), 3- and 4-bit, group 128, bf16
+    # batch) and prefill (m = batch * prompt, and the engine's whole
+    # prompt), 3- and 4-bit, group 128, bf16
     shapes = {"wq/wo": (4096, 4096), "wk/wv": (4096, 1024),
               "wi/wu": (4096, 14336), "wd": (14336, 4096)}
     for bits in (3, 4):
-        spec = QuantSpec(bits=bits, group_size=GROUP)
         for wname, (kk, nn) in shapes.items():
-            w = torch.randn((kk, nn), generator=g, device=dev) * kk ** -0.5
-            _, qc, sc, zr = quantize_weight_rtn(w, spec)
-            pw = pack_weight(qc, sc, zr, spec)
-            w_bf16 = ((qc.float().reshape(-1, GROUP, nn) - zr[:, None])
-                      * sc[:, None]).reshape(kk, nn).to(torch.bfloat16)
-            del w, qc
-            for m in (SERVE_BATCH, SERVE_BATCH * PROMPT_LEN):
-                x = torch.randn((m, kk), generator=g, device=dev).to(
-                    torch.bfloat16)
-                want = quant_matmul_ref(x.float(), pw.w_packed, pw.scale,
-                                        pw.zero, bits=bits, group_size=GROUP)
-                got = quant_matmul(x, pw)
-                nbytes = m * kk * 2 + pw.nbytes + m * nn * 2
-                sets = clones((x, pw.w_packed, pw.scale, pw.zero), nbytes)
-                pws = [(a[0], dataclasses.replace(pw, w_packed=a[1],
-                                                  scale=a[2], zero=a[3]))
-                       for a in sets]
-                ms = timer.ms(lambda a=a: quant_matmul(*a) for a in pws)
-                plain_ms = timer.ms(lambda a=a: quant_matmul_ref(
-                    a[0], a[1], a[2], a[3], bits=bits, group_size=GROUP)
-                    for a in sets)
-                libs = clones((x, w_bf16), m * kk * 2 + kk * nn * 2 + m * nn * 2)
-                library_ms = timer.ms(lambda a=a: a[0] @ a[1] for a in libs)
-                record("quant_matmul",
-                       {"weight": wname, "m": m, "k": kk, "n": nn,
-                        "bits": bits}, got, want, TOL_BF16, ms, plain_ms,
-                       library_ms, nbytes, 2.0 * m * nn * kk, "bfloat16",
-                       bits == BITS and wname == "wd" and m == SERVE_BATCH)
-                del sets, pws, libs
-            del pw, w_bf16
+            main = bits == BITS and wname == "wd"
+            check_packed(torch, checks, g, wname, kk, nn, bits, QMM_M,
+                         main and {SERVE_BATCH: True,
+                                   SERVE_BATCH * PROMPT_LEN:
+                                   "quant_matmul_prefill"})
+    torch.cuda.empty_cache()
+
+
+def check_packed(torch, checks: Checks, g, wname: str, kk: int, nn: int,
+                 bits: int, ms_: tuple, representative=None,
+                 arch: str = ARCH) -> None:
+    """``quant_matmul`` with bf16 x against its plain version at one
+    projection (kk -> nn, an RTN weight drawn from ``g``, group GROUP) for
+    each m in ``ms_``; ``representative`` maps an m to its row's key."""
+    from repro_torch.kernels.quant_matmul.ops import quant_matmul
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+
+    timer = checks.timer
+    pw, w_bf16 = rtn_packed(torch, g, kk, nn, bits)
+    for m in ms_:
+        x = torch.randn((m, kk), generator=g, device="cuda").to(
+            torch.bfloat16)
+        want = quant_matmul_ref(x.float(), pw.w_packed, pw.scale, pw.zero,
+                                bits=bits, group_size=GROUP)
+        got = quant_matmul(x, pw)
+        pws = packed_sets(checks, x, pw)
+        ms = timer.ms(lambda a=a: quant_matmul(*a) for a in pws)
+        plain_ms = timer.ms(lambda a=a: quant_matmul_ref(
+            a[0], a[1].w_packed, a[1].scale, a[1].zero, bits=bits,
+            group_size=GROUP) for a in pws)
+        libs = checks.clones((x, w_bf16), m * kk * 2 + kk * nn * 2
+                             + m * nn * 2)
+        library_ms = timer.ms(lambda a=a: a[0] @ a[1] for a in libs)
+        checks.record("quant_matmul",
+                      {"arch": arch, "weight": wname, "m": m, "k": kk,
+                       "n": nn, "bits": bits}, got, want, TOL_BF16, ms,
+                      plain_ms, library_ms, qmm_bytes(x, pw),
+                      2.0 * m * nn * kk, "bfloat16",
+                      (representative or {}).get(m, False))
+        del pws, libs
+
+
+def check_hadamard(torch, checks: Checks) -> None:
+    """Phase 2, ``fwht`` (no path of the system runs it: ``core/rotation``
+    applies dense Hadamard matrices): ``hadamard_transform`` against its
+    plain version (the torch butterfly) at HADAMARD_SHAPES, fp32 and bf16,
+    with Q_m from the port's own generator.  The representative row is the
+    pure FWHT at (2048, 4096) fp32; the yardstick for the power-of-two
+    widths is the dense fp32 product ``x @ H_d`` (cuBLAS) that
+    ``core/rotation`` applies today."""
+    from repro_torch.core.rotation import random_orthogonal
+    from repro_torch.device import generator
+    from repro_torch.kernels.hadamard.ops import hadamard_transform
+    from repro_torch.kernels.hadamard.ref import (hadamard_matrix,
+                                                  hadamard_transform_ref,
+                                                  pow2_factor)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    q_gen = generator(SEED, dev)
+    timer, record, clones = checks.timer, checks.record, checks.clones
+    for rows, d in HADAMARD_SHAPES:
+        k2, m = pow2_factor(d)
+        q_m = random_orthogonal(q_gen, m) if m > 1 else None
+        for dtype, tol in ((torch.float32, TOL_FP32),
+                           (torch.bfloat16, TOL_BF16)):
+            x = torch.randn((rows, d), generator=g, device=dev).to(dtype)
+            want = hadamard_transform_ref(x, q_m)
+            got = hadamard_transform(x, q_m)
+            nbytes = 2 * rows * d * x.element_size()  # read x, write y
+            # one add per value per butterfly stage, and the Q_m product
+            flops = rows * d * (math.log2(k2) + (2 * m if m > 1 else 0))
+            sets = clones((x,), nbytes)
+            ms = timer.ms(lambda a=a: hadamard_transform(a[0], q_m)
+                          for a in sets)
+            plain_ms = timer.ms(lambda a=a: hadamard_transform_ref(a[0], q_m)
+                                for a in sets)
+            library_ms = None
+            if m == 1 and dtype == torch.float32:
+                h = hadamard_matrix(d).to(dev)
+                library_ms = timer.ms(lambda a=a: a[0] @ h for a in sets)
+                del h
+            record("fwht", {"op": "hadamard_transform", "n": rows, "d": d,
+                            "m": m, "dtype": str(dtype).split(".")[-1]},
+                   got, want, tol, ms, plain_ms, library_ms, nbytes, flops,
+                   "float32", d == 4096 and dtype == torch.float32)
+            del x, want, got, sets
     torch.cuda.empty_cache()
 
 
@@ -494,13 +625,16 @@ def check_mla_kernels(torch, checks: Checks) -> None:
     """Phase 2, MLA slice, at deepseek-v3's shapes: the absorb
     (``quant_matmul_t``) and expand (head-batched ``quant_matmul``) steps on
     the per-head views of one packed wkv_b (H 128, m 4, 2/3/4/8 bits, group
-    128); the latent flash decode (kv8, kv2) at B 4, S 8192, H 128, latent
+    128), and the expand of a prefill chunk (fp32 x, m = ENGINE_CHUNK: the
+    fp32 tile); the bf16 prefill projections (m 256 and 512, 3 bits: the
+    tensor-core tile); the latent flash decode (kv8, kv2) at B 4, S 8192, H 128, latent
     512, rope 64, pos = S - 37, flat and through a shuffled page table with
     a trash entry (held bitwise to the flat call); the chunked-prefill
     extend at L 256 over 16 past pages.  Yardsticks: ``torch.bmm`` on the
     dequantized bf16 per-head weights; ``scaled_dot_product_attention``
     (one KV head, ``enable_gqa``, key [c, r] and value c, dequantized to
-    bf16 beforehand, untimed)."""
+    bf16 beforehand, untimed); for the projections and the fp32 expand the
+    product with the dequantized weight (bf16 and fp32)."""
     import torch.nn.functional as F
 
     from repro_torch.core.quantizer import QuantSpec, quantize_weight_rtn
@@ -524,7 +658,8 @@ def check_mla_kernels(torch, checks: Checks) -> None:
     h, dn, dv, dl, dr = MLA_H, MLA_DN, MLA_DV, MLA_DL, MLA_DR
     m = SERVE_BATCH
 
-    # absorb and expand: one launch for all heads on strided views
+    # absorb and expand: one launch for all heads on strided views; the
+    # decode step (m = serve batch) and the expand of one prefill chunk
     for bits in (2, 3, 4, 8):
         spec = QuantSpec(bits=bits, group_size=GROUP)
         w = torch.randn((dl, h * (dn + dv)), generator=g, device=dev) \
@@ -533,9 +668,10 @@ def check_mla_kernels(torch, checks: Checks) -> None:
         pw = pack_weight(qc, sc, zr, spec)
         del w, qc, sc, zr
         pw_k, pw_v = mla_latent_weights(pw, h, dn, dv)
-        rows = {"absorb": (pw_k, dn, dl), "expand": (pw_v, dl, dv)}
-        for step, (pv, d_in, d_out) in rows.items():
-            x = torch.randn((h, m, d_in), generator=g, device=dev)
+        rows = {"absorb": (pw_k, dn, dl, m), "expand": (pw_v, dl, dv, m),
+                "expand prefill": (pw_v, dl, dv, ENGINE_CHUNK)}
+        for step, (pv, d_in, d_out, rows_m) in rows.items():
+            x = torch.randn((h, rows_m, d_in), generator=g, device=dev)
             if step == "absorb":
                 fn, name = quant_matmul_t, "quant_matmul_t"
                 plain = quant_matmul_t_ref
@@ -547,7 +683,7 @@ def check_mla_kernels(torch, checks: Checks) -> None:
             got = fn(x, pv)
             view_b = sum(a.numel() * a.element_size()
                          for a in (pv.w_packed, pv.scale, pv.zero))
-            nbytes = view_b + x.numel() * 4 + h * m * d_out * 4
+            nbytes = view_b + x.numel() * 4 + h * rows_m * d_out * 4
             sets = clones((x, pw.w_packed, pw.scale, pw.zero), nbytes)
 
             def views(a, step=step):
@@ -565,19 +701,33 @@ def check_mla_kernels(torch, checks: Checks) -> None:
                                                                      dl),
                                     pv.w_packed, pv.scale, pv.zero,
                                     bits=bits, group_size=GROUP, d_in=dl)
-            # per-head weight as the product multiplies it, bf16
+            # per-head weight as the product multiplies it: bf16 for the
+            # decode steps, fp32 (the same function) for the prefill chunk
+            lib_t = torch.float32 if rows_m > m else torch.bfloat16
             wb = (wdeq.transpose(1, 2) if step == "absorb" else
-                  wdeq).to(torch.bfloat16).contiguous()
-            libs = clones((x.to(torch.bfloat16), wb),
-                          x.numel() * 2 + wb.numel() * 2)
+                  wdeq).to(lib_t).contiguous()
+            libs = clones((x.to(lib_t), wb),
+                          (x.numel() + wb.numel()) * wb.element_size())
             library_ms = timer.ms(lambda a=a: torch.bmm(*a) for a in libs)
-            record(name, {"weight": f"wkv_b {step}", "H": h, "m": m,
+            key = {"absorb": "quant_matmul_t",
+                   "expand prefill": "quant_matmul_prefill_fp32"}.get(step)
+            record(name, {"weight": f"wkv_b {step}", "H": h, "m": rows_m,
                           "k": d_in, "n": d_out, "bits": bits}, got, want,
                    TOL_FP32, ms, plain_ms, library_ms, nbytes,
-                   2.0 * h * m * d_in * d_out, "float32",
-                   name == "quant_matmul_t" and bits == BITS)
+                   2.0 * h * rows_m * d_in * d_out, "float32",
+                   bits == BITS and key)
             del sets, pws, libs, wdeq, wb, x
         del pw, pw_k, pw_v
+    torch.cuda.empty_cache()
+
+    # the bf16 prefill projections of a dense layer (tensor-core tile):
+    # wkv_a's 576 columns are not a multiple of the 128-column tile
+    proj = {"wq_a": (7168, 1536), "wq_b": (1536, h * (dn + dr)),
+            "wkv_a": (7168, dl + dr), "wo": (h * dv, 7168),
+            "wi/wu": (7168, 18432), "wd": (18432, 7168)}
+    for wname, (kk, nn) in proj.items():
+        check_packed(torch, checks, g, wname, kk, nn, BITS,
+                     QMM_M[1:], arch=MLA_ARCH)
     torch.cuda.empty_cache()
 
     def to_bf16(codes, scales, codec, d, rows):
@@ -1267,17 +1417,35 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
         fail(f"quantized-KV serving of {arch}: " + "; ".join(bad))
 
 
+def reset_counts(counted: dict) -> None:
+    """Every launch count of ``counted``'s wrappers to 0 (quant_matmul's
+    by kernel too)."""
+    for fn in counted.values():
+        fn.launches = 0
+        if hasattr(fn, "by_kernel"):
+            fn.by_kernel = dict.fromkeys(fn.by_kernel, 0)
+
+
+def read_counts(counted: dict) -> dict:
+    """{name: launches} of ``counted``, with quant_matmul's launches by
+    kernel under the kernels' names (``QMM_KERNELS``)."""
+    out = {name: fn.launches for name, fn in counted.items()}
+    out.update(counted["quant_matmul"].by_kernel)
+    return out
+
+
 def main_path(torch) -> tuple[dict, dict]:
     """Phase 3: quantize -> artifact -> keep-packed serve, launches counted."""
     from repro_torch.checkpoint.packed import load_packed_artifact
     from repro_torch.kernels.attn_colsum.ops import attn_colsum
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.gram.ops import weighted_gram
+    from repro_torch.kernels.hadamard.ops import fwht
     from repro_torch.kernels.quant_matmul.ops import quant_matmul
     from repro_torch.launch import quantize, serve
 
     counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
-               "quant_matmul": quant_matmul}
+               "quant_matmul": quant_matmul, "fwht": fwht}
     art = ROOT / "build" / "chip_smoke_artifact"
     shutil.rmtree(art, ignore_errors=True)
     common = ["--arch", ARCH, "--n-layers", str(N_LAYERS), "--device", "cuda"]
@@ -1285,8 +1453,7 @@ def main_path(torch) -> tuple[dict, dict]:
                            "--batch", str(SERVE_BATCH), "--prompt-len",
                            str(PROMPT_LEN), "--gen", str(N_GEN)]
     try:
-        for fn in counted.values():
-            fn.launches = 0
+        reset_counts(counted)
         t0 = time.perf_counter()
         q = quantize.main(common + [
             "--bits", str(BITS), "--group-size", str(GROUP),
@@ -1301,7 +1468,7 @@ def main_path(torch) -> tuple[dict, dict]:
                    if name.removeprefix("layer0/") in SOLVE_CHECK}
         torch.cuda.empty_cache()
         packed = serve.main(serve_args)
-        launches = {name: fn.launches for name, fn in counted.items()}
+        launches = read_counts(counted)
         dequant = serve.main(serve_args + ["--no-keep-packed"])
         traced = serve.main(serve_args + ["--profile"])["profile"]
         t0 = time.perf_counter()
@@ -1352,7 +1519,9 @@ def main_path(torch) -> tuple[dict, dict]:
     ratio = summary["ppl_ratio"]
     if not (math.isfinite(ratio) and ratio < 1.5):
         fail(f"quantized/fp perplexity ratio {ratio} (expected finite, < 1.5)")
-    missing = [name for name, c in launches.items() if c <= 0]
+    missing = [name for name, c in launches.items()
+               if c <= 0 and name not in NO_PATH
+               and name not in MAIN_PATH_WITHOUT]
     if missing:
         fail(f"main path never launched: {missing}")
     check_solves(torch, entries, proxy0)
@@ -1372,13 +1541,14 @@ def mla_path(torch) -> dict:
     from repro_torch.kernels.attn_colsum.ops import attn_colsum
     from repro_torch.kernels.flash_decode import ops as fd_ops
     from repro_torch.kernels.gram.ops import weighted_gram
+    from repro_torch.kernels.hadamard.ops import fwht
     from repro_torch.kernels.quant_matmul.ops import (quant_matmul,
                                                       quant_matmul_t)
     from repro_torch.launch import quantize, serve
 
     counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
                "quant_matmul": quant_matmul,
-               "quant_matmul_t": quant_matmul_t}
+               "quant_matmul_t": quant_matmul_t, "fwht": fwht}
     counted.update({name: getattr(fd_ops, name) for name in KvAudit.MLA
                     if name != "quant_matmul_t"})
     art = ROOT / "build" / "chip_smoke_mla_artifact"
@@ -1389,8 +1559,7 @@ def mla_path(torch) -> dict:
                            "--batch", str(SERVE_BATCH), "--prompt-len",
                            str(PROMPT_LEN), "--gen", str(N_GEN)]
     try:
-        for fn in counted.values():
-            fn.launches = 0
+        reset_counts(counted)
         t0 = time.perf_counter()
         q = quantize.main(common + [
             "--bits", str(BITS), "--group-size", str(GROUP),
@@ -1417,7 +1586,7 @@ def mla_path(torch) -> dict:
         # too: both bit widths take the lossy rule here
         kv_path(torch, art, arch=MLA_ARCH, n_layers=MLA_LAYERS,
                 audit_names=KvAudit.MLA, lossy_paged_bits=KV_BITS)
-        launches = {name: fn.launches for name, fn in counted.items()}
+        launches = read_counts(counted)
         log({"phase_seconds": {"mla_kv_path": time.perf_counter() - t1}})
     finally:
         shutil.rmtree(art, ignore_errors=True)
@@ -1466,7 +1635,8 @@ def mla_path(torch) -> dict:
     if not (math.isfinite(ratio) and ratio < 1.5):
         fail(f"MLA: quantized/fp perplexity ratio {ratio} (expected finite, "
              f"< 1.5)")
-    missing = [name for name, c in launches.items() if c <= 0]
+    missing = [name for name, c in launches.items()
+               if c <= 0 and name not in NO_PATH]
     if missing:
         fail(f"MLA path never launched: {missing}")
     check_solves(torch, entries, proxy0, arch=MLA_ARCH, n_layers=MLA_LAYERS,
@@ -1474,25 +1644,89 @@ def mla_path(torch) -> dict:
     return launches
 
 
-def main() -> None:
+def card_torch(src: Path):
+    """torch with the card checked and ``repro_torch`` importable from
+    ``src``; fails without a card or without the package there."""
     try:
         import torch
     except ImportError:
         fail("PyTorch is not installed")
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this smoke run needs a GPU")
-    if not (SRC / "repro_torch" / "csrc").is_dir():
-        fail(f"{SRC / 'repro_torch'} not found: run chip_smoke.py from a "
+    if not (src / "repro_torch" / "csrc").is_dir():
+        fail(f"{src / 'repro_torch'} not found: run chip_smoke.py from a "
              f"checkout of the repository")
-    sys.path.insert(0, str(SRC))
+    sys.path.insert(0, str(src))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t_start = time.perf_counter()
+    return torch
 
+
+def card_name() -> str:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    log(smi.stdout.strip().splitlines()[0])
+    return smi.stdout.strip().splitlines()[0]
+
+
+def time_quant_matmul(torch) -> list:
+    """``quant_matmul`` at llama3-8b's down projection (14336 -> 4096),
+    bf16, group 128, 3 and 4 bits, m in QMM_M, with the ``repro_torch``
+    that is on sys.path; ms per call from ``Timer`` on the inputs phase 2
+    times (``rtn_packed``, ``packed_sets``)."""
+    from repro_torch.kernels.quant_matmul.ops import quant_matmul
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    checks = Checks(Timer(torch))
+    kk, nn = 14336, 4096
+    out = []
+    for bits in (3, 4):
+        pw, _ = rtn_packed(torch, g, kk, nn, bits)
+        for m in QMM_M:
+            x = torch.randn((m, kk), generator=g, device="cuda").to(
+                torch.bfloat16)
+            pws = packed_sets(checks, x, pw)
+            out.append({"bits": bits, "m": m, "k": kk, "n": nn,
+                        "ms": checks.timer.ms(lambda a=a: quant_matmul(*a)
+                                              for a in pws)})
+    return out
+
+
+# one process of ``compare_quant_matmul``: times the tree named by argv[1]
+TIME_ONE_TREE = ("import sys; from pathlib import Path; import chip_smoke "
+                 "as c; c.log(c.time_quant_matmul(c.card_torch("
+                 "Path(sys.argv[1]))))")
+
+
+def compare_quant_matmul(other: Path) -> None:
+    """Times ``quant_matmul`` (``time_quant_matmul``) of another checkout's
+    ``src`` and of this one in turns, other, this, this, other, one process
+    each on the same card, and prints them as one JSON line."""
+    card_torch(SRC)
+    order = [other.resolve(), SRC, SRC, other.resolve()]
+    runs = []
+    for src in order:
+        done = subprocess.run(
+            [sys.executable, "-c", TIME_ONE_TREE, str(src)], cwd=ROOT,
+            capture_output=True, text=True, timeout=900)
+        if done.returncode != 0:
+            fail(f"timing quant_matmul of {src} failed:\n{done.stderr}")
+        runs.append({"src": str(src),
+                     "rows": json.loads(done.stdout.strip().splitlines()[-1])})
+    log({"compare_quant_matmul": {"card": card_name(), "runs": runs}})
+
+
+def main() -> None:
+    args = sys.argv[1:]
+    if len(args) == 2 and args[0] == "--compare-quant-matmul":
+        compare_quant_matmul(Path(args[1]))
+        return
+    if args:
+        fail("usage: chip_smoke.py [--compare-quant-matmul OTHER/src]")
+    torch = card_torch(SRC)
+    t_start = time.perf_counter()
+
+    log(card_name())
     from repro_torch.kernels import build
 
     built = build.build_all()
@@ -1508,7 +1742,8 @@ def main() -> None:
                            "max_spill_store_bytes": max(spills or [0])}})
 
     checks = Checks(Timer(torch))
-    for phase in (check_kernels, check_kv_kernels, check_mla_kernels):
+    for phase in (check_kernels, check_hadamard, check_kv_kernels,
+                  check_mla_kernels):
         t0 = time.perf_counter()
         phase(torch, checks)
         log({"phase_seconds": {phase.__name__: time.perf_counter() - t0}})
@@ -1523,6 +1758,11 @@ def main() -> None:
     mla_launches = mla_path(torch)
     log({"phase_seconds": {"mla_path": time.perf_counter() - t0}})
     launches.update({name: mla_launches[name] for name in KvAudit.MLA})
+    launches["fwht"] += mla_launches["fwht"]
+    # quant_matmul's three kernels, each with its launches on both paths
+    qmm_rows = {"qmm_decode": rows["quant_matmul"],
+                "qmm_tc": rows["quant_matmul_prefill"],
+                "qmm_tile": rows["quant_matmul_prefill_fp32"]}
 
     fd = "src/repro/kernels/flash_decode/kernel.py"
     csrc = "src/repro_torch/csrc"
@@ -1535,7 +1775,8 @@ def main() -> None:
                "paged_flash_extend": f"{csrc}/flash_decode.cu",
                "mla_flash_decode": f"{csrc}/mla_decode.cu",
                "paged_mla_flash_decode": f"{csrc}/mla_decode.cu",
-               "paged_mla_flash_extend": f"{csrc}/mla_decode.cu"}
+               "paged_mla_flash_extend": f"{csrc}/mla_decode.cu",
+               "fwht": f"{csrc}/hadamard.cu"}
     replaces = {"gram": "src/repro/kernels/gram/kernel.py:33",
                 "attn_colsum": "src/repro/kernels/attn_colsum/kernel.py:74",
                 "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:66",
@@ -1546,17 +1787,28 @@ def main() -> None:
                 "paged_flash_extend": f"{fd}:323",
                 "mla_flash_decode": f"{fd}:438",
                 "paged_mla_flash_decode": f"{fd}:520",
-                "paged_mla_flash_extend": f"{fd}:632"}
+                "paged_mla_flash_extend": f"{fd}:632",
+                "fwht": "src/repro/kernels/hadamard/kernel.py:51"}
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "shape")
     kernels = []
     for name in sources:
         row = rows[name]
-        kernels.append({
-            "name": name, "route": "cuda", "source": sources[name],
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-            "shape": row["shape"]})
+        entry = {"name": name, "route": "cuda", "source": sources[name],
+                 "replaces": replaces[name], "launches": launches[name],
+                 **{key: row[key] for key in keys}}
+        if name == "quant_matmul":  # decode row; both prefill rows beside
+            subs = {}
+            for sub, kern in (("", "qmm_decode"), ("prefill", "qmm_tc"),
+                              ("prefill_fp32", "qmm_tile")):
+                subs[sub] = {key: qmm_rows[kern][key] for key in keys}
+                subs[sub].update(kernel=kern, kernel_launches={
+                    "main_path": launches[kern],
+                    "mla_path": mla_launches[kern]})
+            entry.update(subs.pop(""), **subs)
+        if name in NO_PATH:
+            entry["path"] = NO_PATH[name]
+        kernels.append(entry)
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log({"kernels": kernels})
     log({"ok": True, "device": {"platform": "gpu",

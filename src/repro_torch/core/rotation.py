@@ -39,7 +39,7 @@ def hadamard_matrix(n: int, dtype=torch.float32, device=None) -> torch.Tensor:
     return h / math.sqrt(n)
 
 
-def _pow2_factor(n: int) -> tuple[int, int]:
+def pow2_factor(n: int) -> tuple[int, int]:
     k = 1
     while n % (2 * k) == 0:
         k *= 2
@@ -57,7 +57,7 @@ def random_orthogonal(gen: torch.Generator, n: int, dtype=torch.float32
 def random_hadamard(gen: torch.Generator, n: int, dtype=torch.float32
                     ) -> torch.Tensor:
     """Q = diag(s) · (H_{2^k} ⊗ Q_m) with a random ±1 diagonal s."""
-    k2, m = _pow2_factor(n)
+    k2, m = pow2_factor(n)
     h = hadamard_matrix(k2, dtype, gen.device)
     if m > 1:
         h = torch.kron(h, random_orthogonal(gen, m, dtype))

@@ -3,7 +3,8 @@
 //
 // Replaces, in src/repro/kernels/quant_matmul/kernel.py:
 //   quant_matmul_pallas / _qmm_kernel / _dequant_tile -> qmm_decode,
-//     qmm_reduce, qmm_tile (qmm_launch)
+//     qmm_reduce (m <= 4), qmm_tc (bf16 x, m > 4), qmm_tile (fp32 x,
+//     m > 4) (qmm_launch)
 //   quant_matmul_t_pallas / _qmm_t_kernel -> qmm_t (qmm_t_launch)
 //
 // Heads.  Every kernel takes a head count H (grid.z) and the strides of a
@@ -27,12 +28,14 @@
 //   decode (m <= 4): bytes.  Every packed word is read once for a handful
 //     of multiply-adds; at 3 bits the (14336, 4096) down projection is
 //     ~23.5 MB of codes plus ~3.7 MB of scales and zeros, ~8 us at 3.35 TB/s.
-//   prefill (m = B·T in the hundreds): operations, 2·m·n·k multiply-adds.
-//     This first version runs them on the fp32 pipes, not the tensor cores.
+//   prefill (m = B·T in the hundreds): operations, 2·m·n·k multiply-adds,
+//     ~30 us for that projection at m 256 at the bf16 tensor-core rate.
+//     bf16 x runs on the tensor cores (qmm_tc); fp32 x (MLA's head-batched
+//     expand, held to 1e-5) stays on the fp32 pipes (qmm_tile).
 //
 // Design.  Codes are unpacked in registers with shift and mask and the
-// per-group affine is applied before the multiply; the product is computed
-// here, never handed to a library GEMM.
+// per-group affine is applied in the kernel; the product is computed here,
+// never handed to a library GEMM.
 //   decode: one thread per output column, 128 columns per block, and the
 //     packed words split along k into `splits` ranges (grid.y, about four
 //     blocks per SM) so that even n = 1024 fills the card.  The block stages
@@ -44,10 +47,49 @@
 //     the prefill shape.  Partial sums go to
 //     a (splits, m, n) fp32 buffer and a second small kernel adds them in a
 //     fixed order and casts to x's type (deterministic, no atomics).
-//   prefill: 64 x 64 output tiles, 256 threads with 4 x 4 each.  Per k-step
-//     the block unpacks BKW words per column (BK = BKW·vpw rows: 32 rows at
-//     2/4/8 bits, 40 at 3 bits) into a dequantized fp32 tile in shared
-//     memory next to the matching x tile, then accumulates.
+//   qmm_tc (bf16 prefill): 64 x 128 output tiles (wgmma's 64 rows: at m 256
+//     and n 4096 that is 128 blocks on 132 SMs; no split-k), warp
+//     specialized, 512 threads:
+//       - two producer warpgroups copy each 128-row k-tile global -> shared
+//         by cp.async (x 64 x 128 bf16, the tile's packed words, and the
+//         zero and scale rows of its quant groups), into a ring of 5 stages
+//         (4 at 8 bits), 3 (2) tiles ahead; a 3-bit tile reads the one word
+//         it shares with its neighbour (128 rows = 12.8 words).  They then
+//         dequantize each packed word once, from registers by shift and
+//         mask, into a bf16 B tile (128 x 128, two buffers);
+//       - two consumer warpgroups (64 columns each) issue the tile's 8
+//         wgmma.mma_async m64n64k16 (A = x, B = their columns, both from
+//         shared memory, fp32 accumulators in registers) without waiting,
+//         while the producers fill the other B buffer;
+//       - named barriers hand B buffers over (filled / its wgmmas done).
+//     x and B lie K-major in the 128-byte swizzle (conflict-free 16-byte
+//     stores and cp.async, coalesced 128-byte rows of x).
+//     B is (code - zero) in bf16, exact: codes and zeros are integers in
+//     [0, 2^bits) (RTN and GPTQ round the zero; kernels/quant_matmul/ops
+//     check_zero enforces it wherever a weight is packed or loaded, and
+//     both dequantize paths below round 128 + zero or 2^23 + zero to an
+//     integer, so they rely on it), so every product is exact and the
+//     tensor core sums it in fp32.  The scale is not folded into
+//     the weight: each quant group's partial sum (its own accumulator, reset
+//     by the first wgmma of the group) is multiplied by its fp32 scale in
+//     registers when the group closes, acc += s · acc_g; a group of 128
+//     rows is one k-tile, and it closes at the start of the next tile.  A
+//     16-row step that a group boundary crosses (gs % 16 != 0) is issued
+//     once per group from registers (ldmatrix), with the other group's rows
+//     of x zeroed.  Each row's sum runs over k in a fixed order whatever m
+//     is, so a row of y does not depend on m or on the other rows.
+//     What holds it back (chip_smoke.py on the H100: wd, 3 bits, m 256,
+//     10x its 0.030 ms bound): loading, dequantizing and the wgmmas each
+//     cost about the same, and they overlap far less than the warp roles
+//     allow.  Each weight is dequantized by every 64-row block (4 at
+//     m 256) and x is read by every column block (32): sharing them across
+//     a cluster of blocks (distributed shared memory, TMA multicast) is the
+//     next step.
+//   qmm_tile (fp32 prefill): 64 x 64 output tiles, 256 threads with 4 x 4
+//     fp32 FMAs each.  Per k-step the block unpacks BKW words per column
+//     (BK = BKW·vpw rows: 32 rows at 2/4/8 bits, 40 at 3 bits) into a
+//     dequantized fp32 tile in shared memory next to the matching x tile,
+//     then accumulates.
 // Ragged m, n and k (including the padded 3-bit word) are masked.
 //
 // qmm_t (y = x @ Wᵀ, the packed axis is the output): x (H, m, d) fp32, W
@@ -65,6 +107,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -255,6 +299,535 @@ qmm_tile(const T* __restrict__ x, const uint32_t* __restrict__ w,
   }
 }
 
+// ---- qmm_tc: bf16 prefill on the tensor cores (see the note at the top) ----
+constexpr int TC_BM = 64, TC_BN = 128, TC_BK = 128;
+// warps 0-7: two consumer warpgroups (wgmma, 64 output columns each);
+// warps 8-15: producers (cp.async and dequantization)
+constexpr int TC_CONSUMERS = 256, TC_PRODUCERS = 256;
+constexpr int TC_THREADS = TC_CONSUMERS + TC_PRODUCERS;
+constexpr int TC_GROUPS = 3;  // quant groups staged per tile (all if gs >= 64)
+// x (A) and the dequantized weight (B) lie K-major in shared memory in the
+// 128-byte swizzle: a row (of x, or a column of W) holds 64 k values in 128
+// bytes, its 16-byte chunk c stored at chunk c ^ (row % 8); 8 rows make a
+// 1024-byte atom, and the tile's second 64 k follow the first's rows
+constexpr int TC_SBO = 1024;  // the next 8 rows
+constexpr int TC_X_BYTES = TC_BM * TC_BK * 2;
+constexpr int TC_X_HALF = TC_BM * 128;  // the k 64 .. 127 half of an x tile
+constexpr int TC_B_HALF = TC_BN * 128;
+constexpr int TC_B_BYTES = TC_BN * TC_BK * 2;
+constexpr int TC_Z_BYTES = TC_GROUPS * 2 * TC_BN * 4;  // zero, scale rows
+// named barriers (0 is __syncthreads'): the producers among themselves;
+// B buffer b (and its x tile) filled; B buffer b's wgmmas done
+constexpr int BAR_PROD = 1, BAR_FULL = 2, BAR_EMPTY = 4;
+
+template <int BITS> struct TcPack {
+  static constexpr int VPW = 32 / BITS;
+  // ring of (x, words, zeros, scales) tiles, AHEAD of them in flight
+  // ahead of the one being dequantized (8 bits: 4, for shared memory)
+  static constexpr int STAGES = BITS == 8 ? 4 : 5;
+  static constexpr int AHEAD = STAGES - 2;
+  // words a 128-row tile touches (3 bits: 12.8 words, so up to 14)
+  static constexpr int WROWS =
+      TC_BK % VPW == 0 ? TC_BK / VPW : TC_BK / VPW + 2;
+  static constexpr int W_BYTES = WROWS * TC_BN * 4;
+  // + 1024: the swizzle atoms start 1024-byte aligned
+  static constexpr int SMEM = STAGES * (TC_X_BYTES + W_BYTES + TC_Z_BYTES)
+                              + 2 * TC_B_BYTES + 1024;
+};
+
+__device__ __forceinline__ void bar_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+// 16 (or 4) bytes global -> shared; bytes past src_bytes are zero-filled
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy writes to shared memory -> visible to wgmma (async proxy)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// pins the accumulators' reads and writes after the asm statement before it
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// Shared-memory matrix descriptor, K-major, 128-byte swizzle: start
+// address, leading byte offset (unused in this mode: 1), stride byte offset
+// between 8-row groups, each in 16-byte units; layout type 1 (bits 62-63).
+// A 16-deep k step inside an atom starts 32 bytes further on.
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(TC_SBO >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+// byte offset of 16-byte chunk c (k 8c .. 8c+7) of row r, in a tile whose
+// k 64 .. 127 half starts `half` bytes on
+__device__ __forceinline__ int swz(int r, int c, int half) {
+  return (c / 8) * half + r * 128 + ((c % 8) ^ (r % 8)) * 16;
+}
+// the descriptor's start for k step j (16 k) of such a tile
+__device__ __forceinline__ uint32_t kstep(uint32_t base, int j, int half) {
+  return base + (j / 4) * half + (j % 4) * 32;
+}
+
+// d (64 x 64, fp32) = A · B (+ d when scale_d), A and B from shared memory
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the same with A from registers (the m16n8k16 A fragment of each warp)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4],
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, "
+      "%29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+template <int BITS>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+qmm_tc(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
+       const float* __restrict__ scale, const float* __restrict__ zero,
+       __nv_bfloat16* __restrict__ out, int m, int k, int n, int gs,
+       int w_ld, int w_hs, int s_ld, int s_hs, int x_vec, int w_vec,
+       int s_vec) {
+  using P = TcPack<BITS>;
+  constexpr uint32_t MASK = (1u << BITS) - 1u;
+  extern __shared__ __align__(128) uint8_t smem_raw[];
+  uint8_t* const xs =                                   // x tiles
+      smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
+  uint8_t* const bs = xs + P::STAGES * TC_X_BYTES;      // two B tiles
+  uint8_t* const ws = bs + 2 * TC_B_BYTES;              // word tiles
+  uint8_t* const zs = ws + P::STAGES * P::W_BYTES;      // zero, scale rows
+  const int head = blockIdx.z;
+  x += (size_t)head * m * k;
+  out += (size_t)head * m * n;
+  w += (size_t)head * w_hs;
+  scale += (size_t)head * s_hs;
+  zero += (size_t)head * s_hs;
+  const int m0 = blockIdx.y * TC_BM, n0 = blockIdx.x * TC_BN;
+  const int tid = threadIdx.x;
+  const int n_words = (k + P::VPW - 1) / P::VPW;
+  const int n_groups = k / gs;
+  const int n_tiles = (k + TC_BK - 1) / TC_BK;
+
+  // zero (which 0) or scale (1) of quant group g, tile column c, as k-tile
+  // t staged it (groups t·BK/gs .. + TC_GROUPS - 1), else from global
+  // memory (gs < 64 only)
+  auto group_param = [&](int t, int g, int which, int c) -> float {
+    const int i = g - t * TC_BK / gs;
+    if (i < TC_GROUPS)
+      return reinterpret_cast<const float*>(
+          zs + (t % P::STAGES) * TC_Z_BYTES)[(2 * i + which) * TC_BN + c];
+    return n0 + c < n ? __ldg((which ? scale : zero) + (size_t)g * s_ld +
+                              n0 + c)
+                      : 0.f;
+  };
+
+  if (tid >= TC_CONSUMERS) {
+    // ---------------- producers: loads and dequantization ----------------
+    const int ptid = tid - TC_CONSUMERS;
+    // global -> shared for k-tile u (nothing past the last tile; the commit
+    // keeps one cp.async group per tile either way)
+    auto load_tile = [&](int u) {
+      if (u < n_tiles) {
+        const int k0 = u * TC_BK, slot = u % P::STAGES;
+        const uint32_t xd = smem_u32(xs + slot * TC_X_BYTES);
+        if (x_vec) {  // 16-byte chunks; 8 lanes fill one 128-byte row
+          for (int idx = ptid; idx < TC_BM * (TC_BK / 8);
+               idx += TC_PRODUCERS) {
+            const int c = idx % 8 + idx / (8 * TC_BM) * 8;
+            const int r = idx / 8 % TC_BM;
+            const int row = m0 + r, kc = k0 + 8 * c;
+            const bool ok = row < m && kc < k;
+            cp_async16(xd + swz(r, c, TC_X_HALF),
+                       ok ? x + (size_t)row * k + kc : x, ok ? 16 : 0);
+          }
+        } else {  // rows not 16-byte aligned (k % 8 != 0): element-wise
+          __nv_bfloat16* xp =
+              reinterpret_cast<__nv_bfloat16*>(xs + slot * TC_X_BYTES);
+          for (int idx = ptid; idx < TC_BM * TC_BK; idx += TC_PRODUCERS) {
+            const int r = idx / TC_BK, kk = idx % TC_BK;
+            const int row = m0 + r, kc = k0 + kk;
+            xp[swz(r, kk / 8, TC_X_HALF) / 2 + kk % 8] =
+                (row < m && kc < k) ? x[(size_t)row * k + kc]
+                                    : __float2bfloat16(0.f);
+          }
+        }
+        const int wlo = k0 / P::VPW;
+        const uint32_t wd = smem_u32(ws + slot * P::W_BYTES);
+        if (w_vec) {
+          for (int idx = ptid; idx < P::WROWS * (TC_BN / 4);
+               idx += TC_PRODUCERS) {
+            const int wr = idx / (TC_BN / 4), cc = idx % (TC_BN / 4);
+            const int wi = wlo + wr, col = n0 + 4 * cc;
+            const int nb =
+                (wi < n_words && col < n) ? min(16, (n - col) * 4) : 0;
+            cp_async16(wd + wr * TC_BN * 4 + cc * 16,
+                       nb ? w + (size_t)wi * w_ld + col : w, nb);
+          }
+        } else {
+          for (int idx = ptid; idx < P::WROWS * TC_BN; idx += TC_PRODUCERS) {
+            const int wr = idx / TC_BN, c = idx % TC_BN;
+            const int wi = wlo + wr, col = n0 + c;
+            const bool ok = wi < n_words && col < n;
+            cp_async4(wd + wr * TC_BN * 4 + c * 4,
+                      ok ? w + (size_t)wi * w_ld + col : w, ok ? 4 : 0);
+          }
+        }
+        // rows 2i (zero) and 2i + 1 (scale) of group k0/gs + i
+        const int glo = k0 / gs;
+        const uint32_t zd = smem_u32(zs + slot * TC_Z_BYTES);
+        for (int idx = ptid; idx < TC_GROUPS * 2 * (TC_BN / 4);
+             idx += TC_PRODUCERS) {
+          const int zr = idx / (TC_BN / 4), cc = idx % (TC_BN / 4);
+          const int g = glo + zr / 2;
+          const float* src = (zr % 2 ? scale : zero) + (size_t)g * s_ld;
+          for (int e = 0; e < (s_vec ? 1 : 4); ++e) {
+            const int col = n0 + 4 * cc + e;
+            if (s_vec) {
+              const int nb =
+                  (g < n_groups && col < n) ? min(16, (n - col) * 4) : 0;
+              cp_async16(zd + zr * TC_BN * 4 + cc * 16,
+                         nb ? src + col : zero, nb);
+            } else {
+              const bool ok = g < n_groups && col < n;
+              cp_async4(zd + zr * TC_BN * 4 + (4 * cc + e) * 4,
+                        ok ? src + col : zero, ok ? 4 : 0);
+            }
+          }
+        }
+      }
+      cp_async_commit();
+    };
+
+
+    // thread (column dc, half dh) dequantizes rows 64·dh .. +63 of every
+    // k-tile: its rows only increase, so it follows its quant group
+    // incrementally
+    const int dc = ptid % TC_BN, dh = ptid / TC_BN;
+    const bool dcol_ok = n0 + dc < n;
+    int zg_end = 0;
+    float zc = 0.f;
+    auto dequant = [&](int t) {
+      const int k0 = t * TC_BK, slot = t % P::STAGES;
+      const uint32_t* wsl =
+          reinterpret_cast<const uint32_t*>(ws + slot * P::W_BYTES);
+      const int wlo = k0 / P::VPW;
+      uint8_t* bb = bs + (t & 1) * TC_B_BYTES;
+      const int r_first = k0 + 64 * dh;
+      const int g_first = r_first / gs;
+      if (r_first + 63 < k && (r_first + 63) / gs == g_first) {
+        // my 64 rows lie inside k and in one quant group: straight-line
+        // (a column past n reads zero-filled words and zero: it stores 0)
+        const float z = group_param(t, g_first, 0, dc);
+        const int b0 = r_first - wlo * P::VPW;  // my first row, in words
+        // 2-4 bits: bf16 0x4300 | c is 128 + c exactly, and one bf16x2
+        // subtract of (128 + zero) gives two exact values.  8 bits: 2^23 + c
+        // as a float minus (2^23 + zero), exact, then rounded to bf16 exactly
+        const __nv_bfloat162 zz = __float2bfloat162_rn(128.f + z);
+        const float zf = 8388608.f + z;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int rr = b0 + 8 * q;
+          const int lw = rr / P::VPW, j0 = rr - lw * P::VPW;
+          uint64_t v = wsl[lw * TC_BN + dc];
+          if constexpr (BITS == 3 || BITS == 8) {  // 8 rows span two words
+            const uint64_t w1 = wsl[(lw + 1) * TC_BN + dc];
+            v = BITS == 3 ? (v & 0x3FFFFFFFull) | (w1 << 30)
+                          : v | (w1 << 32);
+          }
+          v >>= j0 * BITS;
+          uint4 o;
+          if constexpr (BITS <= 4) {
+            // codes 4..7 moved 16 bits above codes 0..3: shift and mask k
+            // gives codes k and k + 4 as the two halves of a bf16x2
+            constexpr uint32_t LO = (1u << (4 * BITS)) - 1u;
+            const uint32_t v32 = static_cast<uint32_t>(v);
+            const uint32_t t4 = (v32 & LO) | ((v32 & (LO << (4 * BITS)))
+                                              << (16 - 4 * BITS));
+            uint32_t d[4];
+#pragma unroll
+            for (int kk = 0; kk < 4; ++kk) {
+              const uint32_t b16 =
+                  ((t4 >> (kk * BITS)) & (MASK | (MASK << 16))) | 0x43004300u;
+              const __nv_bfloat162 e =
+                  __hsub2(*reinterpret_cast<const __nv_bfloat162*>(&b16), zz);
+              d[kk] = *reinterpret_cast<const uint32_t*>(&e);
+            }
+            // (c0, c4) (c1, c5) (c2, c6) (c3, c7) -> (c0, c1) .. (c6, c7)
+            o = make_uint4(__byte_perm(d[0], d[1], 0x5410),
+                           __byte_perm(d[2], d[3], 0x5410),
+                           __byte_perm(d[0], d[1], 0x7632),
+                           __byte_perm(d[2], d[3], 0x7632));
+          } else {
+            float f[8];
+#pragma unroll
+            for (int i = 0; i < 8; ++i)
+              f[i] = __uint_as_float(
+                         0x4B000000u |
+                         (static_cast<uint32_t>(v >> (i * BITS)) & MASK)) -
+                     zf;
+            o = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                           pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+          }
+          *reinterpret_cast<uint4*>(bb + swz(dc, 8 * dh + q, TC_B_HALF)) = o;
+        }
+        return;
+      }
+#pragma unroll 1
+      for (int q = 0; q < 8; ++q) {
+        const int r0 = r_first + q * 8;  // 8 rows: one 16-byte chunk
+        uint4 o = make_uint4(0u, 0u, 0u, 0u);
+        if (r0 < k && dcol_ok) {
+          const int wi0 = r0 / P::VPW, j0 = r0 - wi0 * P::VPW;
+          const int lw = wi0 - wlo;
+          uint64_t v = wsl[lw * TC_BN + dc];
+          if constexpr (BITS == 3 || BITS == 8) {
+            const uint64_t w1 =
+                lw + 1 < P::WROWS ? wsl[(lw + 1) * TC_BN + dc] : 0u;
+            v = BITS == 3 ? (v & 0x3FFFFFFFull) | (w1 << 30)
+                          : v | (w1 << 32);
+          }
+          v >>= j0 * BITS;
+          float f[8];
+          // a group boundary or the end of k may fall inside these rows
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            f[i] = 0.f;
+            if (r0 + i < k) {
+              if (r0 + i >= zg_end) {
+                const int g = (r0 + i) / gs;
+                zc = group_param(t, g, 0, dc);
+                zg_end = (g + 1) * gs;
+              }
+              f[i] = __uint_as_float(
+                         0x4B000000u |
+                         (static_cast<uint32_t>(v >> (i * BITS)) & MASK)) -
+                     (8388608.f + zc);
+            }
+          }
+          o = make_uint4(pack_bf16(f[0], f[1]), pack_bf16(f[2], f[3]),
+                         pack_bf16(f[4], f[5]), pack_bf16(f[6], f[7]));
+        }
+        *reinterpret_cast<uint4*>(bb + swz(dc, 8 * dh + q, TC_B_HALF)) = o;
+      }
+    };
+
+    for (int u = 0; u < P::AHEAD; ++u) load_tile(u);
+    for (int t = 0; t < n_tiles; ++t) {
+      // B buffer t % 2 and the ring slot that tile t + AHEAD fills held
+      // tile t - 2, whose wgmmas are done
+      if (t >= 2) bar_sync(BAR_EMPTY + t % 2, TC_THREADS);
+      load_tile(t + P::AHEAD);
+      cp_async_wait<P::AHEAD>();          // my copies of tile t landed
+      bar_sync(BAR_PROD, TC_PRODUCERS);   // everyone's did
+      dequant(t);
+      fence_proxy_async();  // the B tile (and x) -> visible to wgmma
+      bar_arrive(BAR_FULL + t % 2, TC_THREADS);
+    }
+    return;
+  }
+
+  // ---------------- consumers: the product on the tensor cores ----------
+  // warpgroup wg owns columns 64·wg .. +63 of the tile
+  const int wg = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  float acc[32], accg[32], sreg[16];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = accg[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sreg[i] = 0.f;
+  int cur_g = -1, g_hi = 0, scale_d = 0;
+  // accumulator element 4j + 2h + e: row 16·warp + lane/4 + 8h, column
+  // 8j + 2·(lane % 4) + e of the warpgroup's 64
+  const int ccol = wg * 64 + 2 * (lane % 4);  // in the tile
+  auto close_group = [&]() {  // acc += s_g · acc_g
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(accg);
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          acc[4 * j + 2 * h + e] =
+              fmaf(sreg[2 * j + e], accg[4 * j + 2 * h + e],
+                   acc[4 * j + 2 * h + e]);
+  };
+  auto open_group = [&](int t, int g) {
+    if (cur_g >= 0) close_group();
+    cur_g = g;
+    g_hi = (g + 1) * gs;
+    scale_d = 0;  // the group's first wgmma overwrites acc_g
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        sreg[2 * j + e] = group_param(t, g, 1, ccol + 8 * j + e);
+    fence_regs(accg);
+    wgmma_fence();
+  };
+  auto mma_tile = [&](int t) {
+    const int k0 = t * TC_BK;
+    const uint32_t xa = smem_u32(xs + (t % P::STAGES) * TC_X_BYTES);
+    const uint32_t ba = smem_u32(bs + (t & 1) * TC_B_BYTES) + wg * 64 * 128;
+    const int g0 = k0 / gs;
+    if (k0 + TC_BK <= k && (k0 + TC_BK - 1) / gs == g0) {
+      // the whole tile lies in one quant group (gs 128: every tile): eight
+      // wgmmas back to back, nothing else touching the accumulators
+      if (g0 != cur_g) open_group(t, g0);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < TC_BK / 16; ++j) {
+        wgmma_ss(accg, make_desc(kstep(xa, j, TC_X_HALF)),
+                 make_desc(kstep(ba, j, TC_B_HALF)), scale_d);
+        scale_d = 1;
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous tile's wgmmas are done
+      return;
+    }
+    wgmma_fence();
+    for (int j = 0; j < TC_BK / 16; ++j) {
+      const int r0 = k0 + 16 * j;
+      if (r0 >= k) break;
+      const int r1 = min(r0 + 16, k);
+      const uint64_t db = make_desc(kstep(ba, j, TC_B_HALF));
+      if (cur_g >= 0 && r0 >= cur_g * gs && r1 <= g_hi) {
+        wgmma_ss(accg, make_desc(kstep(xa, j, TC_X_HALF)), db, scale_d);
+        scale_d = 1;
+        continue;
+      }
+      const int ga = r0 / gs, gb = (r1 - 1) / gs;
+      if (ga == gb) {  // a new group starts at this step
+        open_group(t, ga);
+        wgmma_ss(accg, make_desc(kstep(xa, j, TC_X_HALF)), db, scale_d);
+        scale_d = 1;
+        continue;
+      }
+      // group boundaries inside the step: once per group, x from
+      // registers with the other groups' rows zeroed
+      for (int g = ga; g <= gb; ++g) {
+        if (g != cur_g) open_group(t, g);
+        wgmma_commit();
+        wgmma_wait<0>();
+        const int mi = lane / 8;
+        const int row = warp * 16 + (mi & 1) * 8 + lane % 8;
+        uint32_t a[4];
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+            "[%4];\n"
+            : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+            : "r"(xa + swz(row, 2 * j + (mi >> 1), TC_X_HALF)));
+        const int lo = max(r0, g * gs), hi = min(r1, (g + 1) * gs);
+#pragma unroll
+        for (int f = 0; f < 4; ++f) {
+          const int kk = r0 + 2 * (lane % 4) + (f >= 2 ? 8 : 0);
+          const uint32_t keep = (kk >= lo && kk < hi ? 0x0000FFFFu : 0u) |
+                                (kk + 1 >= lo && kk + 1 < hi ? 0xFFFF0000u
+                                                             : 0u);
+          a[f] &= keep;
+        }
+        fence_regs(accg);
+        wgmma_fence();
+        wgmma_rs(accg, a, db, scale_d);
+        scale_d = 1;
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(accg);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous tile's wgmmas are done
+  };
+
+  for (int t = 0; t < n_tiles; ++t) {
+    bar_sync(BAR_FULL + t % 2, TC_THREADS);  // B tile t and x tile t ready
+    mma_tile(t);
+    // tile t - 1's wgmmas are done: its B buffer and ring slot are free
+    // (released only where a later tile will wait for them)
+    if (t >= 1 && t + 1 < n_tiles) bar_arrive(BAR_EMPTY + (t - 1) % 2,
+                                              TC_THREADS);
+  }
+  if (cur_g >= 0) close_group();
+
+  const int rowb = m0 + warp * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = rowb + 8 * h, col = n0 + ccol + 8 * j + e;
+        if (row < m && col < n)
+          out[(size_t)row * n + col] =
+              __float2bfloat16(acc[4 * j + 2 * h + e]);
+      }
+}
+
 // y = x @ Wᵀ per head; see the note at the top of the file.
 constexpr int QT_THREADS = 128;  // = the most output rows of a block
 constexpr int QT_DC = 32;        // columns of d per shared-memory chunk
@@ -352,6 +925,25 @@ int launch(const void* x, const uint32_t* w, const float* scale,
     const int mn = m * n, total = H * mn;
     qmm_reduce<T><<<(total + 255) / 256, 256, 0, s>>>(partial, ot, mn, total,
                                                       splits);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    constexpr int smem = TcPack<BITS>::SMEM;
+    static bool smem_set = false;  // once per bit width
+    if (!smem_set) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          qmm_tc<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      if (err != cudaSuccess) return static_cast<int>(err);
+      smem_set = true;
+    }
+    const int x_vec = k % 8 == 0 && reinterpret_cast<uintptr_t>(xt) % 16 == 0;
+    const int w_vec = st.w_ld % 4 == 0 && st.w_hs % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(w) % 16 == 0;
+    const int s_vec = st.s_ld % 4 == 0 && st.s_hs % 4 == 0 &&
+                      reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
+                      reinterpret_cast<uintptr_t>(zero) % 16 == 0;
+    const dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM, H);
+    qmm_tc<BITS><<<grid, TC_THREADS, smem, s>>>(
+        xt, w, scale, zero, ot, m, k, n, gs, st.w_ld, st.w_hs, st.s_ld,
+        st.s_hs, x_vec, w_vec, s_vec);
   } else {
     const dim3 grid((n + TN - 1) / TN, (m + TM - 1) / TM, H);
     qmm_tile<T, BITS><<<grid, THREADS, 0, s>>>(xt, w, scale, zero, ot, m, k,
@@ -392,7 +984,8 @@ int launch_t(const float* x, const uint32_t* w, const float* scale,
 
 // partial != null selects the decode shape (m <= 4; partial is
 // (H, splits, m, n) fp32 scratch, words_per_split * vpw <= 1024 rows);
-// partial == null selects the tiled prefill shape.  x (H, m, k), out
+// partial == null selects the prefill shape: qmm_tc on the tensor cores for
+// bf16 x, qmm_tile for fp32 x.  x (H, m, k), out
 // (H, m, n); codes / scale rows w_ld / s_ld apart, heads w_hs / s_hs apart.
 extern "C" int qmm_launch(const void* x, int x_bf16, const void* w,
                           const float* scale, const float* zero, void* out,

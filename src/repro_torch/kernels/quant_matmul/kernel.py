@@ -14,6 +14,15 @@ DECODE_COLS = 128  # output columns per decode block
 DECODE_ROWS = 1024  # most k rows a decode block stages
 
 
+def qmm_kernel(m: int, dtype: torch.dtype) -> str:
+    """The kernel that ``quant_matmul_cuda`` launches for x of m rows: the
+    split-k decode shape, else the tensor-core tile for bf16 x and the fp32
+    tile for fp32 x (``qmm_launch`` routes the same way)."""
+    if m <= DECODE_MAX_M:
+        return "qmm_decode"
+    return "qmm_tc" if dtype == torch.bfloat16 else "qmm_tile"
+
+
 def _lib():
     fn = build.library("quant_matmul").qmm_launch
     fn.argtypes = [build.P, build.I, build.P, build.P, build.P, build.P,

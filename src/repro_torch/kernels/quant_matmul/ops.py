@@ -13,6 +13,8 @@ one launch for all heads.
 Dispatch is by the activation's device and nothing else: a CPU tensor takes
 the plain version (``ref``); a CUDA tensor launches the kernel, at every bit
 width (2/3/4/8, the ragged 3-bit word included) and every shape, or raises.
+Zeros are integers in [0, 2^bits - 1] (``check_zero``, where a weight is
+packed or loaded): the kernels rely on it.
 """
 from __future__ import annotations
 
@@ -79,10 +81,26 @@ def is_packed(w) -> bool:
     return isinstance(w, PackedWeight)
 
 
+def check_zero(zero: torch.Tensor, bits: int) -> None:
+    """Raises unless every zero is an integer in [0, 2^bits - 1], as RTN
+    and GPTQ make it (``core.quantizer.find_params`` rounds it).  The bf16
+    prefill kernel feeds ``code - zero`` to the tensor cores as an exact
+    bf16 integer, so a fractional zero would give other results on the card
+    than the plain version; the weight is checked once, where it is built
+    or loaded."""
+    z = zero.float()
+    bad = (z != torch.round(z)) | (z < 0) | (z > 2 ** bits - 1)
+    if bool(bad.any()):
+        raise ValueError(f"packed weight zeros must be integers in [0, "
+                         f"{2 ** bits - 1}] at {bits} bits; got "
+                         f"{int(bad.sum())} others, e.g. {z[bad][0].item()}")
+
+
 def pack_weight(q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
                 spec: QuantSpec) -> PackedWeight:
     d_in = q.shape[-2]
     gs = d_in if spec.group_size == -1 else spec.group_size
+    check_zero(zero, spec.bits)
     return PackedWeight(w_packed=pack_codes(q, spec.bits),
                         scale=scale.float(), zero=zero.float(),
                         bits=spec.bits, group_size=gs, d_in=d_in)
@@ -91,13 +109,17 @@ def pack_weight(q: torch.Tensor, scale: torch.Tensor, zero: torch.Tensor,
 def packed_weight_from_artifact(entry: dict, em: dict, spec: dict,
                                 device="cuda") -> PackedWeight:
     """One packed-artifact entry (numpy ``codes``/``scale``/``zero``) ->
-    ``PackedWeight`` on ``device``; the codes move still packed."""
-    return PackedWeight(
+    ``PackedWeight`` on ``device``; the codes move still packed.  Raises
+    if a zero is not an integer in range (:func:`check_zero`)."""
+    device = resolve_device(device)
+    pw = PackedWeight(
         w_packed=words_from_numpy(entry["codes"]),
         scale=torch.from_numpy(entry["scale"].astype("float32")),
         zero=torch.from_numpy(entry["zero"].astype("float32")),
         bits=int(spec["bits"]), group_size=int(em["group_size"]),
-        d_in=int(em["d_in"])).to(resolve_device(device))
+        d_in=int(em["d_in"]))
+    check_zero(pw.zero, pw.bits)
+    return pw.to(device)
 
 
 def _check_cuda(name: str, x: torch.Tensor, pw: PackedWeight,
@@ -146,12 +168,14 @@ def quant_matmul(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
                                 bits=pw.bits, group_size=pw.group_size,
                                 d_in=pw.d_in)
     _check_cuda("quant_matmul", x, pw, (torch.float32, torch.bfloat16))
-    from repro_torch.kernels.quant_matmul.kernel import quant_matmul_cuda
+    from repro_torch.kernels.quant_matmul.kernel import (qmm_kernel,
+                                                         quant_matmul_cuda)
 
     out = quant_matmul_cuda(x.reshape(heads, *x.shape[-2:]).contiguous(),
                             pw.w_packed, pw.scale, pw.zero, bits=pw.bits,
                             group_size=pw.group_size)
     quant_matmul.launches += 1
+    quant_matmul.by_kernel[qmm_kernel(x.shape[-2], x.dtype)] += 1
     return out.reshape(x.shape[:-1] + (out.shape[-1],))
 
 
@@ -208,4 +232,6 @@ def mla_latent_weights(pw: PackedWeight, n_heads: int, dn: int, dv: int
 
 
 quant_matmul.launches = 0
+# the launches above split by the CUDA kernel that ran (kernel.qmm_kernel)
+quant_matmul.by_kernel = {"qmm_decode": 0, "qmm_tc": 0, "qmm_tile": 0}
 quant_matmul_t.launches = 0

@@ -13,7 +13,12 @@ Tolerances are relative to the largest reference magnitude:
   * attn_colsum: 1e-4 — two passes of exp and the column sums added with
     fp32 atomics in a run-dependent order;
   * bf16 outputs: 8e-3 — one rounding of the fp32 result to bf16
-    (2^-8 relative) at a different point;
+    (2^-8 relative) at a different point; the bf16 prefill product on the
+    tensor cores (exact bf16 products of x and code - zero, fp32 sums, each
+    group's sum scaled in fp32) is held to the same, and its rows are
+    compared bitwise across m;
+  * fwht: fp32 1e-5 (the butterfly stages' adds in another order), bf16
+    8e-3 (the one rounding of the fp32 result);
   * quantized-KV attention: 1e-5 — the same dequantized fp32 terms, the
     scale applied after each row's dot product and sums in another order;
     the paged and the flat decode kernels are compared bitwise;
@@ -44,6 +49,8 @@ from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
                                                   paged_mla_flash_extend_ref)
 from repro_torch.kernels.gram.ops import weighted_gram
 from repro_torch.kernels.gram.ref import weighted_gram_ref
+from repro_torch.kernels.hadamard.ops import fwht
+from repro_torch.kernels.hadamard.ref import fwht_ref
 from repro_torch.kernels.quant_matmul.ops import (mla_latent_weights,
                                                   pack_weight, quant_matmul,
                                                   quant_matmul_t)
@@ -122,6 +129,107 @@ def test_quant_matmul_kernel_vs_plain(cuda, bits, m, k, n, gs):
         assert _rel(got, want) < tol
 
 
+
+def _packed(device, bits, k, n, gs, seed):
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = torch.randn((k, n), generator=g, device=device) * k ** -0.5
+    spec = QuantSpec(bits, gs)
+    _, q, scale, zero = quantize_weight_rtn(w, spec)
+    return pack_weight(q, scale, zero, spec), g
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("m", [5, 64, 65, 200, 512])
+@pytest.mark.parametrize("k,n,gs", [(640, 200, 128), (512, 136, 128),
+                                    (300, 96, 100), (300, 96, -1),
+                                    (256, 70, 32)])
+def test_quant_matmul_bf16_prefill_kernel_vs_plain(cuda, bits, m, k, n, gs):
+    """The bf16 prefill kernel (m > 4, tensor cores): ragged m and n, the
+    ragged 3-bit word (k 512), groups that do not align with 16-row steps
+    (gs 100, and one group of 300 rows), k not a multiple of 8, and more
+    groups per k-tile than the kernel stages (gs 32) on rows of words and
+    scales that are not 16-byte aligned (n 70)."""
+    pw, g = _packed(cuda, bits, k, n, gs, seed=9)
+    x = torch.randn((m, k), generator=g, device=cuda).to(torch.bfloat16)
+    want = quant_matmul_ref(x.float(), pw.w_packed, pw.scale, pw.zero,
+                            bits=bits, group_size=pw.group_size)
+    before = quant_matmul.launches
+    got = quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    assert _rel(got, want) < 8e-3
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("k,n,gs", [(640, 200, 128), (300, 96, 100)])
+def test_quant_matmul_bf16_prefill_rows_do_not_depend_on_m(cuda, bits, k, n,
+                                                           gs):
+    """Rows 0-63 of an m 512 product are bitwise the same rows computed at
+    m 64: a prompt's logits do not depend on what shares its call."""
+    pw, g = _packed(cuda, bits, k, n, gs, seed=10)
+    x = torch.randn((512, k), generator=g, device=cuda).to(torch.bfloat16)
+    full = quant_matmul(x, pw)
+    part = quant_matmul(x[:64].clone(), pw)
+    torch.cuda.synchronize()
+    assert torch.equal(full[:64], part)
+
+
+@pytest.mark.parametrize("bits", [3, 4])
+def test_quant_matmul_bf16_prefill_head_batched_views(cuda, bits):
+    """bf16 x through the prefill kernel on strided per-head views of one
+    packed weight (MLA's wkv_b layout): each head against its own plain
+    call."""
+    h, dn, dv, kvr, m = 4, 128, 128, 512, 70
+    g = torch.Generator(device=cuda).manual_seed(11)
+    w = torch.randn((kvr, h * (dn + dv)), generator=g, device=cuda)
+    spec = QuantSpec(bits, 128)
+    _, q, scale, zero = quantize_weight_rtn(w, spec)
+    _, pw_v = mla_latent_weights(pack_weight(q, scale, zero, spec), h, dn, dv)
+    x = torch.randn((h, m, kvr), generator=g, device=cuda).to(torch.bfloat16)
+    got = quant_matmul(x, pw_v)
+    torch.cuda.synchronize()
+    for i in range(h):
+        want = quant_matmul_ref(x[i].float(), pw_v.w_packed[i], pw_v.scale[i],
+                                pw_v.zero[i], bits=bits, group_size=128,
+                                d_in=kvr)
+        assert _rel(got[i], want) < 8e-3, i
+
+
+@pytest.mark.parametrize("m,dtype,kernel", [
+    (4, torch.bfloat16, "qmm_decode"), (4, torch.float32, "qmm_decode"),
+    (5, torch.bfloat16, "qmm_tc"), (5, torch.float32, "qmm_tile")])
+def test_quant_matmul_counts_the_kernel_that_ran(cuda, m, dtype, kernel):
+    """A launch adds one to quant_matmul's count and to its kernel's."""
+    pw, g = _packed(cuda, 3, 256, 64, 128, seed=12)
+    x = torch.randn((m, 256), generator=g, device=cuda).to(dtype)
+    before, by = quant_matmul.launches, dict(quant_matmul.by_kernel)
+    quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    assert quant_matmul.by_kernel == dict(by, **{kernel: by[kernel] + 1})
+
+
+@pytest.mark.parametrize("log2_d", range(16))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_fwht_kernel_vs_plain(cuda, log2_d, dtype):
+    d = 1 << log2_d
+    tol = 1e-5 if dtype == torch.float32 else 8e-3
+    g = torch.Generator(device=cuda).manual_seed(log2_d)
+    for n in (1, 3, 1000):
+        x = torch.randn((n, d), generator=g, device=cuda).to(dtype)
+        before = fwht.launches
+        got = fwht(x)
+        torch.cuda.synchronize()
+        assert fwht.launches == before + 1
+        assert got.dtype == dtype and got.shape == (n, d)
+        assert _rel(got, fwht_ref(x)) < tol, n
+
+
+def test_fwht_kernel_rejects_wider_rows(cuda):
+    with pytest.raises(ValueError, match="exceeds"):
+        fwht(torch.zeros((2, 1 << 16), device=cuda))
 
 def _kv_cache(g, b, s, kv, d, kv_bits, device, page=64):
     """Random K/V encoded by the port's codec: (kq, ks, vq, vs)."""

@@ -51,6 +51,15 @@ def test_mla_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "kernels/hadamard/__init__.py", "kernels/hadamard/ops.py",
+    "kernels/hadamard/ref.py", "kernels/hadamard/kernel.py"])
+def test_hadamard_modules_are_checked(module):
+    """The fast Walsh-Hadamard transform's modules are among the sources the
+    boundary check reads."""
+    assert ROOT / "src" / "repro_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = _imported_roots(path) & FORBIDDEN

@@ -26,7 +26,12 @@ from repro_torch.core import hessian
 from repro_torch.core.quantizer import words_from_numpy
 from repro_torch.kernels.attn_colsum.ops import attn_colsum
 from repro_torch.kernels.gram.ops import weighted_gram
-from repro_torch.kernels.quant_matmul.ops import PackedWeight, quant_matmul
+from repro_torch.kernels.hadamard.ops import fwht
+from repro_torch.core.quantizer import QuantSpec
+from repro_torch.kernels.quant_matmul.kernel import qmm_kernel
+from repro_torch.kernels.quant_matmul.ops import (PackedWeight, pack_weight,
+                                                  packed_weight_from_artifact,
+                                                  quant_matmul)
 
 RTOL = 1e-5
 
@@ -121,7 +126,8 @@ def test_attn_colsum_plain_vs_reference(b, t, h, kv, dh):
     _close(got, col)
 
 
-@pytest.mark.parametrize("kernel", ["gram", "attn_colsum", "quant_matmul"])
+@pytest.mark.parametrize("kernel", ["gram", "attn_colsum", "quant_matmul",
+                                    "fwht"])
 def test_wrappers_raise_off_cpu_and_cuda(kernel):
     """Dispatch is by device only: a meta tensor neither runs the plain
     version nor reaches a kernel."""
@@ -131,5 +137,55 @@ def test_wrappers_raise_off_cpu_and_cuda(kernel):
             weighted_gram(x)
         elif kernel == "attn_colsum":
             attn_colsum(x.reshape(1, 4, 4, 32), x.reshape(1, 4, 4, 32))
+        elif kernel == "fwht":
+            fwht(x)
         else:
             quant_matmul(x, _packed(4, 128, 16, 128)[0])
+
+
+@pytest.mark.parametrize("bits", [3, 8])
+@pytest.mark.parametrize("load", ["pack_weight", "artifact"])
+@pytest.mark.parametrize("zero", ["reference", "fractional", "negative",
+                                  "above_maxq", "nan"])
+def test_packed_zeros_are_integers_in_range(zero, load, bits):
+    """The kernels take code - zero as an exact integer: a weight whose
+    zeros are not integers in [0, 2^bits - 1] is refused where it is packed
+    or loaded; the reference's RTN zeros pass."""
+    k, n, gs = 256, 16, 128
+    w = np.random.default_rng(bits).standard_normal((k, n)).astype(np.float32)
+    _, q, s, z = ref_rtn(jnp.asarray(w), RefSpec(bits, gs))
+    z = np.array(z, np.float32)
+    bad = {"reference": None, "fractional": 1.5, "negative": -1.0,
+           "above_maxq": 2.0 ** bits, "nan": np.nan}[zero]
+    if bad is not None:
+        z[1, 3] = bad
+    if load == "pack_weight":
+        def build():
+            return pack_weight(torch.from_numpy(np.array(q, np.int32)),
+                               _t(s), torch.from_numpy(z),
+                               QuantSpec(bits=bits, group_size=gs))
+    else:
+        def build():
+            entry = {"codes": np.asarray(ref_pack(q, bits)),
+                     "scale": np.asarray(s), "zero": z}
+            return packed_weight_from_artifact(
+                entry, {"group_size": gs, "d_in": k}, {"bits": bits},
+                device="cpu")
+    if bad is None:
+        pw = build()
+        np.testing.assert_array_equal(pw.zero.numpy(), z)
+    else:
+        with pytest.raises(ValueError, match="integers in"):
+            build()
+
+
+@pytest.mark.parametrize("m,dtype,kernel", [
+    (1, torch.bfloat16, "qmm_decode"), (4, torch.float32, "qmm_decode"),
+    (5, torch.bfloat16, "qmm_tc"), (512, torch.bfloat16, "qmm_tc"),
+    (5, torch.float32, "qmm_tile"), (128, torch.float32, "qmm_tile")])
+def test_quant_matmul_counts_launches_by_kernel(m, dtype, kernel):
+    """Each CUDA launch of quant_matmul is also counted under the kernel
+    that ran: split-k decode for m <= 4, else the tensor-core tile for
+    bf16 x and the fp32 tile for fp32 x."""
+    assert qmm_kernel(m, dtype) == kernel
+    assert kernel in quant_matmul.by_kernel
