@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare-quant-matmul OTHER/src
+    python3 chip_smoke.py --compare OTHER/src
 
 Phases, in order; any failure exits non-zero before the final line:
   1. card and build: the card's name and power limit, then every CUDA
@@ -54,12 +54,13 @@ it, each with its kernel's launches on both paths) and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 reference package.
 
-``--compare-quant-matmul OTHER/src`` runs no phase: it times the packed
-matmul as phase 2 does at llama3-8b's down projection, bf16, 3 and 4 bits,
-m 4, 256 and 512, with ``repro_torch`` imported from OTHER/src (another
-checkout, e.g. the parent commit from ``git archive``) and from this one in
-turns (other, this, this, other; one process each) and prints the four
-runs as one JSON line.
+``--compare OTHER/src`` runs no phase: it times the packed matmul as
+phase 2 does at llama3-8b's down projection (bf16, 3 and 4 bits, m 4, 256
+and 512) and the three GQA attention wrappers on phase 2's inputs (kv8 and
+kv2), with ``repro_torch`` imported from OTHER/src (another checkout, e.g.
+the parent commit from ``git archive``) and from this one in turns (other,
+this, this, other; one process each) and prints the four runs as one JSON
+line.
 """
 from __future__ import annotations
 
@@ -133,7 +134,8 @@ ME_L, ME_PAST = 256, 16
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_FLOPS = {"float32": 67e12, "tfloat32": 495e12,
+              "bfloat16": 989e12}
 
 # tolerances, relative to the largest reference magnitude
 TOL_FP32 = 1e-5  # fp32 products summed in another order
@@ -457,6 +459,71 @@ def check_hadamard(torch, checks: Checks) -> None:
     torch.cuda.empty_cache()
 
 
+def gqa_decode_inputs(torch, g, bits: int) -> dict:
+    """Phase 2's decode inputs at llama3-8b's heads: a flat kv``bits`` cache
+    (B 4, S 8192, KV 8, Dh 128) of random keys and values drawn from ``g``,
+    a scaled query group (G 4) and pos = S - 37, plus the same codes in
+    paged pools through a shuffled table with one trash column (page 0)."""
+    from repro_torch.models.attention import kv_codec
+
+    dev = torch.device("cuda")
+    b, s, kv, grp, dh, page = FD_B, FD_S, FD_KV, FD_G, FD_DH, 64
+    n_tiles = s // page
+    codec = kv_codec(bits, page)
+    kq, ks = codec.encode(torch.randn((b, s, kv, dh), generator=g,
+                                      device=dev))
+    vq, vs = codec.encode(torch.randn((b, s, kv, dh), generator=g,
+                                      device=dev))
+    q = torch.randn((b, kv, grp, dh), generator=g, device=dev) * dh ** -0.5
+    pos = torch.full((b,), s - FD_TAIL, dtype=torch.int32, device=dev)
+    perm = torch.randperm(b * n_tiles, generator=torch.Generator()
+                          .manual_seed(2)) + 1
+    tbl = perm.reshape(b, n_tiles).to(torch.int32)
+    pools = []
+    for codes, scales in ((kq, ks), (vq, vs)):
+        cp = torch.zeros((b * n_tiles + 1, page) + codes.shape[2:],
+                         dtype=codes.dtype, device=dev)
+        sp = torch.zeros((b * n_tiles + 1, page // codec.chunk, kv),
+                         dtype=scales.dtype, device=dev)
+        cp[perm.to(dev)] = codes.reshape(cp[1:].shape)
+        sp[perm.to(dev)] = scales.reshape(sp[1:].shape)
+        pools += [cp, sp]
+    tbl = torch.cat([tbl, torch.zeros((b, 1), dtype=torch.int32)],
+                    1).to(dev)
+    return {"codec": codec, "page": page, "q": q, "pos": pos,
+            "flat": (kq, ks, vq, vs), "tbl": tbl, "pools": pools}
+
+
+def gqa_extend_inputs(torch, g, bits: int) -> dict:
+    """Phase 2's extend inputs: an L 256 chunk of bf16 q / k_new / v_new
+    (H 32 / KV 8, Dh 128, as the model passes them) over 16 full past
+    pages in shuffled order."""
+    from repro_torch.models.attention import kv_codec
+
+    dev = torch.device("cuda")
+    kv, dh, page, h = FD_KV, FD_DH, 64, FD_KV * FD_G
+    L, n_past = FE_L, FE_PAST
+    n_pages = n_past + 1
+    codec = kv_codec(bits, page)
+    kq, ks = codec.encode(torch.randn((1, n_pages * page, kv, dh),
+                                      generator=g, device=dev))
+    vq, vs = codec.encode(torch.randn((1, n_pages * page, kv, dh),
+                                      generator=g, device=dev))
+    pools = [kq.reshape((n_pages, page) + kq.shape[2:]),
+             ks.reshape(n_pages, page // codec.chunk, kv),
+             vq.reshape((n_pages, page) + vq.shape[2:]),
+             vs.reshape(n_pages, page // codec.chunk, kv)]
+    tbl = (torch.randperm(n_past, generator=torch.Generator()
+                          .manual_seed(3)) + 1).to(torch.int32).to(dev)
+    q, k_new, v_new = (torch.randn(shp, generator=g, device=dev).to(
+        torch.bfloat16) for shp in ((1, L, h, dh), (1, L, kv, dh),
+                                    (1, L, kv, dh)))
+    return {"codec": codec, "page": page, "tbl": tbl, "q": q,
+            "k_new": k_new, "v_new": v_new, "pools": pools,
+            "ekw": dict(kv_bits=bits, chunk=codec.chunk, dh=dh, dv=dh,
+                        page=page)}
+
+
 def check_kv_kernels(torch, checks: Checks) -> None:
     """Phase 2, quantized-KV slice: flat and paged flash decode (kv8, kv2)
     at B 4, S 8192, KV 8, G 4, Dh 128, pos = S - 37, the paged call through
@@ -473,15 +540,13 @@ def check_kv_kernels(torch, checks: Checks) -> None:
                                                       flash_decode_ref,
                                                       paged_flash_decode_ref,
                                                       paged_flash_extend_ref)
-    from repro_torch.models.attention import kv_codec
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
     timer, record, clones = checks.timer, checks.record, checks.clones
     b, s, kv, grp, dh = FD_B, FD_S, FD_KV, FD_G, FD_DH
-    page, h = 64, FD_KV * FD_G
+    h = FD_KV * FD_G
     pos_v = s - FD_TAIL
-    n_tiles = s // page
 
     def finalized(acc, l):
         return acc / l.clamp_min(1e-30)
@@ -494,13 +559,9 @@ def check_kv_kernels(torch, checks: Checks) -> None:
         return x[:, :, :rows].to(torch.bfloat16).contiguous()
 
     for bits in KV_BITS:
-        codec = kv_codec(bits, page)
-        kq, ks = codec.encode(torch.randn((b, s, kv, dh), generator=g,
-                                          device=dev))
-        vq, vs = codec.encode(torch.randn((b, s, kv, dh), generator=g,
-                                          device=dev))
-        q = torch.randn((b, kv, grp, dh), generator=g, device=dev) * dh ** -0.5
-        pos = torch.full((b,), pos_v, dtype=torch.int32, device=dev)
+        di = gqa_decode_inputs(torch, g, bits)
+        codec, page, q, pos = di["codec"], di["page"], di["q"], di["pos"]
+        kq, ks, vq, vs = di["flat"]
         kw = dict(kv_bits=bits, chunk=codec.chunk, dv=dh)
         rows = pos_v + 1
         code_b = kq[0, 0, 0].numel() * kq.element_size()
@@ -532,20 +593,7 @@ def check_kv_kernels(torch, checks: Checks) -> None:
                library_ms, nbytes, flops, "float32", bits == 8)
 
         # paged: the same codes through a shuffled table + a trash entry
-        perm = torch.randperm(b * n_tiles, generator=torch.Generator()
-                              .manual_seed(2)) + 1
-        tbl = perm.reshape(b, n_tiles).to(torch.int32)
-        pools = []
-        for codes, scales in ((kq, ks), (vq, vs)):
-            cp = torch.zeros((b * n_tiles + 1, page) + codes.shape[2:],
-                             dtype=codes.dtype, device=dev)
-            sp = torch.zeros((b * n_tiles + 1, page // codec.chunk, kv),
-                             dtype=scales.dtype, device=dev)
-            cp[perm.to(dev)] = codes.reshape(cp[1:].shape)
-            sp[perm.to(dev)] = scales.reshape(sp[1:].shape)
-            pools += [cp, sp]
-        tbl = torch.cat([tbl, torch.zeros((b, 1), dtype=torch.int32)],
-                        1).to(dev)
+        tbl, pools = di["tbl"], di["pools"]
         want = finalized(*paged_flash_decode_ref(tbl, pos, q, *pools,
                                                  page=page, **rkw)[::2])
         got = paged_flash_decode(tbl, pos, q, *pools, page=page, **kw)
@@ -563,26 +611,14 @@ def check_kv_kernels(torch, checks: Checks) -> None:
         record("paged_flash_decode", dict(shape, table="shuffled + trash"),
                got, want, TOL_KV, ms, plain_ms, library_ms, nbytes, flops,
                "float32", bits == 8)
-        del kq, ks, vq, vs, pools, sets, flat, got, want
+        del kq, ks, vq, vs, pools, sets, flat, got, want, di
         torch.cuda.empty_cache()
 
         # extend: an L-token chunk over FE_PAST past pages, bf16 inputs
+        xi = gqa_extend_inputs(torch, g, bits)
         L, n_past = FE_L, FE_PAST
-        n_pages = n_past + 1
-        kq, ks = codec.encode(torch.randn((1, n_pages * page, kv, dh),
-                                          generator=g, device=dev))
-        vq, vs = codec.encode(torch.randn((1, n_pages * page, kv, dh),
-                                          generator=g, device=dev))
-        pools = [kq.reshape((n_pages, page) + kq.shape[2:]),
-                 ks.reshape(n_pages, page // codec.chunk, kv),
-                 vq.reshape((n_pages, page) + vq.shape[2:]),
-                 vs.reshape(n_pages, page // codec.chunk, kv)]
-        tbl = (torch.randperm(n_past, generator=torch.Generator()
-                              .manual_seed(3)) + 1).to(torch.int32).to(dev)
-        q, k_new, v_new = (torch.randn(shp, generator=g, device=dev).to(
-            torch.bfloat16) for shp in ((1, L, h, dh), (1, L, kv, dh),
-                                        (1, L, kv, dh)))
-        ekw = dict(kv_bits=bits, chunk=codec.chunk, dh=dh, dv=dh, page=page)
+        tbl, q, k_new, v_new = xi["tbl"], xi["q"], xi["k_new"], xi["v_new"]
+        pools, ekw = xi["pools"], xi["ekw"]
         want = paged_flash_extend_ref(tbl, q, k_new, v_new, *pools, **ekw)
         got = paged_flash_extend(tbl, q, k_new, v_new, *pools, **ekw)
         past_rows = n_past * page
@@ -590,7 +626,11 @@ def check_kv_kernels(torch, checks: Checks) -> None:
                             + -(-past_rows // codec.chunk) * 2)
                   + (q.numel() + k_new.numel() + v_new.numel()) * 2
                   + L * h * dh * 4)
-        flops = 4.0 * h * dh * L * (past_rows + (L + 1) / 2)
+        # the function's least work, in bf16 tensor-core operations: Q.K^T
+        # once (bf16 queries and keys, codes exact in bf16), P.V at the
+        # cheapest fp32-accurate rate (three bf16 terms at 989 TFLOP/s
+        # beat two TF32 terms at 495)
+        flops = (1 + 3) * 2.0 * h * dh * L * (past_rows + (L + 1) / 2)
         sets = clones((tbl, q, k_new, v_new) + tuple(pools), nbytes)
         ms = timer.ms(lambda a=a: paged_flash_extend(*a, **ekw)
                       for a in sets)
@@ -616,8 +656,8 @@ def check_kv_kernels(torch, checks: Checks) -> None:
         record("paged_flash_extend",
                {"kv_bits": bits, "L": L, "n_past": n_past, "H": h, "KV": kv,
                 "Dh": dh}, got, want, TOL_KV, ms, plain_ms, library_ms,
-               nbytes, flops, "float32", bits == 8)
-        del kq, ks, vq, vs, pools, sets, sdpa, got, want
+               nbytes, flops, "bfloat16", bits == 8)
+        del pools, sets, sdpa, got, want, xi
         torch.cuda.empty_cache()
 
 
@@ -1005,23 +1045,28 @@ def check_solves(torch, entries: dict, proxy_card: dict, *, arch=ARCH,
 
 
 def profile_engine(torch, run) -> dict:
-    """Device time by kernel over one traced engine run (``run()``), and
-    the summed device-busy time; the profiler slows the host, so the idle
-    share is taken against an untraced run of the same work."""
+    """Device time by kernel over one traced engine run (``run()``), the
+    summed device-busy time, the traced run's own wall clock and its idle
+    share (1 - busy / that wall).  The profiler slows the host, so the
+    caller reports the untraced run's wall beside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [{"name": ev.key[:60], "ms": ev.self_device_time_total / 1e3,
              "calls": ev.count} for ev in prof.key_averages()
             if ev.device_type == DeviceType.CUDA
             and ev.self_device_time_total > 0]
     rows.sort(key=lambda r: -r["ms"])
-    return {"device_busy_ms": sum(r["ms"] for r in rows), "top": rows[:10]}
+    busy = sum(r["ms"] for r in rows)
+    return {"device_busy_ms": busy, "traced_wall_ms": wall_ms,
+            "idle_share": 1.0 - busy / wall_ms, "top": rows[:10]}
 
 
 class KvAudit:
@@ -1382,8 +1427,6 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                 traced = profile_engine(torch,
                                         lambda: engine_run(None, "exact"))
                 traced["untraced_wall_ms"] = row["whole"]["wall_s"] * 1e3
-                traced["idle_share"] = 1.0 - (traced["device_busy_ms"]
-                                              / traced["untraced_wall_ms"])
                 row["whole_profile"] = traced
             row["seconds"] = time.perf_counter() - t0
             report[f"kv{bits}"] = row
@@ -1692,14 +1735,56 @@ def time_quant_matmul(torch) -> list:
     return out
 
 
-# one process of ``compare_quant_matmul``: times the tree named by argv[1]
+def time_gqa_attention(torch) -> list:
+    """``flash_decode``, ``paged_flash_decode`` and ``paged_flash_extend``
+    on phase 2's inputs (``gqa_decode_inputs``, ``gqa_extend_inputs``), kv8
+    and kv2, with the ``repro_torch`` that is on sys.path; ms per call from
+    ``Timer`` over cold copies."""
+    from repro_torch.kernels.flash_decode.ops import (flash_decode,
+                                                      paged_flash_decode,
+                                                      paged_flash_extend)
+
+    g = torch.Generator(device="cuda").manual_seed(1)
+    checks = Checks(Timer(torch))
+    out = []
+    for bits in KV_BITS:
+        di = gqa_decode_inputs(torch, g, bits)
+        page = di["page"]
+        kw = dict(kv_bits=bits, chunk=di["codec"].chunk, dv=FD_DH)
+        cache_b = sum(t.numel() * t.element_size() for t in di["flat"])
+        sets = checks.clones((di["q"],) + di["flat"] + (di["pos"],), cache_b)
+        out.append({"kernel": "flash_decode", "kv_bits": bits,
+                    "ms": checks.timer.ms(lambda a=a: flash_decode(
+                        *a, tile=page, **kw) for a in sets)})
+        sets = checks.clones((di["tbl"], di["pos"], di["q"])
+                             + tuple(di["pools"]), cache_b)
+        out.append({"kernel": "paged_flash_decode", "kv_bits": bits,
+                    "ms": checks.timer.ms(lambda a=a: paged_flash_decode(
+                        *a, page=page, **kw) for a in sets)})
+        del di, sets
+        xi = gqa_extend_inputs(torch, g, bits)
+        args = (xi["tbl"], xi["q"], xi["k_new"], xi["v_new"]) \
+            + tuple(xi["pools"])
+        sets = checks.clones(args, sum(t.numel() * t.element_size()
+                                       for t in args))
+        out.append({"kernel": "paged_flash_extend", "kv_bits": bits,
+                    "ms": checks.timer.ms(lambda a=a: paged_flash_extend(
+                        *a, **xi["ekw"]) for a in sets)})
+        del xi, sets
+        torch.cuda.empty_cache()
+    return out
+
+
+# one process of ``compare``: times the tree named by argv[1]
 TIME_ONE_TREE = ("import sys; from pathlib import Path; import chip_smoke "
-                 "as c; c.log(c.time_quant_matmul(c.card_torch("
-                 "Path(sys.argv[1]))))")
+                 "as c; t = c.card_torch(Path(sys.argv[1])); "
+                 "c.log({'quant_matmul': c.time_quant_matmul(t), "
+                 "'gqa_attention': c.time_gqa_attention(t)})")
 
 
-def compare_quant_matmul(other: Path) -> None:
-    """Times ``quant_matmul`` (``time_quant_matmul``) of another checkout's
+def compare(other: Path) -> None:
+    """Times ``quant_matmul`` (``time_quant_matmul``) and the three GQA
+    attention wrappers (``time_gqa_attention``) of another checkout's
     ``src`` and of this one in turns, other, this, this, other, one process
     each on the same card, and prints them as one JSON line."""
     card_torch(SRC)
@@ -1710,19 +1795,19 @@ def compare_quant_matmul(other: Path) -> None:
             [sys.executable, "-c", TIME_ONE_TREE, str(src)], cwd=ROOT,
             capture_output=True, text=True, timeout=900)
         if done.returncode != 0:
-            fail(f"timing quant_matmul of {src} failed:\n{done.stderr}")
+            fail(f"timing {src} failed:\n{done.stderr}")
         runs.append({"src": str(src),
-                     "rows": json.loads(done.stdout.strip().splitlines()[-1])})
-    log({"compare_quant_matmul": {"card": card_name(), "runs": runs}})
+                     **json.loads(done.stdout.strip().splitlines()[-1])})
+    log({"compare": {"card": card_name(), "runs": runs}})
 
 
 def main() -> None:
     args = sys.argv[1:]
-    if len(args) == 2 and args[0] == "--compare-quant-matmul":
-        compare_quant_matmul(Path(args[1]))
+    if len(args) == 2 and args[0] == "--compare":
+        compare(Path(args[1]))
         return
     if args:
-        fail("usage: chip_smoke.py [--compare-quant-matmul OTHER/src]")
+        fail("usage: chip_smoke.py [--compare OTHER/src]")
     torch = card_torch(SRC)
     t_start = time.perf_counter()
 

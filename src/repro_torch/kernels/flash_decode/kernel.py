@@ -4,11 +4,13 @@ attention).  Shapes, types and contiguity are checked by ``ops``; these
 allocate the outputs and scratch and launch."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import build
 
-TILES_PER_SPLIT = 4  # decode: tiles one block walks (a fixed run: see .cu)
+TILES_PER_SPLIT = 4  # MLA decode: tiles one block walks (a fixed run)
 MAX_G = 16  # query heads per KV head
 MAX_D = 256  # head dim
 MLA_MAX_DL = 512  # MLA latent width (one column per thread of 512)
@@ -16,15 +18,26 @@ MLA_MAX_DL = 512  # MLA latent width (one column per thread of 512)
 
 def _decode_fn():
     fn = build.library("flash_decode").fd_decode_launch
-    fn.argtypes = [build.P] * 11 + [build.I] * 15 + [build.P]
+    fn.argtypes = [build.P] * 11 + [build.I] * 12 + [build.P]
     fn.restype = build.I
     return fn
 
 
+@functools.cache
+def gqa_tiles_per_split() -> int:
+    """Tiles one GQA decode block walks: ``SPLIT_TILES`` of
+    ``csrc/flash_decode.cu``, its one owner (a fixed run whatever the cache
+    length, so that paged == flat bitwise)."""
+    fn = build.library("flash_decode").fd_split_tiles
+    fn.argtypes = []
+    fn.restype = build.I
+    return fn()
+
+
 def _extend_fn():
     fn = build.library("flash_decode").fe_extend_launch
-    fn.argtypes = ([build.P] * 8 + [build.I, build.P] + [build.I] * 10
-                   + [build.P])
+    fn.argtypes = ([build.P] * 8 + [build.I, build.P] + [build.I] * 9
+                   + [build.F, build.P])
     fn.restype = build.I
     return fn
 
@@ -36,7 +49,7 @@ def flash_decode_cuda(q, kq, ks, vq, vs, pos, tbl, *, kv_bits: int,
     (B,) int32 tensor, each request's last valid row; ``tbl`` an int32 (B,
     n_tiles) page table, or None for a flat cache of ``seq_len`` rows."""
     b, kv, g, dh = q.shape
-    n_split = -(-n_tiles // TILES_PER_SPLIT)
+    n_split = -(-n_tiles // gqa_tiles_per_split())
     f32 = dict(dtype=torch.float32, device=q.device)
     part_acc = torch.empty((b, kv, n_split, g, dv), **f32)
     part_m = torch.empty((b, kv, n_split, g), **f32)
@@ -47,27 +60,28 @@ def flash_decode_cuda(q, kq, ks, vq, vs, pos, tbl, *, kv_bits: int,
         vs.data_ptr(), pos.data_ptr(),
         None if tbl is None else tbl.data_ptr(), part_acc.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(), b, kv, g, dh,
-        dv, seq_len, ks.shape[1], n_tiles, tile, chunk, kv_bits,
-        kq.shape[-1], vq.shape[-1], TILES_PER_SPLIT, n_split,
+        dv, seq_len, ks.shape[1], n_tiles, tile, chunk, kv_bits, n_split,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_decode")
     return out
 
 
-def flash_extend_cuda(q, kf, vf, kq, ks, vq, vs, tbl, *, kv_bits: int,
-                      chunk: int, page: int, L: int, g: int) -> torch.Tensor:
-    """(L, KV*G, Dv) fp32 normalized chunk attention on the card.  q: (KV,
-    L*G, Dh) fp32 scaled; kf/vf: (KV, L, Dh|Dv) fp32; tbl: (n_past,)
-    int32."""
-    kv, _, dh = q.shape
-    dv = vf.shape[-1]
-    out = torch.empty((L, kv * g, dv), dtype=torch.float32, device=q.device)
+def flash_extend_cuda(q, k_new, v_new, kq, ks, vq, vs, tbl, *, kv_bits: int,
+                      chunk: int, page: int) -> torch.Tensor:
+    """(1, L, H, Dv) fp32 normalized chunk attention on the card.  q: (1, L,
+    H, Dh) unscaled; k_new/v_new: (1, L, KV, Dh|Dv); all three contiguous,
+    all bf16 (exact on the tensor cores) or all fp32 (split into TF32 hi
+    and lo terms); tbl: (n_past,) int32."""
+    _, L, h, dh = q.shape
+    kv, dv = k_new.shape[2], v_new.shape[-1]
+    out = torch.empty((1, L, h, dv), dtype=torch.float32, device=q.device)
     n_past = tbl.shape[0]
     err = _extend_fn()(
-        q.data_ptr(), kf.data_ptr(), vf.data_ptr(), kq.data_ptr(),
+        q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), kq.data_ptr(),
         ks.data_ptr(), vq.data_ptr(), vs.data_ptr(),
-        tbl.data_ptr() if n_past else None, n_past, out.data_ptr(), kv, g,
-        L, dh, dv, page, chunk, kv_bits, kq.shape[-1], vq.shape[-1],
+        tbl.data_ptr() if n_past else None, n_past, out.data_ptr(), kv,
+        h // kv, L, dh, dv, page, chunk, kv_bits,
+        int(q.dtype == torch.float32), dh ** -0.5,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "paged_flash_extend")
     return out

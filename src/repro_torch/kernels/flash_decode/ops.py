@@ -157,8 +157,10 @@ def paged_flash_extend(tbl, q, k_new, v_new, kq, ks, vq, vs, *,
     (n_past,) int, every page full: chunks are page-aligned, so the chunk
     starts at n_past * page) and then to its own fp keys and values,
     causally.
-    q: (1, L, H, Dh) unscaled; k_new/v_new: (1, L, KV, Dh|Dv).  Returns
-    (1, L, H, Dv) fp32.  ``n_past = 0`` attends the chunk alone."""
+    q: (1, L, H, Dh) unscaled; k_new/v_new: (1, L, KV, Dh|Dv).  On the card
+    they reach the kernel in their own dtype when all three are bf16, else
+    as fp32.  Returns (1, L, H, Dv) fp32.  ``n_past = 0`` attends the chunk
+    alone."""
     if page % chunk or kq.shape[1] != page:
         raise ValueError(f"pools of {kq.shape[1]}-row pages do not hold "
                          f"whole scale chunks of {chunk} at page {page}")
@@ -176,19 +178,19 @@ def paged_flash_extend(tbl, q, k_new, v_new, kq, ks, vq, vs, *,
     _check_query("paged_flash_extend", q, grouped=False)
     _check_cache("paged_flash_extend", kq, ks, vq, vs, kv_bits=kv_bits,
                  dh=dh, dv=dv, device=q.device)
-    g = h // kv
-    qf = (q.float() * dh ** -0.5)[0].reshape(L, kv, g, dh)
-    qf = qf.permute(1, 0, 2, 3).reshape(kv, L * g, dh).contiguous()
-    kf = k_new[0].float().permute(1, 0, 2).contiguous()
-    vf = v_new[0].float().permute(1, 0, 2).contiguous()
+    # bf16 (the model's dtype) goes to the tensor cores as it is; any other
+    # mix is widened to fp32, which the kernel splits into TF32 hi + lo
+    xs = (q, k_new, v_new)
+    if not all(x.dtype == torch.bfloat16 for x in xs):
+        xs = tuple(x.float() for x in xs)
+    q, k_new, v_new = (x.contiguous() for x in xs)
     tbl = tbl.to(device=q.device, dtype=torch.int32).reshape(-1).contiguous()
     from repro_torch.kernels.flash_decode.kernel import flash_extend_cuda
 
-    out = flash_extend_cuda(qf, kf, vf, kq, ks, vq, vs, tbl,
-                            kv_bits=kv_bits, chunk=chunk, page=page, L=L,
-                            g=g)
+    out = flash_extend_cuda(q, k_new, v_new, kq, ks, vq, vs, tbl,
+                            kv_bits=kv_bits, chunk=chunk, page=page)
     paged_flash_extend.launches += 1
-    return out.reshape(1, L, h, dv)
+    return out
 
 
 # ------------------------------------------------------------------- MLA

@@ -300,3 +300,119 @@ def paged_mla_flash_extend_ref(tbl, ql, qr, c_new, r_new, cq, cs, rq, rs, *,
     scores = matmul(qlf, cf.T) + matmul(qrf, rf.T)           # (L*H, L)
     m, l, acc = tile_update(scores, cf, causal, m, l, acc)
     return (acc / torch.clamp_min(l, 1e-30)).reshape(L, h, dl)
+
+
+# ----------------------------------------- the extend kernel's arithmetic
+#
+# ``fe_extend_kernel`` (csrc/flash_decode.cu) multiplies on the tensor cores
+# in TF32 (10 explicit mantissa bits).  It keeps the fp32 result by feeding
+# them exact operands (int8 codes, 2-bit levels, bf16 values) or fp32 values
+# split into a TF32 hi and lo term, with every scale applied in fp32 after
+# the product.  The emulation below repeats that operand handling on the
+# CPU for the tests (``tests/test_torch_flash_precision.py``); nothing on the
+# serving path calls it.
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest TF32 value, ties away from zero, as
+    ``cvt.rna.tf32.f32`` rounds: add half of the 13 dropped bits to the
+    magnitude, then clear them (finite inputs)."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """fp32 x -> (hi, lo), both TF32, hi + lo within ~2^-22 of x."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
+def _tc_product(a_terms, b_terms) -> torch.Tensor:
+    """Sum of the tensor-core products the kernel issues for operand terms
+    (a_hi[, a_lo]) x (b_hi[, b_lo]): every pair but lo x lo."""
+    out = None
+    for i, a in enumerate(a_terms):
+        for j, b in enumerate(b_terms):
+            if i and j:
+                continue
+            y = a @ b
+            out = y if out is None else out + y
+    return out
+
+
+def paged_flash_extend_emulated(tbl, q, k_new, v_new, kq, ks, vq, vs, *,
+                                kv_bits: int, chunk: int, dh: int, dv: int,
+                                page: int, split_p: bool = True,
+                                keys: int = 32) -> torch.Tensor:
+    """:func:`paged_flash_extend_ref`'s function computed the way the extend
+    kernel computes it: ``keys``-key tiles (past keys, then the chunk's own
+    under the causal mask), Q.K^T on the codes (scale 1) and on the query
+    in its own dtype, fp32 queries and keys split into TF32 hi + lo;
+    dh^-0.5 * log2(e) and each key's scale applied to the fp32 score; the
+    softmax in the log2 domain; each past key's V scale folded into P, P
+    split into TF32 hi + lo (only hi with ``split_p=False``) against exact
+    V codes or bf16 values (fp32 values split again); each tile's product
+    summed from zero and added as acc * alpha + tile.  Same arguments and
+    return as :func:`paged_flash_extend_ref`."""
+    _, L, h, _ = q.shape
+    kv = k_new.shape[2]
+    g = h // kv
+    exact = all(x.dtype == torch.bfloat16 for x in (q, k_new, v_new))
+
+    def terms(x):  # a value operand as the kernel feeds it
+        return (x.float(),) if exact else tf32_split(x.float())
+
+    n_past = tbl.shape[0]
+    pid = tbl.long()
+
+    def past(codes, scales, d):  # (KV, NP, d) codes as values, (KV, NP)
+        if not n_past:
+            return None, None
+        c = codes[pid].reshape((n_past * page,) + codes.shape[2:])
+        sc = scales[pid].reshape(n_past * page // chunk, kv).T
+        ones = torch.ones_like(sc)
+        x = dequant_kv(c.transpose(0, 1), ones, kv_bits=kv_bits,
+                       chunk=chunk, d=d)
+        return x, sc.float().repeat_interleave(chunk, dim=-1)
+
+    kc, sk = past(kq, ks, dh)
+    vc, sv = past(vq, vs, dv)
+    qf = q[0].float().reshape(L, kv, g, dh).permute(1, 0, 2, 3)
+    qf = qf.reshape(kv, L * g, dh)                          # rows = (l, g)
+    kf = k_new[0].float().permute(1, 0, 2)                  # (KV, L, Dh)
+    vf = v_new[0].float().permute(1, 0, 2)
+    scale2 = (torch.tensor(dh ** -0.5, dtype=torch.float32)
+              * torch.tensor(1.4426950408889634, dtype=torch.float32))
+    row_tok = torch.arange(L * g) // g
+    acc = torch.zeros((kv, L * g, dv))
+    m = torch.full((kv, L * g, 1), NEG_INF)
+    l = torch.zeros((kv, L * g, 1))
+    n_past_keys = n_past * page
+    tiles = [(j, True) for j in range(0, n_past_keys, keys)]
+    tiles += [(j, False) for j in range(0, L, keys)]
+    for j0, is_past in tiles:
+        if is_past:
+            sl = slice(j0, min(j0 + keys, n_past_keys))
+            s = _tc_product(terms(qf), (kc[:, sl].transpose(1, 2),))
+            s = s * scale2 * sk[:, None, sl]
+            live = torch.ones(s.shape[-1], dtype=torch.bool)[None, None]
+            v_terms, v_scale = (vc[:, sl],), sv[:, sl, None]
+        else:
+            sl = slice(j0, min(j0 + keys, L))
+            kt = tuple(x.transpose(1, 2) for x in terms(kf[:, sl]))
+            s = _tc_product(terms(qf), kt) * scale2
+            live = (row_tok[:, None] >= torch.arange(sl.start,
+                                                     sl.stop)[None, :])[None]
+            v_terms, v_scale = terms(vf[:, sl]), None
+        s = torch.where(live, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(live, torch.exp2(s - m_new), 0.0)
+        alpha = torch.exp2(m - m_new)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        pv = p if v_scale is None else p * v_scale.transpose(1, 2)
+        p_terms = tf32_split(pv) if split_p else (tf32_round(pv),)
+        acc = acc * alpha + _tc_product(p_terms, v_terms)
+        m = m_new
+    out = acc / torch.clamp_min(l, 1e-30)                   # (KV, L*g, Dv)
+    out = out.reshape(kv, L, g, dv).permute(1, 0, 2, 3)
+    return out.reshape(1, L, h, dv)

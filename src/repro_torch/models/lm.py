@@ -308,6 +308,12 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name}: the port serves dense GQA decoders without qkv "
                 f"bias and MLA layers with a dense FFN")
+        if cfg.tie_embeddings:
+            raise NotImplementedError(
+                f"{cfg.name}: tied embeddings (the LM head is the embedding "
+                f"table, and rotation unties it) are a later slice of the "
+                f"port, with the command-r configs; the port's models keep "
+                f"a separate head")
         self.cfg = cfg
         self.codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)  # checks bits
         self.device = resolve_device(device)

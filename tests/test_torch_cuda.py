@@ -340,6 +340,236 @@ def test_paged_flash_extend_kernel_vs_plain(cuda, kv_bits, n_past, L, d):
     assert _rel(got, want) < 1e-5
 
 
+def _paged_pools(kq, ks, vq, vs, chunk, page, extra, seed):
+    """The flat cache's pages scattered through a shuffled table (page 0 is
+    trash) with ``extra`` trash columns past every request's tiles:
+    (tbl, [kq, ks, vq, vs] pools)."""
+    b, s = kq.shape[:2]
+    n_tiles = s // page
+    perm = torch.randperm(b * n_tiles, generator=torch.Generator()
+                          .manual_seed(seed)) + 1
+    tbl = perm.reshape(b, n_tiles).to(torch.int32)
+    pools = []
+    for codes, scales in ((kq, ks), (vq, vs)):
+        cp = torch.zeros((b * n_tiles + 1, page) + codes.shape[2:],
+                         dtype=codes.dtype, device=codes.device)
+        sp = torch.zeros((b * n_tiles + 1, page // chunk) + scales.shape[2:],
+                         dtype=scales.dtype, device=scales.device)
+        cp[tbl.reshape(-1).long()] = codes.reshape((b * n_tiles, page)
+                                                   + codes.shape[2:])
+        sp[tbl.reshape(-1).long()] = scales.reshape(
+            (b * n_tiles, page // chunk) + scales.shape[2:])
+        pools += [cp, sp]
+    tbl = torch.cat([tbl, torch.zeros((b, extra), dtype=torch.int32)], 1)
+    return tbl.to(kq.device), pools
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("grp,d", [(16, 256), (8, 128), (16, 40)])
+def test_flash_decode_kernels_at_the_limits(cuda, kv_bits, grp, d):
+    """G up to 16 (queries in shared memory) and Dh up to 256 (two V
+    columns per lane), flat and paged: within 1e-5 of the plain version,
+    paged == flat bitwise."""
+    page, b, kv, s = 64, 2, 2, 320
+    pos = [319, 130]
+    g = torch.Generator(device=cuda).manual_seed(21)
+    kq, ks, vq, vs, chunk = _kv_cache(g, b, s, kv, d, kv_bits, cuda)
+    q = torch.randn((b, kv, grp, d), generator=g, device=cuda)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    acc, _, l = flash_decode_ref(q, kq, ks, vq, vs, pos_t, kv_bits=kv_bits,
+                                 chunk=chunk, dh=d, dv=d, tile=page)
+    flat = flash_decode(q, kq, ks, vq, vs, pos_t, kv_bits=kv_bits,
+                        chunk=chunk, dv=d, tile=page)
+    tbl, pools = _paged_pools(kq, ks, vq, vs, chunk, page, 1, 22)
+    paged = paged_flash_decode(tbl, pos_t, q, *pools, kv_bits=kv_bits,
+                               chunk=chunk, dv=d, page=page)
+    torch.cuda.synchronize()
+    assert _rel(flat, _finalized(acc, l)) < 1e-5
+    assert torch.equal(paged, flat)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("extra", [1, 2, 5])
+def test_paged_flash_decode_wide_table_equals_flat(cuda, kv_bits, extra):
+    """A page table wider than the flat cache's tile count (trash columns
+    past every position, crossing split boundaries) changes nothing:
+    paged == flat bitwise."""
+    page, b, kv, grp, d, s = 64, 3, 2, 4, 128, 448
+    pos_t = torch.tensor([447, 200, 63], dtype=torch.int32, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(23)
+    kq, ks, vq, vs, chunk = _kv_cache(g, b, s, kv, d, kv_bits, cuda)
+    q = torch.randn((b, kv, grp, d), generator=g, device=cuda)
+    tbl, pools = _paged_pools(kq, ks, vq, vs, chunk, page, extra, 24)
+    paged = paged_flash_decode(tbl, pos_t, q, *pools, kv_bits=kv_bits,
+                               chunk=chunk, dv=d, page=page)
+    flat = flash_decode(q, kq, ks, vq, vs, pos_t, kv_bits=kv_bits,
+                        chunk=chunk, dv=d, tile=page)
+    acc, _, l = paged_flash_decode_ref(tbl, pos_t, q, *pools,
+                                       kv_bits=kv_bits, chunk=chunk, dh=d,
+                                       dv=d, page=page)
+    torch.cuda.synchronize()
+    assert torch.equal(paged, flat)
+    assert _rel(paged, _finalized(acc, l)) < 1e-5
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+def test_paged_flash_decode_never_reads_rows_past_pos(cuda, kv_bits):
+    """The trash page and every scale past each request's position hold
+    NaN / inf (kv2: whole scale chunks past pos), with stale codes: the
+    kernels' results are bitwise those on the clean cache, within 1e-5 of
+    the plain version on the clean cache (whose 0 * NaN would propagate),
+    and paged == flat bitwise."""
+    page, b, kv, grp, d, s = 64, 3, 2, 4, 128, 384
+    pos = [300, 64, 127]
+    g = torch.Generator(device=cuda).manual_seed(25)
+    kq, ks, vq, vs, chunk = _kv_cache(g, b, s, kv, d, kv_bits, cuda)
+    q = torch.randn((b, kv, grp, d), generator=g, device=cuda)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    bad = (float("nan"), float("inf"), float("-inf"))
+    pks, pvs = ks.clone(), vs.clone()
+    for i, p in enumerate(pos):
+        first = p // chunk + 1  # the first scale row wholly past pos
+        for j, sc in enumerate((pks, pvs)):
+            sc[i, first:] = bad[(i + j) % 3]
+    tbl, clean = _paged_pools(kq, ks, vq, vs, chunk, page, 1, 26)
+    _, poisoned = _paged_pools(kq, pks, vq, pvs, chunk, page, 1, 26)
+    for pool in (poisoned[1], poisoned[3]):
+        pool[0] = float("nan")  # the trash page
+    poisoned[0][0] = kq[0, :page]  # stale codes in the trash page
+    kw = dict(kv_bits=kv_bits, chunk=chunk, dv=d)
+    want = paged_flash_decode(tbl, pos_t, q, *clean, page=page, **kw)
+    got = paged_flash_decode(tbl, pos_t, q, *poisoned, page=page, **kw)
+    flat = flash_decode(q, kq, pks, vq, pvs, pos_t, tile=page, **kw)
+    acc, _, l = paged_flash_decode_ref(tbl, pos_t, q, *clean, dh=d,
+                                       page=page, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+    assert torch.equal(flat, got)
+    assert _rel(got, _finalized(acc, l)) < 1e-5
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("n_past,L,h,kv,d", [
+    (2, 70, 16, 1, 256), (0, 33, 32, 2, 256), (3, 100, 16, 1, 40)])
+def test_paged_flash_extend_kernel_at_the_limits(cuda, kv_bits, dtype,
+                                                 n_past, L, h, kv, d):
+    """G 16 and Dh 256 (the limits) and a ragged Dh, with bf16 inputs
+    (exact on the tensor cores) and fp32 inputs (split into TF32 hi + lo)."""
+    page = 64
+    g = torch.Generator(device=cuda).manual_seed(27)
+    n_pages = n_past + 2
+    kq, ks, vq, vs, chunk = _kv_cache(g, 1, n_pages * page, kv, d, kv_bits,
+                                      cuda)
+    pools = [kq.reshape((n_pages, page) + kq.shape[2:]),
+             ks.reshape((n_pages, page // chunk) + ks.shape[2:]),
+             vq.reshape((n_pages, page) + vq.shape[2:]),
+             vs.reshape((n_pages, page // chunk) + vs.shape[2:])]
+    tbl = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(28))[:n_past].to(torch.int32)
+           + 1).to(cuda)
+    q, k_new, v_new = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                       for shape in ((1, L, h, d), (1, L, kv, d),
+                                     (1, L, kv, d)))
+    kw = dict(kv_bits=kv_bits, chunk=chunk, dh=d, dv=d, page=page)
+    want = paged_flash_extend_ref(tbl, q, k_new, v_new, *pools, **kw)
+    got = paged_flash_extend(tbl, q, k_new, v_new, *pools, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (1, L, h, d) and got.dtype == torch.float32
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("n_past,L", [(0, 128), (3, 128), (16, 256)])
+def test_paged_flash_extend_kernel_bf16_as_the_model_passes(cuda, kv_bits,
+                                                            n_past, L):
+    """bf16 q / k_new / v_new at llama3-8b's heads (32 / 8, Dh 128), as
+    ``models.attention`` passes them: within 1e-5 of the plain version."""
+    page, h, kv, d = 64, 32, 8, 128
+    g = torch.Generator(device=cuda).manual_seed(29)
+    n_pages = n_past + 1
+    kq, ks, vq, vs, chunk = _kv_cache(g, 1, n_pages * page, kv, d, kv_bits,
+                                      cuda)
+    pools = [kq.reshape((n_pages, page) + kq.shape[2:]),
+             ks.reshape((n_pages, page // chunk) + ks.shape[2:]),
+             vq.reshape((n_pages, page) + vq.shape[2:]),
+             vs.reshape((n_pages, page // chunk) + vs.shape[2:])]
+    tbl = (torch.randperm(n_past, generator=torch.Generator()
+                          .manual_seed(30)).to(torch.int32) + 1).to(cuda)
+    q, k_new, v_new = (torch.randn(shape, generator=g, device=cuda).to(
+        torch.bfloat16) for shape in ((1, L, h, d), (1, L, kv, d),
+                                      (1, L, kv, d)))
+    kw = dict(kv_bits=kv_bits, chunk=chunk, dh=d, dv=d, page=page)
+    want = paged_flash_extend_ref(tbl, q, k_new, v_new, *pools, **kw)
+    before = paged_flash_extend.launches
+    got = paged_flash_extend(tbl, q, k_new, v_new, *pools, **kw)
+    torch.cuda.synchronize()
+    assert paged_flash_extend.launches == before + 1
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("page,n_past", [(16, 3), (16, 8), (48, 3), (48, 4),
+                                         (96, 2)])
+def test_paged_flash_extend_kernel_at_other_page_sizes(cuda, kv_bits, dtype,
+                                                       page, n_past):
+    """Pages (``cfg.kv_chunk``) that are not 64 against the kernel's 32-key
+    tiles: at 16 a tile spans two pages, at 48 every other tile starts
+    partway into a page and ends in the next, at 96 a page holds three
+    tiles; at n_past * page not a multiple of 32 the last past tile is
+    partial.  Within 1e-5 of the plain version."""
+    L, h, kv, d = 70, 8, 2, 128
+    g = torch.Generator(device=cuda).manual_seed(31)
+    n_pages = n_past + 2
+    kq, ks, vq, vs, chunk = _kv_cache(g, 1, n_pages * page, kv, d, kv_bits,
+                                      cuda, page=page)
+    pools = [kq.reshape((n_pages, page) + kq.shape[2:]),
+             ks.reshape((n_pages, page // chunk) + ks.shape[2:]),
+             vq.reshape((n_pages, page) + vq.shape[2:]),
+             vs.reshape((n_pages, page // chunk) + vs.shape[2:])]
+    tbl = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(32))[:n_past].to(torch.int32)
+           + 1).to(cuda)
+    q, k_new, v_new = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                       for shape in ((1, L, h, d), (1, L, kv, d),
+                                     (1, L, kv, d)))
+    kw = dict(kv_bits=kv_bits, chunk=chunk, dh=d, dv=d, page=page)
+    want = paged_flash_extend_ref(tbl, q, k_new, v_new, *pools, **kw)
+    before = paged_flash_extend.launches
+    got = paged_flash_extend(tbl, q, k_new, v_new, *pools, **kw)
+    torch.cuda.synchronize()
+    assert paged_flash_extend.launches == before + 1
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("page", [16, 48, 96])
+def test_paged_flash_decode_at_other_page_sizes(cuda, kv_bits, page):
+    """Tiles (= pages) of 16, 48 and 96 rows, flat and paged: within 1e-5 of
+    the plain version, paged == flat bitwise."""
+    b, kv, grp, d, n_tiles = 3, 2, 4, 128, 7
+    s = n_tiles * page
+    pos_t = torch.tensor([s - 1, 3 * page + 5, 0], dtype=torch.int32,
+                         device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(33)
+    kq, ks, vq, vs, chunk = _kv_cache(g, b, s, kv, d, kv_bits, cuda,
+                                      page=page)
+    q = torch.randn((b, kv, grp, d), generator=g, device=cuda)
+    tbl, pools = _paged_pools(kq, ks, vq, vs, chunk, page, 1, 34)
+    kw = dict(kv_bits=kv_bits, chunk=chunk, dv=d)
+    flat = flash_decode(q, kq, ks, vq, vs, pos_t, tile=page, **kw)
+    paged = paged_flash_decode(tbl, pos_t, q, *pools, page=page, **kw)
+    acc, _, l = flash_decode_ref(q, kq, ks, vq, vs, pos_t, dh=d, tile=page,
+                                 **kw)
+    torch.cuda.synchronize()
+    assert _rel(flat, _finalized(acc, l)) < 1e-5
+    assert torch.equal(paged, flat)
+
+
 # ------------------------------------------------------------------- MLA
 
 

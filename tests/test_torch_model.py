@@ -106,3 +106,12 @@ def test_rotate_model_with_reference_q(pair):
                 _close(got_l[sub][w], want_l[sub][w].numpy())
         for norm in ("mixer_norm", "ffn_norm"):
             _close(got_l[norm], want_l[norm].numpy())
+
+
+def test_model_refuses_tied_embeddings(tiny_cfg):
+    """A tied config (no separate LM head in the reference) is refused, not
+    served with a randomly drawn head."""
+    cfg = dataclasses.replace(ModelConfig(**dataclasses.asdict(tiny_cfg)),
+                              tie_embeddings=True)
+    with pytest.raises(NotImplementedError, match="tied embeddings"):
+        Model(cfg, "cpu")
