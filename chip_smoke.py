@@ -16,9 +16,10 @@ Phases, in order; any failure exits non-zero before the final line:
      ``quant_matmul``'s three kernels each where a path runs it: the
      split-k decode (m 4) and the tensor-core tile (bf16, m 256 and 512)
      at llama3-8b's and deepseek-v3's projections, the fp32 tile on MLA's
-     head-batched expand of a prefill chunk; ``fwht`` (through
-     ``hadamard_transform``) at the models' widths, though no path of the
-     system runs it;
+     head-batched expand of a prefill chunk; ``quant_matmul_t``'s two
+     (MLA's absorb: m 4 and a prefill chunk of ENGINE_CHUNK); ``fwht``
+     (through ``hadamard_transform``) at the models' widths, though no path
+     of the system runs it;
   3. the main path: RSQ quantize of llama3-8b at full width and 1 layer
      (random weights from a seed) -> packed artifact -> keep-packed greedy
      serve in bf16, with every kernel's launches counted over that run
@@ -50,17 +51,19 @@ Phases, in order; any failure exits non-zero before the final line:
 Each path fails if a kernel it runs was never launched.  The last two
 lines are the ``kernels`` JSON object (eleven kernels; ``quant_matmul``'s
 entry is its decode row with ``prefill`` and ``prefill_fp32`` rows beside
-it, each with its kernel's launches on both paths) and
+it, each with its kernel's launches on both paths, ``quant_matmul_t``'s its
+decode row with a ``prefill`` row, each with its kernel's MLA launches) and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 reference package.
 
 ``--compare OTHER/src`` runs no phase: it times the packed matmul as
 phase 2 does at llama3-8b's down projection (bf16, 3 and 4 bits, m 4, 256
-and 512) and the three GQA attention wrappers on phase 2's inputs (kv8 and
-kv2), with ``repro_torch`` imported from OTHER/src (another checkout, e.g.
-the parent commit from ``git archive``) and from this one in turns (other,
-this, this, other; one process each) and prints the four runs as one JSON
-line.
+and 512), the three GQA attention wrappers on phase 2's inputs (kv8 and
+kv2), and MLA's absorb (``quant_matmul_t``, m 4 and 128) and extend (kv8
+and kv2), with ``repro_torch`` imported from OTHER/src (another checkout,
+e.g. the parent commit from ``git archive``) and from this one in turns
+(other, this, this, other; one process each) and prints the four runs as
+one JSON line.
 """
 from __future__ import annotations
 
@@ -95,6 +98,10 @@ ENGINE_RATE = 0.5  # Poisson arrivals per scheduling round
 ENGINE_MODES = (("whole", None, "exact"), ("chunked-exact", ENGINE_CHUNK,
                                            "exact"),
                 ("chunked-paged", ENGINE_CHUNK, "paged"))
+# the engine modes that kv8 runs again under the profiler on each path
+# (``<mode>_profile``): chunked-paged prefill runs the extend kernel, and on
+# the MLA path the absorb's fp32 tile, on every chunk
+TRACED_MODES = ("whole", "chunked-paged")
 # phase 2's packed-matmul rows: decode (the serve batch), prefill (batch x
 # prompt) and the engine's whole prompt
 QMM_M = (SERVE_BATCH, SERVE_BATCH * PROMPT_LEN, ENGINE_PROMPT)
@@ -103,6 +110,9 @@ QMM_M = (SERVE_BATCH, SERVE_BATCH * PROMPT_LEN, ENGINE_PROMPT)
 # (fp32 x).  Both paths require each kernel they run; the main path serves
 # in bf16 only and never takes the fp32 tile, which MLA's head-batched
 # expand runs (fp32 x, m > 4) on the MLA path
+# (quant_matmul_t, MLA's absorb, likewise: the decode kernel qmm_t_decode,
+# m <= 4, and the fp32 tile qmm_t_tile, the chunked prefill's m =
+# ENGINE_CHUNK; the MLA path runs both)
 QMM_KERNELS = ("qmm_decode", "qmm_tc", "qmm_tile")
 MAIN_PATH_WITHOUT = ("qmm_tile",)
 # phase 2 widths of fwht: llama3-8b's d_model (a pure FWHT) and d_ff =
@@ -661,20 +671,50 @@ def check_kv_kernels(torch, checks: Checks) -> None:
         torch.cuda.empty_cache()
 
 
+def mla_extend_inputs(torch, g, bits: int) -> dict:
+    """Phase 2's MLA extend inputs at deepseek-v3's widths: latent and rope
+    pages (kv``bits``, page 64) drawn from ``g``, ME_PAST of them in
+    shuffled order, an L = ME_L chunk's scaled fp32 queries (H 128) and its
+    own fp32 latents."""
+    from repro_torch.models.attention import kv_codec
+
+    dev = torch.device("cuda")
+    h, dl, dr, page = MLA_H, MLA_DL, MLA_DR, 64
+    L, n_past = ME_L, ME_PAST
+    n_pages = n_past + 1
+    codec = kv_codec(bits, page)
+    cq, cs = codec.encode(torch.randn((1, n_pages * page, dl), generator=g,
+                                      device=dev))
+    rq, rs = codec.encode(torch.randn((1, n_pages * page, dr), generator=g,
+                                      device=dev))
+    pools = [cq.reshape(n_pages, page, -1), cs.reshape(n_pages, -1),
+             rq.reshape(n_pages, page, -1), rs.reshape(n_pages, -1)]
+    tbl = (torch.randperm(n_past, generator=torch.Generator()
+                          .manual_seed(3)) + 1).to(torch.int32).to(dev)
+    ql = torch.randn((L, h, dl), generator=g, device=dev) * (dl + dr) ** -0.5
+    qr = torch.randn((L, h, dr), generator=g, device=dev) * (dl + dr) ** -0.5
+    c_new = torch.randn((L, dl), generator=g, device=dev)
+    r_new = torch.randn((L, dr), generator=g, device=dev)
+    return {"codec": codec, "page": page, "tbl": tbl, "ql": ql, "qr": qr,
+            "c_new": c_new, "r_new": r_new, "pools": pools,
+            "ekw": dict(kv_bits=bits, chunk=codec.chunk, dl=dl, dr=dr,
+                        page=page)}
+
+
 def check_mla_kernels(torch, checks: Checks) -> None:
     """Phase 2, MLA slice, at deepseek-v3's shapes: the absorb
     (``quant_matmul_t``) and expand (head-batched ``quant_matmul``) steps on
     the per-head views of one packed wkv_b (H 128, m 4, 2/3/4/8 bits, group
-    128), and the expand of a prefill chunk (fp32 x, m = ENGINE_CHUNK: the
-    fp32 tile); the bf16 prefill projections (m 256 and 512, 3 bits: the
+    128), and both on a prefill chunk (fp32 x, m = ENGINE_CHUNK: the fp32
+    tiles ``qmm_t_tile`` and ``qmm_tile``); the bf16 prefill projections (m 256 and 512, 3 bits: the
     tensor-core tile); the latent flash decode (kv8, kv2) at B 4, S 8192, H 128, latent
     512, rope 64, pos = S - 37, flat and through a shuffled page table with
     a trash entry (held bitwise to the flat call); the chunked-prefill
     extend at L 256 over 16 past pages.  Yardsticks: ``torch.bmm`` on the
     dequantized bf16 per-head weights; ``scaled_dot_product_attention``
     (one KV head, ``enable_gqa``, key [c, r] and value c, dequantized to
-    bf16 beforehand, untimed); for the projections and the fp32 expand the
-    product with the dequantized weight (bf16 and fp32)."""
+    bf16 beforehand, untimed); for the projections and the prefill chunks
+    the product with the dequantized weight (bf16 and fp32)."""
     import torch.nn.functional as F
 
     from repro_torch.core.quantizer import QuantSpec, quantize_weight_rtn
@@ -699,7 +739,7 @@ def check_mla_kernels(torch, checks: Checks) -> None:
     m = SERVE_BATCH
 
     # absorb and expand: one launch for all heads on strided views; the
-    # decode step (m = serve batch) and the expand of one prefill chunk
+    # decode step (m = serve batch) and both on one prefill chunk
     for bits in (2, 3, 4, 8):
         spec = QuantSpec(bits=bits, group_size=GROUP)
         w = torch.randn((dl, h * (dn + dv)), generator=g, device=dev) \
@@ -709,10 +749,12 @@ def check_mla_kernels(torch, checks: Checks) -> None:
         del w, qc, sc, zr
         pw_k, pw_v = mla_latent_weights(pw, h, dn, dv)
         rows = {"absorb": (pw_k, dn, dl, m), "expand": (pw_v, dl, dv, m),
-                "expand prefill": (pw_v, dl, dv, ENGINE_CHUNK)}
+                "expand prefill": (pw_v, dl, dv, ENGINE_CHUNK),
+                "absorb prefill": (pw_k, dn, dl, ENGINE_CHUNK)}
         for step, (pv, d_in, d_out, rows_m) in rows.items():
             x = torch.randn((h, rows_m, d_in), generator=g, device=dev)
-            if step == "absorb":
+            absorb = step.startswith("absorb")
+            if absorb:
                 fn, name = quant_matmul_t, "quant_matmul_t"
                 plain = quant_matmul_t_ref
             else:
@@ -730,7 +772,7 @@ def check_mla_kernels(torch, checks: Checks) -> None:
                 full = dataclasses.replace(pw, w_packed=a[1], scale=a[2],
                                            zero=a[3])
                 return mla_latent_weights(full, h, dn, dv)[
-                    0 if step == "absorb" else 1]
+                    0 if step.startswith("absorb") else 1]
 
             pws = [(a[0], views(a)) for a in sets]
             ms = timer.ms(lambda a=a: fn(*a) for a in pws)
@@ -744,17 +786,24 @@ def check_mla_kernels(torch, checks: Checks) -> None:
             # per-head weight as the product multiplies it: bf16 for the
             # decode steps, fp32 (the same function) for the prefill chunk
             lib_t = torch.float32 if rows_m > m else torch.bfloat16
-            wb = (wdeq.transpose(1, 2) if step == "absorb" else
+            wb = (wdeq.transpose(1, 2) if absorb else
                   wdeq).to(lib_t).contiguous()
             libs = clones((x.to(lib_t), wb),
                           (x.numel() + wb.numel()) * wb.element_size())
             library_ms = timer.ms(lambda a=a: torch.bmm(*a) for a in libs)
             key = {"absorb": "quant_matmul_t",
+                   "absorb prefill": "quant_matmul_t_prefill",
                    "expand prefill": "quant_matmul_prefill_fp32"}.get(step)
+            # the function's least work at the cheapest fp32-accurate
+            # tensor-core rate, as row 10's: each product has one fp32
+            # operand (x, or x times each (group, column)'s scale) and one
+            # exact one (code - zero, an integer: check_zero), so three
+            # bf16 terms at 989 TFLOP/s beat two TF32 terms at 495 (and the
+            # fp32 pipes' 67).  The decode steps stay bound by bytes.
             record(name, {"weight": f"wkv_b {step}", "H": h, "m": rows_m,
                           "k": d_in, "n": d_out, "bits": bits}, got, want,
                    TOL_FP32, ms, plain_ms, library_ms, nbytes,
-                   2.0 * h * rows_m * d_in * d_out, "float32",
+                   3 * 2.0 * h * rows_m * d_in * d_out, "bfloat16",
                    bits == BITS and key)
             del sets, pws, libs, wdeq, wb, x
         del pw, pw_k, pw_v
@@ -862,21 +911,10 @@ def check_mla_kernels(torch, checks: Checks) -> None:
 
         # extend: an L-token chunk over ME_PAST past pages
         L, n_past = ME_L, ME_PAST
-        n_pages = n_past + 1
-        cq, cs = codec.encode(torch.randn((1, n_pages * page, dl),
-                                          generator=g, device=dev))
-        rq, rs = codec.encode(torch.randn((1, n_pages * page, dr),
-                                          generator=g, device=dev))
-        pools = [cq.reshape(n_pages, page, -1), cs.reshape(n_pages, -1),
-                 rq.reshape(n_pages, page, -1), rs.reshape(n_pages, -1)]
-        tbl = (torch.randperm(n_past, generator=torch.Generator()
-                              .manual_seed(3)) + 1).to(torch.int32).to(dev)
-        ql = torch.randn((L, h, dl), generator=g, device=dev) \
-            * (dl + dr) ** -0.5
-        qr = torch.randn((L, h, dr), generator=g, device=dev) \
-            * (dl + dr) ** -0.5
-        c_new = torch.randn((L, dl), generator=g, device=dev)
-        r_new = torch.randn((L, dr), generator=g, device=dev)
+        xi = mla_extend_inputs(torch, g, bits)
+        tbl, ql, qr, c_new, r_new = (xi[k] for k in ("tbl", "ql", "qr",
+                                                     "c_new", "r_new"))
+        pools = xi["pools"]
         ekw = dict(kw, page=page)
         want = paged_mla_flash_extend_ref(tbl, ql, qr, c_new, r_new, *pools,
                                           **ekw)
@@ -885,7 +923,13 @@ def check_mla_kernels(torch, checks: Checks) -> None:
         nbytes = (past_rows * row_b + 2 * (past_rows // codec.chunk) * 2
                   + (ql.numel() + qr.numel() + c_new.numel()
                      + r_new.numel()) * 4 + L * h * dl * 4)
-        flops = 2.0 * L * h * (past_rows + (L + 1) / 2) * (dl + dr + dl)
+        # the function's least work at the cheapest fp32-accurate tensor-
+        # core rate: Q.K^T and P.V each have one fp32 operand and one exact
+        # one (codes), so three bf16 terms at 989 TFLOP/s beat two TF32
+        # terms at 495 (and the fp32 pipes' 67); the own latents' extra
+        # term pairs are not counted.  A tensor-core kernel then never
+        # reads faster than its bound.
+        flops = 3 * 2.0 * L * h * (past_rows + (L + 1) / 2) * (dl + dr + dl)
         sets = clones((tbl, ql, qr, c_new, r_new) + tuple(pools), nbytes)
         ms = timer.ms(lambda a=a: paged_mla_flash_extend(*a, **ekw)
                       for a in sets)
@@ -914,8 +958,8 @@ def check_mla_kernels(torch, checks: Checks) -> None:
         record("paged_mla_flash_extend",
                {"kv_bits": bits, "L": L, "n_past": n_past, "H": h, "dl": dl,
                 "dr": dr}, got, want, TOL_KV, ms, plain_ms, library_ms,
-               nbytes, flops, "float32", bits == 8)
-        del cq, cs, rq, rs, pools, sets, sdpa, got, want, ql, qr
+               nbytes, flops, "bfloat16", bits == 8)
+        del xi, tbl, pools, sets, sdpa, got, want, ql, qr, c_new, r_new
         torch.cuda.empty_cache()
 
 
@@ -1260,8 +1304,9 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
     to the plain extend's (``FinalChunks``), and a first token may differ
     from solo ``generate``'s only where solo's two best logits lie within
     twice the largest difference between the two runs' logits (closer
-    than that, the lossy read may flip them; farther, it cannot).  The
-    caller counts the launches."""
+    than that, the lossy read may flip them; farther, it cannot).  kv8's
+    engine runs again under the profiler in ``TRACED_MODES``
+    (``<mode>_profile``).  The caller counts the launches."""
     import numpy as np
 
     from repro_torch.checkpoint.packed import load_packed_forward_params
@@ -1422,12 +1467,15 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                                    f"{fc['max_rel_err']:.3g} > "
                                    f"{TOL_CHUNK_LOGITS}")
                 row[mode]["seconds"] = time.perf_counter() - t1
-            if bits == KV_BITS[0]:  # one traced run: ~15 s of profiler
+            if bits == KV_BITS[0]:  # traced runs: ~15 s of profiler each
                 audit.label = None
-                traced = profile_engine(torch,
-                                        lambda: engine_run(None, "exact"))
-                traced["untraced_wall_ms"] = row["whole"]["wall_s"] * 1e3
-                row["whole_profile"] = traced
+                for mode, chunk, attn in ENGINE_MODES:
+                    if mode not in TRACED_MODES:
+                        continue
+                    traced = profile_engine(torch, lambda: engine_run(chunk,
+                                                                      attn))
+                    traced["untraced_wall_ms"] = row[mode]["wall_s"] * 1e3
+                    row[f"{mode}_profile"] = traced
             row["seconds"] = time.perf_counter() - t0
             report[f"kv{bits}"] = row
             log({"kv_serve": {"arch": arch, "kv_bits": bits, **row}})
@@ -1461,8 +1509,8 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
 
 
 def reset_counts(counted: dict) -> None:
-    """Every launch count of ``counted``'s wrappers to 0 (quant_matmul's
-    by kernel too)."""
+    """Every launch count of ``counted``'s wrappers to 0 (by kernel too,
+    where a wrapper counts them)."""
     for fn in counted.values():
         fn.launches = 0
         if hasattr(fn, "by_kernel"):
@@ -1470,10 +1518,12 @@ def reset_counts(counted: dict) -> None:
 
 
 def read_counts(counted: dict) -> dict:
-    """{name: launches} of ``counted``, with quant_matmul's launches by
-    kernel under the kernels' names (``QMM_KERNELS``)."""
+    """{name: launches} of ``counted``, with the launches of a wrapper that
+    counts them by kernel also under the kernels' names (quant_matmul's
+    ``QMM_KERNELS``, quant_matmul_t's qmm_t_decode and qmm_t_tile)."""
     out = {name: fn.launches for name, fn in counted.items()}
-    out.update(counted["quant_matmul"].by_kernel)
+    for fn in counted.values():
+        out.update(getattr(fn, "by_kernel", {}))
     return out
 
 
@@ -1775,18 +1825,59 @@ def time_gqa_attention(torch) -> list:
     return out
 
 
+def time_mla(torch) -> list:
+    """MLA's absorb (``quant_matmul_t`` on the W_k views of a 3-bit
+    deepseek-v3 wkv_b: H 128, d 128, k 512) at m = SERVE_BATCH and
+    ENGINE_CHUNK, and ``paged_mla_flash_extend`` on phase 2's inputs
+    (``mla_extend_inputs``), kv8 and kv2, with the ``repro_torch`` that is
+    on sys.path; ms per call from ``Timer`` over cold copies (the weight
+    from ``rtn_packed`` and ``packed_sets``, as ``time_quant_matmul``)."""
+    from repro_torch.kernels.flash_decode.ops import paged_mla_flash_extend
+    from repro_torch.kernels.quant_matmul.ops import (mla_latent_weights,
+                                                      quant_matmul_t)
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    checks = Checks(Timer(torch))
+    h, dn, dv, dl = MLA_H, MLA_DN, MLA_DV, MLA_DL
+    pw, _ = rtn_packed(torch, g, dl, h * (dn + dv), BITS)
+    out = []
+    for m in (SERVE_BATCH, ENGINE_CHUNK):
+        x = torch.randn((h, m, dn), generator=g, device="cuda")
+        args = [(a[0], mla_latent_weights(a[1], h, dn, dv)[0])
+                for a in packed_sets(checks, x, pw)]
+        out.append({"kernel": "quant_matmul_t", "bits": BITS, "H": h,
+                    "m": m, "d": dn, "k": dl,
+                    "ms": checks.timer.ms(lambda a=a: quant_matmul_t(*a)
+                                          for a in args)})
+        del args
+    for bits in KV_BITS:
+        xi = mla_extend_inputs(torch, g, bits)
+        args = (xi["tbl"], xi["ql"], xi["qr"], xi["c_new"], xi["r_new"]) \
+            + tuple(xi["pools"])
+        sets = checks.clones(args, sum(t.numel() * t.element_size()
+                                       for t in args))
+        out.append({"kernel": "paged_mla_flash_extend", "kv_bits": bits,
+                    "ms": checks.timer.ms(lambda a=a: paged_mla_flash_extend(
+                        *a, **xi["ekw"]) for a in sets)})
+        del xi, sets
+        torch.cuda.empty_cache()
+    return out
+
+
 # one process of ``compare``: times the tree named by argv[1]
 TIME_ONE_TREE = ("import sys; from pathlib import Path; import chip_smoke "
                  "as c; t = c.card_torch(Path(sys.argv[1])); "
                  "c.log({'quant_matmul': c.time_quant_matmul(t), "
-                 "'gqa_attention': c.time_gqa_attention(t)})")
+                 "'gqa_attention': c.time_gqa_attention(t), "
+                 "'mla': c.time_mla(t)})")
 
 
 def compare(other: Path) -> None:
-    """Times ``quant_matmul`` (``time_quant_matmul``) and the three GQA
-    attention wrappers (``time_gqa_attention``) of another checkout's
-    ``src`` and of this one in turns, other, this, this, other, one process
-    each on the same card, and prints them as one JSON line."""
+    """Times ``quant_matmul`` (``time_quant_matmul``), the three GQA
+    attention wrappers (``time_gqa_attention``) and MLA's absorb and extend
+    (``time_mla``) of another checkout's ``src`` and of this one in turns,
+    other, this, this, other, one process each on the same card, and prints
+    them as one JSON line."""
     card_torch(SRC)
     order = [other.resolve(), SRC, SRC, other.resolve()]
     runs = []
@@ -1844,10 +1935,13 @@ def main() -> None:
     log({"phase_seconds": {"mla_path": time.perf_counter() - t0}})
     launches.update({name: mla_launches[name] for name in KvAudit.MLA})
     launches["fwht"] += mla_launches["fwht"]
-    # quant_matmul's three kernels, each with its launches on both paths
+    # quant_matmul's three kernels, each with its launches on both paths;
+    # quant_matmul_t's two on the MLA path
     qmm_rows = {"qmm_decode": rows["quant_matmul"],
                 "qmm_tc": rows["quant_matmul_prefill"],
                 "qmm_tile": rows["quant_matmul_prefill_fp32"]}
+    qmm_t_rows = {"qmm_t_decode": rows["quant_matmul_t"],
+                  "qmm_t_tile": rows["quant_matmul_t_prefill"]}
 
     fd = "src/repro/kernels/flash_decode/kernel.py"
     csrc = "src/repro_torch/csrc"
@@ -1891,6 +1985,14 @@ def main() -> None:
                     "main_path": launches[kern],
                     "mla_path": mla_launches[kern]})
             entry.update(subs.pop(""), **subs)
+        if name == "quant_matmul_t":  # decode row; the prefill row beside
+            entry["kernel"] = "qmm_t_decode"
+            entry["kernel_launches"] = {"mla_path":
+                                        mla_launches["qmm_t_decode"]}
+            entry["prefill"] = {key: qmm_t_rows["qmm_t_tile"][key]
+                                for key in keys}
+            entry["prefill"].update(kernel="qmm_t_tile", kernel_launches={
+                "mla_path": mla_launches["qmm_t_tile"]})
         if name in NO_PATH:
             entry["path"] = NO_PATH[name]
         kernels.append(entry)

@@ -5,7 +5,8 @@
 //   quant_matmul_pallas / _qmm_kernel / _dequant_tile -> qmm_decode,
 //     qmm_reduce (m <= 4), qmm_tc (bf16 x, m > 4), qmm_tile (fp32 x,
 //     m > 4) (qmm_launch)
-//   quant_matmul_t_pallas / _qmm_t_kernel -> qmm_t (qmm_t_launch)
+//   quant_matmul_t_pallas / _qmm_t_kernel -> qmm_t_decode (m <= 4),
+//     qmm_t_tile (m > 4) (qmm_t_launch)
 //
 // Heads.  Every kernel takes a head count H (grid.z) and the strides of a
 // head-batched weight: MLA's absorbed attention multiplies each of its 128
@@ -94,15 +95,27 @@
 //
 // qmm_t (y = x @ Wᵀ, the packed axis is the output): x (H, m, d) fp32, W
 // (k/vpw words, d) per head; y (H, m, k) fp32.  Absorbing W_k into MLA's
-// queries is H 128, m = the batch, d = dn 128, k = kv_lora_rank 512: bound
-// by the bytes of the codes, ~3.9 MB at 3 bits (~1.2 us at 3.35 TB/s).
-// A block owns one head, WT = 128 / vpw packed words (so RT = WT·vpw <= 128
-// output rows) and MT = 16 rows of x.  Per 32-column chunk of d it stages
-// x and dequantizes the WT x 32 words into shared memory (one word per
-// thread step, coalesced along the columns); each of a word's vpw codes
-// looks up its own row's quant group, so 3-bit words, whose 10 rows may
-// straddle two groups of 128, dequantize correctly.  Then each thread owns
-// one output row and accumulates MT fp32 sums over the chunk's columns.
+// queries is H 128, d = dn 128, k = kv_lora_rank 512, m = the batch in
+// decode (1-4) and the chunk (128) in the chunked prefill.
+//   decode (m <= 4, qmm_t_decode): bound by the bytes of the codes, ~3.9 MB
+//     at 3 bits (~1.2 us at 3.35 TB/s), and close to it by instruction
+//     issue (each code's dequantization and m FMAs).  A warp takes four
+//     word-rows at once, eight lanes each, every lane 16 columns of d as
+//     four 16-byte loads issued together; a block holds 16 word-rows (8 KB
+//     of codes in flight) and a 3-bit head takes 4 blocks, so 512 blocks
+//     keep ~30 KB a SM in flight.  x (m x d) and the scale and zero rows of
+//     the block's quant groups are staged once in shared memory, so each
+//     (group, column) is read from global memory once per block.  m is a
+//     template parameter: no FMA touches a padding row.  A code is
+//     dequantized exactly as the plain version does ((code - zero) ·
+//     scale, code - zero by magic-number subtraction; a word whose rows
+//     straddle two groups takes each code's group) and the 8 lanes' sums
+//     meet in a fixed butterfly, so a row's result does not depend on m.
+//   prefill (m > 4, qmm_t_tile): operations, 2·H·m·d·k (~2.1 GFLOP at m
+//     128), on the fp32 pipes.  128 x 128 output tiles: per 32-column chunk
+//     of d the block dequantizes the words of its 128 output rows once for
+//     all of its 128 rows of x, and each of 256 threads adds an 8 x 8 tile
+//     of products; sums run over d in order, whatever m.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -829,78 +842,347 @@ qmm_tc(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
 }
 
 // y = x @ Wᵀ per head; see the note at the top of the file.
-constexpr int QT_THREADS = 128;  // = the most output rows of a block
-constexpr int QT_DC = 32;        // columns of d per shared-memory chunk
-constexpr int QT_MT = 16;        // rows of x per block
+//
+// Decode (m <= 4): a lane owns QT_COLS columns of d of one packed
+// word-row (vpw output rows); the QT_LANES lanes of a word-row cover 128
+// columns a pass and add their partial sums in a fixed butterfly.
+constexpr int QT_THREADS = 128;
+constexpr int QT_LANES = 8;   // lanes of one word-row (x QT_COLS = 128 columns)
+constexpr int QT_COLS = 16;   // columns of d a lane holds in a pass
+constexpr int QT_WROWS = QT_THREADS / QT_LANES;  // word-rows per block
+// Prefill (m > 4): 128 x 128 output tiles (rows of x x output rows),
+// 256 threads with 8 x 8 fp32 sums each, d walked in chunks of 32.
+constexpr int QTT_BM = 128, QTT_BN = 128, QTT_BK = 32, QTT_THREADS = 256;
 
-template <int BITS>
-__global__ void __launch_bounds__(QT_THREADS)
-qmm_t(const float* __restrict__ x, const uint32_t* __restrict__ w,
-      const float* __restrict__ scale, const float* __restrict__ zero,
-      float* __restrict__ out, int m, int d, int k, int gs, int w_ld,
-      int w_hs, int s_ld, int s_hs) {
+// acc[j][i] += x[i][c] * ((code_j - z) * s) over the 4 columns of one
+// 16-byte sub-chunk (columns e = 0..3 in order), codes j in [0, VPW): codes
+// before jb take group a's scale and zero (+ 2^23), the others group b's
+// (a word's rows straddle at most two groups when gs >= VPW).
+template <int BITS, int M>
+__device__ __forceinline__ void qmm_t_sub(
+    float (&acc)[Pack<BITS>::VPW][M], uint4 w4, float4 sa, float4 za,
+    float4 sb, float4 zb, const float4 (&x4)[M], int jb) {
   using P = Pack<BITS>;
-  constexpr int WT = QT_THREADS / P::VPW;  // packed words per block
-  constexpr int RT = WT * P::VPW;          // output rows per block
-  __shared__ float xs[QT_MT][QT_DC];
-  __shared__ float ws[RT][QT_DC + 1];  // padded: rows hit distinct banks
+  const uint32_t wv[4] = {w4.x, w4.y, w4.z, w4.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float s0 = e == 0 ? sa.x : e == 1 ? sa.y : e == 2 ? sa.z : sa.w;
+    const float z0 = e == 0 ? za.x : e == 1 ? za.y : e == 2 ? za.z : za.w;
+    const float s1 = e == 0 ? sb.x : e == 1 ? sb.y : e == 2 ? sb.z : sb.w;
+    const float z1 = e == 0 ? zb.x : e == 1 ? zb.y : e == 2 ? zb.z : zb.w;
+#pragma unroll
+    for (int j = 0; j < P::VPW; ++j) {
+      const bool hi = j >= jb;
+      // 2^23 + code, minus 2^23 + zero: code - zero exactly
+      const float v =
+          (__uint_as_float(0x4B000000u | ((wv[e] >> (j * BITS)) & P::MASK)) -
+           (hi ? z1 : z0)) * (hi ? s1 : s0);
+#pragma unroll
+      for (int i = 0; i < M; ++i) {
+        const float xi = e == 0 ? x4[i].x : e == 1 ? x4[i].y
+                         : e == 2 ? x4[i].z : x4[i].w;
+        acc[j][i] = fmaf(xi, v, acc[j][i]);
+      }
+    }
+  }
+}
+
+// Grid (ceil(n_words / QT_WROWS), H).  Lane p (of 8) of word-row slot q
+// (of 4) in warp w takes word-row blockIdx.x * 16 + 4w + q and columns
+// 128·pass + 16p .. + 15.  The block's x (M x d) and the scale and zero
+// rows of its quant groups are staged in shared memory once; each lane's
+// 16 code words of a pass are four 16-byte loads issued together.  A row's
+// sum runs over its columns in order within a lane, then over the 8 lanes
+// in a fixed butterfly, whatever M: a row of y does not depend on m.  At
+// most 128 registers: four blocks an SM hold deepseek-v3's 512 in one wave.
+// vec: bit 0 the words, bit 1 x, bit 2 scale and zero allow 16-byte loads.
+template <int BITS, int M>
+__global__ void __launch_bounds__(QT_THREADS, 4)
+qmm_t_decode(const float* __restrict__ x, const uint32_t* __restrict__ w,
+             const float* __restrict__ scale, const float* __restrict__ zero,
+             float* __restrict__ out, int d, int k, int gs, int w_ld,
+             int w_hs, int s_ld, int s_hs, int vec) {
+  using P = Pack<BITS>;
+  extern __shared__ __align__(16) float qt_smem[];
+  const int dp = (d + 3) & ~3;  // shared row pitch: float4-aligned
+  float* xs = qt_smem;          // M x dp
+  float* sz = xs + M * dp;      // n_g x 2 x dp: scale, then zero + 2^23
+  const int head = blockIdx.y, tid = threadIdx.x;
+  const int lane = tid & 31, p = lane & (QT_LANES - 1);
+  const int wi = blockIdx.x * QT_WROWS + (tid >> 3);
+  x += (size_t)head * M * d;
+  out += (size_t)head * M * k;
+  w += (size_t)head * w_hs;
+  scale += (size_t)head * s_hs;
+  zero += (size_t)head * s_hs;
+  const int n_words = (k + P::VPW - 1) / P::VPW;
+  const int r_lo = blockIdx.x * QT_WROWS * P::VPW;
+  const int r_hi = min(r_lo + QT_WROWS * P::VPW, k) - 1;
+  const int g_lo = r_lo / gs, n_g = r_hi / gs - g_lo + 1;
+  const bool live = wi < n_words;
+  const int row0 = wi * P::VPW;
+  // this word-row's groups: a, and b from code jb on (jb = VPW: one group;
+  // the launcher routes gs < VPW, where a word may span three, elsewhere)
+  const int ga = min(row0, k - 1) / gs - g_lo;
+  const int gb = min(row0 + P::VPW - 1, k - 1) / gs - g_lo;
+  const int jb = gb != ga ? (g_lo + gb) * gs - row0 : P::VPW;
+
+  // first pass's code words in flight before the staging below
+  const uint32_t* wrow = w + (size_t)wi * w_ld;
+  auto load_words = [&](int c, uint4 (&w4)[4]) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int cc = c + 4 * u;
+      if (vec & 1) {
+        w4[u] = live && cc < d ? *reinterpret_cast<const uint4*>(wrow + cc)
+                               : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        uint32_t t[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          t[e] = live && cc + e < d ? wrow[cc + e] : 0u;
+        w4[u] = make_uint4(t[0], t[1], t[2], t[3]);
+      }
+    }
+  };
+  uint4 w4[4];
+  load_words(QT_COLS * p, w4);
+  const int d4 = dp / 4;
+  if (vec & 2) {  // d = dp: whole float4s
+    for (int idx = tid; idx < M * d4; idx += QT_THREADS)
+      reinterpret_cast<float4*>(xs)[idx] =
+          reinterpret_cast<const float4*>(x)[idx];
+  } else {
+    for (int idx = tid; idx < M * dp; idx += QT_THREADS) {
+      const int i = idx / dp, c = idx % dp;
+      xs[idx] = c < d ? x[(size_t)i * d + c] : 0.f;
+    }
+  }
+  if (vec & 4) {
+    for (int idx = tid; idx < n_g * d4; idx += QT_THREADS) {
+      const int g = idx / d4, c = 4 * (idx - g * d4);
+      const size_t src = (size_t)(g_lo + g) * s_ld + c;
+      const float4 s4 = *reinterpret_cast<const float4*>(scale + src);
+      const float4 z4 = *reinterpret_cast<const float4*>(zero + src);
+      *reinterpret_cast<float4*>(sz + (2 * g) * dp + c) = s4;
+      *reinterpret_cast<float4*>(sz + (2 * g + 1) * dp + c) =
+          make_float4(z4.x + 8388608.f, z4.y + 8388608.f, z4.z + 8388608.f,
+                      z4.w + 8388608.f);
+    }
+  } else {
+    for (int idx = tid; idx < n_g * dp; idx += QT_THREADS) {
+      const int g = idx / dp, c = idx % dp;
+      const size_t src = (size_t)(g_lo + g) * s_ld + c;
+      sz[(2 * g) * dp + c] = c < d ? scale[src] : 0.f;
+      sz[(2 * g + 1) * dp + c] = (c < d ? zero[src] : 0.f) + 8388608.f;
+    }
+  }
+  __syncthreads();
+
+  float acc[P::VPW][M];
+#pragma unroll
+  for (int j = 0; j < P::VPW; ++j)
+#pragma unroll
+    for (int i = 0; i < M; ++i) acc[j][i] = 0.f;
+  for (int c0 = 0; c0 < d; c0 += QT_LANES * QT_COLS) {
+    const int cl = c0 + QT_COLS * p;  // this lane's first column
+    if (c0 > 0) load_words(cl, w4);
+    if (live && cl < d) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int c = cl + 4 * u;
+        if (c < d) {  // columns past d hold zero words and zero x
+          float4 x4[M];
+#pragma unroll
+          for (int i = 0; i < M; ++i)
+            x4[i] = *reinterpret_cast<const float4*>(xs + i * dp + c);
+          const float4* sa = reinterpret_cast<const float4*>(
+              sz + (2 * ga) * dp + c);
+          const float4* sb = reinterpret_cast<const float4*>(
+              sz + (2 * gb) * dp + c);
+          qmm_t_sub<BITS, M>(acc, w4[u], sa[0], sa[dp / 4], sb[0],
+                             sb[dp / 4], x4, jb);
+        }
+      }
+    }
+  }
+  // the 8 lanes' partial sums, in a fixed order; lane p stores every 8th
+#pragma unroll
+  for (int j = 0; j < P::VPW; ++j)
+#pragma unroll
+    for (int i = 0; i < M; ++i) {
+      float v = acc[j][i];
+      v += __shfl_xor_sync(0xffffffffu, v, 1);
+      v += __shfl_xor_sync(0xffffffffu, v, 2);
+      v += __shfl_xor_sync(0xffffffffu, v, 4);
+      const int row = row0 + j;
+      if ((j * M + i) % QT_LANES == p && live && row < k)
+        out[(size_t)i * k + row] = v;
+    }
+}
+
+// Grid (ceil(k / QTT_BN), ceil(m / QTT_BM), H).  Per 32-column chunk of d
+// the block stages x (transposed) and dequantizes the packed words that
+// cover its 128 output rows once into shared memory (each code with its own
+// row's quant group), for all of its 128 rows of x; thread (ty, tx) then
+// adds an 8 x 8 tile of fp32 products (rows ty·4 + {0..3, 64..67} of x,
+// output rows tx·4 + {0..3, 64..67}).  The next chunk's x, words and their
+// first rows' scales and zeros are loaded into registers while the current
+// one is multiplied.
+// Each sum runs over d in order, whatever m: a row of y does not depend on
+// m.  xvec: x rows allow 16-byte loads.
+template <int BITS>
+__global__ void __launch_bounds__(QTT_THREADS, 2)
+qmm_t_tile(const float* __restrict__ x, const uint32_t* __restrict__ w,
+           const float* __restrict__ scale, const float* __restrict__ zero,
+           float* __restrict__ out, int m, int d, int k, int gs, int w_ld,
+           int w_hs, int s_ld, int s_hs, int xvec) {
+  using P = Pack<BITS>;
+  // words a thread stages per chunk: the tile's rows span BN / VPW + 2
+  constexpr int WPT =
+      ((QTT_BN / P::VPW + 2) * QTT_BK + QTT_THREADS - 1) / QTT_THREADS;
+  constexpr int XPT = QTT_BM * QTT_BK / QTT_THREADS;  // x values a thread
+  __shared__ __align__(16) float xs[QTT_BK][QTT_BM + 4];
+  __shared__ __align__(16) float ws[QTT_BK][QTT_BN + 4];
   const int head = blockIdx.z, tid = threadIdx.x;
+  const int tx = tid & 15, ty = tid >> 4;
+  const int r0 = blockIdx.x * QTT_BN, m0 = blockIdx.y * QTT_BM;
   x += (size_t)head * m * d;
   out += (size_t)head * m * k;
   w += (size_t)head * w_hs;
   scale += (size_t)head * s_hs;
   zero += (size_t)head * s_hs;
   const int n_words = (k + P::VPW - 1) / P::VPW;
-  const int wi0 = blockIdx.x * WT, r0 = wi0 * P::VPW;
-  const int m0 = blockIdx.y * QT_MT;
-  float acc[QT_MT];
-#pragma unroll
-  for (int i = 0; i < QT_MT; ++i) acc[i] = 0.f;
+  const int wa = r0 / P::VPW;
+  const int wb = min((r0 + QTT_BN + P::VPW - 1) / P::VPW, n_words);
+  const int nw = wb - wa;
 
-  for (int c0 = 0; c0 < d; c0 += QT_DC) {
-    for (int idx = tid; idx < QT_MT * QT_DC; idx += QT_THREADS) {
-      const int mi = idx / QT_DC, cc = idx % QT_DC;
-      const int row = m0 + mi, c = c0 + cc;
-      xs[mi][cc] = (row < m && c < d) ? x[(size_t)row * d + c] : 0.f;
-    }
-    for (int idx = tid; idx < WT * QT_DC; idx += QT_THREADS) {
-      const int wl = idx / QT_DC, cc = idx % QT_DC;
-      const int wi = wi0 + wl, c = c0 + cc;
-      const bool ok = wi < n_words && c < d;
-      const uint32_t word = ok ? w[(size_t)wi * w_ld + c] : 0u;
-      int g = -1;
-      float sc = 0.f, zc = 0.f;
+  // rows of the tile no word covers (past k) read as zero in every chunk
+  for (int idx = tid; idx < QTT_BK * QTT_BN; idx += QTT_THREADS) {
+    const int c = idx / QTT_BN, r = idx % QTT_BN;
+    if (r0 + r >= wb * P::VPW) ws[c][r] = 0.f;
+  }
+
+  float xr[XPT];
+  uint32_t wr[WPT];
+  float sa[WPT], za[WPT];  // the group of the word's first row
+  auto fetch = [&](int c0) {
+    if (xvec) {  // value (i, 4·c4 + e) of the chunk: f = i·8 + c4
 #pragma unroll
-      for (int j = 0; j < P::VPW; ++j) {
-        const int row = wi * P::VPW + j;  // this code's output row
-        float v = 0.f;
-        if (ok && row < k) {
-          if (row / gs != g) {  // a 3-bit word may straddle two groups
-            g = row / gs;
-            sc = scale[(size_t)g * s_ld + c];
-            zc = zero[(size_t)g * s_ld + c];
+      for (int q = 0; q < XPT / 4; ++q) {
+        const int f = tid + QTT_THREADS * q, i = f >> 3, c = 4 * (f & 7);
+        const float4 v = (m0 + i < m && c0 + c < d)
+            ? *reinterpret_cast<const float4*>(x + (size_t)(m0 + i) * d +
+                                               c0 + c)
+            : make_float4(0.f, 0.f, 0.f, 0.f);
+        xr[4 * q] = v.x;
+        xr[4 * q + 1] = v.y;
+        xr[4 * q + 2] = v.z;
+        xr[4 * q + 3] = v.w;
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < XPT; ++q) {
+        const int idx = tid + QTT_THREADS * q;
+        const int i = idx / QTT_BK, c = idx % QTT_BK;
+        xr[q] = (m0 + i < m && c0 + c < d)
+                    ? x[(size_t)(m0 + i) * d + c0 + c] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < WPT; ++u) {
+      const int idx = tid + QTT_THREADS * u;
+      const int wl = idx / QTT_BK, col = c0 + idx % QTT_BK;
+      const int wi = wa + wl;
+      const bool ok = wl < nw && col < d;
+      const int ga = min(wi * P::VPW, k - 1) / gs;
+      wr[u] = ok ? w[(size_t)wi * w_ld + col] : 0u;
+      sa[u] = ok ? scale[(size_t)ga * s_ld + col] : 0.f;
+      za[u] = ok ? zero[(size_t)ga * s_ld + col] : 0.f;
+    }
+  };
+  auto stash = [&](int c0) {
+    if (xvec) {
+#pragma unroll
+      for (int q = 0; q < XPT / 4; ++q) {
+        const int f = tid + QTT_THREADS * q, i = f >> 3, c = 4 * (f & 7);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) xs[c + e][i] = xr[4 * q + e];
+      }
+    } else {
+#pragma unroll
+      for (int q = 0; q < XPT; ++q) {
+        const int idx = tid + QTT_THREADS * q;
+        xs[idx % QTT_BK][idx / QTT_BK] = xr[q];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < WPT; ++u) {
+      const int idx = tid + QTT_THREADS * u;
+      const int wl = idx / QTT_BK, c = idx % QTT_BK;
+      if (wl < nw) {
+        const int wi = wa + wl, col = c0 + c;
+        const int ga = min(wi * P::VPW, k - 1) / gs;
+#pragma unroll
+        for (int j = 0; j < P::VPW; ++j) {
+          const int row = wi * P::VPW + j;
+          if (row >= r0 && row < r0 + QTT_BN) {
+            float v = 0.f;
+            if (col < d && row < k) {
+              float s = sa[u], z = za[u];
+              if (row >= (ga + 1) * gs) {  // a later group of the word
+                const int g = row / gs;
+                s = scale[(size_t)g * s_ld + col];
+                z = zero[(size_t)g * s_ld + col];
+              }
+              v = (static_cast<float>((wr[u] >> (j * BITS)) & P::MASK) - z) *
+                  s;
+            }
+            ws[c][row - r0] = v;
           }
-          v = (static_cast<float>((word >> (j * BITS)) & P::MASK) - zc) * sc;
         }
-        ws[wl * P::VPW + j][cc] = v;
       }
     }
-    __syncthreads();
-    if (tid < RT) {
-#pragma unroll 8
-      for (int cc = 0; cc < QT_DC; ++cc) {
-        const float wv = ws[tid][cc];
+  };
+
+  float acc[8][8];
 #pragma unroll
-        for (int i = 0; i < QT_MT; ++i) acc[i] = fmaf(xs[i][cc], wv, acc[i]);
-      }
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  fetch(0);
+  for (int c0 = 0; c0 < d; c0 += QTT_BK) {
+    stash(c0);
+    __syncthreads();
+    if (c0 + QTT_BK < d) fetch(c0 + QTT_BK);  // in flight during the FMAs
+#pragma unroll 4
+    for (int c = 0; c < QTT_BK; ++c) {
+      float a[8], b[8];
+      const float4 a0 = *reinterpret_cast<const float4*>(&xs[c][ty * 4]);
+      const float4 a1 = *reinterpret_cast<const float4*>(&xs[c][64 + ty * 4]);
+      const float4 b0 = *reinterpret_cast<const float4*>(&ws[c][tx * 4]);
+      const float4 b1 = *reinterpret_cast<const float4*>(&ws[c][64 + tx * 4]);
+      a[0] = a0.x; a[1] = a0.y; a[2] = a0.z; a[3] = a0.w;
+      a[4] = a1.x; a[5] = a1.y; a[6] = a1.z; a[7] = a1.w;
+      b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
+      b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
     }
     __syncthreads();
   }
-  const int row = r0 + tid;
-  if (tid < RT && row < k) {
 #pragma unroll
-    for (int i = 0; i < QT_MT; ++i)
-      if (m0 + i < m) out[(size_t)(m0 + i) * k + row] = acc[i];
+  for (int i = 0; i < 8; ++i) {
+    const int row = m0 + (i < 4 ? ty * 4 + i : 64 + ty * 4 + i - 4);
+    if (row >= m) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = r0 + (j < 4 ? tx * 4 + j : 64 + tx * 4 + j - 4);
+      if (col < k) out[(size_t)row * k + col] = acc[i][j];
+    }
   }
 }
 
@@ -967,16 +1249,54 @@ int launch_bits(int bits, const void* x, const uint32_t* w, const float* sc,
   }
 }
 
+template <int BITS, int M>
+int launch_t_decode(const float* x, const uint32_t* w, const float* scale,
+                    const float* zero, float* out, int H, int d, int k,
+                    int gs, Strides st, cudaStream_t s) {
+  using P = Pack<BITS>;
+  const int n_words = (k + P::VPW - 1) / P::VPW;
+  const int dp = (d + 3) & ~3;
+  const int max_g = (QT_WROWS * P::VPW - 1) / gs + 2;  // groups of a block
+  const size_t smem = sizeof(float) * (M + 2 * (size_t)max_g) * dp;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        qmm_t_decode<BITS, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int vec =
+      (d % 4 == 0 && st.w_ld % 4 == 0 && st.w_hs % 4 == 0 &&
+       reinterpret_cast<uintptr_t>(w) % 16 == 0) |
+      (d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0) << 1 |
+      (d % 4 == 0 && st.s_ld % 4 == 0 && st.s_hs % 4 == 0 &&
+       (reinterpret_cast<uintptr_t>(scale) |
+        reinterpret_cast<uintptr_t>(zero)) % 16 == 0) << 2;
+  const dim3 grid((n_words + QT_WROWS - 1) / QT_WROWS, H);
+  qmm_t_decode<BITS, M><<<grid, QT_THREADS, smem, s>>>(
+      x, w, scale, zero, out, d, k, gs, st.w_ld, st.w_hs, st.s_ld, st.s_hs,
+      vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int BITS>
 int launch_t(const float* x, const uint32_t* w, const float* scale,
              const float* zero, float* out, int H, int m, int d, int k,
-             int gs, Strides st, cudaStream_t s) {
-  constexpr int WT = QT_THREADS / Pack<BITS>::VPW;
-  const int n_words = (k + Pack<BITS>::VPW - 1) / Pack<BITS>::VPW;
-  const dim3 grid((n_words + WT - 1) / WT, (m + QT_MT - 1) / QT_MT, H);
-  qmm_t<BITS><<<grid, QT_THREADS, 0, s>>>(x, w, scale, zero, out, m, d, k,
-                                          gs, st.w_ld, st.w_hs, st.s_ld,
-                                          st.s_hs);
+             int gs, int decode, Strides st, cudaStream_t s) {
+  if (decode) {  // needs words that span at most two quant groups
+    if (gs < Pack<BITS>::VPW) return static_cast<int>(cudaErrorInvalidValue);
+    switch (m) {
+      case 1: return launch_t_decode<BITS, 1>(x, w, scale, zero, out, H, d, k, gs, st, s);
+      case 2: return launch_t_decode<BITS, 2>(x, w, scale, zero, out, H, d, k, gs, st, s);
+      case 3: return launch_t_decode<BITS, 3>(x, w, scale, zero, out, H, d, k, gs, st, s);
+      case 4: return launch_t_decode<BITS, 4>(x, w, scale, zero, out, H, d, k, gs, st, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  const dim3 grid((k + QTT_BN - 1) / QTT_BN, (m + QTT_BM - 1) / QTT_BM, H);
+  const int xvec = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  qmm_t_tile<BITS><<<grid, QTT_THREADS, 0, s>>>(x, w, scale, zero, out, m, d,
+                                                k, gs, st.w_ld, st.w_hs,
+                                                st.s_ld, st.s_hs, xvec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1007,19 +1327,22 @@ extern "C" int qmm_launch(const void* x, int x_bf16, const void* w,
 }
 
 // y = x @ Wᵀ: x (H, m, d) fp32, W (ceil(k/vpw), d) words per head with the
-// strides of qmm_launch, y (H, m, k) fp32.
+// strides of qmm_launch, y (H, m, k) fp32.  decode != 0 selects qmm_t_decode
+// (1 <= m <= 4, gs >= vpw; anything else is refused), 0 qmm_t_tile: the
+// caller chooses (kernel.qmm_t_kernel, which also counts the launch).
 extern "C" int qmm_t_launch(const float* x, const void* w, const float* scale,
                             const float* zero, float* out, int H, int m,
-                            int d, int k, int bits, int gs, int w_ld,
-                            int w_hs, int s_ld, int s_hs, void* stream) {
+                            int d, int k, int bits, int gs, int decode,
+                            int w_ld, int w_hs, int s_ld, int s_hs,
+                            void* stream) {
   const uint32_t* wu = static_cast<const uint32_t*>(w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides st{w_ld, w_hs, s_ld, s_hs};
   switch (bits) {
-    case 2: return launch_t<2>(x, wu, scale, zero, out, H, m, d, k, gs, st, s);
-    case 3: return launch_t<3>(x, wu, scale, zero, out, H, m, d, k, gs, st, s);
-    case 4: return launch_t<4>(x, wu, scale, zero, out, H, m, d, k, gs, st, s);
-    case 8: return launch_t<8>(x, wu, scale, zero, out, H, m, d, k, gs, st, s);
+    case 2: return launch_t<2>(x, wu, scale, zero, out, H, m, d, k, gs, decode, st, s);
+    case 3: return launch_t<3>(x, wu, scale, zero, out, H, m, d, k, gs, decode, st, s);
+    case 4: return launch_t<4>(x, wu, scale, zero, out, H, m, d, k, gs, decode, st, s);
+    case 8: return launch_t<8>(x, wu, scale, zero, out, H, m, d, k, gs, decode, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

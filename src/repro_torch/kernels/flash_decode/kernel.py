@@ -4,6 +4,7 @@ attention).  Shapes, types and contiguity are checked by ``ops``; these
 allocate the outputs and scratch and launch."""
 from __future__ import annotations
 
+import ctypes
 import functools
 
 import torch
@@ -94,9 +95,16 @@ def _mla_decode_fn():
     return fn
 
 
+def _mla_scratch_fn():
+    fn = build.library("mla_decode").mla_extend_scratch
+    fn.argtypes = [build.I] * 3 + [build.P] * 2
+    fn.restype = build.I
+    return fn
+
+
 def _mla_extend_fn():
     fn = build.library("mla_decode").mla_extend_launch
-    fn.argtypes = ([build.P] * 9 + [build.I, build.P] + [build.I] * 9
+    fn.argtypes = ([build.P] * 11 + [build.I, build.P] + [build.I] * 9
                    + [build.P])
     fn.restype = build.I
     return fn
@@ -135,11 +143,22 @@ def mla_extend_cuda(ql, qr, c_new, r_new, cq, cs, rq, rs, tbl, *,
     int32."""
     L, h, dl = ql.shape
     dr = qr.shape[-1]
+    # scratch for the chunk's own latents' bf16 terms and a flag for each
+    # key tile whose second / third terms are not all zero, of the sizes
+    # the library gives (mla_extend_scratch lays them out)
+    n_own, n_nz = ctypes.c_longlong(), ctypes.c_longlong()
+    if _mla_scratch_fn()(L, dl, dr, ctypes.byref(n_own), ctypes.byref(n_nz)):
+        raise ValueError(f"paged_mla_flash_extend: latent width {dl} and "
+                         f"rope width {dr} are wider than the extend kernel "
+                         f"takes")
     out = torch.empty((L, h, dl), dtype=torch.float32, device=ql.device)
+    own = torch.empty(n_own.value, dtype=torch.bfloat16, device=ql.device)
+    own_nz = torch.zeros(n_nz.value, dtype=torch.int32, device=ql.device)
     n_past = tbl.shape[0]
     err = _mla_extend_fn()(
         ql.data_ptr(), qr.data_ptr(), c_new.data_ptr(), r_new.data_ptr(),
-        cq.data_ptr(), cs.data_ptr(), rq.data_ptr(), rs.data_ptr(),
+        own.data_ptr(), own_nz.data_ptr(), cq.data_ptr(), cs.data_ptr(),
+        rq.data_ptr(), rs.data_ptr(),
         tbl.data_ptr() if n_past else None, n_past, out.data_ptr(), h, L, dl,
         dr, page, chunk, kv_bits, cq.shape[-1], rq.shape[-1],
         torch.cuda.current_stream(ql.device).cuda_stream)

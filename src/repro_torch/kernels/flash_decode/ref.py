@@ -269,7 +269,7 @@ def paged_mla_flash_decode_ref(tbl, pos, ql, qr, cq, cs, rq, rs, *,
 
 def paged_mla_flash_extend_ref(tbl, ql, qr, c_new, r_new, cq, cs, rq, rs, *,
                                kv_bits: int, chunk: int, dl: int, dr: int,
-                               page: int):
+                               page: int, dtype=torch.float32):
     """Chunked-prefill MLA latent attention: an L-token chunk's absorbed
     queries attend to the quantized latent pages of its request's earlier
     chunks (``tbl``: (n_past,) int, every page full) and then to the
@@ -277,24 +277,25 @@ def paged_mla_flash_extend_ref(tbl, ql, qr, c_new, r_new, cq, cs, rq, rs, *,
 
     ql/qr: (L, H, dl|dr) fp32, scale folded in; c_new/r_new: (L, dl|dr)
     fp.  Query row i is chunk token i // H; the chunk's offset cancels from
-    the mask, so it is not an argument.  Returns (L, H, dl) fp32,
-    normalized."""
+    the mask, so it is not an argument.  Returns (L, H, dl) normalized, in
+    ``dtype``: fp32 (the plain version), or float64 for the same function
+    on the same dequantized inputs with its own rounding out of the way."""
     L, h, _ = ql.shape
-    qlf = ql.float().reshape(L * h, dl)
-    qrf = qr.float().reshape(L * h, dr)
-    acc = torch.zeros((L * h, dl), dtype=torch.float32, device=ql.device)
-    m = torch.full((L * h, 1), NEG_INF, device=ql.device)
-    l = torch.zeros((L * h, 1), device=ql.device)
+    qlf = ql.to(dtype).reshape(L * h, dl)
+    qrf = qr.to(dtype).reshape(L * h, dr)
+    acc = torch.zeros((L * h, dl), dtype=dtype, device=ql.device)
+    m = torch.full((L * h, 1), NEG_INF, dtype=dtype, device=ql.device)
+    l = torch.zeros((L * h, 1), dtype=dtype, device=ql.device)
     every = torch.ones((), dtype=torch.bool, device=ql.device)
     for kk in range(tbl.shape[0]):
         pid = tbl[kk:kk + 1].long()  # a tensor index: no host sync
         c = dequant_kv(cq[pid][0], cs[pid][0], kv_bits=kv_bits, chunk=chunk,
-                       d=dl)                                 # (page, dl)
+                       d=dl).to(dtype)                       # (page, dl)
         r = dequant_kv(rq[pid][0], rs[pid][0], kv_bits=kv_bits, chunk=chunk,
-                       d=dr)
+                       d=dr).to(dtype)
         scores = matmul(qlf, c.T) + matmul(qrf, r.T)         # (L*H, page)
         m, l, acc = tile_update(scores, c, every, m, l, acc)
-    cf, rf = c_new.float(), r_new.float()
+    cf, rf = c_new.to(dtype), r_new.to(dtype)
     row_tok = torch.arange(L * h, device=ql.device) // h
     causal = row_tok[:, None] >= torch.arange(L, device=ql.device)[None, :]
     scores = matmul(qlf, cf.T) + matmul(qrf, rf.T)           # (L*H, L)
@@ -416,3 +417,111 @@ def paged_flash_extend_emulated(tbl, q, k_new, v_new, kq, ks, vq, vs, *,
     out = acc / torch.clamp_min(l, 1e-30)                   # (KV, L*g, Dv)
     out = out.reshape(kv, L, g, dv).permute(1, 0, 2, 3)
     return out.reshape(1, L, h, dv)
+
+
+# ------------------------------------- the MLA extend kernel's arithmetic
+#
+# ``mla_extend_kernel`` (csrc/mla_decode.cu) multiplies on the tensor cores
+# in bf16 with fp32 sums.  Its exact operands are the codes (int8, 2-bit
+# levels); every fp32 operand (the queries, P, the chunk's own latents) is
+# split into three bf16 terms, and a product takes the term pairs (i, j)
+# with i + j < 3.  The emulation below repeats that operand handling on the
+# CPU for the tests (``tests/test_torch_mla_precision.py``); nothing on the
+# serving path calls it.
+
+MLA_TERMS = 3  # bf16 terms of an fp32 operand in mla_extend_kernel
+LOG2E = 1.4426950408889634
+
+
+def bf16_split(x: torch.Tensor, terms: int = MLA_TERMS
+               ) -> tuple[torch.Tensor, ...]:
+    """fp32 x -> ``terms`` bf16 values (held in fp32): each the bf16 (round
+    to nearest even, as ``__floats2bfloat162_rn``) of what the earlier ones
+    leave; every remainder is exact in fp32, so three terms are within
+    ~2^-24 of x."""
+    out, r = [], x.float()
+    for _ in range(terms):
+        t = r.to(torch.bfloat16).float()
+        out.append(t)
+        r = r - t
+    return tuple(out)
+
+
+def _pair_product(a_terms, b_terms) -> torch.Tensor:
+    """Sum of a_i @ b_j over the term pairs the kernel issues: i + j <
+    MLA_TERMS (b exact: one term, every a_i)."""
+    out = None
+    for i, a in enumerate(a_terms):
+        for j, b in enumerate(b_terms):
+            if i + j < MLA_TERMS:
+                y = a @ b
+                out = y if out is None else out + y
+    return out
+
+
+def paged_mla_flash_extend_emulated(tbl, ql, qr, c_new, r_new, cq, cs, rq,
+                                    rs, *, kv_bits: int, chunk: int, dl: int,
+                                    dr: int, page: int,
+                                    p_terms: int = MLA_TERMS,
+                                    keys: int = 32) -> torch.Tensor:
+    """:func:`paged_mla_flash_extend_ref`'s function computed the way the
+    extend kernel computes it: ``keys``-key tiles (past keys, then the
+    chunk's own under the causal mask); the queries split into three bf16
+    terms against the exact codes (each key's c and r scale applied to the
+    fp32 partial scores) or against the own latents' terms; exp(x - m) as
+    exp2((x - m) log2(e)); each past key's value scale folded into
+    P, P split into ``p_terms`` bf16 terms (three in the kernel); each
+    tile's product summed from zero and added as acc * alpha + tile.  Same
+    arguments and return as :func:`paged_mla_flash_extend_ref`."""
+    L, h, _ = ql.shape
+    rows = L * h
+    q = torch.cat([ql.float().reshape(rows, dl), qr.float().reshape(rows, dr)],
+                  -1)
+    q_terms = bf16_split(q)
+    log2e = torch.tensor(LOG2E, dtype=torch.float32)
+    n_past = tbl.shape[0]
+    np_keys = n_past * page
+    if n_past:
+        pid = tbl.long()
+
+        def past(codes, scales, d):  # codes as values (scale 1), scales
+            c = codes[pid].reshape((np_keys,) + codes.shape[2:])
+            ones = torch.ones(np_keys // chunk, dtype=scales.dtype)
+            vals = dequant_kv(c, ones, kv_bits=kv_bits, chunk=chunk, d=d)
+            return vals, scales[pid].reshape(-1).float().repeat_interleave(
+                chunk)
+
+        cc, sc = past(cq, cs, dl)                         # (NP, dl), (NP,)
+        rc, sr = past(rq, rs, dr)
+    own = torch.cat([c_new.float(), r_new.float()], -1)   # (L, dl + dr)
+    row_tok = torch.arange(rows) // h
+    acc = torch.zeros((rows, dl))
+    m = torch.full((rows, 1), NEG_INF)
+    l = torch.zeros((rows, 1))
+    tiles = [(j, True) for j in range(0, np_keys, keys)]
+    tiles += [(j, False) for j in range(0, L, keys)]
+    for j0, is_past in tiles:
+        if is_past:
+            sl = slice(j0, min(j0 + keys, np_keys))
+            s_c = _pair_product(tuple(t[:, :dl] for t in q_terms),
+                                (cc[sl].T,))
+            s_r = _pair_product(tuple(t[:, dl:] for t in q_terms),
+                                (rc[sl].T,))
+            s = sc[sl] * s_c + sr[sl] * s_r
+            live = torch.ones(s.shape[-1], dtype=torch.bool)[None]
+            v_terms, v_scale = (cc[sl],), sc[sl]
+        else:
+            sl = slice(j0, min(j0 + keys, L))
+            k_terms = bf16_split(own[sl])
+            s = _pair_product(q_terms, tuple(t.T for t in k_terms))
+            live = row_tok[:, None] >= torch.arange(sl.start, sl.stop)[None]
+            v_terms, v_scale = tuple(t[:, :dl] for t in k_terms), None
+        s = torch.where(live, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(live, torch.exp2((s - m_new) * log2e), 0.0)
+        alpha = torch.exp2((m - m_new) * log2e)
+        l = alpha * l + p.sum(-1, keepdim=True)
+        pv = p if v_scale is None else p * v_scale[None]
+        acc = acc * alpha + _pair_product(bf16_split(pv, p_terms), v_terms)
+        m = m_new
+    return (acc / torch.clamp_min(l, 1e-30)).reshape(L, h, dl)

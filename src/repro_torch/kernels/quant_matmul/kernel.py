@@ -23,6 +23,18 @@ def qmm_kernel(m: int, dtype: torch.dtype) -> str:
     return "qmm_tc" if dtype == torch.bfloat16 else "qmm_tile"
 
 
+def qmm_t_kernel(m: int, bits: int, group_size: int) -> str:
+    """The kernel that ``quant_matmul_t_cuda`` launches for x of m rows: the
+    decode shape (m <= DECODE_MAX_M, m a template parameter; it needs a
+    packed word to span at most two quant groups, group_size >= 32 //
+    bits) or the fp32 tile.  The one owner of that choice: ``qmm_t_launch``
+    launches the kernel it is given and refuses a decode launch it cannot
+    serve."""
+    if 1 <= m <= DECODE_MAX_M and group_size >= 32 // bits:
+        return "qmm_t_decode"
+    return "qmm_t_tile"
+
+
 def _lib():
     fn = build.library("quant_matmul").qmm_launch
     fn.argtypes = [build.P, build.I, build.P, build.P, build.P, build.P,
@@ -33,7 +45,7 @@ def _lib():
 
 def _lib_t():
     fn = build.library("quant_matmul").qmm_t_launch
-    fn.argtypes = [build.P] * 5 + [build.I] * 10 + [build.P]
+    fn.argtypes = [build.P] * 5 + [build.I] * 11 + [build.P]
     fn.restype = build.I
     return fn
 
@@ -86,14 +98,16 @@ def quant_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
 
 def quant_matmul_t_cuda(x: torch.Tensor, w_packed: torch.Tensor,
                         scale: torch.Tensor, zero: torch.Tensor, *, bits: int,
-                        group_size: int, d_in: int) -> torch.Tensor:
+                        group_size: int, d_in: int,
+                        kernel: str) -> torch.Tensor:
     """(H, m, d) fp32 x packed (H, ceil(d_in/vpw), d) -> (H, m, d_in) fp32:
-    y = x @ Wᵀ on the card."""
+    y = x @ Wᵀ on the card, by ``kernel`` (``qmm_t_kernel``'s choice)."""
     heads, m, d = x.shape
     out = torch.empty((heads, m, d_in), dtype=torch.float32, device=x.device)
     err = _lib_t()(x.data_ptr(), w_packed.data_ptr(), scale.data_ptr(),
                    zero.data_ptr(), out.data_ptr(), heads, m, d, d_in, bits,
-                   group_size, *_strides(w_packed, scale),
+                   group_size, int(kernel == "qmm_t_decode"),
+                   *_strides(w_packed, scale),
                    torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "quant_matmul_t")
     return out

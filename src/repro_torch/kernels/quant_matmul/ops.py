@@ -194,13 +194,17 @@ def quant_matmul_t(x: torch.Tensor, pw: PackedWeight) -> torch.Tensor:
                                   bits=pw.bits, group_size=pw.group_size,
                                   d_in=pw.d_in)
     _check_cuda("quant_matmul_t", x, pw, (torch.float32,))
-    from repro_torch.kernels.quant_matmul.kernel import quant_matmul_t_cuda
+    from repro_torch.kernels.quant_matmul.kernel import (qmm_t_kernel,
+                                                         quant_matmul_t_cuda)
 
     heads = x.shape[0] if x.ndim == 3 else 1
+    kernel = qmm_t_kernel(x.shape[-2], pw.bits, pw.group_size)
     out = quant_matmul_t_cuda(x.reshape(heads, *x.shape[-2:]).contiguous(),
                               pw.w_packed, pw.scale, pw.zero, bits=pw.bits,
-                              group_size=pw.group_size, d_in=pw.d_in)
+                              group_size=pw.group_size, d_in=pw.d_in,
+                              kernel=kernel)
     quant_matmul_t.launches += 1
+    quant_matmul_t.by_kernel[kernel] += 1
     return out.reshape(x.shape[:-1] + (pw.d_in,))
 
 
@@ -235,3 +239,4 @@ quant_matmul.launches = 0
 # the launches above split by the CUDA kernel that ran (kernel.qmm_kernel)
 quant_matmul.by_kernel = {"qmm_decode": 0, "qmm_tc": 0, "qmm_tile": 0}
 quant_matmul_t.launches = 0
+quant_matmul_t.by_kernel = {"qmm_t_decode": 0, "qmm_t_tile": 0}

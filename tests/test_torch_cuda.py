@@ -24,9 +24,12 @@ Tolerances are relative to the largest reference magnitude:
     the paged and the flat decode kernels are compared bitwise;
   * MLA: the head-batched quant_matmul (expand) and quant_matmul_t
     (absorb) 1e-5 against each head's plain version (fp32 sums in another
-    order); the latent attention kernels 1e-5 against their plain
-    versions (the same dequantized fp32 terms, summed in another order),
-    the paged and the flat latent decode bitwise.
+    order), quant_matmul_t's rows compared bitwise across m; the latent
+    attention kernels 1e-5 against their plain versions (the same
+    dequantized fp32 terms, summed in another order), the paged and the
+    flat latent decode bitwise.  The tensor-core extend with unscaled unit
+    queries (scores of tens) is held within 1e-5 of the function's float64
+    value, which its fp32 plain version itself misses by more than 1e-5.
 """
 import numpy as np
 import pytest
@@ -714,4 +717,220 @@ def test_paged_mla_flash_extend_kernel_vs_plain(cuda, kv_bits, n_past, L, h,
     torch.cuda.synchronize()
     assert paged_mla_flash_extend.launches == before + 1
     assert got.shape == (L, h, dl)
+    assert _rel(got, want) < 1e-5
+
+
+# ------------------------------------------- MLA: the rebuilt kernels
+#
+# quant_matmul_t's decode (m <= 4: qmm_t_decode) and prefill (qmm_t_tile)
+# shapes, and the tensor-core paged_mla_flash_extend.
+
+
+def _absorb_views(cuda, bits, h, dn, kvr, gs, seed):
+    """quant_matmul_t's operand: the W_k views of one packed wkv_b (value
+    heads as wide as dn), strided, not copied."""
+    pw, g = _wkv_b(cuda, bits, h, dn, dn, kvr, gs, seed)
+    pw_k, _ = mla_latent_weights(pw, h, dn, dn)
+    assert not pw_k.w_packed.is_contiguous()
+    return pw_k, g
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("m", [1, 2, 3, 4, 5, 8, 16, 70, 128])
+@pytest.mark.parametrize("h,kvr,gs", [(3, 130, 130), (128, 512, 128),
+                                      (1, 512, 128)])
+def test_quant_matmul_t_kernels_vs_plain(cuda, bits, m, h, kvr, gs):
+    """Both qmm_t kernels on strided wkv_b views, ragged k (130, a 3-bit
+    word straddling its end) and H 1 / 3 / 128: within 1e-5 of the plain
+    version, one launch counted under the kernel that ran."""
+    pw_k, g = _absorb_views(cuda, bits, h, 128, kvr, gs, seed=40)
+    x = torch.randn((h, m, 128), generator=g, device=cuda)
+    want = quant_matmul_t_ref(x, pw_k.w_packed, pw_k.scale, pw_k.zero,
+                              bits=bits, group_size=gs, d_in=kvr)
+    kernel = "qmm_t_decode" if m <= 4 else "qmm_t_tile"  # gs >= 32 / bits
+    before, by = quant_matmul_t.launches, dict(quant_matmul_t.by_kernel)
+    got = quant_matmul_t(x, pw_k)
+    torch.cuda.synchronize()
+    assert quant_matmul_t.launches == before + 1
+    assert quant_matmul_t.by_kernel == dict(by, **{kernel: by[kernel] + 1})
+    assert got.shape == (h, m, kvr)
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("bits", [2, 3, 8])
+@pytest.mark.parametrize("dn,m", [(40, 3), (40, 20), (136, 4), (136, 9),
+                                  (30, 2), (30, 33), (256, 1), (256, 70)])
+def test_quant_matmul_t_kernels_at_other_widths(cuda, bits, dn, m):
+    """Contraction widths other than 128: narrower (40), two column passes
+    of the decode (136, 256), and no multiple of 4 (30: scalar word
+    loads)."""
+    h, kvr, gs = 3, 320, 64
+    pw_k, g = _absorb_views(cuda, bits, h, dn, kvr, gs, seed=41)
+    x = torch.randn((h, m, dn), generator=g, device=cuda)
+    want = quant_matmul_t_ref(x, pw_k.w_packed, pw_k.scale, pw_k.zero,
+                              bits=bits, group_size=gs, d_in=kvr)
+    got = quant_matmul_t(x, pw_k)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_quant_matmul_t_rows_do_not_depend_on_m(cuda, bits):
+    """A row of y is bitwise the same computed in a launch at m 1 or m 4
+    (the decode kernel) and at m 16 or m 128 (the tile): the engine holds a
+    slot's step to the flat step."""
+    pw_k, g = _absorb_views(cuda, bits, 128, 128, 512, 128, seed=42)
+    x = torch.randn((128, 128, 128), generator=g, device=cuda)
+    y4 = quant_matmul_t(x[:, :4].contiguous(), pw_k)
+    y128 = quant_matmul_t(x, pw_k)
+    torch.cuda.synchronize()
+    for i in range(4):
+        y1 = quant_matmul_t(x[:, i:i + 1].contiguous(), pw_k)
+        assert torch.equal(y1, y4[:, i:i + 1]), i
+    assert torch.equal(quant_matmul_t(x[:, :16].contiguous(), pw_k),
+                       y128[:, :16])
+    assert torch.equal(quant_matmul_t(x[:, 100:].contiguous(), pw_k),
+                       y128[:, 100:])
+
+
+def _mla_extend_case(cuda, kv_bits, n_past, L, h, page, q_scale, seed,
+                     extra_pages=2, dl=512, dr=64):
+    """Latent pools of n_past + extra_pages pages (page 0 unused), a
+    shuffled table of n_past of them, queries of unit normals times
+    q_scale, the chunk's own latents."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    n_pages = n_past + extra_pages
+    cq, cs = _latent(g, 1, n_pages * page, dl, kv_bits, cuda, page=page)
+    rq, rs = _latent(g, 1, n_pages * page, dr, kv_bits, cuda, page=page)
+    chunk = kv_codec(kv_bits, page).chunk
+    pools = [cq.reshape(n_pages, page, -1), cs.reshape(n_pages, -1),
+             rq.reshape(n_pages, page, -1), rs.reshape(n_pages, -1)]
+    tbl = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(seed))[:n_past].to(torch.int32)
+           + 1).to(cuda)
+    ql = torch.randn((L, h, dl), generator=g, device=cuda) * q_scale
+    qr = torch.randn((L, h, dr), generator=g, device=cuda) * q_scale
+    c_new = torch.randn((L, dl), generator=g, device=cuda)
+    r_new = torch.randn((L, dr), generator=g, device=cuda)
+    kw = dict(kv_bits=kv_bits, chunk=chunk, dl=dl, dr=dr, page=page)
+    return (tbl, ql, qr, c_new, r_new, *pools), kw
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("q_scale", [1.0, 0.05], ids=["x1", "x0.05"])
+@pytest.mark.parametrize("L,n_past,h", [
+    (1, 0, 3), (1, 16, 128), (37, 2, 20), (37, 0, 128), (128, 6, 128),
+    (129, 16, 20), (129, 2, 3), (256, 16, 128), (256, 0, 20)])
+def test_paged_mla_flash_extend_tensor_cores(cuda, kv_bits, q_scale, L,
+                                             n_past, h):
+    """The extend at deepseek-v3's widths over L 1 - 256 chunk tokens, 0 -
+    16 past pages and H 3 / 20 / 128 heads (rows past H in a block of 32).
+    At x0.05 within 1e-5 of the plain version; at x1 (scores of tens, a
+    peaked softmax) the fp32 plain version is itself ~1.6e-5 from the
+    function's float64 value (tests/test_torch_mla_precision.py), so the
+    kernel is held within 1e-5 of that value instead."""
+    args, kw = _mla_extend_case(cuda, kv_bits, n_past, L, h, 64, q_scale,
+                                seed=43)
+    dtype = torch.float64 if q_scale == 1.0 else torch.float32
+    want = paged_mla_flash_extend_ref(*args, dtype=dtype, **kw)
+    before = paged_mla_flash_extend.launches
+    got = paged_mla_flash_extend(*args, **kw)
+    torch.cuda.synchronize()
+    assert paged_mla_flash_extend.launches == before + 1
+    assert got.shape == (L, h, 512) and got.dtype == torch.float32
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("page,n_past", [(64, 3), (128, 3), (128, 1)])
+def test_paged_mla_flash_extend_at_pages_64_and_128(cuda, kv_bits, page,
+                                                    n_past):
+    """Pages (= kv2 scale chunks) of 64 and 128 rows: within 1e-5 of the
+    plain version."""
+    args, kw = _mla_extend_case(cuda, kv_bits, n_past, 70, 20, page, 0.05,
+                                seed=44)
+    want = paged_mla_flash_extend_ref(*args, **kw)
+    got = paged_mla_flash_extend(*args, **kw)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("page,n_past", [(16, 3), (16, 8), (48, 3), (48, 4)])
+def test_paged_mla_flash_extend_at_other_page_sizes(cuda, kv_bits, page,
+                                                    n_past):
+    """Pages (``cfg.kv_chunk``) that are not 64 against the kernel's 32-key
+    tiles: at 16 a tile spans two pages (one run of bulk copies a page), at
+    48 every other tile starts partway into a page and ends in the next; at
+    n_past * page not a multiple of 32 the last past tile is partial.
+    Within 1e-5 of the plain version."""
+    args, kw = _mla_extend_case(cuda, kv_bits, n_past, 70, 20, page, 0.05,
+                                seed=47)
+    want = paged_mla_flash_extend_ref(*args, **kw)
+    got = paged_mla_flash_extend(*args, **kw)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("dl,dr,page", [(510, 64, 64), (512, 62, 16),
+                                        (200, 30, 48), (500, 60, 48)])
+def test_paged_mla_flash_extend_kv8_rows_of_any_width(cuda, dl, dr, page):
+    """kv8 code rows of dl and dr bytes: where either is not a multiple of 4
+    the past tiles' rows are copied byte by byte, where both are multiples
+    of 4 but not of 16 by 4-byte cp.async (500, 60), at pages 64, 16 and
+    48.  Within 1e-5 of the plain version."""
+    args, kw = _mla_extend_case(cuda, 8, 3, 45, 20, page, 0.05, seed=48,
+                                dl=dl, dr=dr)
+    want = paged_mla_flash_extend_ref(*args, **kw)
+    got = paged_mla_flash_extend(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (45, 20, dl)
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+def test_paged_mla_flash_extend_never_reads_pages_outside_tbl(cuda,
+                                                             kv_bits):
+    """A page left out of tbl holds NaN scales and stale codes: the result
+    is bitwise that of the clean pools, finite, and within 1e-5 of the
+    plain version on the clean pools."""
+    args, kw = _mla_extend_case(cuda, kv_bits, 4, 90, 20, 64, 0.05, seed=45,
+                                extra_pages=3)
+    tbl, pools = args[0], list(args[5:])
+    unused = sorted(set(range(pools[0].shape[0])) - set(tbl.tolist()))
+    assert unused
+    poisoned = [p.clone() for p in pools]
+    for i in unused:
+        poisoned[1][i] = float("nan")
+        poisoned[3][i] = float("nan")
+        poisoned[0][i] = pools[0][tbl[0]]
+        poisoned[2][i] = pools[2][tbl[0]]
+    clean = paged_mla_flash_extend(*args, **kw)
+    got = paged_mla_flash_extend(*args[:5], *poisoned, **kw)
+    want = paged_mla_flash_extend_ref(*args, **kw)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert torch.equal(got, clean)
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("L,n_past,h,rows", [
+    (128, 0, 128, None), (128, 6, 128, None), (70, 2, 20, (32, 64)),
+    (256, 16, 20, (0, 100))])
+def test_paged_mla_flash_extend_bf16_valued_own_latents(cuda, kv_bits, L,
+                                                       n_past, h, rows):
+    """Own latents that are bf16 values widened to fp32, as the model
+    passes its cache rows: their second and third bf16 terms are zero and
+    the kernel skips those stages of the tiles they fill (all of them, or
+    only the tiles inside ``rows``, the others fp32).  Within 1e-5 of the
+    plain version."""
+    args, kw = _mla_extend_case(cuda, kv_bits, n_past, L, h, 64, 0.05,
+                                seed=46)
+    lo, hi = rows if rows else (0, L)
+    for x in (args[3], args[4]):  # c_new, r_new in place
+        x[lo:hi] = x[lo:hi].to(torch.bfloat16).float()
+    want = paged_mla_flash_extend_ref(*args, **kw)
+    got = paged_mla_flash_extend(*args, **kw)
+    torch.cuda.synchronize()
     assert _rel(got, want) < 1e-5

@@ -28,10 +28,10 @@ from repro_torch.kernels.attn_colsum.ops import attn_colsum
 from repro_torch.kernels.gram.ops import weighted_gram
 from repro_torch.kernels.hadamard.ops import fwht
 from repro_torch.core.quantizer import QuantSpec
-from repro_torch.kernels.quant_matmul.kernel import qmm_kernel
+from repro_torch.kernels.quant_matmul.kernel import qmm_kernel, qmm_t_kernel
 from repro_torch.kernels.quant_matmul.ops import (PackedWeight, pack_weight,
                                                   packed_weight_from_artifact,
-                                                  quant_matmul)
+                                                  quant_matmul, quant_matmul_t)
 
 RTOL = 1e-5
 
@@ -189,3 +189,15 @@ def test_quant_matmul_counts_launches_by_kernel(m, dtype, kernel):
     bf16 x and the fp32 tile for fp32 x."""
     assert qmm_kernel(m, dtype) == kernel
     assert kernel in quant_matmul.by_kernel
+
+
+@pytest.mark.parametrize("m,bits,gs,kernel", [
+    (1, 3, 128, "qmm_t_decode"), (4, 2, 16, "qmm_t_decode"),
+    (4, 2, 8, "qmm_t_tile"), (5, 3, 128, "qmm_t_tile"),
+    (128, 8, 4, "qmm_t_tile")])
+def test_quant_matmul_t_counts_launches_by_kernel(m, bits, gs, kernel):
+    """Each CUDA launch of quant_matmul_t is also counted under the kernel
+    that ran: the decode shape for m <= 4 where a packed word spans at most
+    two quant groups (gs >= 32 / bits), else the fp32 tile."""
+    assert qmm_t_kernel(m, bits, gs) == kernel
+    assert kernel in quant_matmul_t.by_kernel
