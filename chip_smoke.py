@@ -15,8 +15,9 @@ Phases, in order; any failure exits non-zero before the final line:
      the port) and the least time the card could take (``bound_ms``);
      ``quant_matmul``'s three kernels each where a path runs it: the
      split-k decode (m 4) and the tensor-core tile (bf16, m 256 and 512)
-     at llama3-8b's and deepseek-v3's projections, the fp32 tile on MLA's
-     head-batched expand of a prefill chunk; ``quant_matmul_t``'s two
+     at llama3-8b's and deepseek-v3's projections, the tile's fp32 form
+     (x split into three bf16 terms) on MLA's head-batched expand of a
+     prefill chunk; ``gram`` bitwise symmetric; ``quant_matmul_t``'s two
      (MLA's absorb: m 4 and a prefill chunk of ENGINE_CHUNK); ``fwht``
      (through ``hadamard_transform``) at the models' widths, though no path
      of the system runs it;
@@ -106,15 +107,16 @@ TRACED_MODES = ("whole", "chunked-paged")
 # prompt) and the engine's whole prompt
 QMM_M = (SERVE_BATCH, SERVE_BATCH * PROMPT_LEN, ENGINE_PROMPT)
 # quant_matmul's launches are also counted by the CUDA kernel that ran: the
-# split-k decode (m <= 4), the tensor-core tile (bf16 x) and the fp32 tile
-# (fp32 x).  Both paths require each kernel they run; the main path serves
-# in bf16 only and never takes the fp32 tile, which MLA's head-batched
-# expand runs (fp32 x, m > 4) on the MLA path
+# split-k decode (m <= 4) and the tensor-core tile in its bf16 form
+# (qmm_tc) and its fp32 form (qmm_tc_f32: fp32 x as three bf16 terms).
+# Both paths require each kernel they run; the main path serves in bf16
+# only and never takes the fp32 form, which MLA's head-batched expand runs
+# (fp32 x, m > 4) on the MLA path
 # (quant_matmul_t, MLA's absorb, likewise: the decode kernel qmm_t_decode,
 # m <= 4, and the fp32 tile qmm_t_tile, the chunked prefill's m =
 # ENGINE_CHUNK; the MLA path runs both)
-QMM_KERNELS = ("qmm_decode", "qmm_tc", "qmm_tile")
-MAIN_PATH_WITHOUT = ("qmm_tile",)
+QMM_KERNELS = ("qmm_decode", "qmm_tc", "qmm_tc_f32")
+MAIN_PATH_WITHOUT = ("qmm_tc_f32",)
 # phase 2 widths of fwht: llama3-8b's d_model (a pure FWHT) and d_ff =
 # 2^11·7, deepseek-v3's d_model 2^10·7 and d_ff 2^11·9, each over one
 # calibration batch; and the reference benchmark's 512 x 512
@@ -332,6 +334,10 @@ def check_kernels(torch, checks: Checks) -> None:
         r = torch.rand((n,), generator=g, device=dev)
         want = weighted_gram_ref(x, r)
         got = weighted_gram(x, r)
+        # from a zero accumulator the kernel's result is bitwise symmetric
+        if not torch.equal(got, got.T):
+            checks.bad.append(f"gram (n {n}, d {d}) is not bitwise "
+                              f"symmetric")
         # read x and r once, read and write the (d, d) accumulator
         nbytes = n * d * 4 + n * 4 + 2 * d * d * 4
         sets = clones((x, r, torch.zeros_like(want)), nbytes)
@@ -341,10 +347,14 @@ def check_kernels(torch, checks: Checks) -> None:
                             for a in sets)
         xrs = [(a[0] * a[1][:, None],) for a in sets]
         library_ms = timer.ms(lambda a=a: torch.mm(a[0].T, a[0]) for a in xrs)
-        # the product is symmetric: d(d+1)/2 distinct entries, n
-        # multiply-adds each (the kernel computes both triangles)
+        # the least work: the product is symmetric, d(d+1)/2 distinct
+        # entries of n multiply-adds each, at the cheapest fp32-accurate
+        # tensor-core rate, as the other fp32 rows: both operands fp32, so
+        # three bf16 terms each and the six term products i + j < 3 at
+        # 989 TFLOP/s (cheaper than three TF32 products at 495, and than
+        # the fp32 pipes' 67)
         record("gram", {"n": n, "d": d}, got, want, TOL_FP32, ms, plain_ms,
-               library_ms, nbytes, 1.0 * n * d * (d + 1), "float32",
+               library_ms, nbytes, 6.0 * n * d * (d + 1), "bfloat16",
                d == 14336)
         del x, r, want, got, sets, xrs
 
@@ -384,6 +394,7 @@ def check_kernels(torch, checks: Checks) -> None:
                          main and {SERVE_BATCH: True,
                                    SERVE_BATCH * PROMPT_LEN:
                                    "quant_matmul_prefill"})
+    check_fp32_long_rows(torch, checks, g)
     torch.cuda.empty_cache()
 
 
@@ -419,6 +430,38 @@ def check_packed(torch, checks: Checks, g, wname: str, kk: int, nn: int,
                       2.0 * m * nn * kk, "bfloat16",
                       (representative or {}).get(m, False))
         del pws, libs
+
+
+def check_fp32_long_rows(torch, checks: Checks, g) -> None:
+    """``quant_matmul``'s fp32 form (``qmm_tc_f32``) over wd's 14336-long
+    rows (n 4096, m 256, 3 bits, x and W >= 0 so that every partial sum
+    grows), in groups of GROUP and in one group for the whole row (gs -1,
+    the per-tensor fallback), held to its plain version at 1e-5: no
+    tensor-core sum spans more than one 128-row tile.  Untimed."""
+    from repro_torch.core.quantizer import QuantSpec, quantize_weight_rtn
+    from repro_torch.kernels.quant_matmul.ops import (pack_weight,
+                                                      quant_matmul)
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+
+    kk, nn, m = 14336, 4096, SERVE_BATCH * PROMPT_LEN
+    x = torch.randn((m, kk), generator=g, device="cuda").abs()
+    w = (torch.randn((kk, nn), generator=g, device="cuda")
+         * kk ** -0.5).abs()
+    for gs in (GROUP, -1):
+        spec = QuantSpec(bits=BITS, group_size=gs)
+        _, qc, sc, zr = quantize_weight_rtn(w, spec)
+        pw = pack_weight(qc, sc, zr, spec)
+        want = quant_matmul_ref(x, pw.w_packed, pw.scale, pw.zero, bits=BITS,
+                                group_size=pw.group_size)
+        rel = errors(quant_matmul(x, pw), want)[1]
+        shape = {"weight": "wd", "m": m, "k": kk, "n": nn, "bits": BITS,
+                 "gs": gs, "x": "float32, >= 0"}
+        log({"check": {"name": "quant_matmul", "shape": shape,
+                       "rel_err": rel, "tol": TOL_FP32}})
+        if not rel <= TOL_FP32:
+            checks.bad.append(f"quant_matmul {shape}: rel err {rel:.3g} > "
+                              f"{TOL_FP32}")
+        del pw, qc, sc, zr, want
 
 
 def check_hadamard(torch, checks: Checks) -> None:
@@ -706,8 +749,9 @@ def check_mla_kernels(torch, checks: Checks) -> None:
     (``quant_matmul_t``) and expand (head-batched ``quant_matmul``) steps on
     the per-head views of one packed wkv_b (H 128, m 4, 2/3/4/8 bits, group
     128), and both on a prefill chunk (fp32 x, m = ENGINE_CHUNK: the fp32
-    tiles ``qmm_t_tile`` and ``qmm_tile``); the bf16 prefill projections (m 256 and 512, 3 bits: the
-    tensor-core tile); the latent flash decode (kv8, kv2) at B 4, S 8192, H 128, latent
+    tile ``qmm_t_tile`` and the tensor-core tile's fp32 form
+    ``qmm_tc_f32``); the bf16 prefill projections (m 256 and 512, 3 bits:
+    the tensor-core tile); the latent flash decode (kv8, kv2) at B 4, S 8192, H 128, latent
     512, rope 64, pos = S - 37, flat and through a shuffled page table with
     a trash entry (held bitwise to the flat call); the chunked-prefill
     extend at L 256 over 16 past pages.  Yardsticks: ``torch.bmm`` on the
@@ -1091,8 +1135,9 @@ def check_solves(torch, entries: dict, proxy_card: dict, *, arch=ARCH,
 def profile_engine(torch, run) -> dict:
     """Device time by kernel over one traced engine run (``run()``), the
     summed device-busy time, the traced run's own wall clock and its idle
-    share (1 - busy / that wall).  The profiler slows the host, so the
-    caller reports the untraced run's wall beside it."""
+    share (1 - busy / that wall): the ten largest kernels (``top``) and
+    every kernel of the port's own sources (``port``).  The profiler slows
+    the host, so the caller reports the untraced run's wall beside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1110,7 +1155,8 @@ def profile_engine(torch, run) -> dict:
     rows.sort(key=lambda r: -r["ms"])
     busy = sum(r["ms"] for r in rows)
     return {"device_busy_ms": busy, "traced_wall_ms": wall_ms,
-            "idle_share": 1.0 - busy / wall_ms, "top": rows[:10]}
+            "idle_share": 1.0 - busy / wall_ms, "top": rows[:10],
+            "port": [r for r in rows if "anonymous namespace" in r["name"]]}
 
 
 class KvAudit:
@@ -1785,6 +1831,30 @@ def time_quant_matmul(torch) -> list:
     return out
 
 
+def time_gram(torch) -> list:
+    """``weighted_gram`` as phase 2 times it (one calibration batch, fp32
+    x, r fused, alpha 2 into an fp32 accumulator) at d 4096 and 14336,
+    with the ``repro_torch`` that is on sys.path; ms per call from
+    ``Timer`` over cold copies."""
+    from repro_torch.kernels.gram.ops import weighted_gram
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    checks = Checks(Timer(torch))
+    n = CALIB_BATCH * CALIB_SEQ
+    out = []
+    for d in (4096, 14336):
+        x = torch.randn((n, d), generator=g, device="cuda")
+        r = torch.rand((n,), generator=g, device="cuda")
+        sets = checks.clones((x, r, torch.zeros((d, d), device="cuda")),
+                             n * d * 4 + n * 4 + 2 * d * d * 4)
+        out.append({"kernel": "gram", "n": n, "d": d,
+                    "ms": checks.timer.ms(lambda a=a: weighted_gram(
+                        a[0], a[1], out=a[2], alpha=2.0) for a in sets)})
+        del x, r, sets
+        torch.cuda.empty_cache()
+    return out
+
+
 def time_gqa_attention(torch) -> list:
     """``flash_decode``, ``paged_flash_decode`` and ``paged_flash_extend``
     on phase 2's inputs (``gqa_decode_inputs``, ``gqa_extend_inputs``), kv8
@@ -1828,12 +1898,15 @@ def time_gqa_attention(torch) -> list:
 def time_mla(torch) -> list:
     """MLA's absorb (``quant_matmul_t`` on the W_k views of a 3-bit
     deepseek-v3 wkv_b: H 128, d 128, k 512) at m = SERVE_BATCH and
-    ENGINE_CHUNK, and ``paged_mla_flash_extend`` on phase 2's inputs
+    ENGINE_CHUNK, its expand of a prefill chunk (``quant_matmul`` on the
+    W_v views, fp32 x: H 128, m ENGINE_CHUNK, k 512, n 128), and
+    ``paged_mla_flash_extend`` on phase 2's inputs
     (``mla_extend_inputs``), kv8 and kv2, with the ``repro_torch`` that is
     on sys.path; ms per call from ``Timer`` over cold copies (the weight
     from ``rtn_packed`` and ``packed_sets``, as ``time_quant_matmul``)."""
     from repro_torch.kernels.flash_decode.ops import paged_mla_flash_extend
     from repro_torch.kernels.quant_matmul.ops import (mla_latent_weights,
+                                                      quant_matmul,
                                                       quant_matmul_t)
 
     g = torch.Generator(device="cuda").manual_seed(8)
@@ -1850,6 +1923,14 @@ def time_mla(torch) -> list:
                     "ms": checks.timer.ms(lambda a=a: quant_matmul_t(*a)
                                           for a in args)})
         del args
+    x = torch.randn((h, ENGINE_CHUNK, dl), generator=g, device="cuda")
+    args = [(a[0], mla_latent_weights(a[1], h, dn, dv)[1])
+            for a in packed_sets(checks, x, pw)]
+    out.append({"kernel": "quant_matmul", "x": "fp32", "bits": BITS, "H": h,
+                "m": ENGINE_CHUNK, "k": dl, "n": dv,
+                "ms": checks.timer.ms(lambda a=a: quant_matmul(*a)
+                                      for a in args)})
+    del args, x
     for bits in KV_BITS:
         xi = mla_extend_inputs(torch, g, bits)
         args = (xi["tbl"], xi["ql"], xi["qr"], xi["c_new"], xi["r_new"]) \
@@ -1867,14 +1948,16 @@ def time_mla(torch) -> list:
 # one process of ``compare``: times the tree named by argv[1]
 TIME_ONE_TREE = ("import sys; from pathlib import Path; import chip_smoke "
                  "as c; t = c.card_torch(Path(sys.argv[1])); "
-                 "c.log({'quant_matmul': c.time_quant_matmul(t), "
+                 "c.log({'gram': c.time_gram(t), "
+                 "'quant_matmul': c.time_quant_matmul(t), "
                  "'gqa_attention': c.time_gqa_attention(t), "
                  "'mla': c.time_mla(t)})")
 
 
 def compare(other: Path) -> None:
-    """Times ``quant_matmul`` (``time_quant_matmul``), the three GQA
-    attention wrappers (``time_gqa_attention``) and MLA's absorb and extend
+    """Times ``gram`` (``time_gram``), ``quant_matmul``
+    (``time_quant_matmul``), the three GQA attention wrappers
+    (``time_gqa_attention``) and MLA's absorb, fp32 expand and extend
     (``time_mla``) of another checkout's ``src`` and of this one in turns,
     other, this, this, other, one process each on the same card, and prints
     them as one JSON line."""
@@ -1939,7 +2022,7 @@ def main() -> None:
     # quant_matmul_t's two on the MLA path
     qmm_rows = {"qmm_decode": rows["quant_matmul"],
                 "qmm_tc": rows["quant_matmul_prefill"],
-                "qmm_tile": rows["quant_matmul_prefill_fp32"]}
+                "qmm_tc_f32": rows["quant_matmul_prefill_fp32"]}
     qmm_t_rows = {"qmm_t_decode": rows["quant_matmul_t"],
                   "qmm_t_tile": rows["quant_matmul_t_prefill"]}
 
@@ -1979,7 +2062,7 @@ def main() -> None:
         if name == "quant_matmul":  # decode row; both prefill rows beside
             subs = {}
             for sub, kern in (("", "qmm_decode"), ("prefill", "qmm_tc"),
-                              ("prefill_fp32", "qmm_tile")):
+                              ("prefill_fp32", "qmm_tc_f32")):
                 subs[sub] = {key: qmm_rows[kern][key] for key in keys}
                 subs[sub].update(kernel=kern, kernel_launches={
                     "main_path": launches[kern],

@@ -29,6 +29,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int MAX_LOG2 = 15;
@@ -150,16 +152,9 @@ int launch(const void* x, void* out, int n, int d, float scale,
   const int threads = trow >= MIN_THREADS ? trow : MIN_THREADS;
   const int rows_per_block = threads / trow;
   const size_t smem = trow > 32 ? (size_t)threads * E * sizeof(float) : 0;
-  if (smem > 48 * 1024) {
-    static bool raised = false;  // once per instantiation
-    if (!raised) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          fwht_kernel<T, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)(1 << MAX_LOG2) * (int)sizeof(float));
-      if (err != cudaSuccess) return static_cast<int>(err);
-      raised = true;
-    }
-  }
+  const int err =
+      allow_smem(reinterpret_cast<const void*>(fwht_kernel<T, E>), smem);
+  if (err != 0) return err;
   const int blocks = (n + rows_per_block - 1) / rows_per_block;
   fwht_kernel<T, E><<<blocks, threads, smem, s>>>(
       static_cast<const T*>(x), static_cast<T*>(out), n, d, trow, scale);

@@ -89,6 +89,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int THREADS = 512;
@@ -451,16 +453,13 @@ constexpr int EX_KEYS = 32;      // keys a tile
 constexpr int EX_THREADS = 256;  // 8 warps: 2 row groups x 4 quarters
 constexpr int EX_PRODUCERS = 128;  // and four producer warps
 constexpr int EX_BLOCK = EX_THREADS + EX_PRODUCERS;
-constexpr int EX_TERMS = 3;      // bf16 terms of an fp32 operand
+constexpr int EX_TERMS = SPLIT_TERMS;  // bf16 terms of an fp32 operand
 constexpr int EX_MAX_W = 576;    // padded latent + rope width
 constexpr int EX_NQ = 16;        // 8-column value tiles a warp (128 columns)
 constexpr int EX_SPP = 40;       // partial-score row pitch (floats)
 constexpr int EX_PP = 80;        // P term row pitch (bytes): 32 keys + 16
 constexpr float LOG2E = 1.44269504088896341f;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_u32(dst)), "l"(src) : "memory");
@@ -503,15 +502,6 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)), "l"(src), "r"(bytes),
       "r"(smem_u32(bar)) : "memory");
 }
-// generic-proxy accesses to shared memory before, async-proxy ones after
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-// a barrier of the n threads (whole warps) that name barrier id
-__device__ __forceinline__ void named_sync(int id, int n) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
-}
-
 // Four 8x8 bf16 matrices from shared memory (lane l gives the address of
 // row l % 8 of matrix l / 8), plain or transposed.
 __device__ __forceinline__ void ldsm4(uint32_t r[4], const void* p) {
@@ -535,19 +525,6 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Two fp32 values -> three bf16x2 terms (low half: x0): hi = bf16(x),
-// mid = bf16(x - hi), lo = bf16(x - hi - mid); each difference is exact in
-// fp32, so hi + mid + lo is within ~2^-24 of x.
-__device__ __forceinline__ void split3(float x0, float x1, uint32_t t[3]) {
-#pragma unroll
-  for (int i = 0; i < EX_TERMS; ++i) {
-    const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
-    t[i] = *reinterpret_cast<const uint32_t*>(&b);
-    x0 -= __low2float(b);
-    x1 -= __high2float(b);
-  }
 }
 
 // An int8 code word (4 codes) -> two bf16x2 words, exact: byte ^ 0x80 under
@@ -852,7 +829,7 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
           mbar_wait(ring_bar, t & 1);
         } else {
           if (meta) cp_async_wait_all();
-          named_sync(2, EX_PRODUCERS);
+          bar_sync(2, EX_PRODUCERS);
         }
         widen(t, kbs + b * tile_bytes);
         if (meta) {  // c and r for the scores, c again for the values
@@ -862,7 +839,7 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
           st[EX_KEYS + lane] = __bfloat162float(cur.sr);
           st[2 * EX_KEYS + lane] = c;
         }
-        named_sync(2, EX_PRODUCERS);  // the ring read, tile b written
+        bar_sync(2, EX_PRODUCERS);  // the ring read, tile b written
         if (ptid == 0) mbar_arrive(&full[b]);
         if (t + 1 < n_pt && meta) {
           issue(t + 1, nxt.pid);
@@ -949,7 +926,7 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
       }
     }
   }
-  named_sync(1, EX_THREADS);
+  bar_sync(1, EX_THREADS);
 
   // ldmatrix lane offsets: A (query rows of this warp), B for the scores
   // (keys x dims of a key tile), B for the values (keys x columns, trans)
@@ -1093,7 +1070,7 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
     }
 
     // scale, publish this quarter's partial scores
-    named_sync(1, EX_THREADS);  // the last tile's partial scores are read
+    bar_sync(1, EX_THREADS);  // the last tile's partial scores are read
     const float* sct = scl + (s & 1) * 3 * EX_KEYS;
 #pragma unroll
     for (int n = 0; n < 4; ++n) {
@@ -1110,7 +1087,7 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
           make_float2(c0 * tc[n][2] + r0 * tr[n][2],
                       c1 * tc[n][3] + r1 * tr[n][3]);
     }
-    named_sync(1, EX_THREADS);
+    bar_sync(1, EX_THREADS);
 
     // streaming softmax, each warp over key tile qd (8 keys) of its 16
     // rows: the four quarters' partials in order, masked by select; each
@@ -1149,7 +1126,7 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
       rmax[qd * EX_ROWS + row_a] = mx_a;
       rmax[qd * EX_ROWS + row_b] = mx_b;
     }
-    named_sync(1, EX_THREADS);  // every quarter's maxima; spart read
+    bar_sync(1, EX_THREADS);  // every quarter's maxima; spart read
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       mx_a = fmaxf(mx_a, rmax[q * EX_ROWS + row_a]);
@@ -1196,7 +1173,7 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
       rsum[qd * EX_ROWS + row_a] = sum_a;
       rsum[qd * EX_ROWS + row_b] = sum_b;
     }
-    named_sync(1, EX_THREADS);  // P's terms and the row sums written
+    bar_sync(1, EX_THREADS);  // P's terms and the row sums written
     l_a = al_a * l_a + (((rsum[row_a] + rsum[EX_ROWS + row_a]) +
                          rsum[2 * EX_ROWS + row_a]) +
                         rsum[3 * EX_ROWS + row_a]);
@@ -1247,12 +1224,6 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
   }
 }
 
-int set_smem(const void* fn, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
-  return (int)cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
 // dot length and padded shared-memory row of [q|k] rows of dl + dr values:
 // a row stride of 4 mod 32 floats puts 8 consecutive rows' float4 reads on
 // distinct banks
@@ -1278,7 +1249,7 @@ extern "C" int mla_decode_launch(
   int dw4, ld;
   row_geometry(dl, dr, &dw4, &ld);
   const size_t smem = smem_bytes(ld);
-  int err = set_smem((const void*)mla_decode_kernel, smem);
+  int err = allow_smem((const void*)mla_decode_kernel, smem);
   if (err) return err;
   const dim3 grid(n_split, (H + QR - 1) / QR, B);
   mla_decode_kernel<<<grid, THREADS, smem, st>>>(
@@ -1331,7 +1302,7 @@ extern "C" int mla_extend_launch(
                    : (cb % 4 == 0 && rb % 4 == 0 && a % 4 == 0)   ? 4
                                                                   : 1;
   const ExLayout g = ex_layout(dl, dr, cb, rb);
-  int err = set_smem((const void*)mla_extend_kernel, g.total);
+  int err = allow_smem((const void*)mla_extend_kernel, g.total);
   if (err) return err;
   const int Lp = (L + EX_KEYS - 1) / EX_KEYS * EX_KEYS;
   mla_own_terms_kernel<<<Lp, 128, 0, st>>>(c_new, r_new,

@@ -3,8 +3,8 @@
 //
 // Replaces, in src/repro/kernels/quant_matmul/kernel.py:
 //   quant_matmul_pallas / _qmm_kernel / _dequant_tile -> qmm_decode,
-//     qmm_reduce (m <= 4), qmm_tc (bf16 x, m > 4), qmm_tile (fp32 x,
-//     m > 4) (qmm_launch)
+//     qmm_reduce (m <= 4), qmm_tc (m > 4; a bf16 form for bf16 x and an
+//     fp32 form, qmm_tc_f32 in the launch counts, for fp32 x) (qmm_launch)
 //   quant_matmul_t_pallas / _qmm_t_kernel -> qmm_t_decode (m <= 4),
 //     qmm_t_tile (m > 4) (qmm_t_launch)
 //
@@ -31,8 +31,10 @@
 //     ~23.5 MB of codes plus ~3.7 MB of scales and zeros, ~8 us at 3.35 TB/s.
 //   prefill (m = B·T in the hundreds): operations, 2·m·n·k multiply-adds,
 //     ~30 us for that projection at m 256 at the bf16 tensor-core rate.
-//     bf16 x runs on the tensor cores (qmm_tc); fp32 x (MLA's head-batched
-//     expand, held to 1e-5) stays on the fp32 pipes (qmm_tile).
+//     fp32 x (MLA's head-batched expand of a prefill chunk, held to 1e-5)
+//     costs three times the products (three bf16 terms of x), and at MLA's
+//     shape (H 128, m 128, k 512, n 128) its bytes bound it instead: x, the
+//     weight's views and the fp32 y, ~46 MB, 0.0137 ms at 3.35 TB/s.
 //
 // Design.  Codes are unpacked in registers with shift and mask and the
 // per-group affine is applied in the kernel; the product is computed here,
@@ -48,7 +50,7 @@
 //     the prefill shape.  Partial sums go to
 //     a (splits, m, n) fp32 buffer and a second small kernel adds them in a
 //     fixed order and casts to x's type (deterministic, no atomics).
-//   qmm_tc (bf16 prefill): 64 x 128 output tiles (wgmma's 64 rows: at m 256
+//   qmm_tc (prefill, m > 4): 64 x 128 output tiles (wgmma's 64 rows: at m 256
 //     and n 4096 that is 128 blocks on 132 SMs; no split-k), warp
 //     specialized, 512 threads:
 //       - two producer warpgroups copy each 128-row k-tile global -> shared
@@ -86,11 +88,37 @@
 //     m 256) and x is read by every column block (32): sharing them across
 //     a cluster of blocks (distributed shared memory, TMA multicast) is the
 //     next step.
-//   qmm_tile (fp32 prefill): 64 x 64 output tiles, 256 threads with 4 x 4
-//     fp32 FMAs each.  Per k-step the block unpacks BKW words per column
-//     (BK = BKW·vpw rows: 32 rows at 2/4/8 bits, 40 at 3 bits) into a
-//     dequantized fp32 tile in shared memory next to the matching x tile,
-//     then accumulates.
+//   qmm_tc, fp32 form (T = float, launch count qmm_tc_f32): the same
+//     kernel, ring and protocol, with x through registers instead of the
+//     ring: each producer loads its 4 chunks of 8 fp32 values of tile t
+//     (two 16-byte loads each, 512 coalesced bytes a row) before it waits
+//     for the tile's buffers, and after dequantizing B splits them exactly
+//     into hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), three
+//     swizzled A tiles in two buffers (96 KB; the ring keeps only words,
+//     zeros and scales, 5 slots, 3 at 8 bits: 211-218 KB in all).  Each
+//     16-row step issues three wgmmas, hi, mid, lo, into the group's
+//     accumulator: each term times code - zero is exact and the tensor core
+//     sums in fp32, but its sums truncate, and a long run of them does not
+//     stay within 1e-5 (gram measured 1.6e-5 over 768 wgmmas into one
+//     accumulator).  So no tensor-core sum spans more than one k-tile (8
+//     steps, 24 wgmmas): a group that runs on into the next tile (gs > 128,
+//     or gs -1, one group for the whole row) is closed there, acc +=
+//     s · acc_g, and acc_g starts again; the close points depend on k
+//     alone.  (The bf16 form keeps one accumulator a group: its output is
+//     rounded to bf16, 2^-9, far above that.)  A step that a group
+//     boundary crosses loads the three terms by ldmatrix and masks them as
+//     above.
+//     The fp32 products of the plain version are replaced, not repeated:
+//     hi + mid + lo is x within ~2^-24.  Rows stay independent of m.  The
+//     split could sit with the consumers instead (fp32 x through the ring,
+//     three register fragments a step, wgmma with A in registers): on the
+//     H100 that measured the same at MLA's expand (0.0463 against 0.0472
+//     ms) and 7% slower at wd, m 256 (0.547 against 0.513 ms), so the
+//     producers split.  What holds it back (chip_smoke.py on the H100,
+//     MLA's expand: 0.047 ms, 3.4x its byte bound): one block per SM, so
+//     256 blocks run in two waves of four 128-row tiles each, the tile's
+//     loads, dequantization, split and wgmmas following one another as in
+//     the bf16 form.
 // Ragged m, n and k (including the padded 3-bit word) are masked.
 //
 // qmm_t (y = x @ Wᵀ, the packed axis is the output): x (H, m, d) fp32, W
@@ -123,13 +151,14 @@
 
 #include <type_traits>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr int DEC_COLS = 128;   // decode: threads (= columns) per block
 constexpr int DEC_MAXM = 4;     // decode: largest m (one float4 of x)
 constexpr int DEC_ROWS = 1024;  // decode: most k rows staged per block
 constexpr int DEC_UNROLL = 8;   // decode: word loads in flight per thread
-constexpr int TM = 64, TN = 64, THREADS = 256;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -143,9 +172,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 template <int BITS> struct Pack {
   static constexpr int VPW = 32 / BITS;
   static constexpr uint32_t MASK = (1u << BITS) - 1u;
-  // words per prefill k-step: BK = 32 rows (40 at 3 bits)
-  static constexpr int BKW = (BITS == 3) ? 4 : 32 / VPW;
-  static constexpr int BK = BKW * VPW;
 };
 
 // One float4 holds the (up to 4) rows of x at one k; rows of x beyond m
@@ -236,128 +262,49 @@ __global__ void qmm_reduce(const float* __restrict__ partial,
   store(out + idx, v);
 }
 
-template <typename T, int BITS>
-__global__ void __launch_bounds__(THREADS)
-qmm_tile(const T* __restrict__ x, const uint32_t* __restrict__ w,
-         const float* __restrict__ scale, const float* __restrict__ zero,
-         T* __restrict__ out, int m, int k, int n, int gs, int w_ld,
-         int w_hs, int s_ld, int s_hs) {
-  using P = Pack<BITS>;
-  __shared__ float xs[P::BK][TM + 1];
-  __shared__ float ws[P::BK][TN];
-  const int head = blockIdx.z;
-  x += (size_t)head * m * k;
-  out += (size_t)head * m * n;
-  w += (size_t)head * w_hs;
-  scale += (size_t)head * s_hs;
-  zero += (size_t)head * s_hs;
-  const int m0 = blockIdx.y * TM, n0 = blockIdx.x * TN;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int n_words = (k + P::VPW - 1) / P::VPW;
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-
-  for (int kw0 = 0; kw0 < n_words; kw0 += P::BKW) {
-    const int k0 = kw0 * P::VPW;
-    for (int idx = tid; idx < TM * P::BK; idx += THREADS) {
-      const int mm = idx / P::BK, kk = idx % P::BK;
-      const int row = m0 + mm, kc = k0 + kk;
-      xs[kk][mm] = (row < m && kc < k) ? to_f(x[(size_t)row * k + kc]) : 0.f;
-    }
-    for (int idx = tid; idx < P::BKW * TN; idx += THREADS) {
-      const int wl = idx / TN, c = idx % TN;
-      const int wi = kw0 + wl, col = n0 + c;
-      const bool ok = wi < n_words && col < n;
-      const uint32_t word = ok ? w[(size_t)wi * w_ld + col] : 0u;
-#pragma unroll
-      for (int cc = 0; cc < P::VPW; ++cc) {
-        const int row = wi * P::VPW + cc;
-        float v = 0.f;
-        if (ok && row < k) {
-          const size_t gi = (size_t)(row / gs) * s_ld + col;
-          v = (static_cast<float>((word >> (cc * BITS)) & P::MASK) - zero[gi])
-              * scale[gi];
-        }
-        ws[wl * P::VPW + cc][c] = v;
-      }
-    }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < P::BK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = xs[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = ws[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + ty + 16 * i;
-    if (row >= m) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + tx + 16 * j;
-      if (col < n) store(out + (size_t)row * n + col, acc[i][j]);
-    }
-  }
-}
-
-// ---- qmm_tc: bf16 prefill on the tensor cores (see the note at the top) ----
+// ---- qmm_tc: the prefill on the tensor cores (see the note at the top) ----
 constexpr int TC_BM = 64, TC_BN = 128, TC_BK = 128;
 // warps 0-7: two consumer warpgroups (wgmma, 64 output columns each);
 // warps 8-15: producers (cp.async and dequantization)
 constexpr int TC_CONSUMERS = 256, TC_PRODUCERS = 256;
 constexpr int TC_THREADS = TC_CONSUMERS + TC_PRODUCERS;
 constexpr int TC_GROUPS = 3;  // quant groups staged per tile (all if gs >= 64)
+constexpr int TC_TERMS = SPLIT_TERMS;  // fp32 x: hi, mid, lo bf16 terms
 // x (A) and the dequantized weight (B) lie K-major in shared memory in the
 // 128-byte swizzle: a row (of x, or a column of W) holds 64 k values in 128
 // bytes, its 16-byte chunk c stored at chunk c ^ (row % 8); 8 rows make a
 // 1024-byte atom, and the tile's second 64 k follow the first's rows
-constexpr int TC_SBO = 1024;  // the next 8 rows
 constexpr int TC_X_BYTES = TC_BM * TC_BK * 2;
 constexpr int TC_X_HALF = TC_BM * 128;  // the k 64 .. 127 half of an x tile
 constexpr int TC_B_HALF = TC_BN * 128;
 constexpr int TC_B_BYTES = TC_BN * TC_BK * 2;
 constexpr int TC_Z_BYTES = TC_GROUPS * 2 * TC_BN * 4;  // zero, scale rows
+// fp32 x: 8-value chunks of a tile each producer loads and splits
+constexpr int TC_XCH = TC_BM * TC_BK / 8 / TC_PRODUCERS;
 // named barriers (0 is __syncthreads'): the producers among themselves;
 // B buffer b (and its x tile) filled; B buffer b's wgmmas done
 constexpr int BAR_PROD = 1, BAR_FULL = 2, BAR_EMPTY = 4;
 
-template <int BITS> struct TcPack {
+template <int BITS, bool F32> struct TcPack {
   static constexpr int VPW = 32 / BITS;
-  // ring of (x, words, zeros, scales) tiles, AHEAD of them in flight
-  // ahead of the one being dequantized (8 bits: 4, for shared memory)
-  static constexpr int STAGES = BITS == 8 ? 4 : 5;
+  // ring of (x (bf16 x only), words, zeros, scales) tiles, AHEAD of them in
+  // flight ahead of the one being dequantized (fewer at 8 bits, for shared
+  // memory)
+  static constexpr int STAGES = BITS == 8 ? (F32 ? 3 : 4) : 5;
   static constexpr int AHEAD = STAGES - 2;
   // words a 128-row tile touches (3 bits: 12.8 words, so up to 14)
   static constexpr int WROWS =
       TC_BK % VPW == 0 ? TC_BK / VPW : TC_BK / VPW + 2;
   static constexpr int W_BYTES = WROWS * TC_BN * 4;
+  // bf16 x: an x tile in every ring slot; fp32 x: the three terms of a
+  // tile, in two buffers (as the B tiles)
+  static constexpr int X_ALL =
+      F32 ? 2 * TC_TERMS * TC_X_BYTES : STAGES * TC_X_BYTES;
   // + 1024: the swizzle atoms start 1024-byte aligned
-  static constexpr int SMEM = STAGES * (TC_X_BYTES + W_BYTES + TC_Z_BYTES)
+  static constexpr int SMEM = X_ALL + STAGES * (W_BYTES + TC_Z_BYTES)
                               + 2 * TC_B_BYTES + 1024;
 };
 
-__device__ __forceinline__ void bar_sync(int id, int count) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-__device__ __forceinline__ void bar_arrive(int id, int count) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 // 16 (or 4) bytes global -> shared; bytes past src_bytes are zero-filled
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
                                            int src_bytes) {
@@ -375,39 +322,10 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
-// generic-proxy writes to shared memory -> visible to wgmma (async proxy)
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N> __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// pins the accumulators' reads and writes after the asm statement before it
-__device__ __forceinline__ void fence_regs(float (&d)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// Shared-memory matrix descriptor, K-major, 128-byte swizzle: start
-// address, leading byte offset (unused in this mode: 1), stride byte offset
-// between 8-row groups, each in 16-byte units; layout type 1 (bits 62-63).
-// A 16-deep k step inside an atom starts 32 bytes further on.
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(TC_SBO >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
 // byte offset of 16-byte chunk c (k 8c .. 8c+7) of row r, in a tile whose
 // k 64 .. 127 half starts `half` bytes on
 __device__ __forceinline__ int swz(int r, int c, int half) {
-  return (c / 8) * half + r * 128 + ((c % 8) ^ (r % 8)) * 16;
+  return (c / 8) * half + swz128(r, c % 8);
 }
 // the descriptor's start for k step j (16 k) of such a tile
 __device__ __forceinline__ uint32_t kstep(uint32_t base, int j, int half) {
@@ -459,19 +377,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&p);
 }
 
-template <int BITS>
+// T = __nv_bfloat16: x and y bf16; T = float: x and y fp32, x split into
+// three bf16 terms (the note at the top)
+template <typename T, int BITS>
 __global__ void __launch_bounds__(TC_THREADS, 1)
-qmm_tc(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
+qmm_tc(const T* __restrict__ x, const uint32_t* __restrict__ w,
        const float* __restrict__ scale, const float* __restrict__ zero,
-       __nv_bfloat16* __restrict__ out, int m, int k, int n, int gs,
+       T* __restrict__ out, int m, int k, int n, int gs,
        int w_ld, int w_hs, int s_ld, int s_hs, int x_vec, int w_vec,
        int s_vec) {
-  using P = TcPack<BITS>;
+  constexpr bool F32 = std::is_same<T, float>::value;
+  constexpr int TERMS = F32 ? TC_TERMS : 1;  // A terms a 16-row step issues
+  using P = TcPack<BITS, F32>;
   constexpr uint32_t MASK = (1u << BITS) - 1u;
   extern __shared__ __align__(128) uint8_t smem_raw[];
-  uint8_t* const xs =                                   // x tiles
+  uint8_t* const xs =                                   // x tiles or terms
       smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
-  uint8_t* const bs = xs + P::STAGES * TC_X_BYTES;      // two B tiles
+  uint8_t* const bs = xs + P::X_ALL;                    // two B tiles
   uint8_t* const ws = bs + 2 * TC_B_BYTES;              // word tiles
   uint8_t* const zs = ws + P::STAGES * P::W_BYTES;      // zero, scale rows
   const int head = blockIdx.z;
@@ -507,8 +429,10 @@ qmm_tc(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
     auto load_tile = [&](int u) {
       if (u < n_tiles) {
         const int k0 = u * TC_BK, slot = u % P::STAGES;
-        const uint32_t xd = smem_u32(xs + slot * TC_X_BYTES);
-        if (x_vec) {  // 16-byte chunks; 8 lanes fill one 128-byte row
+        if constexpr (F32) {
+          // fp32 x goes through registers (load_x, split_x)
+        } else if (x_vec) {  // 16-byte chunks; 8 lanes fill one 128-byte row
+          const uint32_t xd = smem_u32(xs + slot * TC_X_BYTES);
           for (int idx = ptid; idx < TC_BM * (TC_BK / 8);
                idx += TC_PRODUCERS) {
             const int c = idx % 8 + idx / (8 * TC_BM) * 8;
@@ -689,15 +613,62 @@ qmm_tc(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
       }
     };
 
+    // fp32 x: chunk idx = ptid + TC_PRODUCERS·i of a tile is row idx / 16,
+    // k values 8·(idx % 16) .. + 7 (16 lanes read one row's 512 bytes); it
+    // is loaded into registers before the wait for its buffer and split
+    // into the tile's three terms after the dequantization
+    float xv[TC_XCH][8];
+    auto load_x = [&](int t) {
+      const int k0 = t * TC_BK;
+#pragma unroll
+      for (int i = 0; i < TC_XCH; ++i) {
+        const int idx = ptid + TC_PRODUCERS * i;
+        const int row = m0 + idx / (TC_BK / 8);
+        const int kc = k0 + 8 * (idx % (TC_BK / 8));
+        const float* src = reinterpret_cast<const float*>(x) +
+                           (size_t)row * k + kc;
+        if (x_vec) {  // k % 4 == 0: a chunk is two aligned float4 or none
+          float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+          if (row < m && kc < k) {
+            a = __ldg(reinterpret_cast<const float4*>(src));
+            if (kc + 4 < k) b = __ldg(reinterpret_cast<const float4*>(src) + 1);
+          }
+          xv[i][0] = a.x; xv[i][1] = a.y; xv[i][2] = a.z; xv[i][3] = a.w;
+          xv[i][4] = b.x; xv[i][5] = b.y; xv[i][6] = b.z; xv[i][7] = b.w;
+        } else {
+#pragma unroll
+          for (int e = 0; e < 8; ++e)
+            xv[i][e] = row < m && kc + e < k ? __ldg(src + e) : 0.f;
+        }
+      }
+    };
+    auto split_x = [&](int t) {
+      uint8_t* const ab = xs + (t & 1) * TC_TERMS * TC_X_BYTES;
+#pragma unroll
+      for (int i = 0; i < TC_XCH; ++i) {
+        const int idx = ptid + TC_PRODUCERS * i;
+        const int off = swz(idx / (TC_BK / 8), idx % (TC_BK / 8), TC_X_HALF);
+        uint32_t t3[4][TC_TERMS];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) split3(xv[i][2 * e], xv[i][2 * e + 1], t3[e]);
+#pragma unroll
+        for (int q = 0; q < TC_TERMS; ++q)
+          *reinterpret_cast<uint4*>(ab + q * TC_X_BYTES + off) =
+              make_uint4(t3[0][q], t3[1][q], t3[2][q], t3[3][q]);
+      }
+    };
+
     for (int u = 0; u < P::AHEAD; ++u) load_tile(u);
     for (int t = 0; t < n_tiles; ++t) {
-      // B buffer t % 2 and the ring slot that tile t + AHEAD fills held
-      // tile t - 2, whose wgmmas are done
+      if constexpr (F32) load_x(t);  // in flight during what follows
+      // B buffer t % 2 (and fp32 x's terms) and the ring slot that tile
+      // t + AHEAD fills held tile t - 2, whose wgmmas are done
       if (t >= 2) bar_sync(BAR_EMPTY + t % 2, TC_THREADS);
       load_tile(t + P::AHEAD);
       cp_async_wait<P::AHEAD>();          // my copies of tile t landed
       bar_sync(BAR_PROD, TC_PRODUCERS);   // everyone's did
       dequant(t);
+      if constexpr (F32) split_x(t);
       fence_proxy_async();  // the B tile (and x) -> visible to wgmma
       bar_arrive(BAR_FULL + t % 2, TC_THREADS);
     }
@@ -745,20 +716,37 @@ qmm_tc(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
   };
   auto mma_tile = [&](int t) {
     const int k0 = t * TC_BK;
-    const uint32_t xa = smem_u32(xs + (t % P::STAGES) * TC_X_BYTES);
+    // x's tile (term q of fp32 x's at + q·TC_X_BYTES)
+    const uint32_t xa =
+        F32 ? smem_u32(xs + (t & 1) * TC_TERMS * TC_X_BYTES)
+            : smem_u32(xs + (t % P::STAGES) * TC_X_BYTES);
     const uint32_t ba = smem_u32(bs + (t & 1) * TC_B_BYTES) + wg * 64 * 128;
+    // 16-row step j: one wgmma per term of x, hi first
+    auto step = [&](int j, uint64_t db) {
+#pragma unroll
+      for (int q = 0; q < TERMS; ++q) {
+        wgmma_ss(accg, make_desc(kstep(xa + q * TC_X_BYTES, j, TC_X_HALF)),
+                 db, scale_d);
+        scale_d = 1;
+      }
+    };
     const int g0 = k0 / gs;
+    if (F32 && g0 == cur_g) {
+      // fp32 x: a group that runs on from the last tile (gs > 128, or one
+      // group for the whole row) has its partial scaled into acc here and
+      // acc_g starts again, so no tensor-core sum spans more than a tile
+      close_group();
+      scale_d = 0;
+      fence_regs(accg);
+    }
     if (k0 + TC_BK <= k && (k0 + TC_BK - 1) / gs == g0) {
       // the whole tile lies in one quant group (gs 128: every tile): eight
-      // wgmmas back to back, nothing else touching the accumulators
+      // steps back to back, nothing else touching the accumulators
       if (g0 != cur_g) open_group(t, g0);
       wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < TC_BK / 16; ++j) {
-        wgmma_ss(accg, make_desc(kstep(xa, j, TC_X_HALF)),
-                 make_desc(kstep(ba, j, TC_B_HALF)), scale_d);
-        scale_d = 1;
-      }
+      for (int j = 0; j < TC_BK / 16; ++j)
+        step(j, make_desc(kstep(ba, j, TC_B_HALF)));
       wgmma_commit();
       wgmma_wait<1>();  // the previous tile's wgmmas are done
       return;
@@ -770,15 +758,13 @@ qmm_tc(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
       const int r1 = min(r0 + 16, k);
       const uint64_t db = make_desc(kstep(ba, j, TC_B_HALF));
       if (cur_g >= 0 && r0 >= cur_g * gs && r1 <= g_hi) {
-        wgmma_ss(accg, make_desc(kstep(xa, j, TC_X_HALF)), db, scale_d);
-        scale_d = 1;
+        step(j, db);
         continue;
       }
       const int ga = r0 / gs, gb = (r1 - 1) / gs;
       if (ga == gb) {  // a new group starts at this step
         open_group(t, ga);
-        wgmma_ss(accg, make_desc(kstep(xa, j, TC_X_HALF)), db, scale_d);
-        scale_d = 1;
+        step(j, db);
         continue;
       }
       // group boundaries inside the step: once per group, x from
@@ -789,25 +775,32 @@ qmm_tc(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
         wgmma_wait<0>();
         const int mi = lane / 8;
         const int row = warp * 16 + (mi & 1) * 8 + lane % 8;
-        uint32_t a[4];
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
-            "[%4];\n"
-            : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
-            : "r"(xa + swz(row, 2 * j + (mi >> 1), TC_X_HALF)));
         const int lo = max(r0, g * gs), hi = min(r1, (g + 1) * gs);
+        uint32_t a[TERMS][4];
 #pragma unroll
-        for (int f = 0; f < 4; ++f) {
-          const int kk = r0 + 2 * (lane % 4) + (f >= 2 ? 8 : 0);
-          const uint32_t keep = (kk >= lo && kk < hi ? 0x0000FFFFu : 0u) |
-                                (kk + 1 >= lo && kk + 1 < hi ? 0xFFFF0000u
-                                                             : 0u);
-          a[f] &= keep;
+        for (int q = 0; q < TERMS; ++q) {
+          asm volatile(
+              "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, "
+              "[%4];\n"
+              : "=r"(a[q][0]), "=r"(a[q][1]), "=r"(a[q][2]), "=r"(a[q][3])
+              : "r"(xa + q * TC_X_BYTES +
+                    swz(row, 2 * j + (mi >> 1), TC_X_HALF)));
+#pragma unroll
+          for (int f = 0; f < 4; ++f) {
+            const int kk = r0 + 2 * (lane % 4) + (f >= 2 ? 8 : 0);
+            const uint32_t keep = (kk >= lo && kk < hi ? 0x0000FFFFu : 0u) |
+                                  (kk + 1 >= lo && kk + 1 < hi ? 0xFFFF0000u
+                                                               : 0u);
+            a[q][f] &= keep;
+          }
         }
         fence_regs(accg);
         wgmma_fence();
-        wgmma_rs(accg, a, db, scale_d);
-        scale_d = 1;
+#pragma unroll
+        for (int q = 0; q < TERMS; ++q) {
+          wgmma_rs(accg, a[q], db, scale_d);
+          scale_d = 1;
+        }
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(accg);
@@ -836,8 +829,7 @@ qmm_tc(const __nv_bfloat16* __restrict__ x, const uint32_t* __restrict__ w,
       for (int e = 0; e < 2; ++e) {
         const int row = rowb + 8 * h, col = n0 + ccol + 8 * j + e;
         if (row < m && col < n)
-          out[(size_t)row * n + col] =
-              __float2bfloat16(acc[4 * j + 2 * h + e]);
+          store(out + (size_t)row * n + col, acc[4 * j + 2 * h + e]);
       }
 }
 
@@ -1207,30 +1199,23 @@ int launch(const void* x, const uint32_t* w, const float* scale,
     const int mn = m * n, total = H * mn;
     qmm_reduce<T><<<(total + 255) / 256, 256, 0, s>>>(partial, ot, mn, total,
                                                       splits);
-  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    constexpr int smem = TcPack<BITS>::SMEM;
-    static bool smem_set = false;  // once per bit width
-    if (!smem_set) {
-      const cudaError_t err = cudaFuncSetAttribute(
-          qmm_tc<BITS>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      smem_set = true;
-    }
-    const int x_vec = k % 8 == 0 && reinterpret_cast<uintptr_t>(xt) % 16 == 0;
+  } else {
+    constexpr int smem = TcPack<BITS, std::is_same<T, float>::value>::SMEM;
+    const int err =
+        allow_smem(reinterpret_cast<const void*>(qmm_tc<T, BITS>), smem);
+    if (err != 0) return err;
+    // rows of x in 16-byte chunks (8 bf16 or 4 fp32 values)
+    const int x_vec = k % (16 / sizeof(T)) == 0 &&
+                      reinterpret_cast<uintptr_t>(xt) % 16 == 0;
     const int w_vec = st.w_ld % 4 == 0 && st.w_hs % 4 == 0 &&
                       reinterpret_cast<uintptr_t>(w) % 16 == 0;
     const int s_vec = st.s_ld % 4 == 0 && st.s_hs % 4 == 0 &&
                       reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
                       reinterpret_cast<uintptr_t>(zero) % 16 == 0;
     const dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM, H);
-    qmm_tc<BITS><<<grid, TC_THREADS, smem, s>>>(
+    qmm_tc<T, BITS><<<grid, TC_THREADS, smem, s>>>(
         xt, w, scale, zero, ot, m, k, n, gs, st.w_ld, st.w_hs, st.s_ld,
         st.s_hs, x_vec, w_vec, s_vec);
-  } else {
-    const dim3 grid((n + TN - 1) / TN, (m + TM - 1) / TM, H);
-    qmm_tile<T, BITS><<<grid, THREADS, 0, s>>>(xt, w, scale, zero, ot, m, k,
-                                              n, gs, st.w_ld, st.w_hs,
-                                              st.s_ld, st.s_hs);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -1258,12 +1243,9 @@ int launch_t_decode(const float* x, const uint32_t* w, const float* scale,
   const int dp = (d + 3) & ~3;
   const int max_g = (QT_WROWS * P::VPW - 1) / gs + 2;  // groups of a block
   const size_t smem = sizeof(float) * (M + 2 * (size_t)max_g) * dp;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        qmm_t_decode<BITS, M>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const int err =
+      allow_smem(reinterpret_cast<const void*>(qmm_t_decode<BITS, M>), smem);
+  if (err != 0) return err;
   const int vec =
       (d % 4 == 0 && st.w_ld % 4 == 0 && st.w_hs % 4 == 0 &&
        reinterpret_cast<uintptr_t>(w) % 16 == 0) |
@@ -1304,8 +1286,8 @@ int launch_t(const float* x, const uint32_t* w, const float* scale,
 
 // partial != null selects the decode shape (m <= 4; partial is
 // (H, splits, m, n) fp32 scratch, words_per_split * vpw <= 1024 rows);
-// partial == null selects the prefill shape: qmm_tc on the tensor cores for
-// bf16 x, qmm_tile for fp32 x.  x (H, m, k), out
+// partial == null selects the prefill shape: qmm_tc on the tensor cores, its
+// bf16 or its fp32 form by x's type.  x (H, m, k), out
 // (H, m, n); codes / scale rows w_ld / s_ld apart, heads w_hs / s_hs apart.
 extern "C" int qmm_launch(const void* x, int x_bf16, const void* w,
                           const float* scale, const float* zero, void* out,

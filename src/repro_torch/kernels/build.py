@@ -3,8 +3,9 @@
 Each source under ``repro_torch/csrc`` is compiled by ``nvcc`` for
 ``sm_90a`` into its own shared library with a plain C interface (no
 PyTorch headers, so one build takes seconds).  Libraries land in
-``<repo>/build/kernels`` named by the source's SHA-256, so an edited source
-is rebuilt and an unchanged one is reused.  Nothing is compiled at import
+``<repo>/build/kernels`` named by the SHA-256 of the source and of the
+headers the sources share (``csrc/*.cuh``), so a library is rebuilt when
+either is edited and reused otherwise.  Nothing is compiled at import
 time: :func:`library` builds on first use, :func:`build_all` starts one
 ``nvcc`` per source at once and waits for all of them.
 """
@@ -40,9 +41,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    sha = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{sha}.so"
+    sha = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        sha.update(header.name.encode())
+        sha.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{sha.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

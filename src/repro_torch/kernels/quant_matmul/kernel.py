@@ -16,11 +16,12 @@ DECODE_ROWS = 1024  # most k rows a decode block stages
 
 def qmm_kernel(m: int, dtype: torch.dtype) -> str:
     """The kernel that ``quant_matmul_cuda`` launches for x of m rows: the
-    split-k decode shape, else the tensor-core tile for bf16 x and the fp32
-    tile for fp32 x (``qmm_launch`` routes the same way)."""
+    split-k decode shape, else the tensor-core tile, in its bf16 form
+    (``qmm_tc``) or its fp32 form, x split into three bf16 terms
+    (``qmm_tc_f32``); ``qmm_launch`` routes the same way."""
     if m <= DECODE_MAX_M:
         return "qmm_decode"
-    return "qmm_tc" if dtype == torch.bfloat16 else "qmm_tile"
+    return "qmm_tc" if dtype == torch.bfloat16 else "qmm_tc_f32"
 
 
 def qmm_t_kernel(m: int, bits: int, group_size: int) -> str:

@@ -237,6 +237,6 @@ def mla_latent_weights(pw: PackedWeight, n_heads: int, dn: int, dv: int
 
 quant_matmul.launches = 0
 # the launches above split by the CUDA kernel that ran (kernel.qmm_kernel)
-quant_matmul.by_kernel = {"qmm_decode": 0, "qmm_tc": 0, "qmm_tile": 0}
+quant_matmul.by_kernel = {"qmm_decode": 0, "qmm_tc": 0, "qmm_tc_f32": 0}
 quant_matmul_t.launches = 0
 quant_matmul_t.by_kernel = {"qmm_t_decode": 0, "qmm_t_tile": 0}

@@ -94,6 +94,61 @@ def test_gram_kernel_vs_plain(cuda, n, d, dtype):
     assert _rel(got, want) < 1e-5
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n", [37, 300])
+@pytest.mark.parametrize("d", [200, 4160, 130])
+def test_gram_kernel_ragged_into_non_symmetric_out(cuda, d, n, dtype):
+    """Ragged tiles (d 200, 4160 = 32.5 tiles; n not a multiple of the
+    64-token stage; d 130, not a multiple of the 4-feature loads) added
+    with alpha 2 into an accumulator that is not symmetric: the transposed
+    half of every off-diagonal tile lands on its own entries."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    x = torch.randn((n, d), generator=g, device=cuda).to(dtype)
+    r = torch.rand((n,), generator=g, device=cuda)
+    acc = torch.randn((d, d), generator=g, device=cuda)
+    want = acc + 2.0 * weighted_gram_ref(x, r)
+    got = weighted_gram(x, r, out=acc.clone(), alpha=2.0)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("n,d,dtype", [
+    (37, 200, torch.float32), (300, 4160, torch.bfloat16),
+    (2048, 4096, torch.float32)])
+def test_gram_kernel_symmetric_and_deterministic(cuda, n, d, dtype):
+    """From a zero accumulator the kernel's result is bitwise symmetric
+    (a diagonal tile's (i, j) and (j, i) take one value, an off-diagonal
+    tile is written to both sides), and a second call gives the same
+    bits (a fixed order of every sum, no atomics)."""
+    g = torch.Generator(device=cuda).manual_seed(21)
+    x = torch.randn((n, d), generator=g, device=cuda).to(dtype)
+    r = torch.rand((n,), generator=g, device=cuda)
+    first = weighted_gram(x, r)
+    second = weighted_gram(x, r)
+    plain = weighted_gram(x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, first.T)
+    assert torch.equal(first, second)
+    assert torch.equal(plain, plain.T)
+    assert _rel(plain, weighted_gram_ref(x)) < 1e-5
+
+
+def test_gram_kernel_non_finite_entries_as_plain(cuda):
+    """An Inf and a NaN in x make the same entries non-finite as in the
+    plain product, and leave every other entry within 1e-5."""
+    g = torch.Generator(device=cuda).manual_seed(22)
+    x = torch.randn((100, 300), generator=g, device=cuda)
+    x[3, 7] = float("inf")
+    x[50, 200] = float("nan")
+    want = weighted_gram_ref(x)
+    got = weighted_gram(x)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite)
+    assert _rel(got[finite], want[finite]) < 1e-5
+
+
 @pytest.mark.parametrize("b,t,h,kv,dh,dtype", [
     (2, 100, 4, 2, 16, torch.float32), (1, 512, 32, 8, 128, torch.float32),
     (2, 64, 4, 4, 40, torch.bfloat16)])
@@ -133,9 +188,11 @@ def test_quant_matmul_kernel_vs_plain(cuda, bits, m, k, n, gs):
 
 
 
-def _packed(device, bits, k, n, gs, seed):
+def _packed(device, bits, k, n, gs, seed, positive=False):
     g = torch.Generator(device=device).manual_seed(seed)
     w = torch.randn((k, n), generator=g, device=device) * k ** -0.5
+    if positive:
+        w = w.abs()
     spec = QuantSpec(bits, gs)
     _, q, scale, zero = quantize_weight_rtn(w, spec)
     return pack_weight(q, scale, zero, spec), g
@@ -199,9 +256,111 @@ def test_quant_matmul_bf16_prefill_head_batched_views(cuda, bits):
         assert _rel(got[i], want) < 8e-3, i
 
 
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("m", [5, 64, 65, 200, 512])
+@pytest.mark.parametrize("k,n,gs", [(640, 200, 128), (512, 136, 128),
+                                    (300, 96, 100), (300, 96, -1),
+                                    (256, 70, 32), (302, 96, 151)])
+def test_quant_matmul_fp32_prefill_kernel_vs_plain(cuda, bits, m, k, n, gs):
+    """The fp32 prefill (m > 4): the tensor-core tile with x split into
+    three bf16 terms, on the bf16 prefill's cases (ragged m, n and 3-bit
+    word, gs 100 crossing 16-row steps, one group of 300 rows, gs 32 on
+    unaligned rows) and k 302, whose fp32 rows are not 16-byte aligned."""
+    pw, g = _packed(cuda, bits, k, n, gs, seed=13)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    want = quant_matmul_ref(x, pw.w_packed, pw.scale, pw.zero, bits=bits,
+                            group_size=pw.group_size)
+    before, by = quant_matmul.launches, quant_matmul.by_kernel["qmm_tc_f32"]
+    got = quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    assert quant_matmul.by_kernel["qmm_tc_f32"] == by + 1
+    assert got.dtype == torch.float32 and got.shape == (m, n)
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("bits", [3, 4])
+@pytest.mark.parametrize("m", [65, 256])
+@pytest.mark.parametrize("k", [4096, 14336])
+@pytest.mark.parametrize("gs", [128, -1])
+@pytest.mark.parametrize("positive", [False, True], ids=["normal", "positive"])
+def test_quant_matmul_fp32_prefill_long_rows(cuda, bits, m, k, gs, positive):
+    """fp32 x over llama3-8b's row lengths (k 4096, and 14336: wd's d_in)
+    in groups of 128 and in one group for the whole row (gs -1, the
+    per-tensor fallback), within 1e-5: no tensor-core sum spans more than
+    one 128-row tile.  The positive case (x and W >= 0, every partial sum
+    growing) is where truncating sums drift furthest."""
+    pw, g = _packed(cuda, bits, k, 200, gs, seed=17, positive=positive)
+    x = torch.randn((m, k), generator=g, device=cuda)
+    if positive:
+        x = x.abs()
+    want = quant_matmul_ref(x, pw.w_packed, pw.scale, pw.zero, bits=bits,
+                            group_size=pw.group_size)
+    by = quant_matmul.by_kernel["qmm_tc_f32"]
+    got = quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert quant_matmul.by_kernel["qmm_tc_f32"] == by + 1
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("k,n,gs", [(640, 200, 128), (300, 96, 100),
+                                    (4096, 200, -1), (1200, 96, 300)])
+def test_quant_matmul_fp32_prefill_rows_do_not_depend_on_m(cuda, bits, k, n,
+                                                           gs):
+    """Rows 0-63 of an fp32 m 512 product are bitwise the rows computed at
+    m 64 and m 65."""
+    pw, g = _packed(cuda, bits, k, n, gs, seed=14)
+    x = torch.randn((512, k), generator=g, device=cuda)
+    full = quant_matmul(x, pw)
+    part = quant_matmul(x[:64].clone(), pw)
+    odd = quant_matmul(x[:65].clone(), pw)
+    torch.cuda.synchronize()
+    assert torch.equal(full[:64], part)
+    assert torch.equal(full[:65], odd)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("m", [5, 128, 200])
+def test_quant_matmul_fp32_prefill_head_batched_views(cuda, bits, m):
+    """fp32 x through the prefill kernel on strided per-head views of one
+    packed weight (MLA's expand on wkv_b, H 4): each head against its own
+    plain call within 1e-5."""
+    h, dn, dv, kvr = 4, 128, 128, 512
+    g = torch.Generator(device=cuda).manual_seed(15)
+    w = torch.randn((kvr, h * (dn + dv)), generator=g, device=cuda)
+    spec = QuantSpec(bits, 128)
+    _, q, scale, zero = quantize_weight_rtn(w, spec)
+    _, pw_v = mla_latent_weights(pack_weight(q, scale, zero, spec), h, dn, dv)
+    x = torch.randn((h, m, kvr), generator=g, device=cuda)
+    got = quant_matmul(x, pw_v)
+    torch.cuda.synchronize()
+    for i in range(h):
+        want = quant_matmul_ref(x[i], pw_v.w_packed[i], pw_v.scale[i],
+                                pw_v.zero[i], bits=bits, group_size=128,
+                                d_in=kvr)
+        assert _rel(got[i], want) < 1e-5, i
+
+
+def test_quant_matmul_fp32_prefill_non_finite_rows_as_plain(cuda):
+    """An Inf and a NaN in fp32 x make the same outputs non-finite as the
+    plain version (their rows), the other rows within 1e-5."""
+    pw, g = _packed(cuda, 3, 384, 200, 128, seed=16)
+    x = torch.randn((70, 384), generator=g, device=cuda)
+    x[3, 7] = float("inf")
+    x[40, 300] = float("nan")
+    want = quant_matmul_ref(x, pw.w_packed, pw.scale, pw.zero, bits=3,
+                            group_size=128)
+    got = quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite)
+    assert _rel(got[finite], want[finite]) < 1e-5
+
+
 @pytest.mark.parametrize("m,dtype,kernel", [
     (4, torch.bfloat16, "qmm_decode"), (4, torch.float32, "qmm_decode"),
-    (5, torch.bfloat16, "qmm_tc"), (5, torch.float32, "qmm_tile")])
+    (5, torch.bfloat16, "qmm_tc"), (5, torch.float32, "qmm_tc_f32")])
 def test_quant_matmul_counts_the_kernel_that_ran(cuda, m, dtype, kernel):
     """A launch adds one to quant_matmul's count and to its kernel's."""
     pw, g = _packed(cuda, 3, 256, 64, 128, seed=12)

@@ -182,11 +182,12 @@ def test_packed_zeros_are_integers_in_range(zero, load, bits):
 @pytest.mark.parametrize("m,dtype,kernel", [
     (1, torch.bfloat16, "qmm_decode"), (4, torch.float32, "qmm_decode"),
     (5, torch.bfloat16, "qmm_tc"), (512, torch.bfloat16, "qmm_tc"),
-    (5, torch.float32, "qmm_tile"), (128, torch.float32, "qmm_tile")])
+    (5, torch.float32, "qmm_tc_f32"), (128, torch.float32, "qmm_tc_f32"),
+    (65, torch.float32, "qmm_tc_f32")])
 def test_quant_matmul_counts_launches_by_kernel(m, dtype, kernel):
     """Each CUDA launch of quant_matmul is also counted under the kernel
-    that ran: split-k decode for m <= 4, else the tensor-core tile for
-    bf16 x and the fp32 tile for fp32 x."""
+    that ran: split-k decode for m <= 4, else the tensor-core tile in its
+    bf16 form for bf16 x and its three-term fp32 form for fp32 x."""
     assert qmm_kernel(m, dtype) == kernel
     assert kernel in quant_matmul.by_kernel
 
@@ -201,3 +202,23 @@ def test_quant_matmul_t_counts_launches_by_kernel(m, bits, gs, kernel):
     two quant groups (gs >= 32 / bits), else the fp32 tile."""
     assert qmm_t_kernel(m, bits, gs) == kernel
     assert kernel in quant_matmul_t.by_kernel
+
+
+@pytest.mark.parametrize("edit", ["none", "source", "header"])
+def test_kernel_library_rebuilt_when_its_source_or_a_shared_header_changes(
+        tmp_path, monkeypatch, edit):
+    """A built library is named by its source and the shared csrc/*.cuh
+    headers: editing either names a new library (built anew), editing
+    neither reuses the old one."""
+    from repro_torch.kernels import build
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "k.cu").write_text('#include "h.cuh"\n')
+    (csrc / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(build, "CSRC", csrc)
+    before = build._target("k")
+    if edit == "source":
+        (csrc / "k.cu").write_text('#include "h.cuh"\n// two\n')
+    elif edit == "header":
+        (csrc / "h.cuh").write_text("// two\n")
+    assert (build._target("k") == before) == (edit == "none")
