@@ -14,10 +14,13 @@ Phases, in order; any failure exits non-zero before the final line:
      version, a one-call PyTorch yardstick (``library_ms``, used nowhere in
      the port) and the least time the card could take (``bound_ms``);
      ``quant_matmul``'s three kernels each where a path runs it: the
-     split-k decode (m 4) and the tensor-core tile (bf16, m 256 and 512)
-     at llama3-8b's and deepseek-v3's projections, the tile's fp32 form
-     (x split into three bf16 terms) on MLA's head-batched expand of a
-     prefill chunk; ``gram`` bitwise symmetric; ``quant_matmul_t``'s two
+     decode (m 4; its split-k sums meet in a cluster) and the tensor-core
+     tile (bf16, m 256 and 512) at llama3-8b's and deepseek-v3's
+     projections (the decode on deepseek-v3's wq_a and wkv_a too), the
+     tile's fp32 form (x split into three bf16 terms) on MLA's
+     head-batched expand of a prefill chunk; ``gram`` bitwise symmetric;
+     ``attn_colsum`` at llama3-8b's and the MLA path's heads, two calls
+     bitwise equal; ``quant_matmul_t``'s two
      (MLA's absorb: m 4 and a prefill chunk of ENGINE_CHUNK); ``fwht``
      (through ``hadamard_transform``) at the models' widths, though no path
      of the system runs it;
@@ -57,11 +60,13 @@ decode row with a ``prefill`` row, each with its kernel's MLA launches) and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 reference package.
 
-``--compare OTHER/src`` runs no phase: it times the packed matmul as
-phase 2 does at llama3-8b's down projection (bf16, 3 and 4 bits, m 4, 256
-and 512), the three GQA attention wrappers on phase 2's inputs (kv8 and
-kv2), and MLA's absorb (``quant_matmul_t``, m 4 and 128) and extend (kv8
-and kv2), with ``repro_torch`` imported from OTHER/src (another checkout,
+``--compare OTHER/src`` runs no phase: it times ``gram`` (d 4096 and
+14336), ``attn_colsum`` (llama3-8b's and the MLA path's heads), the packed
+matmul as phase 2 does at llama3-8b's down projection (bf16, 3 and 4 bits,
+m 4, 256 and 512), the three GQA attention wrappers on phase 2's inputs
+(kv8 and kv2), and MLA's absorb (``quant_matmul_t``) and expand
+(``quant_matmul``, fp32), each at m 4 and 128, and extend (kv8 and kv2),
+with ``repro_torch`` imported from OTHER/src (another checkout,
 e.g. the parent commit from ``git archive``) and from this one in turns
 (other, this, this, other; one process each) and prints the four runs as
 one JSON line.
@@ -151,7 +156,7 @@ PEAK_FLOPS = {"float32": 67e12, "tfloat32": 495e12,
 
 # tolerances, relative to the largest reference magnitude
 TOL_FP32 = 1e-5  # fp32 products summed in another order
-TOL_COLSUM = 1e-4  # exp in two passes, fp32 atomics in run-dependent order
+TOL_COLSUM = 1e-4  # exp in two passes, scores from three-term bf16 products
 TOL_BF16 = 8e-3  # one bf16 rounding (2^-8) of the fp32 result
 # quantized-KV attention: the same dequantized fp32 terms, each row's scale
 # applied after its dot product, sums in another order
@@ -313,10 +318,9 @@ def packed_sets(checks: Checks, x, pw) -> list:
 
 
 def check_kernels(torch, checks: Checks) -> None:
-    """Phase 2, first slice: gram, attn_colsum and quant_matmul vs their
-    plain versions at the main path's shapes."""
-    from repro_torch.kernels.attn_colsum.ops import attn_colsum
-    from repro_torch.kernels.attn_colsum.ref import attn_colsum_ref
+    """Phase 2, first slice: gram, attn_colsum (also at the MLA path's
+    shape) and quant_matmul vs their plain versions at the main path's
+    shapes."""
     from repro_torch.kernels.gram.ops import weighted_gram
     from repro_torch.kernels.gram.ref import weighted_gram_ref
     from repro_torch.kernels.quant_matmul.ops import quant_matmul
@@ -358,29 +362,14 @@ def check_kernels(torch, checks: Checks) -> None:
                d == 14336)
         del x, r, want, got, sets, xrs
 
-    # attn_colsum: the calibration batch's q (32 heads) and k (8 KV heads)
-    b, t, h, kv, dh = CALIB_BATCH, CALIB_SEQ, 32, 8, 128
-    q = torch.randn((b, t, h, dh), generator=g, device=dev)
-    k = torch.randn((b, t, kv, dh), generator=g, device=dev)
-    want = attn_colsum_ref(q, k)
-    got = attn_colsum(q, k)
-    nbytes = (q.numel() + k.numel()) * 4 + b * t * 4
-    sets = clones((q, k), nbytes)
-    ms = timer.ms(lambda a=a: attn_colsum(*a) for a in sets)
-    plain_ms = timer.ms(lambda a=a: attn_colsum_ref(*a) for a in sets)
-    causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
-
-    def materialized(qq, kk):
-        kr = kk.repeat_interleave(h // kv, dim=2)
-        s = torch.einsum("bthd,bshd->bhts", qq, kr) * dh ** -0.5
-        return torch.softmax(s.masked_fill(~causal, -1e30), -1).sum((1, 2))
-
-    library_ms = timer.ms(lambda a=a: materialized(*a) for a in sets)
-    flops = 2.0 * b * h * (t * (t + 1) / 2) * dh  # one causal q kᵀ
-    record("attn_colsum", {"B": b, "T": t, "H": h, "KV": kv, "Dh": dh}, got,
-           want, TOL_COLSUM, ms, plain_ms, library_ms, nbytes, flops,
-           "float32", True)
-    del q, k, want, got, sets
+    # attn_colsum: the calibration batch's q and k, llama3-8b's (32 query
+    # heads on 8 KV heads, Dh 128) and the MLA path's (H = KV = 128 heads
+    # of dn + dr = 192)
+    for b, t, h, kv, dh in ((CALIB_BATCH, CALIB_SEQ, 32, 8, 128),
+                            (CALIB_BATCH, CALIB_SEQ, MLA_H, MLA_H,
+                             MLA_DN + MLA_DR)):
+        check_colsum(torch, checks, g, b, t, h, kv, dh, kv == 8)
+        torch.cuda.empty_cache()
 
     # quant_matmul: every llama3-8b block projection, decode (m = serve
     # batch) and prefill (m = batch * prompt, and the engine's whole
@@ -396,6 +385,51 @@ def check_kernels(torch, checks: Checks) -> None:
                                    "quant_matmul_prefill"})
     check_fp32_long_rows(torch, checks, g)
     torch.cuda.empty_cache()
+
+
+def colsum_flops(b: int, t: int, h: int, dh: int) -> float:
+    """The least work of ``attn_colsum`` on fp32 q and k, for its bound: the
+    causal half of q kᵀ once (the kernel's two passes compute it twice), at
+    the cheapest fp32-accurate tensor-core rate, as the other fp32 rows: both
+    operands fp32, so three bf16 terms each and the six term products
+    i + j < 3 at 989 TFLOP/s (cheaper than three TF32 products at 495, and
+    than the fp32 pipes' 67).  The exps (one a score) are not counted."""
+    return 6.0 * 2.0 * b * h * (t * (t + 1) / 2) * dh
+
+
+def check_colsum(torch, checks: Checks, g, b: int, t: int, h: int, kv: int,
+                 dh: int, representative: bool) -> None:
+    """``attn_colsum`` on fp32 q (B, T, H, Dh) and k (B, T, KV, Dh) drawn
+    from ``g`` against its plain version (TOL_COLSUM), two calls bitwise
+    equal; timed with the plain version and the materialised causal
+    softmax (one PyTorch expression) beside it."""
+    from repro_torch.kernels.attn_colsum.ops import attn_colsum
+    from repro_torch.kernels.attn_colsum.ref import attn_colsum_ref
+
+    timer, dev = checks.timer, torch.device("cuda")
+    q = torch.randn((b, t, h, dh), generator=g, device=dev)
+    k = torch.randn((b, t, kv, dh), generator=g, device=dev)
+    want = attn_colsum_ref(q, k)
+    got = attn_colsum(q, k)
+    shape = {"B": b, "T": t, "H": h, "KV": kv, "Dh": dh}
+    if not torch.equal(got, attn_colsum(q, k)):
+        checks.bad.append(f"attn_colsum {shape}: two calls differ")
+    nbytes = (q.numel() + k.numel()) * 4 + b * t * 4
+    sets = checks.clones((q, k), nbytes)
+    ms = timer.ms(lambda a=a: attn_colsum(*a) for a in sets)
+    plain_ms = timer.ms(lambda a=a: attn_colsum_ref(*a) for a in sets)
+    causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+
+    def materialized(qq, kk):
+        kr = kk.repeat_interleave(h // kv, dim=2)
+        s = torch.einsum("bthd,bshd->bhts", qq, kr) * dh ** -0.5
+        return torch.softmax(s.masked_fill(~causal, -1e30), -1).sum((1, 2))
+
+    library_ms = timer.ms(lambda a=a: materialized(*a) for a in sets)
+    checks.record("attn_colsum", shape, got, want, TOL_COLSUM, ms, plain_ms,
+                  library_ms, nbytes, colsum_flops(b, t, h, dh), "bfloat16",
+                  representative)
+    del q, k, want, got, sets
 
 
 def check_packed(torch, checks: Checks, g, wname: str, kk: int, nn: int,
@@ -858,9 +892,11 @@ def check_mla_kernels(torch, checks: Checks) -> None:
     proj = {"wq_a": (7168, 1536), "wq_b": (1536, h * (dn + dr)),
             "wkv_a": (7168, dl + dr), "wo": (h * dv, 7168),
             "wi/wu": (7168, 18432), "wd": (18432, 7168)}
+    # the decode (m = serve batch) too on the narrow ones, wq_a and wkv_a
     for wname, (kk, nn) in proj.items():
         check_packed(torch, checks, g, wname, kk, nn, BITS,
-                     QMM_M[1:], arch=MLA_ARCH)
+                     QMM_M if wname in ("wq_a", "wkv_a") else QMM_M[1:],
+                     arch=MLA_ARCH)
     torch.cuda.empty_cache()
 
     def to_bf16(codes, scales, codec, d, rows):
@@ -1897,9 +1933,9 @@ def time_gqa_attention(torch) -> list:
 
 def time_mla(torch) -> list:
     """MLA's absorb (``quant_matmul_t`` on the W_k views of a 3-bit
-    deepseek-v3 wkv_b: H 128, d 128, k 512) at m = SERVE_BATCH and
-    ENGINE_CHUNK, its expand of a prefill chunk (``quant_matmul`` on the
-    W_v views, fp32 x: H 128, m ENGINE_CHUNK, k 512, n 128), and
+    deepseek-v3 wkv_b: H 128, d 128, k 512) and its expand (``quant_matmul``
+    on the W_v views, fp32 x: H 128, k 512, n 128), each at m = SERVE_BATCH
+    and ENGINE_CHUNK, and
     ``paged_mla_flash_extend`` on phase 2's inputs
     (``mla_extend_inputs``), kv8 and kv2, with the ``repro_torch`` that is
     on sys.path; ms per call from ``Timer`` over cold copies (the weight
@@ -1923,14 +1959,15 @@ def time_mla(torch) -> list:
                     "ms": checks.timer.ms(lambda a=a: quant_matmul_t(*a)
                                           for a in args)})
         del args
-    x = torch.randn((h, ENGINE_CHUNK, dl), generator=g, device="cuda")
-    args = [(a[0], mla_latent_weights(a[1], h, dn, dv)[1])
-            for a in packed_sets(checks, x, pw)]
-    out.append({"kernel": "quant_matmul", "x": "fp32", "bits": BITS, "H": h,
-                "m": ENGINE_CHUNK, "k": dl, "n": dv,
-                "ms": checks.timer.ms(lambda a=a: quant_matmul(*a)
-                                      for a in args)})
-    del args, x
+    for m in (SERVE_BATCH, ENGINE_CHUNK):  # the expand: decode, a chunk
+        x = torch.randn((h, m, dl), generator=g, device="cuda")
+        args = [(a[0], mla_latent_weights(a[1], h, dn, dv)[1])
+                for a in packed_sets(checks, x, pw)]
+        out.append({"kernel": "quant_matmul", "x": "fp32", "bits": BITS,
+                    "H": h, "m": m, "k": dl, "n": dv,
+                    "ms": checks.timer.ms(lambda a=a: quant_matmul(*a)
+                                          for a in args)})
+        del args, x
     for bits in KV_BITS:
         xi = mla_extend_inputs(torch, g, bits)
         args = (xi["tbl"], xi["ql"], xi["qr"], xi["c_new"], xi["r_new"]) \
@@ -1945,20 +1982,47 @@ def time_mla(torch) -> list:
     return out
 
 
+def time_attn_colsum(torch) -> list:
+    """``attn_colsum`` as phase 2 times it (fp32 q and k of one calibration
+    batch) at llama3-8b's heads (32 on 8, Dh 128) and the MLA path's (128 on
+    128, Dh 192), with the ``repro_torch`` that is on sys.path; ms per call
+    from ``Timer`` over cold copies."""
+    from repro_torch.kernels.attn_colsum.ops import attn_colsum
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+    checks = Checks(Timer(torch))
+    out = []
+    for b, t, h, kv, dh in ((CALIB_BATCH, CALIB_SEQ, 32, 8, 128),
+                            (CALIB_BATCH, CALIB_SEQ, MLA_H, MLA_H,
+                             MLA_DN + MLA_DR)):
+        q = torch.randn((b, t, h, dh), generator=g, device="cuda")
+        k = torch.randn((b, t, kv, dh), generator=g, device="cuda")
+        sets = checks.clones((q, k), (q.numel() + k.numel()) * 4)
+        out.append({"kernel": "attn_colsum", "B": b, "T": t, "H": h,
+                    "KV": kv, "Dh": dh,
+                    "ms": checks.timer.ms(lambda a=a: attn_colsum(*a)
+                                          for a in sets)})
+        del q, k, sets
+        torch.cuda.empty_cache()
+    return out
+
+
 # one process of ``compare``: times the tree named by argv[1]
 TIME_ONE_TREE = ("import sys; from pathlib import Path; import chip_smoke "
                  "as c; t = c.card_torch(Path(sys.argv[1])); "
                  "c.log({'gram': c.time_gram(t), "
+                 "'attn_colsum': c.time_attn_colsum(t), "
                  "'quant_matmul': c.time_quant_matmul(t), "
                  "'gqa_attention': c.time_gqa_attention(t), "
                  "'mla': c.time_mla(t)})")
 
 
 def compare(other: Path) -> None:
-    """Times ``gram`` (``time_gram``), ``quant_matmul``
-    (``time_quant_matmul``), the three GQA attention wrappers
-    (``time_gqa_attention``) and MLA's absorb, fp32 expand and extend
-    (``time_mla``) of another checkout's ``src`` and of this one in turns,
+    """Times ``gram`` (``time_gram``), ``attn_colsum``
+    (``time_attn_colsum``), ``quant_matmul`` (``time_quant_matmul``), the
+    three GQA attention wrappers (``time_gqa_attention``) and MLA's absorb,
+    fp32 expand and extend (``time_mla``) of another checkout's ``src`` and
+    of this one in turns,
     other, this, this, other, one process each on the same card, and prints
     them as one JSON line."""
     card_torch(SRC)

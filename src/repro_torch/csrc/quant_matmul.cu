@@ -2,9 +2,9 @@
 // W = scale · (codes - zero).
 //
 // Replaces, in src/repro/kernels/quant_matmul/kernel.py:
-//   quant_matmul_pallas / _qmm_kernel / _dequant_tile -> qmm_decode,
-//     qmm_reduce (m <= 4), qmm_tc (m > 4; a bf16 form for bf16 x and an
-//     fp32 form, qmm_tc_f32 in the launch counts, for fp32 x) (qmm_launch)
+//   quant_matmul_pallas / _qmm_kernel / _dequant_tile -> qmm_decode
+//     (m <= 4), qmm_tc (m > 4; a bf16 form for bf16 x and an fp32 form,
+//     qmm_tc_f32 in the launch counts, for fp32 x) (qmm_launch)
 //   quant_matmul_t_pallas / _qmm_t_kernel -> qmm_t_decode (m <= 4),
 //     qmm_t_tile (m > 4) (qmm_t_launch)
 //
@@ -39,17 +39,42 @@
 // Design.  Codes are unpacked in registers with shift and mask and the
 // per-group affine is applied in the kernel; the product is computed here,
 // never handed to a library GEMM.
-//   decode: one thread per output column, 128 columns per block, and the
-//     packed words split along k into `splits` ranges (grid.y, about four
-//     blocks per SM) so that even n = 1024 fills the card.  The block stages
-//     its slice of x in shared memory as one float4 per k row (one broadcast
-//     load feeds all four rows of x: scalar loads of x, not bytes, limited
-//     the first version); each thread streams its column's words eight loads at a
-//     time, tracks the current quant group incrementally (3-bit words
-//     straddle group boundaries) and keeps four fp32 sums.  Larger m takes
-//     the prefill shape.  Partial sums go to
-//     a (splits, m, n) fp32 buffer and a second small kernel adds them in a
-//     fixed order and casts to x's type (deterministic, no atomics).
+//   decode (qmm_decode): one launch, no scratch.  A block takes 128 output
+//     columns (4 a lane) over one split of the packed words along k; the
+//     splits of a column block are one thread-block cluster (at most 8),
+//     whose blocks add their sums through distributed shared memory in rank
+//     order (no second kernel, no float atomics).  The launcher alone plans
+//     the splits (dec_plan): the fewest waves of the clusters the card holds
+//     at once (cudaOccupancyMaxActiveClusters, asked once), each wave as
+//     long as a split's words plus a fixed cost.  Each of the block's 8
+//     warps walks its own contiguous run of word rows: a lane copies the 16
+//     bytes of its 4 columns of each word row into its slots of the warp's
+//     cp.async ring (5 slots of 2 word rows, 4 in flight) and reads back
+//     only what it copied, so no barrier guards the ring.  Before the loop
+//     the block stages its rows of x (one float4 of the 4 rows of x a k
+//     row: one broadcast load feeds all of them) and the scale and
+//     -(2^23 + zero) rows of its quant groups, every load of a thread in
+//     flight at once and after the ring's first copies.  A code is
+//     dequantized by magic number (OR-ed into 2^23's mantissa, plus
+//     -(2^23 + zero): code - zero exactly, no I2F; check_zero keeps zeros
+//     integers), its products with x are summed per quant group in fp32,
+//     and the group's sum is scaled into the result when the group closes.
+//     m is a template parameter (1, 2 and 4; m 3 runs the 4: a row's sums
+//     do not depend on the others), and neither the plan nor any sum order
+//     depends on m, so a row of y is the same bits at any m and any call.
+//     Measured (chip_smoke.py on an H100 80GB HBM3 at 700 W, wd, 3 bits,
+//     m 4): 0.034 ms against cuBLAS's 0.042 on the bf16 weight and 0.0082
+//     of bytes; MLA's expand 0.0093-0.0100 against `bmm`'s 0.0080.  What
+//     holds it back: instruction issue.  Each code costs a shift, a LOP3
+//     and an add per column, then one FFMA per row of x (~29 a code at m
+//     4); without its loads the kernel took 0.031 ms, without its
+//     arithmetic 0.018, against 0.037 whole before the LOP3 change.  A
+//     launch's fixed cost (~0.005 ms: staging, the cluster's sums) loses
+//     the narrow projections to cuBLAS.  A tensor-core form (mma.sync
+//     m16n8k16, A = code - zero as exact bf16 pairs, B = x) was built and
+//     timed slower: 0.078 ms at 3 bits (a word of 10 codes fills 10 of a
+//     k16 step's 16 slots, the code pairs need two shifts, and 8 tiles a
+//     warp spill at 128 registers), 0.042 at 4 bits.
 //   qmm_tc (prefill, m > 4): 64 x 128 output tiles (wgmma's 64 rows: at m 256
 //     and n 4096 that is 128 blocks on 132 SMs; no split-k), warp
 //     specialized, 512 threads:
@@ -149,16 +174,17 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <cooperative_groups.h>
 #include <type_traits>
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int DEC_COLS = 128;   // decode: threads (= columns) per block
-constexpr int DEC_MAXM = 4;     // decode: largest m (one float4 of x)
-constexpr int DEC_ROWS = 1024;  // decode: most k rows staged per block
-constexpr int DEC_UNROLL = 8;   // decode: word loads in flight per thread
+namespace cg = cooperative_groups;
+
+constexpr int DEC_MAXM = 4;  // decode: largest m
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) {
@@ -173,94 +199,6 @@ template <int BITS> struct Pack {
   static constexpr int VPW = 32 / BITS;
   static constexpr uint32_t MASK = (1u << BITS) - 1u;
 };
-
-// One float4 holds the (up to 4) rows of x at one k; rows of x beyond m
-// are staged as zeros so the inner loop needs no predicate.
-template <typename T, int BITS>
-__global__ void __launch_bounds__(DEC_COLS)
-qmm_decode(const T* __restrict__ x, const uint32_t* __restrict__ w,
-           const float* __restrict__ scale, const float* __restrict__ zero,
-           float* __restrict__ partial, int m, int k, int n, int gs,
-           int words_per_split, int w_ld, int w_hs, int s_ld, int s_hs) {
-  using P = Pack<BITS>;
-  constexpr int MP = DEC_MAXM;  // padded m
-  __shared__ float4 xs[DEC_ROWS];
-  const int n_words = (k + P::VPW - 1) / P::VPW;
-  const int split = blockIdx.y, head = blockIdx.z;
-  x += (size_t)head * m * k;
-  w += (size_t)head * w_hs;
-  scale += (size_t)head * s_hs;
-  zero += (size_t)head * s_hs;
-  partial += (size_t)head * gridDim.y * m * n;
-  const int w0 = split * words_per_split;
-  const int w1 = min(n_words, w0 + words_per_split);
-  const int r0 = w0 * P::VPW;
-  const int r1 = min(k, w1 * P::VPW);
-  const int rows = r1 - r0;
-  float* xsf = reinterpret_cast<float*>(xs);
-  for (int idx = threadIdx.x; idx < MP * rows; idx += DEC_COLS) {
-    const int mi = idx / rows, rr = idx % rows;  // rr fastest: coalesced
-    xsf[rr * MP + mi] = (mi < m) ? to_f(x[(size_t)mi * k + r0 + rr]) : 0.f;
-  }
-  __syncthreads();
-  const int col = blockIdx.x * DEC_COLS + threadIdx.x;
-  if (col >= n) return;
-
-  float acc[MP];
-#pragma unroll
-  for (int i = 0; i < MP; ++i) acc[i] = 0.f;
-  int g = r0 / gs;
-  int g_end = (g + 1) * gs;
-  float sc = scale[(size_t)g * s_ld + col];
-  float zc = zero[(size_t)g * s_ld + col];
-  for (int wb = w0; wb < w1; wb += DEC_UNROLL) {
-    // start DEC_UNROLL independent word loads before using any of them
-    uint32_t words[DEC_UNROLL];
-#pragma unroll
-    for (int u = 0; u < DEC_UNROLL; ++u)
-      words[u] = (wb + u < w1) ? w[(size_t)(wb + u) * w_ld + col] : 0u;
-#pragma unroll
-    for (int u = 0; u < DEC_UNROLL; ++u) {
-#pragma unroll
-      for (int c = 0; c < P::VPW; ++c) {
-        const int row = (wb + u) * P::VPW + c;
-        if (row < r1) {
-          if (row >= g_end) {  // uniform across the block: rows are shared
-            g = row / gs;
-            g_end = (g + 1) * gs;
-            sc = scale[(size_t)g * s_ld + col];
-            zc = zero[(size_t)g * s_ld + col];
-          }
-          const float wv =
-              (static_cast<float>((words[u] >> (c * BITS)) & P::MASK) - zc)
-              * sc;
-          const float4 a = xs[row - r0];  // one broadcast load
-          acc[0] = fmaf(a.x, wv, acc[0]);
-          acc[1] = fmaf(a.y, wv, acc[1]);
-          acc[2] = fmaf(a.z, wv, acc[2]);
-          acc[3] = fmaf(a.w, wv, acc[3]);
-        }
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < MP; ++i)
-    if (i < m) partial[((size_t)split * m + i) * n + col] = acc[i];
-}
-
-// partial: (H, splits, m, n); out: (H, m, n).  Splits added in order.
-template <typename T>
-__global__ void qmm_reduce(const float* __restrict__ partial,
-                           T* __restrict__ out, int mn, int total,
-                           int splits) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int head = idx / mn, rest = idx % mn;
-  const float* p = partial + (size_t)head * splits * mn + rest;
-  float v = 0.f;
-  for (int s = 0; s < splits; ++s) v += p[(size_t)s * mn];
-  store(out + idx, v);
-}
 
 // ---- qmm_tc: the prefill on the tensor cores (see the note at the top) ----
 constexpr int TC_BM = 64, TC_BN = 128, TC_BK = 128;
@@ -321,6 +259,264 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 template <int N> __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---- qmm_decode: m <= 4 (see the note at the top) ----
+constexpr int DEC_THREADS = 256;  // 8 warps, each its own run of word rows
+constexpr int DEC_WARPS = DEC_THREADS / 32;
+constexpr int DEC_BN = 128;       // columns a block: 4 a lane, 16 bytes
+constexpr int DEC_RW = 2;         // word rows a ring slot
+constexpr int DEC_STAGES = 5;     // ring slots a warp: 4 in flight
+constexpr int DEC_XROWS = 2304;   // most rows of x a pass stages
+constexpr int DEC_GROUPS = 20;    // most quant groups a pass stages
+constexpr int DEC_MAX_SPLITS = 8; // blocks of a cluster along k (portable)
+constexpr int DEC_BLOCKS_PER_SM = 2;
+constexpr int DEC_FIXED_WORDS = 16;  // a block's fixed cost in the plan
+constexpr int DEC_RING_BYTES = DEC_WARPS * DEC_STAGES * DEC_RW * 32 * 16;
+constexpr int DEC_X_BYTES = DEC_XROWS * 16;
+constexpr int DEC_G_BYTES = DEC_GROUPS * 2 * DEC_BN * 4;
+constexpr int DEC_SMEM = DEC_RING_BYTES + DEC_X_BYTES + DEC_G_BYTES;  // 96 KB
+// staging: rows of x and (group, column) entries a thread loads
+constexpr int DEC_XPT = (DEC_XROWS + DEC_THREADS - 1) / DEC_THREADS;
+constexpr int DEC_GPT = (DEC_GROUPS * DEC_BN + DEC_THREADS - 1) / DEC_THREADS;
+
+// accg[i][e] += x[i] · (code c of word wd[e] - zero), for the lane's 4
+// columns e; nz = -(2^23 + zero): the code OR-ed into the mantissa of 2^23
+// (magic, kept in a register so that mask and OR are one LOP3) is 2^23 +
+// code, so one add gives code - zero exactly (no I2F)
+template <int BITS, int M>
+__device__ __forceinline__ void dec_code(float (&accg)[M][4],
+                                         const uint32_t (&wd)[4], int c,
+                                         float4 xv, const float (&nz)[4],
+                                         uint32_t magic) {
+  const float xi[4] = {xv.x, xv.y, xv.z, xv.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    uint32_t u;
+    asm("lop3.b32 %0, %1, %2, %3, 0xEA;"  // (a & b) | c
+        : "=r"(u)
+        : "r"(wd[e] >> (c * BITS)), "n"(Pack<BITS>::MASK), "r"(magic));
+    const float v = __uint_as_float(u) + nz[e];
+#pragma unroll
+    for (int i = 0; i < M; ++i) accg[i][e] = fmaf(xi[i], v, accg[i][e]);
+  }
+}
+
+// Grid (ceil(n / DEC_BN), splits, H), clusters of (1, splits, 1): block
+// (cb, split, head) takes columns cb·128 .. +127 (4 a lane) over words
+// [split·wps, +wps), in passes of wpp words.  A pass stages its rows of x
+// (one float4 of the M rows per k row, zero past m and past k) and the
+// scale and -(2^23 + zero) rows of its quant groups, then each warp walks a
+// contiguous run of the pass's words: its lanes stream their own 16 bytes
+// of each word row through their slots of a cp.async ring (no barrier: a
+// lane reads only what it copied), sum x · (code - zero) per quant group
+// and add scale · that sum when the group closes.  The warps' sums meet in
+// shared memory in warp order, then the cluster's blocks in rank order
+// through distributed shared memory, each rank storing a slice of y.  The
+// split plan depends on k, n, H and the card, never on m: a row of y is the
+// same whatever m is, and the same from call to call.  w_vec: rows of words
+// allow 16-byte copies (else four 4-byte ones).
+template <typename T, int BITS, int M>
+__global__ void __launch_bounds__(DEC_THREADS, DEC_BLOCKS_PER_SM)
+qmm_decode(const T* __restrict__ x, const uint32_t* __restrict__ w,
+           const float* __restrict__ scale, const float* __restrict__ zero,
+           T* __restrict__ out, int m, int k, int n, int gs, int wps, int wpp,
+           int w_ld, int w_hs, int s_ld, int s_hs, int w_vec) {
+  using P = Pack<BITS>;
+  extern __shared__ __align__(16) unsigned char dec_smem[];
+  float4* xs = reinterpret_cast<float4*>(dec_smem + DEC_RING_BYTES);
+  float* scs =
+      reinterpret_cast<float*>(dec_smem + DEC_RING_BYTES + DEC_X_BYTES);
+  float* nzs = scs + DEC_GROUPS * DEC_BN;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int split = blockIdx.y, head = blockIdx.z;
+  const int col0 = blockIdx.x * DEC_BN, cl = 4 * lane, col = col0 + cl;
+  x += (size_t)head * m * k;
+  out += (size_t)head * m * n;
+  w += (size_t)head * w_hs;
+  scale += (size_t)head * s_hs;
+  zero += (size_t)head * s_hs;
+  const int n_words = (k + P::VPW - 1) / P::VPW;
+  const int w0 = split * wps, w1 = min(n_words, w0 + wps);
+  // this lane's ring: slot s, word row j at ring[(s * DEC_RW + j) * 32]
+  const uint4* ring = reinterpret_cast<const uint4*>(dec_smem) +
+                      warp * DEC_STAGES * DEC_RW * 32 + lane;
+  const uint32_t ring_s = smem_u32(ring);
+
+  float acc[M][4];
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int p0 = w0; p0 < w1; p0 += wpp) {
+    const int p1 = min(w1, p0 + wpp);
+    const int r_lo = p0 * P::VPW, r_hi = min(k, p1 * P::VPW);
+    const int g0 = r_lo / gs, ng = (r_hi - 1) / gs - g0 + 1;
+    // this warp's run of words [a, b); its first copies go out before the
+    // staging below
+    const int per = (p1 - p0 + DEC_WARPS - 1) / DEC_WARPS;
+    const int a = p0 + warp * per, b = min(p1, a + per);
+    const int nst = (b - a + DEC_RW - 1) / DEC_RW;
+    auto issue = [&](int st) {
+      asm volatile("" ::: "memory");  // after this lane's reads of the slot
+      const int slot = st % DEC_STAGES;
+#pragma unroll
+      for (int j = 0; j < DEC_RW; ++j) {
+        const int wr = a + st * DEC_RW + j;
+        const uint32_t dst = ring_s + (slot * DEC_RW + j) * 32 * 16;
+        const uint32_t* src = w + (size_t)wr * w_ld + col;
+        if (w_vec) {
+          const bool ok = wr < b && col < n;
+          cp_async16(dst, ok ? src : w, ok ? 16 : 0);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const bool ok = wr < b && col + e < n;
+            cp_async4(dst + 4 * e, ok ? src + e : w, ok ? 4 : 0);
+          }
+        }
+      }
+      cp_async_commit();
+    };
+    if (a < b) {
+#pragma unroll
+      for (int st = 0; st < DEC_STAGES - 1; ++st) issue(st);
+    }
+
+    // stage the pass's x and group rows: every load of a thread issued
+    // before any store, so the block waits one load latency, not several
+    __syncthreads();  // the last pass's reads of xs, scs and nzs are done
+    {
+      const int xrows = (p1 - p0) * P::VPW;
+      float v[DEC_XPT][4];
+#pragma unroll
+      for (int u = 0; u < DEC_XPT; ++u) {
+        const int row = r_lo + tid + u * DEC_THREADS;
+        const bool ok = tid + u * DEC_THREADS < xrows && row < k;
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          v[u][i] = i < M && i < m && ok ? to_f(x[(size_t)i * k + row]) : 0.f;
+      }
+      float sv[DEC_GPT], zv[DEC_GPT];
+#pragma unroll
+      for (int u = 0; u < DEC_GPT; ++u) {
+        const int idx = tid + u * DEC_THREADS;
+        const int cc = col0 + idx % DEC_BN;
+        const size_t src = (size_t)(g0 + idx / DEC_BN) * s_ld + cc;
+        const bool ok = idx < ng * DEC_BN && cc < n;
+        sv[u] = ok ? scale[src] : 0.f;
+        zv[u] = ok ? zero[src] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < DEC_XPT; ++u) {
+        const int r = tid + u * DEC_THREADS;
+        if (r < xrows) xs[r] = make_float4(v[u][0], v[u][1], v[u][2], v[u][3]);
+      }
+#pragma unroll
+      for (int u = 0; u < DEC_GPT; ++u) {
+        const int idx = tid + u * DEC_THREADS;
+        if (idx < ng * DEC_BN) {
+          scs[idx] = sv[u];
+          nzs[idx] = -(8388608.f + zv[u]);
+        }
+      }
+    }
+    __syncthreads();
+    if (a >= b) continue;
+
+    int g = (a * P::VPW) / gs;
+    int g_end = (g + 1) * gs;
+    float nz[4], accg[M][4];
+    auto load_nz = [&]() {
+      const float4 z4 =
+          *reinterpret_cast<const float4*>(nzs + (g - g0) * DEC_BN + cl);
+      nz[0] = z4.x; nz[1] = z4.y; nz[2] = z4.z; nz[3] = z4.w;
+    };
+    auto close = [&]() {  // acc += scale · the group's sum
+      const float4 s4 =
+          *reinterpret_cast<const float4*>(scs + (g - g0) * DEC_BN + cl);
+      const float sv[4] = {s4.x, s4.y, s4.z, s4.w};
+#pragma unroll
+      for (int i = 0; i < M; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          acc[i][e] = fmaf(sv[e], accg[i][e], acc[i][e]);
+          accg[i][e] = 0.f;
+        }
+    };
+    load_nz();
+#pragma unroll
+    for (int i = 0; i < M; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) accg[i][e] = 0.f;
+    uint32_t magic;  // 2^23's bits, in a register
+    asm volatile("mov.b32 %0, 0x4B000000;" : "=r"(magic));
+    for (int t = 0; t < nst; ++t) {
+      issue(t + DEC_STAGES - 1);
+      cp_async_wait<DEC_STAGES - 1>();  // my copies of stage t landed
+      const uint4* slot = ring + (t % DEC_STAGES) * DEC_RW * 32;
+#pragma unroll
+      for (int j = 0; j < DEC_RW; ++j) {
+        const int wr = a + t * DEC_RW + j;
+        if (wr >= b) break;
+        const uint4 wv = slot[j * 32];
+        const uint32_t wd[4] = {wv.x, wv.y, wv.z, wv.w};
+        const int row0 = wr * P::VPW;
+        const float4* xr = xs + (row0 - r_lo);
+        if (row0 + P::VPW <= g_end) {  // the word lies in one group
+#pragma unroll
+          for (int c = 0; c < P::VPW; ++c)
+            dec_code<BITS, M>(accg, wd, c, xr[c], nz, magic);
+        } else {  // it crosses into the next group(s), or past k
+#pragma unroll
+          for (int c = 0; c < P::VPW; ++c) {
+            const int row = row0 + c;
+            if (row >= k) break;  // the zero-padded codes of the last word
+            if (row == g_end) {
+              close();
+              ++g;
+              g_end += gs;
+              load_nz();
+            }
+            dec_code<BITS, M>(accg, wd, c, xr[c], nz, magic);
+          }
+        }
+      }
+    }
+    cp_async_wait<0>();
+    close();
+  }
+
+  // the warps' sums in warp order, over the ring; then the block's in xs
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(dec_smem);
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+    *reinterpret_cast<float4*>(red + (warp * M + i) * DEC_BN + cl) =
+        make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
+  __syncthreads();
+  float* part = reinterpret_cast<float*>(dec_smem + DEC_RING_BYTES);
+  for (int idx = tid; idx < M * DEC_BN; idx += DEC_THREADS) {
+    float v = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < DEC_WARPS; ++wi) v += red[wi * M * DEC_BN + idx];
+    part[idx] = v;
+  }
+  // the splits' sums in rank order; rank r stores outputs [r·per, +per)
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int splits = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int per = (M * DEC_BN + splits - 1) / splits;
+  const int hi = min(M * DEC_BN, (rank + 1) * per);
+  for (int idx = rank * per + tid; idx < hi; idx += DEC_THREADS) {
+    float v = 0.f;
+    for (int r = 0; r < splits; ++r) v += cluster.map_shared_rank(part, r)[idx];
+    const int i = idx / DEC_BN, c = col0 + idx % DEC_BN;
+    if (i < m && c < n) store(out + (size_t)i * n + c, v);
+  }
+  cluster.sync();  // no block leaves while the others read its sums
 }
 // byte offset of 16-byte chunk c (k 8c .. 8c+7) of row r, in a tile whose
 // k 64 .. 127 half starts `half` bytes on
@@ -1182,54 +1378,134 @@ struct Strides {
   int w_ld, w_hs, s_ld, s_hs;
 };
 
+// The decode's split plan, its one owner: splits along k (the blocks of one
+// cluster, at most DEC_MAX_SPLITS) for the least time in a model of waves
+// of as many clusters as the card holds at once (max_clusters), each as
+// long as its words plus DEC_FIXED_WORDS of fixed cost (staging, the
+// cluster's sums), the smaller on a tie; words a split; words a pass (what
+// a pass stages must fit its shared memory).  It reads k (n_words, gs), n,
+// H and the card, never m.
+struct DecPlan {
+  int splits, wps, wpp;
+};
+template <typename Fn>
+DecPlan dec_plan(int n_words, int vpw, int gs, long col_blocks,
+                 Fn max_clusters) {
+  int splits = 1;
+  long best = -1;
+  for (int sp = 1; sp <= DEC_MAX_SPLITS && sp <= n_words; ++sp) {
+    const long active = std::max(1, max_clusters(sp));
+    const long waves = (col_blocks + active - 1) / active;
+    const long cost = waves * ((n_words + sp - 1) / sp + DEC_FIXED_WORDS);
+    if (best < 0 || cost < best) {
+      best = cost;
+      splits = sp;
+    }
+  }
+  const int wps = (n_words + splits - 1) / splits;
+  // a pass of R rows touches at most (R - 1) / gs + 2 quant groups
+  const long by_groups = (static_cast<long>(DEC_GROUPS - 2) * gs + 1) / vpw;
+  const int wmax = static_cast<int>(
+      std::max(1L, std::min(static_cast<long>(DEC_XROWS / vpw), by_groups)));
+  const int passes = (wps + wmax - 1) / wmax;
+  return {(n_words + wps - 1) / wps, wps, (wps + passes - 1) / passes};
+}
+
+template <typename T, int BITS, int M>
+int launch_decode(const T* x, const uint32_t* w, const float* scale,
+                  const float* zero, T* out, int H, int m, int k, int n,
+                  int gs, Strides st, cudaStream_t s) {
+  using P = Pack<BITS>;
+  auto kern = qmm_decode<T, BITS, M>;
+  int err = allow_smem(reinterpret_cast<const void*>(kern), DEC_SMEM);
+  if (err != 0) return err;
+  const int n_words = (k + P::VPW - 1) / P::VPW;
+  const int col_blocks = (n + DEC_BN - 1) / DEC_BN;
+  cudaLaunchConfig_t cfg = {};
+  cfg.blockDim = dim3(DEC_THREADS);
+  cfg.dynamicSmemBytes = DEC_SMEM;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // clusters of each size the card holds at once (asked once a device)
+  static int active[64][DEC_MAX_SPLITS + 1] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) dev = 0;
+  auto max_clusters = [&](int sp) {
+    if (active[dev][sp] == 0) {
+      cfg.gridDim = dim3(1, sp, 1);
+      attr[0].val.clusterDim.y = sp;
+      int c = 0;
+      if (cudaOccupancyMaxActiveClusters(&c, kern, &cfg) != cudaSuccess ||
+          c < 1) {
+        cudaGetLastError();  // not a launch error: plan as if one fits
+        c = 1;
+      }
+      active[dev][sp] = c;
+    }
+    return active[dev][sp];
+  };
+  const DecPlan plan =
+      dec_plan(n_words, P::VPW, gs,
+               static_cast<long>(col_blocks) * H, max_clusters);
+  const int w_vec = n % 4 == 0 && st.w_ld % 4 == 0 && st.w_hs % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  cfg.gridDim = dim3(col_blocks, plan.splits, H);
+  attr[0].val.clusterDim.y = plan.splits;
+  err = static_cast<int>(cudaLaunchKernelEx(
+      &cfg, kern, x, w, scale, zero, out, m, k, n, gs, plan.wps, plan.wpp,
+      st.w_ld, st.w_hs, st.s_ld, st.s_hs, w_vec));
+  return err != 0 ? err : static_cast<int>(cudaGetLastError());
+}
+
+// m <= DEC_MAXM: qmm_decode; larger m: qmm_tc
 template <typename T, int BITS>
 int launch(const void* x, const uint32_t* w, const float* scale,
-           const float* zero, void* out, float* partial, int H, int m, int k,
-           int n, int gs, int splits, int words_per_split, Strides st,
-           cudaStream_t s) {
+           const float* zero, void* out, int H, int m, int k, int n, int gs,
+           Strides st, cudaStream_t s) {
   const T* xt = static_cast<const T*>(x);
   T* ot = static_cast<T*>(out);
-  if (partial != nullptr) {
-    const dim3 grid((n + DEC_COLS - 1) / DEC_COLS, splits, H);
-    qmm_decode<T, BITS><<<grid, DEC_COLS, 0, s>>>(
-        xt, w, scale, zero, partial, m, k, n, gs, words_per_split, st.w_ld,
-        st.w_hs, st.s_ld, st.s_hs);
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    const int mn = m * n, total = H * mn;
-    qmm_reduce<T><<<(total + 255) / 256, 256, 0, s>>>(partial, ot, mn, total,
-                                                      splits);
-  } else {
-    constexpr int smem = TcPack<BITS, std::is_same<T, float>::value>::SMEM;
-    const int err =
-        allow_smem(reinterpret_cast<const void*>(qmm_tc<T, BITS>), smem);
-    if (err != 0) return err;
-    // rows of x in 16-byte chunks (8 bf16 or 4 fp32 values)
-    const int x_vec = k % (16 / sizeof(T)) == 0 &&
-                      reinterpret_cast<uintptr_t>(xt) % 16 == 0;
-    const int w_vec = st.w_ld % 4 == 0 && st.w_hs % 4 == 0 &&
-                      reinterpret_cast<uintptr_t>(w) % 16 == 0;
-    const int s_vec = st.s_ld % 4 == 0 && st.s_hs % 4 == 0 &&
-                      reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
-                      reinterpret_cast<uintptr_t>(zero) % 16 == 0;
-    const dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM, H);
-    qmm_tc<T, BITS><<<grid, TC_THREADS, smem, s>>>(
-        xt, w, scale, zero, ot, m, k, n, gs, st.w_ld, st.w_hs, st.s_ld,
-        st.s_hs, x_vec, w_vec, s_vec);
+  if (m <= DEC_MAXM) {  // m 3 runs the M 4 kernel: a row's sums are the same
+    switch (m) {
+      case 1: return launch_decode<T, BITS, 1>(xt, w, scale, zero, ot, H, m, k, n, gs, st, s);
+      case 2: return launch_decode<T, BITS, 2>(xt, w, scale, zero, ot, H, m, k, n, gs, st, s);
+      case 3:
+      case 4: return launch_decode<T, BITS, 4>(xt, w, scale, zero, ot, H, m, k, n, gs, st, s);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
+  constexpr int smem = TcPack<BITS, std::is_same<T, float>::value>::SMEM;
+  const int err =
+      allow_smem(reinterpret_cast<const void*>(qmm_tc<T, BITS>), smem);
+  if (err != 0) return err;
+  // rows of x in 16-byte chunks (8 bf16 or 4 fp32 values)
+  const int x_vec = k % (16 / sizeof(T)) == 0 &&
+                    reinterpret_cast<uintptr_t>(xt) % 16 == 0;
+  const int w_vec = st.w_ld % 4 == 0 && st.w_hs % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int s_vec = st.s_ld % 4 == 0 && st.s_hs % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(scale) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(zero) % 16 == 0;
+  const dim3 grid((n + TC_BN - 1) / TC_BN, (m + TC_BM - 1) / TC_BM, H);
+  qmm_tc<T, BITS><<<grid, TC_THREADS, smem, s>>>(
+      xt, w, scale, zero, ot, m, k, n, gs, st.w_ld, st.w_hs, st.s_ld,
+      st.s_hs, x_vec, w_vec, s_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int launch_bits(int bits, const void* x, const uint32_t* w, const float* sc,
-                const float* zr, void* out, float* partial, int H, int m,
-                int k, int n, int gs, int splits, int wps, Strides st,
-                cudaStream_t s) {
+                const float* zr, void* out, int H, int m, int k, int n,
+                int gs, Strides st, cudaStream_t s) {
   switch (bits) {
-    case 2: return launch<T, 2>(x, w, sc, zr, out, partial, H, m, k, n, gs, splits, wps, st, s);
-    case 3: return launch<T, 3>(x, w, sc, zr, out, partial, H, m, k, n, gs, splits, wps, st, s);
-    case 4: return launch<T, 4>(x, w, sc, zr, out, partial, H, m, k, n, gs, splits, wps, st, s);
-    case 8: return launch<T, 8>(x, w, sc, zr, out, partial, H, m, k, n, gs, splits, wps, st, s);
+    case 2: return launch<T, 2>(x, w, sc, zr, out, H, m, k, n, gs, st, s);
+    case 3: return launch<T, 3>(x, w, sc, zr, out, H, m, k, n, gs, st, s);
+    case 4: return launch<T, 4>(x, w, sc, zr, out, H, m, k, n, gs, st, s);
+    case 8: return launch<T, 8>(x, w, sc, zr, out, H, m, k, n, gs, st, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1284,28 +1560,24 @@ int launch_t(const float* x, const uint32_t* w, const float* scale,
 
 }  // namespace
 
-// partial != null selects the decode shape (m <= 4; partial is
-// (H, splits, m, n) fp32 scratch, words_per_split * vpw <= 1024 rows);
-// partial == null selects the prefill shape: qmm_tc on the tensor cores, its
-// bf16 or its fp32 form by x's type.  x (H, m, k), out
-// (H, m, n); codes / scale rows w_ld / s_ld apart, heads w_hs / s_hs apart.
+// m <= 4 selects the decode (qmm_decode, one launch: its split-k sums
+// meet in a thread-block cluster), larger m the prefill (qmm_tc on the
+// tensor cores, its bf16 or its fp32 form by x's type); kernel.qmm_kernel
+// names the same choice.  x (H, m, k), out (H, m, n); codes / scale rows
+// w_ld / s_ld apart, heads w_hs / s_hs apart.
 extern "C" int qmm_launch(const void* x, int x_bf16, const void* w,
                           const float* scale, const float* zero, void* out,
-                          float* partial, int H, int m, int k, int n,
-                          int bits, int gs, int splits, int words_per_split,
+                          int H, int m, int k, int n, int bits, int gs,
                           int w_ld, int w_hs, int s_ld, int s_hs,
                           void* stream) {
-  if (partial != nullptr && (m > DEC_MAXM || words_per_split * (32 / bits) > DEC_ROWS))
-    return static_cast<int>(cudaErrorInvalidValue);
   const uint32_t* wu = static_cast<const uint32_t*>(w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides st{w_ld, w_hs, s_ld, s_hs};
   if (x_bf16)
-    return launch_bits<__nv_bfloat16>(bits, x, wu, scale, zero, out, partial,
-                                      H, m, k, n, gs, splits,
-                                      words_per_split, st, s);
-  return launch_bits<float>(bits, x, wu, scale, zero, out, partial, H, m, k,
-                            n, gs, splits, words_per_split, st, s);
+    return launch_bits<__nv_bfloat16>(bits, x, wu, scale, zero, out, H, m, k,
+                                      n, gs, st, s);
+  return launch_bits<float>(bits, x, wu, scale, zero, out, H, m, k, n, gs,
+                            st, s);
 }
 
 // y = x @ Wᵀ: x (H, m, d) fp32, W (ceil(k/vpw), d) words per head with the

@@ -4,9 +4,9 @@ Takes (B, T, H, Dh) q and (B, T, KV, Dh) k and returns the paper's
 R_j = sum_{heads, queries} A[h, i, j] of shape (B, T), A the causal
 softmax attention map.  The GQA head
 mapping (query head h reads key head h // (H // KV)) is handed to the
-kernel, which reads the un-repeated keys; the sum over heads happens here.
-Dispatch is by device only: CPU tensors take the plain version, CUDA
-tensors launch the kernel or raise.
+kernel, which reads the un-repeated keys and sums over the heads itself,
+in a fixed order.  Dispatch is by device only: CPU tensors take the plain
+version, CUDA tensors launch the kernel or raise.
 """
 from __future__ import annotations
 
@@ -14,8 +14,7 @@ import torch
 
 from repro_torch.kernels.attn_colsum.ref import attn_colsum_ref
 
-MAX_SPLITS = 4  # query-tile splits per key tile (pass 2)
-TILE = 64  # the kernel's query / key tile
+MAX_HEAD_DIM = 192  # the kernel's widest Dh (MLA's dn + dr)
 
 
 def attn_colsum(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -37,11 +36,12 @@ def attn_colsum(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype:
         raise TypeError(f"attn_colsum kernel takes fp32/bf16 q and k of one "
                         f"type, not {q.dtype}/{k.dtype}")
-    n_tiles = -(-t // TILE)
-    col = attn_colsum_cuda(q.contiguous(), k.contiguous(),
-                           min(MAX_SPLITS, n_tiles))
+    if dh > MAX_HEAD_DIM:
+        raise ValueError(f"attn_colsum kernel takes Dh <= {MAX_HEAD_DIM}, "
+                         f"not {dh}")
+    col = attn_colsum_cuda(q.contiguous(), k.contiguous())
     attn_colsum.launches += 1
-    return col.view(b, h, t).sum(1)
+    return col
 
 
 attn_colsum.launches = 0

@@ -9,16 +9,15 @@ import torch
 
 from repro_torch.kernels import build
 
-DECODE_MAX_M = 4  # m <= this takes the split-k decode shape
-DECODE_COLS = 128  # output columns per decode block
-DECODE_ROWS = 1024  # most k rows a decode block stages
+DECODE_MAX_M = 4  # m <= this takes the decode kernel
 
 
 def qmm_kernel(m: int, dtype: torch.dtype) -> str:
     """The kernel that ``quant_matmul_cuda`` launches for x of m rows: the
-    split-k decode shape, else the tensor-core tile, in its bf16 form
-    (``qmm_tc``) or its fp32 form, x split into three bf16 terms
-    (``qmm_tc_f32``); ``qmm_launch`` routes the same way."""
+    decode kernel (its split-k plan is the C launcher's), else the
+    tensor-core tile, in its bf16 form (``qmm_tc``) or its fp32 form, x
+    split into three bf16 terms (``qmm_tc_f32``); ``qmm_launch`` routes
+    the same way."""
     if m <= DECODE_MAX_M:
         return "qmm_decode"
     return "qmm_tc" if dtype == torch.bfloat16 else "qmm_tc_f32"
@@ -38,8 +37,8 @@ def qmm_t_kernel(m: int, bits: int, group_size: int) -> str:
 
 def _lib():
     fn = build.library("quant_matmul").qmm_launch
-    fn.argtypes = [build.P, build.I, build.P, build.P, build.P, build.P,
-                   build.P] + [build.I] * 12 + [build.P]
+    fn.argtypes = [build.P, build.I, build.P, build.P, build.P, build.P] \
+        + [build.I] * 10 + [build.P]
     fn.restype = build.I
     return fn
 
@@ -49,19 +48,6 @@ def _lib_t():
     fn.argtypes = [build.P] * 5 + [build.I] * 11 + [build.P]
     fn.restype = build.I
     return fn
-
-
-def decode_splits(n_words: int, n: int, vpw: int, n_sm: int,
-                  heads: int = 1) -> tuple[int, int]:
-    """(splits, words_per_split) of the decode shape: enough k splits for
-    four blocks per SM over all heads, and no more than DECODE_ROWS rows
-    per block."""
-    col_blocks = -(-n // DECODE_COLS) * heads
-    max_wps = DECODE_ROWS // vpw
-    splits = max(-(-n_words // max_wps), -(-4 * n_sm // col_blocks))
-    splits = max(1, min(splits, n_words))
-    wps = -(-n_words // splits)
-    return -(-n_words // wps), wps
 
 
 def _strides(w_packed: torch.Tensor, scale: torch.Tensor) -> list[int]:
@@ -80,17 +66,9 @@ def quant_matmul_cuda(x: torch.Tensor, w_packed: torch.Tensor,
     heads, m, k = x.shape
     n = w_packed.shape[-1]
     out = torch.empty((heads, m, n), dtype=x.dtype, device=x.device)
-    partial, splits, wps = None, 0, 0
-    if m <= DECODE_MAX_M:
-        n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-        splits, wps = decode_splits(w_packed.shape[-2], n, 32 // bits, n_sm,
-                                    heads)
-        partial = torch.empty((heads, splits, m, n), dtype=torch.float32,
-                              device=x.device)
     err = _lib()(x.data_ptr(), int(x.dtype == torch.bfloat16),
                  w_packed.data_ptr(), scale.data_ptr(), zero.data_ptr(),
-                 out.data_ptr(), None if partial is None else partial.data_ptr(),
-                 heads, m, k, n, bits, group_size, splits, wps,
+                 out.data_ptr(), heads, m, k, n, bits, group_size,
                  *_strides(w_packed, scale),
                  torch.cuda.current_stream(x.device).cuda_stream)
     build.check(err, "quant_matmul")

@@ -10,8 +10,9 @@ card they run without the JAX-based ``tests/conftest.py``:
 Tolerances are relative to the largest reference magnitude:
   * fp32 products: 1e-5 — the kernel and the plain version sum the same
     fp32 terms in different orders;
-  * attn_colsum: 1e-4 — two passes of exp and the column sums added with
-    fp32 atomics in a run-dependent order;
+  * attn_colsum: 1e-4 — two passes of exp on scores from three-term bf16
+    products on the tensor cores; the column sums are added in a fixed
+    order, so two calls give the same bits;
   * bf16 outputs: 8e-3 — one rounding of the fp32 result to bf16
     (2^-8 relative) at a different point; the bf16 prefill product on the
     tensor cores (exact bf16 products of x and code - zero, fp32 sums, each
@@ -1093,3 +1094,141 @@ def test_paged_mla_flash_extend_bf16_valued_own_latents(cuda, kv_bits, L,
     got = paged_mla_flash_extend(*args, **kw)
     torch.cuda.synchronize()
     assert _rel(got, want) < 1e-5
+
+
+# ---- the decode (m <= 4, qmm_decode) at the models' widths ----
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("k,n,gs", [
+    (4096, 4096, 128), (14336, 4096, 128), (18432, 576, 128),
+    (18432, 1536, -1), (4096, 1536, -1), (14300, 576, 100),
+    (14336, 4096, -1), (18432, 4096, 128)])
+def test_quant_matmul_decode_at_real_widths(cuda, bits, k, n, gs):
+    """The decode kernel at llama3-8b's and deepseek-v3's row lengths (k
+    4096, 14336, 18432) and widths (wkv_a's 576, wq_a's 1536, 4096), gs 128,
+    100 and -1 (one group a row), bf16 and fp32 x, m 1-4: one launch of
+    qmm_decode a call, within 8e-3 (bf16) and 1e-5 (fp32)."""
+    pw, g = _packed(cuda, bits, k, n, gs, seed=20)
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 8e-3)):
+        for m in (1, 2, 3, 4):
+            x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+            want = quant_matmul_ref(x.float(), pw.w_packed, pw.scale,
+                                    pw.zero, bits=bits,
+                                    group_size=pw.group_size)
+            by = quant_matmul.by_kernel["qmm_decode"]
+            got = quant_matmul(x, pw)
+            torch.cuda.synchronize()
+            assert quant_matmul.by_kernel["qmm_decode"] == by + 1
+            assert got.dtype == dtype and got.shape == (m, n)
+            assert _rel(got, want) < tol, (dtype, m)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("k,n,gs", [(14336, 4096, 128), (300, 96, 100),
+                                    (7168, 576, -1), (512, 70, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_quant_matmul_decode_rows_bitwise_across_m_and_calls(cuda, bits, k,
+                                                             n, gs, dtype):
+    """A row of the decode's y is the same bits at m 1, 2, 3 and 4, and from
+    one call to the next: the split-k sums meet in a fixed order."""
+    pw, g = _packed(cuda, bits, k, n, gs, seed=21)
+    x = torch.randn((4, k), generator=g, device=cuda).to(dtype)
+    full = quant_matmul(x, pw)
+    again = quant_matmul(x, pw)
+    parts = [quant_matmul(x[:m].clone(), pw) for m in (1, 2, 3)]
+    torch.cuda.synchronize()
+    assert torch.equal(full, again)
+    for m, part in zip((1, 2, 3), parts):
+        assert torch.equal(full[:m], part), m
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+@pytest.mark.parametrize("m", [1, 4])
+def test_quant_matmul_decode_on_wkv_b_views(cuda, bits, m):
+    """MLA's expand at deepseek-v3's width: fp32 x through the decode on
+    the 128 strided W_v views of one packed wkv_b (kv_lora 512), each head
+    within 1e-5 of its own plain call."""
+    h, dn, dv, kvr = 128, 128, 128, 512
+    pw, g = _wkv_b(cuda, bits, h, dn, dv, kvr, 128, seed=22)
+    _, pw_v = mla_latent_weights(pw, h, dn, dv)
+    x = torch.randn((h, m, kvr), generator=g, device=cuda)
+    by = quant_matmul.by_kernel["qmm_decode"]
+    got = quant_matmul(x, pw_v)
+    torch.cuda.synchronize()
+    assert quant_matmul.by_kernel["qmm_decode"] == by + 1
+    for i in range(h):
+        want = quant_matmul_ref(x[i], pw_v.w_packed[i], pw_v.scale[i],
+                                pw_v.zero[i], bits=bits, group_size=128,
+                                d_in=kvr)
+        assert _rel(got[i], want) < 1e-5, i
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_quant_matmul_decode_non_finite_as_plain(cuda, dtype):
+    """An Inf and a NaN in x make the same decode outputs non-finite as the
+    plain version (their rows), the other rows within tolerance."""
+    pw, g = _packed(cuda, 3, 4096, 576, 128, seed=23)
+    x = torch.randn((4, 4096), generator=g, device=cuda).to(dtype)
+    x[1, 7] = float("inf")
+    x[3, 3000] = float("nan")
+    want = quant_matmul_ref(x.float(), pw.w_packed, pw.scale, pw.zero,
+                            bits=3, group_size=128)
+    got = quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite)
+    tol = 1e-5 if dtype == torch.float32 else 8e-3
+    assert _rel(got[finite], want[finite]) < tol
+
+
+# ---- attn_colsum on the tensor cores: deterministic, the MLA shape ----
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,t,h,kv,dh", [(4, 512, 32, 8, 128),
+                                         (2, 300, 128, 128, 192)])
+def test_attn_colsum_kernel_same_bits_every_call(cuda, dtype, b, t, h, kv,
+                                                 dh):
+    """Two calls on the same q and k give the same bits: the column pieces
+    are added in a fixed order, with no float atomics."""
+    g = torch.Generator(device=cuda).manual_seed(30)
+    q = torch.randn((b, t, h, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, t, kv, dh), generator=g, device=cuda).to(dtype)
+    first = attn_colsum(q, k)
+    second = attn_colsum(q, k)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,t,h,kv,dh", [
+    (2, 300, 128, 128, 192),  # MLA: H = KV heads of dn + dr
+    (1, 1, 4, 4, 16), (2, 37, 8, 2, 40), (1, 65, 6, 3, 72),
+    (2, 130, 16, 2, 100), (1, 200, 8, 1, 130), (2, 97, 4, 4, 42),
+    (1, 129, 8, 8, 36), (1, 600, 32, 8, 128)])
+def test_attn_colsum_kernel_shapes_vs_plain(cuda, dtype, b, t, h, kv, dh):
+    """MLA's shape, ragged T (1, 37, 65, 97, 129, 130, 200, 300, 600) and
+    Dh (16 to 192; 42 and 36 leave rows that 16-byte copies cannot take),
+    GQA groups of 1 to 8 heads, fp32 and bf16: within 1e-4 of the plain
+    version, and the column mass totals T·H."""
+    g = torch.Generator(device=cuda).manual_seed(31)
+    q = torch.randn((b, t, h, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, t, kv, dh), generator=g, device=cuda).to(dtype)
+    want = attn_colsum_ref(q, k)
+    before = attn_colsum.launches
+    got = attn_colsum(q, k)
+    torch.cuda.synchronize()
+    assert attn_colsum.launches == before + 1
+    assert got.shape == (b, t) and got.dtype == torch.float32
+    assert _rel(got, want) < 1e-4
+    np.testing.assert_allclose(got.sum(-1).cpu().numpy(), t * h, rtol=1e-4)
+
+
+def test_attn_colsum_kernel_refuses_wider_heads(cuda):
+    """Dh past 192 raises rather than leaving the kernel."""
+    q = torch.randn((1, 8, 2, 200), device=cuda)
+    with pytest.raises(ValueError):
+        attn_colsum(q, q)
