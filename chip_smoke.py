@@ -21,7 +21,9 @@ Phases, in order; any failure exits non-zero before the final line:
      head-batched expand of a prefill chunk; ``gram`` bitwise symmetric;
      ``attn_colsum`` at llama3-8b's and the MLA path's heads, two calls
      bitwise equal; ``quant_matmul_t``'s two
-     (MLA's absorb: m 4 and a prefill chunk of ENGINE_CHUNK); ``fwht``
+     (MLA's absorb: m 4 and a prefill chunk of ENGINE_CHUNK); the MLA
+     latent decode at B 4, S 8192 and at the engine's 4 slots at
+     positions 512-575, paged bitwise equal to flat; ``fwht``
      (through ``hadamard_transform``) at the models' widths, though no path
      of the system runs it;
   3. the main path: RSQ quantize of llama3-8b at full width and 1 layer
@@ -65,7 +67,9 @@ reference package.
 matmul as phase 2 does at llama3-8b's down projection (bf16, 3 and 4 bits,
 m 4, 256 and 512), the three GQA attention wrappers on phase 2's inputs
 (kv8 and kv2), and MLA's absorb (``quant_matmul_t``) and expand
-(``quant_matmul``, fp32), each at m 4 and 128, and extend (kv8 and kv2),
+(``quant_matmul``, fp32), each at m 4 and 128, extend (kv8 and kv2) and
+latent decode (flat and paged, kv8 and kv2, at B 4, S 8192 and at the
+engine's 4 slots at positions 512-575),
 with ``repro_torch`` imported from OTHER/src (another checkout,
 e.g. the parent commit from ``git archive``) and from this one in turns
 (other, this, this, other; one process each) and prints the four runs as
@@ -147,6 +151,11 @@ MLA_SOLVE_CHECK = ("mixer/wkv_b",)  # d_in 512: ragged 3-bit words
 # rope 64, nope and value heads 128)
 MLA_H, MLA_DN, MLA_DV, MLA_DL, MLA_DR = 128, 128, 128, 512, 64
 MD_B, MD_S, MD_TAIL = 4, 8192, 37
+# and at the engine's shape: 4 slots at positions 512-575 (prompts of
+# ENGINE_PROMPT plus up to 64 tokens), 9 pages of 64 each
+MD_ENGINE_POS = (575, 560, 543, 512)
+MD_SHAPES = {"B4_S8192": (MD_S - MD_TAIL,) * MD_B,
+             "engine": MD_ENGINE_POS}
 ME_L, ME_PAST = 256, 16
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and FLOP/s by type
@@ -778,6 +787,137 @@ def mla_extend_inputs(torch, g, bits: int) -> dict:
                         page=page)}
 
 
+def latent_bf16(torch, codes, scales, codec, d: int, rows: int):
+    """(B, S, w) latent codes -> their first ``rows`` rows dequantized,
+    (B, rows, d) bf16: the SDPA yardstick's keys and values."""
+    from repro_torch.kernels.flash_decode.ref import dequant_kv
+
+    return dequant_kv(codes, scales, kv_bits=codec.kv_bits,
+                      chunk=codec.chunk, d=d)[:, :rows].to(torch.bfloat16)
+
+
+def mla_decode_inputs(torch, g, bits: int, positions) -> dict:
+    """Phase 2's MLA latent decode inputs at deepseek-v3's widths: a flat
+    cache of B = len(positions) requests and S rows (the last position
+    rounded up to a page of 64), kv``bits`` codes of unit normals drawn
+    from ``g``, scaled fp32 queries (H 128); the same codes in pools of
+    pages under a shuffled table with a trash entry past every position;
+    ``flat`` and ``paged`` the two wrappers' positional arguments; the
+    bytes the call must move (the live codes and scales, queries, output)
+    and its least operations at the cheapest fp32-accurate tensor-core
+    rate: Q.K^T and P.V each have one fp32 operand and one exact one
+    (codes), three bf16 terms at 989 TFLOP/s (row 10's count)."""
+    from repro_torch.models.attention import kv_codec
+
+    dev = torch.device("cuda")
+    h, dl, dr, page = MLA_H, MLA_DL, MLA_DR, 64
+    b = len(positions)
+    s = -(-(max(positions) + 1) // page) * page
+    n_tiles = s // page
+    codec = kv_codec(bits, page)
+    cq, cs = codec.encode(torch.randn((b, s, dl), generator=g, device=dev))
+    rq, rs = codec.encode(torch.randn((b, s, dr), generator=g, device=dev))
+    ql = torch.randn((b, h, dl), generator=g, device=dev) * (dl + dr) ** -0.5
+    qr = torch.randn((b, h, dr), generator=g, device=dev) * (dl + dr) ** -0.5
+    pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+    perm = torch.randperm(b * n_tiles, generator=torch.Generator()
+                          .manual_seed(5)) + 1
+    pools = []
+    for codes, scales in ((cq, cs), (rq, rs)):
+        cp = torch.zeros((b * n_tiles + 1, page, codes.shape[-1]),
+                         dtype=codes.dtype, device=dev)
+        sp = torch.zeros((b * n_tiles + 1, page // codec.chunk),
+                         dtype=scales.dtype, device=dev)
+        cp[perm.to(dev)] = codes.reshape(b * n_tiles, page, -1)
+        sp[perm.to(dev)] = scales.reshape(b * n_tiles, -1)
+        pools += [cp, sp]
+    tbl = torch.cat([perm.reshape(b, n_tiles).to(torch.int32),
+                     torch.zeros((b, 1), dtype=torch.int32)], 1).to(dev)
+    row_b = (cq[0, 0].numel() * cq.element_size()
+             + rq[0, 0].numel() * rq.element_size())
+    rows = [p + 1 for p in positions]
+    nbytes = (sum(r * row_b + 2 * -(-r // codec.chunk) * 2 for r in rows)
+              + (ql.numel() + qr.numel()) * 4 + b * h * dl * 4)
+    return {"codec": codec, "page": page, "rows": rows,
+            "flat": (ql, qr, cq, cs, rq, rs, pos),
+            "paged": (tbl, pos, ql, qr, *pools),
+            "kw": dict(kv_bits=bits, chunk=codec.chunk, dl=dl, dr=dr),
+            "cache_b": sum(a.numel() * a.element_size()
+                           for a in (cq, cs, rq, rs)),
+            "nbytes": nbytes,
+            "flops": 3 * 2.0 * h * sum(rows) * (dl + dr + dl),
+            "shape": {"kv_bits": bits, "B": b, "S": s, "H": h, "dl": dl,
+                      "dr": dr, "pos": list(positions)}}
+
+
+def check_mla_decode(torch, checks: Checks, g, bits: int, positions,
+                     representative: bool) -> None:
+    """Phase 2's rows 8 and 9 at one shape (``mla_decode_inputs``): flat
+    and paged against their plain versions, paged bitwise equal to flat.
+    Yardstick: ``scaled_dot_product_attention`` (one KV head,
+    ``enable_gqa``, key [c, r] and value c of the live rows dequantized to
+    bf16 beforehand, untimed; past each request's position masked)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode.ops import (mla_flash_decode,
+                                                      paged_mla_flash_decode)
+    from repro_torch.kernels.flash_decode.ref import (
+        mla_flash_decode_ref, paged_mla_flash_decode_ref)
+
+    timer, record, clones = checks.timer, checks.record, checks.clones
+    di = mla_decode_inputs(torch, g, bits, positions)
+    page, kw, codec = di["page"], di["kw"], di["codec"]
+    rows = max(di["rows"])
+    shape = di["shape"]
+
+    acc, _, l = mla_flash_decode_ref(*di["flat"], tile=page, **kw)
+    want = acc / l.clamp_min(1e-30)
+    flat = mla_flash_decode(*di["flat"], tile=page, **kw)
+    sets = clones(di["flat"], di["cache_b"])
+    ms = timer.ms(lambda a=a: mla_flash_decode(*a, tile=page, **kw)
+                  for a in sets)
+    plain_ms = timer.ms((lambda a=a: mla_flash_decode_ref(
+        *a, tile=page, **kw) for a in sets), iters=len(sets))
+    live = (torch.arange(rows, device=flat.device)[None]
+            <= di["flat"][6][:, None])[:, None, None]   # (B, 1, 1, rows)
+    sdpa = []
+    for a in sets:
+        c16 = latent_bf16(torch, a[2], a[3], codec, MLA_DL, rows)
+        r16 = latent_bf16(torch, a[4], a[5], codec, MLA_DR, rows)
+        sdpa.append((torch.cat([a[0], a[1]], -1)[:, :, None].to(
+            torch.bfloat16), torch.cat([c16, r16], -1)[:, None],
+            c16[:, None].contiguous()))
+    library_ms = timer.ms(lambda a=a: F.scaled_dot_product_attention(
+        *a, attn_mask=live, scale=1.0, enable_gqa=True) for a in sdpa)
+    del sdpa
+    record("mla_flash_decode", shape, flat, want, TOL_KV, ms, plain_ms,
+           library_ms, di["nbytes"], di["flops"], "bfloat16",
+           representative)
+
+    acc, _, l = paged_mla_flash_decode_ref(*di["paged"], page=page, **kw)
+    want = acc / l.clamp_min(1e-30)
+    got = paged_mla_flash_decode(*di["paged"], page=page, **kw)
+    torch.cuda.synchronize()
+    bitwise = bool(torch.equal(got, flat))
+    if not bitwise:
+        checks.bad.append(f"paged_mla_flash_decode kv{bits} {shape['pos']}: "
+                          f"not bitwise equal to mla_flash_decode at tile = "
+                          f"page")
+    log({"paged_equals_flat": {"kernel": "paged_mla_flash_decode",
+                               "kv_bits": bits, "pos": shape["pos"],
+                               "bitwise": bitwise}})
+    sets = clones(di["paged"], di["cache_b"])
+    ms = timer.ms(lambda a=a: paged_mla_flash_decode(*a, page=page, **kw)
+                  for a in sets)
+    plain_ms = timer.ms((lambda a=a: paged_mla_flash_decode_ref(
+        *a, page=page, **kw) for a in sets), iters=len(sets))
+    record("paged_mla_flash_decode", dict(shape, table="shuffled + trash"),
+           got, want, TOL_KV, ms, plain_ms, library_ms, di["nbytes"],
+           di["flops"], "bfloat16", representative)
+    del di, sets, flat, got, want
+    torch.cuda.empty_cache()
+
+
 def check_mla_kernels(torch, checks: Checks) -> None:
     """Phase 2, MLA slice, at deepseek-v3's shapes: the absorb
     (``quant_matmul_t``) and expand (head-batched ``quant_matmul``) steps on
@@ -785,23 +925,22 @@ def check_mla_kernels(torch, checks: Checks) -> None:
     128), and both on a prefill chunk (fp32 x, m = ENGINE_CHUNK: the fp32
     tile ``qmm_t_tile`` and the tensor-core tile's fp32 form
     ``qmm_tc_f32``); the bf16 prefill projections (m 256 and 512, 3 bits:
-    the tensor-core tile); the latent flash decode (kv8, kv2) at B 4, S 8192, H 128, latent
-    512, rope 64, pos = S - 37, flat and through a shuffled page table with
-    a trash entry (held bitwise to the flat call); the chunked-prefill
-    extend at L 256 over 16 past pages.  Yardsticks: ``torch.bmm`` on the
-    dequantized bf16 per-head weights; ``scaled_dot_product_attention``
-    (one KV head, ``enable_gqa``, key [c, r] and value c, dequantized to
-    bf16 beforehand, untimed); for the projections and the prefill chunks
-    the product with the dequantized weight (bf16 and fp32)."""
+    the tensor-core tile); the latent flash decode (kv8, kv2) at H 128,
+    latent 512, rope 64, flat and through a shuffled page table with a
+    trash entry (held bitwise to the flat call), at B 4, S 8192, pos = S -
+    37 and at the engine's 4 slots at positions 512-575
+    (``check_mla_decode``); the chunked-prefill extend at L 256 over 16
+    past pages.  Yardsticks: ``torch.bmm`` on the dequantized bf16
+    per-head weights; ``scaled_dot_product_attention`` (one KV head,
+    ``enable_gqa``, key [c, r] and value c, dequantized to bf16
+    beforehand, untimed); for the projections and the prefill chunks the
+    product with the dequantized weight (bf16 and fp32)."""
     import torch.nn.functional as F
 
     from repro_torch.core.quantizer import QuantSpec, quantize_weight_rtn
-    from repro_torch.kernels.flash_decode.ops import (mla_flash_decode,
-                                                      paged_mla_flash_decode,
-                                                      paged_mla_flash_extend)
-    from repro_torch.kernels.flash_decode.ref import (
-        dequant_kv, mla_flash_decode_ref, paged_mla_flash_decode_ref,
-        paged_mla_flash_extend_ref)
+    from repro_torch.kernels.flash_decode.ops import paged_mla_flash_extend
+    from repro_torch.kernels.flash_decode.ref import \
+        paged_mla_flash_extend_ref
     from repro_torch.kernels.quant_matmul.ops import (mla_latent_weights,
                                                       pack_weight,
                                                       quant_matmul,
@@ -899,95 +1038,14 @@ def check_mla_kernels(torch, checks: Checks) -> None:
                      arch=MLA_ARCH)
     torch.cuda.empty_cache()
 
-    def to_bf16(codes, scales, codec, d, rows):
-        """(B, S, w) codes -> the first ``rows`` rows, (B, rows, d) bf16."""
-        return dequant_kv(codes, scales, kv_bits=codec.kv_bits,
-                          chunk=codec.chunk, d=d)[:, :rows].to(torch.bfloat16)
-
-    b, s, page = MD_B, MD_S, 64
-    pos_v = s - MD_TAIL
-    n_tiles = s // page
+    page = 64
     for bits in KV_BITS:
         codec = kv_codec(bits, page)
-        cq, cs = codec.encode(torch.randn((b, s, dl), generator=g,
-                                          device=dev))
-        rq, rs = codec.encode(torch.randn((b, s, dr), generator=g,
-                                          device=dev))
-        ql = torch.randn((b, h, dl), generator=g, device=dev) \
-            * (dl + dr) ** -0.5
-        qr = torch.randn((b, h, dr), generator=g, device=dev) \
-            * (dl + dr) ** -0.5
-        pos = torch.full((b,), pos_v, dtype=torch.int32, device=dev)
         kw = dict(kv_bits=bits, chunk=codec.chunk, dl=dl, dr=dr)
-        rows = pos_v + 1
-        row_b = (cq[0, 0].numel() * cq.element_size()
-                 + rq[0, 0].numel() * rq.element_size())
-        scale_rows = -(-rows // codec.chunk)
-        nbytes = (b * (rows * row_b + 2 * scale_rows * 2)
-                  + (ql.numel() + qr.numel()) * 4 + b * h * dl * 4)
-        flops = 2.0 * b * h * rows * (dl + dr + dl)
-        cache_b = sum(a.numel() * a.element_size() for a in (cq, cs, rq, rs))
-        shape = {"kv_bits": bits, "B": b, "S": s, "H": h, "dl": dl, "dr": dr,
-                 "pos": pos_v}
-
-        acc, _, l = mla_flash_decode_ref(ql, qr, cq, cs, rq, rs, pos,
-                                         tile=page, **kw)
-        want = acc / l.clamp_min(1e-30)
-        flat = mla_flash_decode(ql, qr, cq, cs, rq, rs, pos, tile=page, **kw)
-        sets = clones((ql, qr, cq, cs, rq, rs, pos), cache_b)
-        ms = timer.ms(lambda a=a: mla_flash_decode(*a, tile=page, **kw)
-                      for a in sets)
-        plain_ms = timer.ms((lambda a=a: mla_flash_decode_ref(
-            *a, tile=page, **kw) for a in sets), iters=len(sets))
-        sdpa = []
-        for a in sets:
-            c16 = to_bf16(a[2], a[3], codec, dl, rows)
-            r16 = to_bf16(a[4], a[5], codec, dr, rows)
-            sdpa.append((torch.cat([a[0], a[1]], -1)[:, :, None].to(
-                torch.bfloat16), torch.cat([c16, r16], -1)[:, None],
-                c16[:, None].contiguous()))
-        library_ms = timer.ms(lambda a=a: F.scaled_dot_product_attention(
-            *a, scale=1.0, enable_gqa=True) for a in sdpa)
-        del sdpa
-        record("mla_flash_decode", shape, flat, want, TOL_KV, ms, plain_ms,
-               library_ms, nbytes, flops, "float32", bits == 8)
-
-        perm = torch.randperm(b * n_tiles, generator=torch.Generator()
-                              .manual_seed(5)) + 1
-        tbl = perm.reshape(b, n_tiles).to(torch.int32)
-        pools = []
-        for codes, scales in ((cq, cs), (rq, rs)):
-            cp = torch.zeros((b * n_tiles + 1, page, codes.shape[-1]),
-                             dtype=codes.dtype, device=dev)
-            sp = torch.zeros((b * n_tiles + 1, page // codec.chunk),
-                             dtype=scales.dtype, device=dev)
-            cp[perm.to(dev)] = codes.reshape(b * n_tiles, page, -1)
-            sp[perm.to(dev)] = scales.reshape(b * n_tiles, -1)
-            pools += [cp, sp]
-        tbl = torch.cat([tbl, torch.zeros((b, 1), dtype=torch.int32)],
-                        1).to(dev)
-        acc, _, l = paged_mla_flash_decode_ref(tbl, pos, ql, qr, *pools,
-                                               page=page, **kw)
-        want = acc / l.clamp_min(1e-30)
-        got = paged_mla_flash_decode(tbl, pos, ql, qr, *pools, page=page,
-                                     **kw)
-        torch.cuda.synchronize()
-        bitwise = bool(torch.equal(got, flat))
-        if not bitwise:
-            checks.bad.append(f"paged_mla_flash_decode kv{bits}: not bitwise "
-                              f"equal to mla_flash_decode at tile = page")
-        log({"paged_equals_flat": {"kernel": "paged_mla_flash_decode",
-                                   "kv_bits": bits, "bitwise": bitwise}})
-        sets = clones((tbl, pos, ql, qr) + tuple(pools), cache_b)
-        ms = timer.ms(lambda a=a: paged_mla_flash_decode(*a, page=page, **kw)
-                      for a in sets)
-        plain_ms = timer.ms((lambda a=a: paged_mla_flash_decode_ref(
-            *a, page=page, **kw) for a in sets), iters=len(sets))
-        record("paged_mla_flash_decode", dict(shape, table="shuffled + trash"),
-               got, want, TOL_KV, ms, plain_ms, library_ms, nbytes, flops,
-               "float32", bits == 8)
-        del cq, cs, rq, rs, pools, sets, flat, got, want
-        torch.cuda.empty_cache()
+        # rows 8 and 9: B 4, S 8192 (the kernels line's rows), the engine's
+        for name, positions in MD_SHAPES.items():
+            check_mla_decode(torch, checks, g, bits, positions,
+                             bits == 8 and name == "B4_S8192")
 
         # extend: an L-token chunk over ME_PAST past pages
         L, n_past = ME_L, ME_PAST
@@ -996,6 +1054,8 @@ def check_mla_kernels(torch, checks: Checks) -> None:
                                                      "c_new", "r_new"))
         pools = xi["pools"]
         ekw = dict(kw, page=page)
+        row_b = sum(p[0, 0].numel() * p.element_size()
+                    for p in (pools[0], pools[2]))
         want = paged_mla_flash_extend_ref(tbl, ql, qr, c_new, r_new, *pools,
                                           **ekw)
         got = paged_mla_flash_extend(tbl, ql, qr, c_new, r_new, *pools, **ekw)
@@ -1021,14 +1081,14 @@ def check_mla_kernels(torch, checks: Checks) -> None:
         sdpa = []
         for a in sets:
             pid = a[0].long()
-            c16 = torch.cat([to_bf16(a[5][pid].reshape(1, past_rows, -1),
-                                     a[6][pid].reshape(1, -1), codec, dl,
-                                     past_rows),
-                             a[3][None].to(torch.bfloat16)], 1)
-            r16 = torch.cat([to_bf16(a[7][pid].reshape(1, past_rows, -1),
-                                     a[8][pid].reshape(1, -1), codec, dr,
-                                     past_rows),
-                             a[4][None].to(torch.bfloat16)], 1)
+            c16 = torch.cat([latent_bf16(
+                torch, a[5][pid].reshape(1, past_rows, -1),
+                a[6][pid].reshape(1, -1), codec, dl, past_rows),
+                a[3][None].to(torch.bfloat16)], 1)
+            r16 = torch.cat([latent_bf16(
+                torch, a[7][pid].reshape(1, past_rows, -1),
+                a[8][pid].reshape(1, -1), codec, dr, past_rows),
+                a[4][None].to(torch.bfloat16)], 1)
             sdpa.append((torch.cat([a[1], a[2]], -1).transpose(0, 1)[None]
                          .to(torch.bfloat16).contiguous(),
                          torch.cat([c16, r16], -1)[:, None].contiguous(),
@@ -1931,15 +1991,46 @@ def time_gqa_attention(torch) -> list:
     return out
 
 
+def time_mla_decode(torch) -> list:
+    """``mla_flash_decode`` and ``paged_mla_flash_decode`` on phase 2's
+    inputs (``mla_decode_inputs``) at both of its shapes (MD_SHAPES), kv8
+    and kv2, with the ``repro_torch`` that is on sys.path; ms per call from
+    ``Timer`` over cold copies."""
+    from repro_torch.kernels.flash_decode.ops import (mla_flash_decode,
+                                                      paged_mla_flash_decode)
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    checks = Checks(Timer(torch))
+    out = []
+    for name, positions in MD_SHAPES.items():
+        for bits in KV_BITS:
+            di = mla_decode_inputs(torch, g, bits, positions)
+            kw, page = di["kw"], di["page"]
+            for kernel, fn, args, arg in (
+                    ("mla_flash_decode", mla_flash_decode, di["flat"],
+                     {"tile": page}),
+                    ("paged_mla_flash_decode", paged_mla_flash_decode,
+                     di["paged"], {"page": page})):
+                sets = checks.clones(args, di["cache_b"])
+                out.append({"kernel": kernel, "shape": name,
+                            "kv_bits": bits,
+                            "ms": checks.timer.ms(lambda a=a: fn(
+                                *a, **arg, **kw) for a in sets)})
+                del sets
+            del di
+            torch.cuda.empty_cache()
+    return out
+
+
 def time_mla(torch) -> list:
     """MLA's absorb (``quant_matmul_t`` on the W_k views of a 3-bit
     deepseek-v3 wkv_b: H 128, d 128, k 512) and its expand (``quant_matmul``
     on the W_v views, fp32 x: H 128, k 512, n 128), each at m = SERVE_BATCH
-    and ENGINE_CHUNK, and
-    ``paged_mla_flash_extend`` on phase 2's inputs
-    (``mla_extend_inputs``), kv8 and kv2, with the ``repro_torch`` that is
-    on sys.path; ms per call from ``Timer`` over cold copies (the weight
-    from ``rtn_packed`` and ``packed_sets``, as ``time_quant_matmul``)."""
+    and ENGINE_CHUNK, ``paged_mla_flash_extend`` on phase 2's inputs
+    (``mla_extend_inputs``), kv8 and kv2, and the latent decode
+    (``time_mla_decode``), with the ``repro_torch`` that is on sys.path; ms
+    per call from ``Timer`` over cold copies (the weight from
+    ``rtn_packed`` and ``packed_sets``, as ``time_quant_matmul``)."""
     from repro_torch.kernels.flash_decode.ops import paged_mla_flash_extend
     from repro_torch.kernels.quant_matmul.ops import (mla_latent_weights,
                                                       quant_matmul,
@@ -1979,7 +2070,7 @@ def time_mla(torch) -> list:
                         *a, **xi["ekw"]) for a in sets)})
         del xi, sets
         torch.cuda.empty_cache()
-    return out
+    return out + time_mla_decode(torch)
 
 
 def time_attn_colsum(torch) -> list:

@@ -1,13 +1,16 @@
 // MLA absorbed ("latent") attention on a quantized latent cache for Hopper
 // (sm_90a): one-token decode over a flat or block-paged kv8/kv2 cache, and
 // the chunked-prefill extend over paged past pages plus the chunk's own fp
-// latents.
+// latents.  One kernel template computes both (mla_attend_kernel<DEC>).
 //
 // Replaces the reference's Pallas kernels in
 // src/repro/kernels/flash_decode/kernel.py:
-//   mla_flash_decode_pallas        (:438) -> mla_decode_kernel, tbl == nullptr
-//   paged_mla_flash_decode_pallas  (:520) -> mla_decode_kernel, tbl != nullptr
-//   paged_mla_flash_extend_pallas  (:632) -> mla_extend_kernel
+//   mla_flash_decode_pallas        (:438) -> mla_attend_kernel<true>, flat
+//                                            (tbl == nullptr), then
+//                                            mla_merge_kernel
+//   paged_mla_flash_decode_pallas  (:520) -> the same through tbl
+//   paged_mla_flash_extend_pallas  (:632) -> mla_own_terms_kernel, then
+//                                            mla_attend_kernel<false>
 //
 // What it computes.  One KV head in latent space for H query heads: the
 // score of query row i against cache row j is ql_i·c_j + qr_i·r_j (c the
@@ -18,37 +21,14 @@
 // per-64-token bf16 scale.
 //
 // Bound.  Every cache row serves all H heads: at deepseek-v3's H 128, dl
-// 512, dr 64 a row costs 128 x (576 + 512) multiply-adds and 576 codes, so
-// both kernels are bound by operations, not bytes (decode at B 4, S 8192:
-// ~9.1 GFLOP, 0.136 ms at the fp32 peak of 67 TFLOP/s, against 5.6 us for
-// the kv8 codes; the extend at L 256 over 16 past pages ~82 GFLOP).
+// 512, dr 64 a row costs 128 x (576 + 512) multiply-adds against 576
+// codes, so both are bound by operations, not bytes.  Counted at the
+// cheapest fp32-accurate rate, three bf16 term products at 989 TFLOP/s:
+// the decode at B 4, S 8192 ~27.3 GFLOP, 0.0276 ms (the kv8 codes take 5.6
+// us to read); the extend at L 256 over 16 past pages ~246 GFLOP, 0.249 ms.
 //
-// Decode.  A block owns QR = 16 query rows (16 heads of one request) and
-// walks the keys in sub-tiles of KT = 32 rows.  For each sub-tile it
-// dequantizes the 32 rows of [c | r] once into shared memory, fp32, and all
-// 16 query rows use them: a kernel that re-read the rows per head would
-// move 128x the bytes.  The (16 rows x dl) fp32 accumulator stays in
-// registers across the 16 warps, each thread owning one latent column for
-// all 16 rows.  Shared-memory reads, not the FMA pipes, limit such a
-// kernel, so the scores are tiled in registers: each warp takes a 1/16
-// slice of the 576-wide dot product for all 16 x 32 (row, key) pairs,
-// every thread a 4 x 4 tile of them (8 float4 reads per 64 FMAs), and the
-// 16 partial sums of a score are added in a fixed order before warp r runs
-// row r's streaming softmax.  Values: each thread reads its column of the
-// 32 key rows and the 16 rows' probabilities (broadcast float4 reads).  A
-// query row may see key j iff j <= pos: rows past pos are never read, so
-// the trash page and stale table entries never reach the result.  Each
-// request's tiles are split into fixed runs of TILES_PER_SPLIT blocks,
-// merged by a second kernel in a fixed order (deterministic); the runs are
-// fixed in tile units, so a flat and a paged call at tile = page split a
-// request alike and agree bitwise.  Plain fp32 FMAs.
-//
-// Extend.  A block owns EX_ROWS = 32 query rows, 32 heads of one chunk
-// token, so its rows share one causal limit and every key tile is loaded
-// and widened once for all of them (L 256 x H 128: 1024 blocks).  Keys
-// come in tiles of 32: the past pages through tbl, then the chunk's own
-// keys up to the block's token.  Q.K^T and P.V run on the tensor cores
-// (mma.sync m16n8k16, bf16 operands, fp32 sums) and keep the fp32 result:
+// Arithmetic.  Q.K^T and P.V run on the tensor cores (mma.sync m16n8k16,
+// bf16 operands, fp32 sums) and keep the fp32 result:
 //   - the codes (int8, or the 2-bit levels +-0.25, +-1) are exact in bf16
 //     and are widened without their scales into one bf16 tile that serves
 //     as K ([c | r]) and as V (its c columns);
@@ -58,7 +38,7 @@
 //     softmax takes exp2((s - m) log2(e)), the difference rounded first;
 //   - each past key's value scale is folded into P, and P is split into
 //     three bf16 terms against the exact codes;
-//   - the chunk's own fp32 latents are split too, once a launch, by a
+//   - the extend's own fp32 latents are split too, once a launch, by a
 //     first small kernel (mla_own_terms_kernel), and a tile takes the term
 //     pairs whose product is not below 2^-24 of hi.hi (query or P term i
 //     against key term j for i + j < 3), one key term at a time;
@@ -66,25 +46,47 @@
 //     in the tensor core and added in fp32: the unit's truncating
 //     accumulation never runs over more than three MMAs (a step's query
 //     terms) or six (a tile's P terms and two k16 steps).
-// 12 warps.  The 8 computing warps take, for Q.K^T, two row groups of 16 x
-// four quarters of the 576-wide dot product, whose partial scores meet in
-// shared memory and are added in a fixed order; for the softmax the same
-// row groups x four quarters of the 32 keys, each row's max and sum and
-// P's terms meeting in shared memory; for P.V the same row groups x four
-// quarters of the 512 value columns (a 16 x 128 fp32 accumulator a warp).  The 4 producer warps fill two key tiles in turn
-// (full / empty mbarriers), so the next tile is widened while this one is
-// computed: a past tile's codes arrive in a one-tile ring by bulk copies
-// (the TMA unit, completing on an mbarrier; one copy of a page's run of c
-// rows and one of r rows), with page ids and scales fetched a tile ahead;
-// the own keys' terms go by one bulk copy straight into a key tile.  The
-// causal edge and ragged tails are masked by select; pages not in tbl are
-// never read.  Shared memory: the query terms (112 KB at dl 512, dr 64),
-// two key tiles, the ring and the partial scores, ~228 KB: one block an
-// SM, so the computing warps' phases of a tile (scores, their exchange,
-// softmax, P.V) follow one another.  Shared memory, in bytes from the start
-// (ex_layout): the query terms, the two key tiles, the ring, the partial
-// scores (P's terms over them), the scales, the row maxima and sums, the
-// mbarriers.
+//
+// A block owns EX_ROWS = 32 query rows, 32 heads of one token (a chunk
+// token in the extend, a request in the decode), so its rows share one key
+// range and every key tile is loaded and widened once for all of them.
+// Keys come in tiles of 32.  12 warps.  The 8 computing warps take, for
+// Q.K^T, two row groups of 16 x four quarters of the 576-wide dot product,
+// whose partial scores meet in shared memory and are added in a fixed
+// order; for the softmax the same row groups x four quarters of the 32
+// keys, each row's max and sum and P's terms meeting in shared memory; for
+// P.V the same row groups x four quarters of the 512 value columns (a 16 x
+// 128 fp32 accumulator a warp).  The 4 producer warps fill two key tiles
+// in turn (full / empty mbarriers), so the next tile is widened while this
+// one is computed: a past tile's codes arrive in a one-tile ring by bulk
+// copies (the TMA unit, completing on an mbarrier; one copy of a page's
+// run of c rows and one of r rows), with page ids and scales fetched a tile
+// ahead; the own keys' terms go by one bulk copy straight into a key tile.
+// The causal edge, the decode's last key and ragged tails are masked by
+// select; rows past them and pages not in tbl are never read.  Shared
+// memory: the query terms (112 KB at dl 512, dr 64), two key tiles, the
+// ring and the partial scores, ~228 KB: one block an SM, so the computing
+// warps' phases of a tile (scores, their exchange, softmax, P.V) follow one
+// another.  Shared memory, in bytes from the start (ex_layout): the query
+// terms, the two key tiles, the ring, the partial scores (P's terms over
+// them), the scales, the row maxima and sums, the mbarriers.
+//
+// Extend.  Grid (ceil(H / 32), L): block (hb, y) takes chunk token L - 1 -
+// y (the longest causal rows first), its past pages through tbl, then the
+// chunk's own keys up to its token; it writes normalized rows.
+//
+// Decode.  Grid (ceil(H / 32), splits, B).  A request's keys 0 .. pos are
+// cut into splits of whole 32-key tiles, ceil(n / DEC_SPLITS) tiles each
+// for its n live ones (dec_plan): a function of its pos alone, so that a
+// flat and a paged call (at any page), and a request alone or in any
+// batch, walk the same tiles and give the same bits.  Long caches take
+// long splits and short ones short, at most DEC_SPLITS = 8 a request: at
+// B 4 x H 128 that is 128 blocks on the 132 SMs at S 8192 (32 tiles each)
+// and 96 at the engine's ~575 keys (3 tiles each), and the split partials
+// stay 8 rows a head.  The grid is sized from the cache's or the table's
+// length alone; a block past its request's splits exits at once.  A block
+// writes its rows' raw (acc, m, l); mla_merge_kernel adds a request's
+// splits in order (deterministic).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -92,361 +94,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int THREADS = 512;
-constexpr int WARPS = THREADS / 32;
-constexpr int QR = 16;  // query rows per block (= one per warp in softmax)
-constexpr int KT = 32;  // key rows per sub-tile (= one per lane)
-constexpr int DCOL = 1;  // latent columns per thread: dl <= 512
-constexpr float NEG_INF = -1e30f;
-
-// One value of a cache row: kind 8 int8 code, kind 2 a 2-bit field of a
-// uint32 word (code j at bits [2j, 2j+2)).
-__device__ __forceinline__ float value_at(const char* row, int d, int kind) {
-  if (kind == 8) return (float)reinterpret_cast<const int8_t*>(row)[d];
-  const uint32_t w = reinterpret_cast<const uint32_t*>(row)[d >> 4];
-  const uint32_t c = (w >> ((d & 15) * 2)) & 3u;
-  const float mag = (c == 1u || c == 2u) ? 0.25f : 1.0f;
-  return c >= 2u ? mag : -mag;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-struct Smem {
-  float* q;      // QR x ld: [ql | qr | 0]
-  float* k;      // KT x ld: [c | r | 0], dequantized
-  float* p;      // QR x KT probabilities
-  float* part;   // WARPS x QR x KT partial scores
-  float* m;      // QR running max
-  float* l;      // QR running denominator
-  float* a;      // QR this sub-tile's alpha
-  float* sc;     // KT c-row scales
-  float* sr;     // KT r-row scales
-  int* lim;      // QR last visible key index of each row
-  const char** crow;  // KT c-row pointers
-  const char** rrow;  // KT r-row pointers
-};
-
-__host__ __device__ inline size_t smem_bytes(int ld) {
-  return sizeof(float) * ((size_t)(QR + KT) * ld + (WARPS + 1) * QR * KT
-                          + 3 * QR + 2 * KT)
-         + sizeof(int) * QR + 2 * sizeof(const char*) * KT;
-}
-
-__device__ inline Smem carve(char* base, int ld) {
-  Smem s;
-  // pointers first: 8-byte aligned at the base
-  s.crow = reinterpret_cast<const char**>(base);
-  s.rrow = s.crow + KT;
-  float* f = reinterpret_cast<float*>(s.rrow + KT);
-  s.q = f;  // 16-byte aligned: 2 * KT pointers = 512 bytes
-  s.k = s.q + (size_t)QR * ld;
-  s.p = s.k + (size_t)KT * ld;
-  s.part = s.p + QR * KT;
-  s.m = s.part + WARPS * QR * KT;
-  s.l = s.m + QR;
-  s.a = s.l + QR;
-  s.sc = s.a + QR;
-  s.sr = s.sc + KT;
-  s.lim = reinterpret_cast<int*>(s.sr + KT);
-  return s;
-}
-
-// Rows are filled FB at a time: every global load of a batch is issued
-// before the first shared-memory store, so the loads overlap instead of
-// waiting on each other (the compiler cannot move a load across a store
-// through a generic pointer).  A row of dw4 <= 2 * THREADS values is two
-// values per thread.
-constexpr int FB = 8;
-
-// Load the block's QR query rows; rows >= n_rows are zero with lim = -1
-// (never visible).  q row i: ql[i * dl .. ], qr[i * dr .. ].
-__device__ inline void load_queries(const Smem& s, const float* ql,
-                                    const float* qr, int n_rows, int dl,
-                                    int dr, int dw4, int ld) {
-  for (int r0 = 0; r0 < QR; r0 += FB) {
-    float v[FB][2];
-#pragma unroll
-    for (int rr = 0; rr < FB; ++rr)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int r = r0 + rr, d = threadIdx.x + e * THREADS;
-        float x = 0.f;
-        if (r < n_rows) {
-          if (d < dl) x = ql[(size_t)r * dl + d];
-          else if (d < dl + dr) x = qr[(size_t)r * dr + d - dl];
-        }
-        v[rr][e] = x;
-      }
-#pragma unroll
-    for (int rr = 0; rr < FB; ++rr)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = threadIdx.x + e * THREADS;
-        if (d < dw4) s.q[(r0 + rr) * ld + d] = v[rr][e];
-      }
-  }
-  if (threadIdx.x < QR) {
-    s.m[threadIdx.x] = NEG_INF;
-    s.l[threadIdx.x] = 0.f;
-  }
-}
-
-// Dequantize the sub-tile's ncol rows (row pointers and scales staged in
-// s.crow/s.rrow/s.sc/s.sr) into s.k; rows >= ncol are zero.
-__device__ inline void fill_keys(const Smem& s, int ncol, int kind, int dl,
-                                 int dr, int dw4, int ld) {
-  for (int j0 = 0; j0 < KT; j0 += FB) {
-    float v[FB][2];
-#pragma unroll
-    for (int jj = 0; jj < FB; ++jj)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int j = j0 + jj, d = threadIdx.x + e * THREADS;
-        float x = 0.f;
-        if (j < ncol) {
-          if (d < dl) x = value_at(s.crow[j], d, kind) * s.sc[j];
-          else if (d < dl + dr)
-            x = value_at(s.rrow[j], d - dl, kind) * s.sr[j];
-        }
-        v[jj][e] = x;
-      }
-#pragma unroll
-    for (int jj = 0; jj < FB; ++jj)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int d = threadIdx.x + e * THREADS;
-        if (d < dw4) s.k[(j0 + jj) * ld + d] = v[jj][e];
-      }
-  }
-}
-
-// Scores, streaming softmax and p·c of one sub-tile whose row j is key
-// kbase + j (rows >= ncol are absent).  acc[r][i]: row r, column
-// threadIdx.x + i * THREADS.  Ends with a barrier-free value update; the
-// caller syncs before s.k or s.p is rewritten.
-__device__ inline void attend(const Smem& s, float (&acc)[QR][DCOL],
-                              int kbase, int ncol, int dl, int dw4, int ld) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  {
-    // partial scores over this warp's slice of [c | r]: a 4 x 4 tile of
-    // (query row rg + 4i, key kg + 8j); the 8 lanes of a row group read 8
-    // consecutive key rows, which the padded stride puts on distinct banks
-    const int rg = lane >> 3, kg = lane & 7;
-    const int slice = ((dw4 + WARPS - 1) / WARPS + 3) / 4 * 4;
-    const int d0 = min(warp * slice, dw4), d1 = min(d0 + slice, dw4);
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    for (int d = d0; d < d1; d += 4) {
-      float4 qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(s.q + (rg + 4 * i) * ld + d);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(s.k + (kg + 8 * j) * ld + d);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(qv[i].x, kv[j].x, sc[i][j]);
-          sc[i][j] = fmaf(qv[i].y, kv[j].y, sc[i][j]);
-          sc[i][j] = fmaf(qv[i].z, kv[j].z, sc[i][j]);
-          sc[i][j] = fmaf(qv[i].w, kv[j].w, sc[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        s.part[(warp * QR + rg + 4 * i) * KT + kg + 8 * j] = sc[i][j];
-  }
-  __syncthreads();
-  {
-    // warp r sums row r's partials over the slices in a fixed order, then
-    // runs the row's streaming softmax with key = lane
-    const int r = warp;
-    float sc = 0.f;
-#pragma unroll 4
-    for (int w = 0; w < WARPS; ++w) sc += s.part[(w * QR + r) * KT + lane];
-    const bool valid = lane < ncol && kbase + lane <= s.lim[r];
-    const float sm = valid ? sc : NEG_INF;
-    const float m_prev = s.m[r];
-    const float m_new = fmaxf(m_prev, warp_max(sm));
-    const float e = valid ? expf(sm - m_new) : 0.f;
-    const float sum = warp_sum(e);
-    s.p[r * KT + lane] = e;
-    if (lane == 0) {
-      const float alpha = expf(m_prev - m_new);
-      s.a[r] = alpha;
-      s.l[r] = alpha * s.l[r] + sum;
-      s.m[r] = m_new;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < DCOL; ++i) {
-    const int d = threadIdx.x + i * THREADS;
-    if (d < dl) {
-#pragma unroll
-      for (int r = 0; r < QR; ++r) acc[r][i] *= s.a[r];
-#pragma unroll 2
-      for (int j = 0; j < KT; j += 4) {
-        const float c0 = s.k[(j + 0) * ld + d], c1 = s.k[(j + 1) * ld + d];
-        const float c2 = s.k[(j + 2) * ld + d], c3 = s.k[(j + 3) * ld + d];
-#pragma unroll
-        for (int r = 0; r < QR; ++r) {
-          const float4 pv = *reinterpret_cast<const float4*>(s.p + r * KT + j);
-          acc[r][i] = fmaf(pv.x, c0, acc[r][i]);
-          acc[r][i] = fmaf(pv.y, c1, acc[r][i]);
-          acc[r][i] = fmaf(pv.z, c2, acc[r][i]);
-          acc[r][i] = fmaf(pv.w, c3, acc[r][i]);
-        }
-      }
-    }
-  }
-}
-
-// Stage one sub-tile of a quantized page / flat run: rows row0 .. row0 +
-// ncol - 1 of a code array (cq/rq rows `c_bytes`/`r_bytes` long) whose
-// scales are one per `chunk` rows starting at scale row srow0 (rows
-// counted from the page or request start `base_row`).
-__device__ inline void stage_codes(const Smem& s, const char* cq,
-                                   const char* rq,
-                                   const __nv_bfloat16* cs,
-                                   const __nv_bfloat16* rs, long long crow0,
-                                   long long srow0, int sub0, int ncol,
-                                   int chunk, size_t c_bytes,
-                                   size_t r_bytes) {
-  const int j = threadIdx.x;
-  if (j < KT) {
-    if (j < ncol) {
-      const long long row = crow0 + sub0 + j;
-      const long long srow = srow0 + (sub0 + j) / chunk;
-      s.crow[j] = cq + (size_t)row * c_bytes;
-      s.rrow[j] = rq + (size_t)row * r_bytes;
-      s.sc[j] = __bfloat162float(cs[srow]);
-      s.sr[j] = __bfloat162float(rs[srow]);
-    } else {
-      s.crow[j] = s.rrow[j] = nullptr;
-      s.sc[j] = s.sr[j] = 0.f;
-    }
-  }
-}
-
-// Grid (n_split, ceil(H / QR), B).  ql (B, H, dl), qr (B, H, dr) fp32.
-// Flat (tbl == nullptr): cq (B, S, wc), cs (B, SR), rq (B, S, wr), rs
-// (B, SR).  Paged: cq (n_pages, tile, wc), cs (n_pages, tile / chunk), ...,
-// tbl (B, n_tiles).  pos (B,).  Writes this split's raw (acc, m, l):
-// part_acc (B, H, n_split, dl), part_m / part_l (B, H, n_split).
-__global__ void __launch_bounds__(THREADS) mla_decode_kernel(
-    const float* __restrict__ ql, const float* __restrict__ qr,
-    const char* __restrict__ cq, const __nv_bfloat16* __restrict__ cs,
-    const char* __restrict__ rq, const __nv_bfloat16* __restrict__ rs,
-    const int* __restrict__ pos, const int* __restrict__ tbl,
-    float* __restrict__ part_acc, float* __restrict__ part_m,
-    float* __restrict__ part_l, int H, int dl, int dr, int S, int SR,
-    int n_tiles, int tile, int chunk, int kv_bits, int wc, int wr,
-    int tiles_per_split, int n_split, int dw4, int ld) {
-  extern __shared__ __align__(16) char smem_raw[];
-  const Smem s = carve(smem_raw, ld);
-  const int split = blockIdx.x, h0 = blockIdx.y * QR, b = blockIdx.z;
-  const int p = pos[b];
-  const int n_rows = min(QR, H - h0);
-  const size_t esz = kv_bits == 8 ? 1 : 4;
-  const size_t c_bytes = (size_t)wc * esz, r_bytes = (size_t)wr * esz;
-
-  load_queries(s, ql + ((size_t)b * H + h0) * dl,
-               qr + ((size_t)b * H + h0) * dr, n_rows, dl, dr, dw4, ld);
-  if (threadIdx.x < QR) s.lim[threadIdx.x] = threadIdx.x < n_rows ? p : -1;
-  float acc[QR][DCOL];
-#pragma unroll
-  for (int r = 0; r < QR; ++r)
-#pragma unroll
-    for (int i = 0; i < DCOL; ++i) acc[r][i] = 0.f;
-
-  const int kk0 = split * tiles_per_split;
-  const int kk1 = min(min(kk0 + tiles_per_split, n_tiles), p / tile + 1);
-  for (int kk = kk0; kk < kk1; ++kk) {
-    const int t0 = kk * tile;
-    int nvalid = min(tile, p - t0 + 1);
-    long long crow0, srow0;
-    if (tbl) {
-      const long long pid = tbl[(size_t)b * n_tiles + kk];
-      crow0 = pid * tile;
-      srow0 = pid * (tile / chunk);
-    } else {
-      nvalid = min(nvalid, S - t0);
-      crow0 = (long long)b * S + t0;
-      srow0 = (long long)b * SR + t0 / chunk;
-    }
-    for (int sub0 = 0; sub0 < nvalid; sub0 += KT) {
-      const int ncol = min(KT, nvalid - sub0);
-      __syncthreads();  // the previous sub-tile is done with s.k and s.p
-      stage_codes(s, cq, rq, cs, rs, crow0, srow0, sub0, ncol, chunk,
-                  c_bytes, r_bytes);
-      __syncthreads();
-      fill_keys(s, ncol, kv_bits, dl, dr, dw4, ld);
-      __syncthreads();
-      attend(s, acc, t0 + sub0, ncol, dl, dw4, ld);
-    }
-  }
-  __syncthreads();
-  for (int r = 0; r < n_rows; ++r) {
-    const size_t part = ((size_t)b * H + h0 + r) * n_split + split;
-#pragma unroll
-    for (int i = 0; i < DCOL; ++i) {
-      const int d = threadIdx.x + i * THREADS;
-      if (d < dl) part_acc[part * dl + d] = acc[r][i];
-    }
-    if (threadIdx.x == 0) {
-      part_m[part] = s.m[r];
-      part_l[part] = s.l[r];
-    }
-  }
-}
-
-// Grid (B * H).  Merges the splits in order: shift every split to the
-// largest running max and normalize once.  Empty splits (m = NEG_INF,
-// l = 0, acc = 0) add exact zeros.
-__global__ void __launch_bounds__(THREADS) mla_merge_kernel(
-    const float* __restrict__ part_acc, const float* __restrict__ part_m,
-    const float* __restrict__ part_l, float* __restrict__ out, int dl,
-    int n_split) {
-  const size_t bh = blockIdx.x;
-  float mg = NEG_INF;
-  for (int sp = 0; sp < n_split; ++sp)
-    mg = fmaxf(mg, part_m[bh * n_split + sp]);
-  for (int d = threadIdx.x; d < dl; d += THREADS) {
-    float num = 0.f, den = 0.f;
-    for (int sp = 0; sp < n_split; ++sp) {
-      const size_t ps = bh * n_split + sp;
-      const float w = expf(part_m[ps] - mg);
-      num += w * part_acc[ps * dl + d];
-      den += w * part_l[ps];
-    }
-    out[bh * dl + d] = num / fmaxf(den, 1e-30f);
-  }
-}
-
-// ------------------------------------------------------------------ extend
-//
-// mla_extend_kernel: tensor cores, mma.sync m16n8k16 with bf16 operands and
-// fp32 sums, held to the fp32 plain version (see the note at the top).
 
 constexpr int EX_ROWS = 32;      // query rows a block: 32 heads of one token
 constexpr int EX_KEYS = 32;      // keys a tile
@@ -458,6 +105,8 @@ constexpr int EX_MAX_W = 576;    // padded latent + rope width
 constexpr int EX_NQ = 16;        // 8-column value tiles a warp (128 columns)
 constexpr int EX_SPP = 40;       // partial-score row pitch (floats)
 constexpr int EX_PP = 80;        // P term row pitch (bytes): 32 keys + 16
+constexpr int DEC_SPLITS = 8;    // a decode request's splits, at most
+constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.44269504088896341f;
 
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
@@ -555,8 +204,8 @@ __device__ __forceinline__ uint32_t lvl2x2_bf16(uint32_t w, int k) {
   return __byte_perm(0x3F3EBEBFu, 0x80808080u, sel);
 }
 
-// Shared-memory layout of the extend, in bytes from the start; the kernel
-// and the launcher carve it with the same function.
+// Shared-memory layout of mla_attend_kernel, in bytes from the start; the
+// kernel and the launchers carve it with the same function.
 struct ExLayout {
   int dlp, drp, dw, qp, cbp, rbp;
   int qs, kb, ring, spart, scl, rows, bar, total;
@@ -580,6 +229,19 @@ __host__ __device__ inline ExLayout ex_layout(int dl, int dr, int cb, int rb) {
   g.bar = g.rows + 2 * 4 * EX_ROWS * 4;        // 8-byte aligned
   g.total = g.bar + 5 * 8;
   return g;
+}
+
+// A decode request's splits (dec_plan): its last visible key lim (pos, at
+// most max_key: the flat cache's last row or the table's last key), its n
+// = lim / EX_KEYS + 1 live key tiles in runs of tps = ceil(n / DEC_SPLITS)
+// tiles (1 while n <= DEC_SPLITS); returns the number of runs.  While pos
+// <= max_key, a function of pos alone.
+__host__ __device__ inline int dec_plan(int pos, int max_key, int* lim,
+                                        int* tps) {
+  *lim = pos < max_key ? pos : max_key;
+  const int n = *lim < 0 ? 0 : *lim / EX_KEYS + 1;
+  *tps = n > DEC_SPLITS ? (n + DEC_SPLITS - 1) / DEC_SPLITS : 1;
+  return (n + *tps - 1) / *tps;
 }
 
 // Grid (Lp).  The chunk's own fp32 latents [c | r] -> their three bf16
@@ -625,31 +287,53 @@ __global__ void __launch_bounds__(128) mla_own_terms_kernel(
   }
 }
 
-// Grid (ceil(H / EX_ROWS), L); block (hb, y) takes heads hb·32 .. +31 of
-// chunk token L - 1 - y (the longest causal rows first).  ql (L, H, dl), qr
-// (L, H, dr) fp32 scaled; c_new (L, dl), r_new (L, dr) fp32 and own, their
-// terms from mla_own_terms_kernel; pools as in the paged decode (cb / rb
-// code bytes a row), tbl (n_past,) full past pages; out (L, H, dl) fp32,
-// normalized.  unit: 16 when every code row start allows bulk copies, else
-// the cp.async size (4; 1 for plain byte copies).
-//
+// The most splits a decode request over `keys` cache rows takes.
+__host__ __device__ inline int dec_max_splits(long long keys) {
+  const long long n = (keys + EX_KEYS - 1) / EX_KEYS;
+  return n < DEC_SPLITS ? (int)n : DEC_SPLITS;
+}
+
+// The arguments of mla_attend_kernel.  Queries (tokens, H, dl | dr) fp32,
+// the attention scale folded in (a token: a chunk token in the extend, a
+// request in the decode).  Pools as the codec stores them: cq / rq code
+// rows of cb / rb bytes, cs / rs bf16 scales, one a `chunk` rows.  unit: 16
+// when every code row start allows bulk copies, else the cp.async size (4;
+// 1 for plain byte copies).
+struct AttendArgs {
+  const float* ql;
+  const float* qr;
+  const __nv_bfloat16* own;  // extend: the own latents' terms and their
+  const int* own_nz;         // non-zero flags (mla_own_terms_kernel)
+  const char* cq;
+  const __nv_bfloat16* cs;
+  const char* rq;
+  const __nv_bfloat16* rs;
+  const int* tbl;  // extend (n_past,) full pages; decode (B, n_tiles), or
+                   // nullptr for a flat cache (B, S, ·), scales (B, SR)
+  const int* pos;  // decode (B,): each request's last key
+  float* out;      // extend (L, H, dl) normalized; decode the split rows'
+                   // raw acc (B, H, n_split, dl)
+  float* part_m;   // decode (B, H, n_split): their max and sum
+  float* part_l;
+  int H, dl, dr, page, chunk, kv_bits, cb, rb, unit;
+  int L, n_past;                // extend
+  int S, SR, n_tiles, n_split;  // decode (page: the page or flat tile)
+};
+
 // Warps 0-7 compute; warps 8-11 produce the key tiles the computing warps
 // consume, in a fixed sequence of stages: one a past tile (its codes
-// widened into a key tile, its scales beside it), 2n - 1 an own tile with
-// n key terms that are not all zero (terms 0, 1, 2, then 1, 0 for P.V at
-// n = 3; the last term serves the first P.V round too).  Stage s fills key
-// tile s % 2; full[b] / empty[b] hand tile b over and back, so the
-// producers widen the next tile while the others compute on this one.
-__global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
-    const float* __restrict__ ql, const float* __restrict__ qr,
-    const float* __restrict__ c_new, const float* __restrict__ r_new,
-    const __nv_bfloat16* __restrict__ own, const int* __restrict__ own_nz,
-    const char* __restrict__ cq, const __nv_bfloat16* __restrict__ cs,
-    const char* __restrict__ rq, const __nv_bfloat16* __restrict__ rs,
-    const int* __restrict__ tbl, int n_past, float* __restrict__ out, int H,
-    int L, int dl, int dr, int page, int chunk, int kv_bits, int cb, int rb,
-    int unit) {
+// widened into a key tile, its scales beside it), and in the extend 2n - 1
+// an own tile with n key terms that are not all zero (terms 0, 1, 2, then
+// 1, 0 for P.V at n = 3; the last term serves the first P.V round too).
+// Stage s fills key tile s % 2; full[b] / empty[b] hand tile b over and
+// back, so the producers widen the next tile while the others compute on
+// this one.
+template <bool DEC>
+__global__ void __launch_bounds__(EX_BLOCK, 1) mla_attend_kernel(
+    const AttendArgs a) {
   extern __shared__ __align__(16) char smem[];
+  const int H = a.H, dl = a.dl, dr = a.dr, chunk = a.chunk;
+  const int kv_bits = a.kv_bits, cb = a.cb, rb = a.rb;
   const ExLayout g = ex_layout(dl, dr, cb, rb);
   char* qs = smem + g.qs;      // [term][row][dw] bf16, pitch qp
   char* kbs = smem + g.kb;     // [tile][key][dw] bf16 (one term), pitch qp
@@ -672,20 +356,42 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
   const int rg = warp & 1, qd = warp >> 1;  // row group, quarter
   const int gid = lane >> 2, tq = lane & 3;
   const int h0 = blockIdx.x * EX_ROWS;
-  const int tok = L - 1 - blockIdx.y;
-  const int np_keys = n_past * page;
+  // the block's query token and its past keys key0 .. key0 + np_keys - 1:
+  // key k is row k % page of page tbl[k / page] (flat: of the request's
+  // rows, one page of S), its scale row pid·spp + k % page / chunk
+  int tok, key0, np_keys, split = 0, page = a.page, spp = a.page / chunk;
+  const int* tbl = a.tbl;
+  if constexpr (DEC) {
+    tok = blockIdx.z;
+    split = blockIdx.y;
+    int lim, tps;
+    const int max_key = tbl ? a.n_tiles * a.page - 1 : a.S - 1;
+    if (split >= dec_plan(a.pos[tok], max_key, &lim, &tps)) return;
+    key0 = split * tps * EX_KEYS;
+    np_keys = min(key0 + tps * EX_KEYS, lim + 1) - key0;
+    if (tbl) {
+      tbl += (size_t)tok * a.n_tiles;
+    } else {
+      page = a.S;
+      spp = a.SR;
+    }
+  } else {
+    tok = a.L - 1 - blockIdx.y;  // the longest causal rows first
+    key0 = 0;
+    np_keys = a.n_past * a.page;
+  }
   const int n_pt = (np_keys + EX_KEYS - 1) / EX_KEYS;
-  const int n_t = n_pt + tok / EX_KEYS + 1;
+  const int n_t = DEC ? n_pt : n_pt + tok / EX_KEYS + 1;
   const int tile_bytes = EX_KEYS * g.qp;
-  const int Lp = (L + EX_KEYS - 1) / EX_KEYS * EX_KEYS;
+  const int Lp = (a.L + EX_KEYS - 1) / EX_KEYS * EX_KEYS;
   // own tile o's key terms, in order (term 0 always; 1 and 2 where not all
   // zero): n of them, then its stages are those terms for Q.K^T and the
   // same but the last again in reverse for P.V, 2n - 1 in all
   auto own_terms = [&](int o, int (&term)[EX_TERMS]) {
     int n = 0;
     term[n++] = 0;
-    if (own_nz[o]) term[n++] = 1;
-    if (own_nz[Lp / EX_KEYS + o]) term[n++] = 2;
+    if (a.own_nz[o]) term[n++] = 1;
+    if (a.own_nz[Lp / EX_KEYS + o]) term[n++] = 2;
     return n;
   };
 
@@ -701,7 +407,7 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
 
   if (producer) {
     const bool meta = ptid < 32;  // the first producer warp: lane = key row
-    const bool bulk = unit == 16;
+    const bool bulk = a.unit == 16;
     // key row `lane` of a past tile: its page id and scales (bf16, widened
     // only when put), loaded a tile ahead of their use
     struct Meta {
@@ -712,11 +418,11 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
       const int key = t * EX_KEYS + lane;
       Meta m{0, __float2bfloat16(0.f), __float2bfloat16(0.f)};
       if (key < np_keys) {
-        m.pid = tbl[key / page];
-        const size_t srow =
-            (size_t)m.pid * (page / chunk) + key % page / chunk;
-        m.sc = cs[srow];
-        m.sr = rs[srow];
+        const int k = key0 + key;
+        m.pid = tbl ? tbl[k / page] : tok;
+        const size_t srow = (size_t)m.pid * spp + k % page / chunk;
+        m.sc = a.cs[srow];
+        m.sr = a.rs[srow];
       }
       return m;
     };
@@ -724,32 +430,33 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
     // past tile t's c and r code rows -> the ring (first producer warp;
     // pid: the page id of key row lane)
     auto issue = [&](int t, int pid) {
-      const int k0 = t * EX_KEYS, n_live = min(EX_KEYS, np_keys - k0);
+      const int k = key0 + t * EX_KEYS;
+      const int n_live = min(EX_KEYS, np_keys - t * EX_KEYS);
       if (bulk) {  // lane i: the tile's keys on its (i+1)-th page, a run of
                    // contiguous c rows and one of r rows (cbp = cb)
-        const int p0 = k0 / page, runs = (k0 + n_live - 1) / page - p0 + 1;
-        const int a = max(k0, (p0 + lane) * page);
-        const int b = min(k0 + n_live, (p0 + lane + 1) * page);
-        const int run_pid = __shfl_sync(0xffffffffu, pid, min(a - k0, 31));
+        const int p0 = k / page, runs = (k + n_live - 1) / page - p0 + 1;
+        const int ra = max(k, (p0 + lane) * page);
+        const int rb_ = min(k + n_live, (p0 + lane + 1) * page);
+        const int run_pid = __shfl_sync(0xffffffffu, pid, min(ra - k, 31));
         fence_proxy_async();
         if (lane == 0) mbar_expect(ring_bar, n_live * (cb + rb));
         __syncwarp();
         if (lane < runs) {
-          const long long row = (long long)run_pid * page + a % page;
-          bulk_copy(ring + (a - k0) * cb, cq + row * cb, (b - a) * cb,
+          const long long row = (long long)run_pid * page + ra % page;
+          bulk_copy(ring + (ra - k) * cb, a.cq + row * cb, (rb_ - ra) * cb,
                     ring_bar);
-          bulk_copy(ring + EX_KEYS * cb + (a - k0) * rb, rq + row * rb,
-                    (b - a) * rb, ring_bar);
+          bulk_copy(ring + EX_KEYS * cb + (ra - k) * rb, a.rq + row * rb,
+                    (rb_ - ra) * rb, ring_bar);
         }
       } else if (lane < n_live) {  // lane r: key row r, unit by unit
-        const long long row = (long long)pid * page + (k0 + lane) % page;
-        const char* src[2] = {cq + row * cb, rq + row * rb};
+        const long long row = (long long)pid * page + (k + lane) % page;
+        const char* src[2] = {a.cq + row * cb, a.rq + row * rb};
         char* dst[2] = {ring + lane * g.cbp,
                         ring + EX_KEYS * g.cbp + lane * g.rbp};
         const int bytes[2] = {cb, rb};
         for (int m = 0; m < 2; ++m)
-          for (int u = 0; u < bytes[m]; u += unit) {
-            if (unit == 4)
+          for (int u = 0; u < bytes[m]; u += a.unit) {
+            if (a.unit == 4)
               cp_async4(dst[m] + u, src[m] + u);
             else
               dst[m][u] = src[m][u];
@@ -757,10 +464,10 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
         cp_async_commit();
       }
     };
-    // the ring -> key tile kbuf, exact, no scale; keys past the pages and
-    // columns past dl / dr zero.  Producer thread ptid takes key row ptid / 4
-    // and its 16-dim items ptid % 4 + 4k (a row has dw / 16 <= 36), five
-    // ring loads in flight at a time
+    // the ring -> key tile kbuf, exact, no scale; keys past the live ones
+    // and columns past dl / dr zero.  Producer thread ptid takes key row
+    // ptid / 4 and its 16-dim items ptid % 4 + 4k (a row has dw / 16 <=
+    // 36), five ring loads in flight at a time
     const int nq16 = g.dw / 16, ncq16 = g.dlp / 16;
     auto widen = [&](int t, char* kbuf) {
       const int r = ptid >> 2, n_live = min(EX_KEYS, np_keys - t * EX_KEYS);
@@ -847,7 +554,8 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
           if (t + 2 < n_pt) nxt = load_meta(t + 2);
         }
         ++s;
-      } else {  // own keys j0 .. j0 + 31: their terms, then back
+      } else if constexpr (!DEC) {  // own keys j0 .. j0 + 31: their terms,
+                                    // then back
         const int j0 = (t - n_pt) * EX_KEYS;
         int terms[EX_TERMS];
         const int n = own_terms(t - n_pt, terms);
@@ -858,7 +566,7 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
             fence_proxy_async();
             mbar_expect(&full[b], tile_bytes);
             bulk_copy(kbs + b * tile_bytes,
-                      own + ((size_t)term * Lp + j0) * (g.qp / 2),
+                      a.own + ((size_t)term * Lp + j0) * (g.qp / 2),
                       tile_bytes, &full[b]);
           }
         }
@@ -880,7 +588,7 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
   // when the widths and row starts allow (vec)
   const bool vec =
       dl % 4 == 0 && dr % 4 == 0 &&
-      ((reinterpret_cast<uintptr_t>(ql) | reinterpret_cast<uintptr_t>(qr)) &
+      ((reinterpret_cast<uintptr_t>(a.ql) | reinterpret_cast<uintptr_t>(a.qr)) &
        15) == 0;
   auto load4 = [&](const float* c_row, const float* r_row, int q) {
     const bool lat = 4 * q < g.dlp;
@@ -899,8 +607,8 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
     const int r = tid >> 3, h = h0 + r;
     const bool ok = h < H;
     const size_t qrow = (size_t)tok * H + (ok ? h : 0);
-    const float* c_row = ql + qrow * dl;
-    const float* r_row = qr + qrow * dr;
+    const float* c_row = a.ql + qrow * dl;
+    const float* r_row = a.qr + qrow * dr;
     const int nq4 = g.dw / 4;
 #pragma unroll 1
     for (int k0 = 0; k0 < EX_MAX_W / 32; k0 += 6) {
@@ -915,13 +623,13 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
       for (int k = 0; k < 6; ++k) {
         const int q = (tid & 7) + 8 * (k0 + k);
         if (q < nq4) {
-          uint32_t a[3], b[3];
-          split3(v[k].x, v[k].y, a);
-          split3(v[k].z, v[k].w, b);
+          uint32_t ta[3], tb[3];
+          split3(v[k].x, v[k].y, ta);
+          split3(v[k].z, v[k].w, tb);
 #pragma unroll
           for (int i = 0; i < EX_TERMS; ++i)
             *reinterpret_cast<uint2*>(qs + (i * EX_ROWS + r) * g.qp + 8 * q) =
-                make_uint2(a[i], b[i]);
+                make_uint2(ta[i], tb[i]);
         }
       }
     }
@@ -955,11 +663,11 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
 #pragma unroll
       for (int k = EX_TERMS - 1; k >= 0; --k) {
         if (k < nq) {
-          uint32_t a[4];
-          ldsm4(a, qa_base + k * EX_ROWS * g.qp + 32 * s);
+          uint32_t af[4];
+          ldsm4(af, qa_base + k * EX_ROWS * g.qp + 32 * s);
 #pragma unroll
           for (int n = 0; n < 4; ++n)
-            mma_bf16(st[n], a, b[n >> 1][2 * (n & 1)],
+            mma_bf16(st[n], af, b[n >> 1][2 * (n & 1)],
                      b[n >> 1][2 * (n & 1) + 1]);
         }
       }
@@ -1012,15 +720,15 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          float* a = acc[n0 + i];
+          float* ac = acc[n0 + i];
           if (first) {
-            a[0] = fmaf(a[0], al_a, o[i][0]);
-            a[1] = fmaf(a[1], al_a, o[i][1]);
-            a[2] = fmaf(a[2], al_b, o[i][2]);
-            a[3] = fmaf(a[3], al_b, o[i][3]);
+            ac[0] = fmaf(ac[0], al_a, o[i][0]);
+            ac[1] = fmaf(ac[1], al_a, o[i][1]);
+            ac[2] = fmaf(ac[2], al_b, o[i][2]);
+            ac[3] = fmaf(ac[3], al_b, o[i][3]);
           } else {
 #pragma unroll
-            for (int e = 0; e < 4; ++e) a[e] += o[i][e];
+            for (int e = 0; e < 4; ++e) ac[e] += o[i][e];
           }
         }
       }
@@ -1039,9 +747,9 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
   int s = 0;  // stage
 #pragma unroll 1
   for (int t = 0; t < n_t; ++t) {
-    const bool past = t < n_pt;
+    const bool past = DEC || t < n_pt;
     const int j0 = past ? t * EX_KEYS : (t - n_pt) * EX_KEYS;
-    const int n_live = min(EX_KEYS, (past ? np_keys : L) - j0);
+    const int n_live = min(EX_KEYS, (past ? np_keys : a.L) - j0);
     // this warp's partial scores, c and r steps apart (their scales differ)
     float tc[4][4], tr[4][4];
 #pragma unroll
@@ -1208,6 +916,9 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
     }
   }
 
+  // extend: normalized rows; decode: this split's raw rows (acc, and each
+  // row's max and sum, from the first quarter's warps)
+  const size_t row0 = (size_t)tok * H;
 #pragma unroll
   for (int n = 0; n < EX_NQ; ++n) {
     const int col = 8 * (v0 + n) + 2 * tq;
@@ -1216,58 +927,156 @@ __global__ void __launch_bounds__(EX_BLOCK, 1) mla_extend_kernel(
       for (int e = 0; e < 4; ++e) {
         const int h = h0 + 16 * rg + gid + (e < 2 ? 0 : 8);
         const int c = col + (e & 1);
-        if (h < H && c < dl)
-          out[((size_t)tok * H + h) * dl + c] =
-              acc[n][e] / fmaxf(e < 2 ? l_a : l_b, 1e-30f);
+        if (h < H && c < dl) {
+          if constexpr (DEC)
+            a.out[((row0 + h) * a.n_split + split) * dl + c] = acc[n][e];
+          else
+            a.out[(row0 + h) * dl + c] =
+                acc[n][e] / fmaxf(e < 2 ? l_a : l_b, 1e-30f);
+        }
+      }
+    }
+  }
+  if constexpr (DEC) {
+    if (qd == 0 && tq == 0) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int h = h0 + 16 * rg + gid + 8 * e;
+        if (h < H) {
+          const size_t part = (row0 + h) * a.n_split + split;
+          a.part_m[part] = e ? m_b : m_a;
+          a.part_l[part] = e ? l_b : l_a;
+        }
       }
     }
   }
 }
 
-// dot length and padded shared-memory row of [q|k] rows of dl + dr values:
-// a row stride of 4 mod 32 floats puts 8 consecutive rows' float4 reads on
-// distinct banks
-void row_geometry(int dl, int dr, int* dw4, int* ld) {
-  const int dw = dl + dr;
-  *dw4 = (dw + 3) / 4 * 4;
-  *ld = (dw + 31) / 32 * 32 + 4;
+// Grid (B * H).  Adds each (request, head)'s split rows in order: each
+// shifted to the largest max, then normalized once; a request's splits
+// from dec_plan, as the attend kernel took them.  A thread's loads of all
+// (at most DEC_SPLITS) splits are issued together.
+__global__ void __launch_bounds__(256) mla_merge_kernel(
+    const float* __restrict__ part_acc, const float* __restrict__ part_m,
+    const float* __restrict__ part_l, const int* __restrict__ pos,
+    float* __restrict__ out, int H, int dl, int n_split, int max_key) {
+  const size_t bh = blockIdx.x;
+  int lim, tps;
+  const int ns = dec_plan(pos[bh / H], max_key, &lim, &tps);
+  const float* pm = part_m + bh * n_split;
+  const float* pl = part_l + bh * n_split;
+  float m[DEC_SPLITS], l[DEC_SPLITS], w[DEC_SPLITS];
+  float mg = NEG_INF, den = 0.f;
+#pragma unroll
+  for (int sp = 0; sp < DEC_SPLITS; ++sp) {
+    m[sp] = sp < ns ? pm[sp] : NEG_INF;
+    l[sp] = sp < ns ? pl[sp] : 0.f;
+    mg = fmaxf(mg, m[sp]);
+  }
+#pragma unroll
+  for (int sp = 0; sp < DEC_SPLITS; ++sp) {
+    w[sp] = exp2f((m[sp] - mg) * LOG2E);
+    if (sp < ns) den += w[sp] * l[sp];
+  }
+  for (int d = threadIdx.x; d < dl; d += blockDim.x) {
+    float x[DEC_SPLITS];
+#pragma unroll
+    for (int sp = 0; sp < DEC_SPLITS; ++sp)
+      x[sp] = sp < ns ? part_acc[(bh * n_split + sp) * dl + d] : 0.f;
+    float num = 0.f;
+#pragma unroll
+    for (int sp = 0; sp < DEC_SPLITS; ++sp)
+      if (sp < ns) num += w[sp] * x[sp];
+    out[bh * dl + d] = num / fmaxf(den, 1e-30f);
+  }
+}
+
+// The latent and rope widths the kernel takes: dl within the value tiles
+// of four quarters, both (each padded to 16) within a key-tile row.
+bool widths_ok(int dl, int dr) {
+  return dl <= EX_NQ * 8 * 4 && ((dl + 15) & ~15) + ((dr + 15) & ~15) <= EX_MAX_W;
+}
+
+// The code-row copy unit: 16 (bulk copies) when every row start is 16-byte
+// aligned, else 4 (cp.async), else 1.
+int copy_unit(const void* cq, const void* rq, int cb, int rb) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(cq) |
+                      reinterpret_cast<uintptr_t>(rq);
+  return (cb % 16 == 0 && rb % 16 == 0 && a % 16 == 0) ? 16
+         : (cb % 4 == 0 && rb % 4 == 0 && a % 4 == 0)  ? 4
+                                                       : 1;
 }
 
 }  // namespace
 
+// The scratch that mla_decode_launch takes for B requests over `keys`
+// cache rows a request (the flat cache's S, or the table's width x the
+// page), in fp32 elements (its one owner; the caller allocates it):
+// part_acc (B, H, n_split, dl) and part_m / part_l (B, H, n_split),
+// n_split = dec_max_splits(keys).  cudaErrorInvalidValue for widths the
+// kernel does not take.
+extern "C" int mla_decode_scratch(int B, int H, int dl, int dr,
+                                  long long keys, long long* acc,
+                                  long long* ml) {
+  if (!widths_ok(dl, dr) || keys < 1) return (int)cudaErrorInvalidValue;
+  *ml = (long long)B * H * dec_max_splits(keys);
+  *acc = *ml * dl;
+  return 0;
+}
+
+// ql (B, H, dl), qr (B, H, dr) fp32 scaled.  Flat (tbl == nullptr): cq (B,
+// S, wc), cs (B, SR), rq (B, S, wr), rs (B, SR), tile a multiple of chunk.
+// Paged: cq (n_pages, tile, wc), cs (n_pages, tile / chunk), ..., tbl (B,
+// n_tiles).  pos (B,).
+// part_acc, part_m, part_l: scratch of the sizes mla_decode_scratch gives;
+// out (B, H, dl) fp32, normalized.
 extern "C" int mla_decode_launch(
     const float* ql, const float* qr, const void* cq, const void* cs,
     const void* rq, const void* rs, const int* pos, const int* tbl,
     float* part_acc, float* part_m, float* part_l, float* out, int B, int H,
     int dl, int dr, int S, int SR, int n_tiles, int tile, int chunk,
-    int kv_bits, int wc, int wr, int tiles_per_split, int n_split,
-    void* stream) {
-  if (dl > DCOL * THREADS || dl + dr > 2 * THREADS ||
-      (kv_bits != 8 && kv_bits != 2))
+    int kv_bits, int wc, int wr, void* stream) {
+  if (!widths_ok(dl, dr) || (kv_bits != 8 && kv_bits != 2) || n_tiles < 1 ||
+      tile < 1 || chunk < 1 || tile % chunk)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  int dw4, ld;
-  row_geometry(dl, dr, &dw4, &ld);
-  const size_t smem = smem_bytes(ld);
-  int err = allow_smem((const void*)mla_decode_kernel, smem);
+  const int esz = kv_bits == 8 ? 1 : 4;
+  AttendArgs a{};
+  a.ql = ql;
+  a.qr = qr;
+  a.cq = (const char*)cq;
+  a.cs = (const __nv_bfloat16*)cs;
+  a.rq = (const char*)rq;
+  a.rs = (const __nv_bfloat16*)rs;
+  a.tbl = tbl;
+  a.pos = pos;
+  a.out = part_acc;
+  a.part_m = part_m;
+  a.part_l = part_l;
+  a.H = H;
+  a.dl = dl;
+  a.dr = dr;
+  a.page = tile;
+  a.chunk = chunk;
+  a.kv_bits = kv_bits;
+  a.cb = wc * esz;
+  a.rb = wr * esz;
+  a.unit = copy_unit(cq, rq, a.cb, a.rb);
+  a.S = S;
+  a.SR = SR;
+  a.n_tiles = n_tiles;
+  const long long keys = tbl ? (long long)n_tiles * tile : S;
+  a.n_split = dec_max_splits(keys);
+  const ExLayout g = ex_layout(dl, dr, a.cb, a.rb);
+  int err = allow_smem((const void*)mla_attend_kernel<true>, g.total);
   if (err) return err;
-  const dim3 grid(n_split, (H + QR - 1) / QR, B);
-  mla_decode_kernel<<<grid, THREADS, smem, st>>>(
-      ql, qr, (const char*)cq, (const __nv_bfloat16*)cs, (const char*)rq,
-      (const __nv_bfloat16*)rs, pos, tbl, part_acc, part_m, part_l, H, dl,
-      dr, S, SR, n_tiles, tile, chunk, kv_bits, wc, wr, tiles_per_split,
-      n_split, dw4, ld);
+  const dim3 grid((H + EX_ROWS - 1) / EX_ROWS, a.n_split, B);
+  mla_attend_kernel<true><<<grid, EX_BLOCK, g.total, st>>>(a);
   err = (int)cudaGetLastError();
   if (err) return err;
-  mla_merge_kernel<<<B * H, THREADS, 0, st>>>(part_acc, part_m, part_l, out,
-                                               dl, n_split);
+  mla_merge_kernel<<<B * H, 256, 0, st>>>(
+      part_acc, part_m, part_l, pos, out, H, dl, a.n_split, (int)keys - 1);
   return (int)cudaGetLastError();
-}
-
-// The extend's latent and rope widths: dl within the value tiles of four
-// quarters, both (each padded to 16) within a key-tile row.
-static bool ex_widths_ok(int dl, int dr) {
-  return dl <= EX_NQ * 8 * 4 && ((dl + 15) & ~15) + ((dr + 15) & ~15) <= EX_MAX_W;
 }
 
 // The scratch that mla_extend_launch takes for an L-token chunk, in
@@ -1277,32 +1086,51 @@ static bool ex_widths_ok(int dl, int dr) {
 // by the caller.  cudaErrorInvalidValue for widths the extend does not take.
 extern "C" int mla_extend_scratch(int L, int dl, int dr, long long* own,
                                   long long* own_nz) {
-  if (!ex_widths_ok(dl, dr)) return (int)cudaErrorInvalidValue;
+  if (!widths_ok(dl, dr)) return (int)cudaErrorInvalidValue;
   const long long tiles = (L + EX_KEYS - 1) / EX_KEYS;
   *own = EX_TERMS * tiles * EX_KEYS * (ex_layout(dl, dr, 0, 0).qp / 2);
   *own_nz = 2 * tiles;
   return 0;
 }
 
-// own, own_nz: scratch of the sizes mla_extend_scratch gives.
+// ql (L, H, dl), qr (L, H, dr) fp32 scaled; c_new (L, dl), r_new (L, dr)
+// fp32, the chunk's own latents; own, own_nz: scratch of the sizes
+// mla_extend_scratch gives; pools as in the paged decode, tbl (n_past,)
+// full past pages; out (L, H, dl) fp32, normalized.
 extern "C" int mla_extend_launch(
     const float* ql, const float* qr, const float* c_new, const float* r_new,
     void* own, int* own_nz, const void* cq, const void* cs, const void* rq,
     const void* rs, const int* tbl, int n_past, float* out, int H, int L,
     int dl, int dr, int page, int chunk, int kv_bits, int wc, int wr,
     void* stream) {
-  if (!ex_widths_ok(dl, dr) || (kv_bits != 8 && kv_bits != 2))
+  if (!widths_ok(dl, dr) || (kv_bits != 8 && kv_bits != 2))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   const int esz = kv_bits == 8 ? 1 : 4;
-  const int cb = wc * esz, rb = wr * esz;
-  const uintptr_t a = reinterpret_cast<uintptr_t>(cq) |
-                      reinterpret_cast<uintptr_t>(rq);
-  const int unit = (cb % 16 == 0 && rb % 16 == 0 && a % 16 == 0) ? 16
-                   : (cb % 4 == 0 && rb % 4 == 0 && a % 4 == 0)   ? 4
-                                                                  : 1;
-  const ExLayout g = ex_layout(dl, dr, cb, rb);
-  int err = allow_smem((const void*)mla_extend_kernel, g.total);
+  AttendArgs a{};
+  a.ql = ql;
+  a.qr = qr;
+  a.own = (const __nv_bfloat16*)own;
+  a.own_nz = own_nz;
+  a.cq = (const char*)cq;
+  a.cs = (const __nv_bfloat16*)cs;
+  a.rq = (const char*)rq;
+  a.rs = (const __nv_bfloat16*)rs;
+  a.tbl = tbl;
+  a.out = out;
+  a.H = H;
+  a.dl = dl;
+  a.dr = dr;
+  a.page = page;
+  a.chunk = chunk;
+  a.kv_bits = kv_bits;
+  a.cb = wc * esz;
+  a.rb = wr * esz;
+  a.unit = copy_unit(cq, rq, a.cb, a.rb);
+  a.L = L;
+  a.n_past = n_past;
+  const ExLayout g = ex_layout(dl, dr, a.cb, a.rb);
+  int err = allow_smem((const void*)mla_attend_kernel<false>, g.total);
   if (err) return err;
   const int Lp = (L + EX_KEYS - 1) / EX_KEYS * EX_KEYS;
   mla_own_terms_kernel<<<Lp, 128, 0, st>>>(c_new, r_new,
@@ -1311,10 +1139,6 @@ extern "C" int mla_extend_launch(
   err = (int)cudaGetLastError();
   if (err) return err;
   const dim3 grid((H + EX_ROWS - 1) / EX_ROWS, L);
-  mla_extend_kernel<<<grid, EX_BLOCK, g.total, st>>>(
-      ql, qr, c_new, r_new, (const __nv_bfloat16*)own, own_nz,
-      (const char*)cq, (const __nv_bfloat16*)cs, (const char*)rq,
-      (const __nv_bfloat16*)rs, tbl, n_past, out, H, L, dl, dr, page, chunk,
-      kv_bits, cb, rb, unit);
+  mla_attend_kernel<false><<<grid, EX_BLOCK, g.total, st>>>(a);
   return (int)cudaGetLastError();
 }

@@ -11,10 +11,9 @@ import torch
 
 from repro_torch.kernels import build
 
-TILES_PER_SPLIT = 4  # MLA decode: tiles one block walks (a fixed run)
 MAX_G = 16  # query heads per KV head
 MAX_D = 256  # head dim
-MLA_MAX_DL = 512  # MLA latent width (one column per thread of 512)
+MLA_MAX_DL = 512  # MLA latent width (four warps of 128 value columns)
 
 
 def _decode_fn():
@@ -90,7 +89,14 @@ def flash_extend_cuda(q, k_new, v_new, kq, ks, vq, vs, tbl, *, kv_bits: int,
 
 def _mla_decode_fn():
     fn = build.library("mla_decode").mla_decode_launch
-    fn.argtypes = [build.P] * 12 + [build.I] * 14 + [build.P]
+    fn.argtypes = [build.P] * 12 + [build.I] * 12 + [build.P]
+    fn.restype = build.I
+    return fn
+
+
+def _mla_decode_scratch_fn():
+    fn = build.library("mla_decode").mla_decode_scratch
+    fn.argtypes = [build.I] * 4 + [ctypes.c_longlong] + [build.P] * 2
     fn.restype = build.I
     return fn
 
@@ -118,11 +124,19 @@ def mla_decode_cuda(ql, qr, cq, cs, rq, rs, pos, tbl, *, kv_bits: int,
     for a flat cache of ``seq_len`` rows."""
     b, h, dl = ql.shape
     dr = qr.shape[-1]
-    n_split = -(-n_tiles // TILES_PER_SPLIT)
+    # the split rows' scratch, of the sizes the library gives (it plans the
+    # splits: mla_decode_scratch lays them out)
+    n_acc, n_ml = ctypes.c_longlong(), ctypes.c_longlong()
+    keys = seq_len if tbl is None else n_tiles * tile  # a request's rows
+    if _mla_decode_scratch_fn()(b, h, dl, dr, keys, ctypes.byref(n_acc),
+                                ctypes.byref(n_ml)):
+        raise ValueError(f"mla_flash_decode: latent width {dl} and rope "
+                         f"width {dr} are wider than the decode kernel "
+                         f"takes")
     f32 = dict(dtype=torch.float32, device=ql.device)
-    part_acc = torch.empty((b, h, n_split, dl), **f32)
-    part_m = torch.empty((b, h, n_split), **f32)
-    part_l = torch.empty((b, h, n_split), **f32)
+    part_acc = torch.empty(n_acc.value, **f32)
+    part_m = torch.empty(n_ml.value, **f32)
+    part_l = torch.empty(n_ml.value, **f32)
     out = torch.empty((b, h, dl), **f32)
     err = _mla_decode_fn()(
         ql.data_ptr(), qr.data_ptr(), cq.data_ptr(), cs.data_ptr(),
@@ -130,8 +144,7 @@ def mla_decode_cuda(ql, qr, cq, cs, rq, rs, pos, tbl, *, kv_bits: int,
         None if tbl is None else tbl.data_ptr(), part_acc.data_ptr(),
         part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(), b, h, dl, dr,
         seq_len, cs.shape[1], n_tiles, tile, chunk, kv_bits, cq.shape[-1],
-        rq.shape[-1], TILES_PER_SPLIT, n_split,
-        torch.cuda.current_stream(ql.device).cuda_stream)
+        rq.shape[-1], torch.cuda.current_stream(ql.device).cuda_stream)
     build.check(err, "mla_flash_decode")
     return out
 

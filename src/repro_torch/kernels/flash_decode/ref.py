@@ -196,23 +196,26 @@ def paged_flash_extend_ref(tbl, q, k_new, v_new, kq, ks, vq, vs, *,
 
 
 def _mla_decode_tiles(ql, qr, tiles, n_tiles: int, tile: int, pos, *,
-                      kv_bits: int, chunk: int, dl: int, dr: int):
+                      kv_bits: int, chunk: int, dl: int, dr: int,
+                      dtype=torch.float32):
     """The tile loop shared by the flat and paged MLA decode versions.
 
     ql: (B, H, dl), qr: (B, H, dr); ``tiles(kk)`` -> (cc, csc, rc, rsc) of
     shapes (B, T, wc), (B, T // chunk), (B, T, wr), (B, T // chunk);
-    pos: (B,) int.  Returns fp32 (acc (B, H, dl), m, l (B, H, 1))."""
+    pos: (B,) int.  Returns ``dtype`` (acc (B, H, dl), m, l (B, H, 1))."""
     b, h, _ = ql.shape
-    qlf, qrf = ql.float(), qr.float()
+    qlf, qrf = ql.to(dtype), qr.to(dtype)
     px = pos.reshape(b, 1, 1)
     col = torch.arange(tile, device=ql.device)
-    acc = torch.zeros((b, h, dl), dtype=torch.float32, device=ql.device)
-    m = torch.full((b, h, 1), NEG_INF, device=ql.device)
-    l = torch.zeros((b, h, 1), device=ql.device)
+    acc = torch.zeros((b, h, dl), dtype=dtype, device=ql.device)
+    m = torch.full((b, h, 1), NEG_INF, dtype=dtype, device=ql.device)
+    l = torch.zeros((b, h, 1), dtype=dtype, device=ql.device)
     for kk in range(n_tiles):
         cc, csc, rc, rsc = tiles(kk)
-        c = dequant_kv(cc, csc, kv_bits=kv_bits, chunk=chunk, d=dl)
-        r = dequant_kv(rc, rsc, kv_bits=kv_bits, chunk=chunk, d=dr)
+        c = dequant_kv(cc, csc, kv_bits=kv_bits, chunk=chunk,
+                       d=dl).to(dtype)
+        r = dequant_kv(rc, rsc, kv_bits=kv_bits, chunk=chunk,
+                       d=dr).to(dtype)
         scores = (matmul(qlf, c.transpose(-1, -2))
                   + matmul(qrf, r.transpose(-1, -2)))      # (B, H, T)
         valid = (kk * tile + col) <= px
@@ -221,14 +224,17 @@ def _mla_decode_tiles(ql, qr, tiles, n_tiles: int, tile: int, pos, *,
 
 
 def mla_flash_decode_ref(ql, qr, cq, cs, rq, rs, pos, *, kv_bits: int,
-                         chunk: int, dl: int, dr: int, tile: int):
+                         chunk: int, dl: int, dr: int, tile: int,
+                         dtype=torch.float32):
     """MLA latent decode over a flat quantized cache -> raw partials.
 
     ql: (B, H, dl), qr: (B, H, dr) fp32 absorbed queries with the attention
     scale folded in; cq/rq: (B, S, w) codes (int8, or int32 words of 2-bit
     codes); cs/rs: (B, ceil(S / chunk)) bf16; pos: int, 0-d or (B,), the
-    last valid row.  A ragged S is padded and masked.  Returns fp32
-    ``(acc, m, l)``: (B, H, dl), (B, H, 1) x 2."""
+    last valid row.  A ragged S is padded and masked.  Returns ``(acc, m,
+    l)``: (B, H, dl), (B, H, 1) x 2, fp32 (the plain version), or float64
+    for the same function on the same dequantized inputs with its own
+    rounding out of the way."""
     b = ql.shape[0]
     n_tiles = -(-cq.shape[1] // tile)
     rows_c = tile // chunk
@@ -243,7 +249,8 @@ def mla_flash_decode_ref(ql, qr, cq, cs, rq, rs, pos, *, kv_bits: int,
                 rq[:, sl].contiguous(), rs[:, sc].contiguous())
 
     return _mla_decode_tiles(ql, qr, tiles, n_tiles, tile, px,
-                             kv_bits=kv_bits, chunk=chunk, dl=dl, dr=dr)
+                             kv_bits=kv_bits, chunk=chunk, dl=dl, dr=dr,
+                             dtype=dtype)
 
 
 def paged_mla_flash_decode_ref(tbl, pos, ql, qr, cq, cs, rq, rs, *,
@@ -419,9 +426,9 @@ def paged_flash_extend_emulated(tbl, q, k_new, v_new, kq, ks, vq, vs, *,
     return out.reshape(1, L, h, dv)
 
 
-# ------------------------------------- the MLA extend kernel's arithmetic
+# ---------------------------- the MLA extend and decode kernel's arithmetic
 #
-# ``mla_extend_kernel`` (csrc/mla_decode.cu) multiplies on the tensor cores
+# ``mla_attend_kernel`` (csrc/mla_decode.cu) multiplies on the tensor cores
 # in bf16 with fp32 sums.  Its exact operands are the codes (int8, 2-bit
 # levels); every fp32 operand (the queries, P, the chunk's own latents) is
 # split into three bf16 terms, and a product takes the term pairs (i, j)
@@ -429,7 +436,7 @@ def paged_flash_extend_emulated(tbl, q, k_new, v_new, kq, ks, vq, vs, *,
 # CPU for the tests (``tests/test_torch_mla_precision.py``); nothing on the
 # serving path calls it.
 
-MLA_TERMS = 3  # bf16 terms of an fp32 operand in mla_extend_kernel
+MLA_TERMS = 3  # bf16 terms of an fp32 operand in mla_attend_kernel
 LOG2E = 1.4426950408889634
 
 
@@ -525,3 +532,81 @@ def paged_mla_flash_extend_emulated(tbl, ql, qr, c_new, r_new, cq, cs, rq,
         acc = acc * alpha + _pair_product(bf16_split(pv, p_terms), v_terms)
         m = m_new
     return (acc / torch.clamp_min(l, 1e-30)).reshape(L, h, dl)
+
+
+# The MLA decode (``mla_attend_kernel<true>``) takes the extend's past-tile
+# arithmetic over each request's splits and merges the splits in order
+# (``mla_merge_kernel``).
+
+MLA_DECODE_SPLITS = 8  # DEC_SPLITS of csrc/mla_decode.cu
+
+
+def mla_decode_splits(pos: int, max_key: int,
+                      keys: int = 32) -> list[tuple[int, int]]:
+    """A decode request's splits as the kernel cuts them (``dec_plan``):
+    its keys 0 .. lim = min(pos, max_key) in runs of ceil(n / 8) whole
+    ``keys``-key tiles for its n live tiles (one tile a run while n <= 8),
+    as (first key, end key) pairs; with pos <= max_key a function of pos
+    alone."""
+    lim = min(pos, max_key)
+    n = lim // keys + 1 if lim >= 0 else 0
+    run = (-(-n // MLA_DECODE_SPLITS) if n > MLA_DECODE_SPLITS else 1) * keys
+    return [(k, min(k + run, lim + 1)) for k in range(0, n * keys, run)]
+
+
+def mla_flash_decode_emulated(ql, qr, cq, cs, rq, rs, pos, *, kv_bits: int,
+                              chunk: int, dl: int, dr: int, tile: int,
+                              p_terms: int = MLA_TERMS,
+                              keys: int = 32) -> torch.Tensor:
+    """:func:`mla_flash_decode_ref`'s function, normalized, computed the way
+    the decode kernel computes it: each request's keys in the kernel's
+    splits (:func:`mla_decode_splits`), each split walking ``keys``-key
+    tiles with :func:`paged_mla_flash_extend_emulated`'s past-tile
+    arithmetic (the queries in three bf16 terms against the exact codes,
+    each key's c and r scale on the fp32 partial scores; exp2((x - m)
+    log2(e)); each key's value scale folded into P, P split into
+    ``p_terms`` bf16 terms against the exact codes; acc * alpha + tile),
+    then its splits merged in order, each shifted to the largest max by
+    exp2((m - max) log2(e)) and the sum normalized once.  Same arguments as
+    :func:`mla_flash_decode_ref`; returns (B, H, dl) fp32."""
+    b, h, _ = ql.shape
+    s = cq.shape[1]
+    log2e = torch.tensor(LOG2E, dtype=torch.float32)
+    px = torch.as_tensor(pos).reshape(-1).expand(b)
+    ones = torch.ones(s)
+    out = torch.zeros((b, h, dl))
+    for i in range(b):
+        q_terms = bf16_split(torch.cat([ql[i].float(), qr[i].float()], -1))
+        ql_t = tuple(t[:, :dl] for t in q_terms)
+        qr_t = tuple(t[:, dl:] for t in q_terms)
+        # codes as values (scale 1), and each row's scales
+        cc = dequant_kv(cq[i], ones, kv_bits=kv_bits, chunk=1, d=dl)
+        rc = dequant_kv(rq[i], ones, kv_bits=kv_bits, chunk=1, d=dr)
+        sc, sr = (x[i].float().repeat_interleave(chunk)[:s] for x in (cs, rs))
+        parts = []
+        for k0, k1 in mla_decode_splits(int(px[i]), s - 1, keys):
+            acc = torch.zeros((h, dl))
+            m = torch.full((h, 1), NEG_INF)
+            l = torch.zeros((h, 1))
+            for j0 in range(k0, k1, keys):
+                sl = slice(j0, min(j0 + keys, k1))
+                x = (sc[sl] * _pair_product(ql_t, (cc[sl].T,))
+                     + sr[sl] * _pair_product(qr_t, (rc[sl].T,)))
+                m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+                p = torch.exp2((x - m_new) * log2e)
+                alpha = torch.exp2((m - m_new) * log2e)
+                l = alpha * l + p.sum(-1, keepdim=True)
+                acc = acc * alpha + _pair_product(
+                    bf16_split(p * sc[sl][None], p_terms), (cc[sl],))
+                m = m_new
+            parts.append((acc, m, l))
+        if not parts:
+            continue
+        m_max = torch.stack([m for _, m, _ in parts]).amax(0)
+        num, den = torch.zeros((h, dl)), torch.zeros((h, 1))
+        for acc, m, l in parts:
+            w = torch.exp2((m - m_max) * log2e)
+            num = num + w * acc
+            den = den + w * l
+        out[i] = num / torch.clamp_min(den, 1e-30)
+    return out

@@ -26,11 +26,13 @@ Tolerances are relative to the largest reference magnitude:
   * MLA: the head-batched quant_matmul (expand) and quant_matmul_t
     (absorb) 1e-5 against each head's plain version (fp32 sums in another
     order), quant_matmul_t's rows compared bitwise across m; the latent
-    attention kernels 1e-5 against their plain versions (the same
-    dequantized fp32 terms, summed in another order), the paged and the
-    flat latent decode bitwise.  The tensor-core extend with unscaled unit
-    queries (scores of tens) is held within 1e-5 of the function's float64
-    value, which its fp32 plain version itself misses by more than 1e-5.
+    attention kernels (tensor cores on the exact codes, every fp32 operand
+    as three bf16 terms, scales after the product) 1e-5 against their
+    plain versions, the paged and the flat latent decode bitwise, as are a
+    request decoded alone and in a batch, and two calls.  With unscaled
+    unit queries (scores of tens) the extend and the decode are held
+    within 1e-5 of the function's float64 value, which their fp32 plain
+    versions themselves miss by more than 1e-5.
 """
 import numpy as np
 import pytest
@@ -781,12 +783,20 @@ def _latent(g, b, s, d, kv_bits, device, page=64):
     return codec.encode(torch.randn((b, s, d), generator=g, device=device))
 
 
+# the engine's MLA decode: 4 slots at positions 512-575 over 9 pages of 64,
+# one slot at position 0
+ENGINE_POS = (575, 543, 512, 0)
+
+
 @pytest.mark.parametrize("kv_bits", [8, 2])
 @pytest.mark.parametrize("b,s,h,dl,dr,pos", [
     (2, 192, 4, 32, 16, 150), (1, 100, 3, 40, 8, 99),
-    (2, 1088, 128, 512, 64, 1087), (4, 700, 20, 512, 64, 37)])
+    (2, 1088, 128, 512, 64, 1087), (4, 700, 20, 512, 64, 37),
+    (4, 576, 128, 512, 64, ENGINE_POS)])
 def test_mla_flash_decode_kernel_vs_plain(cuda, kv_bits, b, s, h, dl, dr,
                                           pos):
+    """One position for every request (an int and a (B,) tensor), or one
+    each (the engine's four)."""
     g = torch.Generator(device=cuda).manual_seed(9)
     cq, cs = _latent(g, b, s, dl, kv_bits, cuda)
     rq, rs = _latent(g, b, s, dr, kv_bits, cuda)
@@ -794,10 +804,12 @@ def test_mla_flash_decode_kernel_vs_plain(cuda, kv_bits, b, s, h, dl, dr,
     ql = torch.randn((b, h, dl), generator=g, device=cuda) * 0.05
     qr = torch.randn((b, h, dr), generator=g, device=cuda) * 0.05
     kw = dict(kv_bits=kv_bits, chunk=chunk, dl=dl, dr=dr)
-    acc, _, l = mla_flash_decode_ref(ql, qr, cq, cs, rq, rs, pos, tile=64,
+    pos_t = torch.tensor(pos if isinstance(pos, tuple) else (pos,) * b,
+                         dtype=torch.int32, device=cuda)
+    acc, _, l = mla_flash_decode_ref(ql, qr, cq, cs, rq, rs, pos_t, tile=64,
                                      **kw)
     want = _finalized(acc, l)
-    for p in (pos, torch.full((b,), pos, dtype=torch.int32, device=cuda)):
+    for p in ((pos_t,) if isinstance(pos, tuple) else (pos, pos_t)):
         before = mla_flash_decode.launches
         got = mla_flash_decode(ql, qr, cq, cs, rq, rs, p, tile=64, **kw)
         torch.cuda.synchronize()
@@ -806,24 +818,22 @@ def test_mla_flash_decode_kernel_vs_plain(cuda, kv_bits, b, s, h, dl, dr,
         assert _rel(got, want) < 1e-5
 
 
-@pytest.mark.parametrize("kv_bits", [8, 2])
-@pytest.mark.parametrize("h,dl,dr,pos", [(4, 32, 16, [70, 511, 0]),
-                                         (128, 512, 64, [37, 500, 255])])
-def test_paged_mla_flash_decode_kernel_vs_plain_and_flat(cuda, kv_bits, h,
-                                                         dl, dr, pos):
-    """Shuffled page table with a trash entry past every position and stale
-    codes on the trash page: paged == plain within 1e-5 and == the flat
-    kernel bitwise (tile = page)."""
-    page, b, s = 64, len(pos), 512
-    g = torch.Generator(device=cuda).manual_seed(10)
+def _paged_latent(cuda, kv_bits, b, s, dl, dr, h, seed, page=64,
+                  trash=None):
+    """A flat latent cache of b x s rows and the same codes in pools of
+    ``page``-row pages under a shuffled table with a trash entry past
+    every position; stale codes on the trash page (0).  Slot ``trash``
+    is inactive: its table row is the trash page throughout.  Returns
+    (flat (cq, cs, rq, rs), pools, tbl, ql, qr, chunk)."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
     cq, cs = _latent(g, b, s, dl, kv_bits, cuda)
     rq, rs = _latent(g, b, s, dr, kv_bits, cuda)
-    chunk = kv_codec(kv_bits, 64).chunk
+    chunk = kv_codec(kv_bits, page).chunk
     ql = torch.randn((b, h, dl), generator=g, device=cuda) * 0.05
     qr = torch.randn((b, h, dr), generator=g, device=cuda) * 0.05
     n_tiles = s // page
     perm = torch.randperm(b * n_tiles, generator=torch.Generator()
-                          .manual_seed(11)) + 1
+                          .manual_seed(seed + 1)) + 1
     tbl = perm.reshape(b, n_tiles).to(torch.int32)
     pools = []
     for codes, scales in ((cq, cs), (rq, rs)):
@@ -835,18 +845,123 @@ def test_paged_mla_flash_decode_kernel_vs_plain_and_flat(cuda, kv_bits, h,
         sp[perm.to(cuda)] = scales.reshape(b * n_tiles, page // chunk)
         pools += [cp, sp]
     pools[0][0] = cq[0, :page]
-    tbl = torch.cat([tbl, torch.zeros((b, 1), dtype=torch.int32)], 1).to(cuda)
+    tbl = torch.cat([tbl, torch.zeros((b, 1), dtype=torch.int32)], 1)
+    if trash is not None:
+        tbl[trash] = 0
+    return (cq, cs, rq, rs), pools, tbl.to(cuda), ql, qr, chunk
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("h,dl,dr,pos,trash", [
+    (4, 32, 16, [70, 511, 0], None), (128, 512, 64, [37, 500, 255], None),
+    (128, 512, 64, list(ENGINE_POS), 3)])
+def test_paged_mla_flash_decode_kernel_vs_plain_and_flat(cuda, kv_bits, h,
+                                                         dl, dr, pos, trash):
+    """Shuffled page table with a trash entry past every position and stale
+    codes on the trash page: paged == plain within 1e-5 and == the flat
+    kernel bitwise (tile = page).  At the engine's shape one slot is
+    inactive, its table row all trash (held to the plain version only)."""
+    page, b = 64, len(pos)
+    s = -(-(max(pos) + 1) // page) * page
+    flat, pools, tbl, ql, qr, chunk = _paged_latent(
+        cuda, kv_bits, b, s, dl, dr, h, seed=10, trash=trash)
     pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
     kw = dict(kv_bits=kv_bits, chunk=chunk, dl=dl, dr=dr)
     acc, _, l = paged_mla_flash_decode_ref(tbl, pos_t, ql, qr, *pools,
                                            page=page, **kw)
     before = paged_mla_flash_decode.launches
     got = paged_mla_flash_decode(tbl, pos_t, ql, qr, *pools, page=page, **kw)
-    flat = mla_flash_decode(ql, qr, cq, cs, rq, rs, pos_t, tile=page, **kw)
+    want_flat = mla_flash_decode(ql, qr, *flat, pos_t, tile=page, **kw)
     torch.cuda.synchronize()
     assert paged_mla_flash_decode.launches == before + 1
     assert _rel(got, _finalized(acc, l)) < 1e-5
-    assert torch.equal(got, flat)
+    live = [i for i in range(b) if i != trash]
+    assert torch.equal(got[live], want_flat[live])
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("s,pos", [(576, ENGINE_POS),
+                                   (1600, (1599, 1000, 70, 0))])
+def test_mla_flash_decode_request_alone_equals_in_batch(cuda, kv_bits, s,
+                                                        pos):
+    """A request's output is bitwise the same computed alone (B 1) and
+    inside a batch of other positions, flat and paged: its splits depend
+    on its own position only."""
+    b, page = len(pos), 64
+    flat, pools, tbl, ql, qr, chunk = _paged_latent(
+        cuda, kv_bits, b, s, 512, 64, 128, seed=30)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    kw = dict(kv_bits=kv_bits, chunk=chunk, dl=512, dr=64)
+    batch_flat = mla_flash_decode(ql, qr, *flat, pos_t, tile=page, **kw)
+    batch_paged = paged_mla_flash_decode(tbl, pos_t, ql, qr, *pools,
+                                         page=page, **kw)
+    for i in range(b):
+        one = slice(i, i + 1)
+        alone_flat = mla_flash_decode(ql[one], qr[one],
+                                      *(x[one] for x in flat), pos_t[one],
+                                      tile=page, **kw)
+        alone_paged = paged_mla_flash_decode(tbl[one], pos_t[one], ql[one],
+                                             qr[one], *pools, page=page,
+                                             **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(alone_flat, batch_flat[one]), i
+        assert torch.equal(alone_paged, batch_paged[one]), i
+    assert torch.equal(batch_flat, batch_paged)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+def test_mla_flash_decode_two_calls_equal(cuda, kv_bits):
+    """The split rows are merged in a fixed order: two calls, flat and
+    paged, give the same bits."""
+    pos = (2047, 1500, 600, 64)
+    flat, pools, tbl, ql, qr, chunk = _paged_latent(
+        cuda, kv_bits, 4, 2048, 512, 64, 128, seed=31)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    kw = dict(kv_bits=kv_bits, chunk=chunk, dl=512, dr=64)
+    calls = [(mla_flash_decode(ql, qr, *flat, pos_t, tile=64, **kw),
+              paged_mla_flash_decode(tbl, pos_t, ql, qr, *pools, page=64,
+                                     **kw)) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(calls[0][0], calls[1][0])
+    assert torch.equal(calls[0][1], calls[1][1])
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("s,pos", [(576, ENGINE_POS), (1100, (1099, 700))])
+def test_mla_flash_decode_x1_queries_hold_to_float64(cuda, kv_bits, s, pos):
+    """Unscaled unit-normal queries (scores of tens): at the engine's shape
+    the fp32 plain version is itself more than 1e-5 from the function's
+    float64 value (tests/test_torch_mla_precision.py), so the kernel is
+    held within 1e-5 of that value."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    b = len(pos)
+    cq, cs = _latent(g, b, s, 512, kv_bits, cuda)
+    rq, rs = _latent(g, b, s, 64, kv_bits, cuda)
+    ql = torch.randn((b, 128, 512), generator=g, device=cuda)
+    qr = torch.randn((b, 128, 64), generator=g, device=cuda)
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    kw = dict(kv_bits=kv_bits, chunk=kv_codec(kv_bits, 64).chunk, dl=512,
+              dr=64)
+    acc, _, l = mla_flash_decode_ref(ql, qr, cq, cs, rq, rs, pos_t, tile=64,
+                                     dtype=torch.float64, **kw)
+    got = mla_flash_decode(ql, qr, cq, cs, rq, rs, pos_t, tile=64, **kw)
+    torch.cuda.synchronize()
+    assert _rel(got, _finalized(acc, l)) < 1e-5
+
+
+def test_mla_flash_decode_refuses_wide_rows(cuda):
+    """A latent and rope row wider than the kernel's 576-wide key tile is
+    refused with a ValueError, never handed to the plain version."""
+    g = torch.Generator(device=cuda).manual_seed(33)
+    cq, cs = _latent(g, 1, 64, 512, 8, cuda)
+    rq, rs = _latent(g, 1, 64, 128, 8, cuda)
+    ql = torch.randn((1, 4, 512), generator=g, device=cuda)
+    qr = torch.randn((1, 4, 128), generator=g, device=cuda)
+    before = mla_flash_decode.launches
+    with pytest.raises(ValueError, match="wider than the decode kernel"):
+        mla_flash_decode(ql, qr, cq, cs, rq, rs, 63, kv_bits=8, chunk=1,
+                         dl=512, dr=128, tile=64)
+    assert mla_flash_decode.launches == before
 
 
 @pytest.mark.parametrize("kv_bits", [8, 2])

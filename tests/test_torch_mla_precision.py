@@ -1,6 +1,7 @@
-"""The MLA extend kernel's tensor-core arithmetic, emulated on the CPU.
+"""The MLA extend and decode kernels' tensor-core arithmetic, emulated on
+the CPU.
 
-``mla_extend_kernel`` (``csrc/mla_decode.cu``) runs Q.K^T and P.V on the
+``mla_attend_kernel`` (``csrc/mla_decode.cu``) runs Q.K^T and P.V on the
 tensor cores in bf16 with fp32 sums and is held to its fp32 plain version
 at TOL_KV = 1e-5.  It keeps that by feeding exact operands (int8 codes,
 2-bit levels), splitting every fp32 operand (the queries, P, the chunk's own
@@ -15,14 +16,19 @@ shown to miss TOL_KV, which is why the kernel splits it.  With queries at
 x1 (unscaled unit normals: scores of tens, a peaked softmax) the fp32 plain
 version is itself more than TOL_KV from the function's float64 value, so
 there the kernel is held to the float64 value (``dtype=torch.float64``).
-Inputs are drawn with numpy.
+The decode takes the same arithmetic over each request's splits and merges
+them in order: ``ref.mla_flash_decode_emulated`` is held to
+``mla_flash_decode_ref`` likewise, at a long cache and at the engine's
+four positions.  Inputs are drawn with numpy.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.kernels.flash_decode.ref import (
-    bf16_split, paged_mla_flash_extend_emulated, paged_mla_flash_extend_ref)
+    bf16_split, mla_decode_splits, mla_flash_decode_emulated,
+    mla_flash_decode_ref, paged_mla_flash_extend_emulated,
+    paged_mla_flash_extend_ref)
 from repro_torch.models.attention import kv_codec
 
 TOL_KV = 1e-5  # chip_smoke.py and tests/test_torch_cuda.py hold the kernel
@@ -119,3 +125,96 @@ def test_unit_queries_hold_to_float64(kv_bits):
     assert exact.dtype == torch.float64
     assert _rel(plain, exact) > TOL_KV
     assert _rel(paged_mla_flash_extend_emulated(*args, **kw), exact) < TOL_KV
+
+
+# ------------------------------------------------------------ the decode
+#
+# ``mla_attend_kernel<true>`` (``mla_flash_decode``,
+# ``paged_mla_flash_decode``) takes the same arithmetic over each request's
+# splits and merges them in order; ``ref.mla_flash_decode_emulated``
+# repeats it split by split.
+
+# (positions, S): a multi-split cache whose last page is partial (35 and
+# 22 live 32-key tiles: 7 and 8 splits), and the engine's four slots over
+# 9 pages
+DECODE_CASES = {"long": ((1099, 700), 1100),
+                "engine": ((575, 543, 512, 0), 576)}
+
+
+def _decode_inputs(seed, kv_bits, positions, s, h=H, q_scale=None):
+    """A flat latent cache of len(positions) requests and ``s`` rows
+    through the port's codec, and scaled queries (unit normals times
+    ``q_scale``, by default the model's (dl + dr)^-0.5)."""
+    rng = np.random.default_rng(seed)
+    codec = kv_codec(kv_bits, 64)
+    b = len(positions)
+    c, r = (torch.from_numpy(rng.normal(size=(b, s, d)).astype(np.float32))
+            for d in (DL, DR))
+    cq, cs = codec.encode(c)
+    rq, rs = codec.encode(r)
+    scale = (DL + DR) ** -0.5 if q_scale is None else q_scale
+    ql, qr = (torch.from_numpy((rng.normal(size=(b, h, d)) * scale)
+                               .astype(np.float32)) for d in (DL, DR))
+    pos = torch.tensor(positions, dtype=torch.int32)
+    kw = dict(kv_bits=kv_bits, chunk=codec.chunk, dl=DL, dr=DR, tile=64)
+    return (ql, qr, cq, cs, rq, rs, pos), kw
+
+
+def _decode_ref(args, kw, dtype=torch.float32):
+    acc, _, l = mla_flash_decode_ref(*args, dtype=dtype, **kw)
+    return acc / torch.clamp_min(l, 1e-30)
+
+
+@pytest.mark.parametrize("pos,s,want", [
+    (8155, 8191, [(k, k + 1024) for k in range(0, 7168, 1024)]
+     + [(7168, 8156)]),
+    (575, 575, [(k, k + 96) for k in range(0, 480, 96)] + [(480, 576)]),
+    (512, 575, [(k, k + 96) for k in range(0, 480, 96)] + [(480, 513)]),
+    (255, 575, [(k, k + 32) for k in range(0, 256, 32)]),
+    (0, 575, [(0, 1)]), (70, 63, [(0, 32), (32, 64)]), (-1, 575, [])])
+def test_mla_decode_splits(pos, s, want):
+    """At most 8 runs of whole 32-key tiles covering keys 0 .. min(pos,
+    last key), one tile a run up to 8 live tiles; the same for any last key
+    past pos (the batch's table width or cache length)."""
+    got = mla_decode_splits(pos, s)
+    assert got == want
+    if pos <= s:
+        assert mla_decode_splits(pos, s + 1000) == got
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+def test_emulated_mla_decode_within_tol_kv(kv_bits, case):
+    """The decode's splits and merge at deepseek-v3's widths, at the
+    model's query scale: within TOL_KV of the plain version."""
+    positions, s = DECODE_CASES[case]
+    args, kw = _decode_inputs(4, kv_bits, positions, s)
+    want = _decode_ref(args, kw)
+    got = mla_flash_decode_emulated(*args, **kw)
+    assert got.shape == want.shape == (len(positions), H, DL)
+    assert _rel(got, want) < TOL_KV
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+def test_decode_unsplit_p_misses_tol_kv(kv_bits):
+    """The decode's P rounded once to bf16 misses TOL_KV; its three-term
+    split stays within it."""
+    args, kw = _decode_inputs(5, kv_bits, *DECODE_CASES["long"])
+    want = _decode_ref(args, kw)
+    split = _rel(mla_flash_decode_emulated(*args, **kw), want)
+    unsplit = _rel(mla_flash_decode_emulated(*args, p_terms=1, **kw), want)
+    assert unsplit > TOL_KV
+    assert split < TOL_KV
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+def test_decode_unit_queries_hold_to_float64(kv_bits):
+    """Queries at x1 at the engine's shape: the fp32 plain decode is more
+    than TOL_KV from the float64 value of the same function, the kernel's
+    arithmetic within TOL_KV of it (the on-card x1 test's reference)."""
+    args, kw = _decode_inputs(6, kv_bits, *DECODE_CASES["engine"],
+                              q_scale=1.0)
+    exact = _decode_ref(args, kw, dtype=torch.float64)
+    assert exact.dtype == torch.float64
+    assert _rel(_decode_ref(args, kw), exact) > TOL_KV
+    assert _rel(mla_flash_decode_emulated(*args, **kw), exact) < TOL_KV
