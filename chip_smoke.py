@@ -38,14 +38,20 @@ Phases, in order; any failure exits non-zero before the final line:
      kv2: ``generate`` through the flat quantized cache, and the
      continuous-batching ``Engine`` over paged pools on a Poisson trace in
      three admission modes (whole prompt, chunked exact, chunked paged),
-     its launches counted apart.  It fails unless every request ends ok,
+     its launches counted apart, then each mode again under overload (a
+     pool of half the hot demand: preemption with replay, priorities),
+     and the whole mode with an injected burst failure and with a bounded
+     queue that sheds.  It fails unless every request ends ok,
      every drain returns every page, each request's first token is its
      solo ``generate`` first token (kv2's paged chunked prefill reads its
      earlier chunks back from 2-bit codes, so there each final chunk's
      logits are held to the same step with the plain extend instead), no
      helper that holds the cache in fp is ever called, and sampled calls
      of the three quantized-KV kernels on this path agree with their plain
-     versions on the same inputs;
+     versions on the same inputs, and unless under overload some request
+     is preempted, every request still finishes, and every request that
+     was not shed gets the tokens of its mode's run at full pool, bit for
+     bit (through a retried burst too);
   4. the MLA path: the same flow on deepseek-v3-671b at full width, its
      first 2 (dense) layers: quantize -> artifact -> keep-packed serve
      (absorb and expand on the packed wkv_b through ``quant_matmul_t`` and
@@ -108,6 +114,16 @@ ENGINE_RATE = 0.5  # Poisson arrivals per scheduling round
 ENGINE_MODES = (("whole", None, "exact"), ("chunked-exact", ENGINE_CHUNK,
                                            "exact"),
                 ("chunked-paged", ENGINE_CHUNK, "paged"))
+# each admission mode's 8 requests again under overload: a pool of twice
+# one request's pages, so 4 slots' hot demand is twice the pool; arrivals
+# at OVER_RATE, the last two requests at priority 1.  Every request must
+# still finish with the tokens of the same mode's run above, at least one
+# after a preemption.  The whole mode then runs twice more at ENGINE_PAGES:
+# with a burst failure injected at round FAULT_ROUND (retried from the same
+# inputs: the same tokens), and with a queue of SHED_DEPTH at SHED_RATE
+# (refused submissions shed, the rest the same tokens)
+OVER_RATE, OVER_PRIORITY = 2.0, (6, 7)
+FAULT_ROUND, SHED_DEPTH, SHED_RATE = 3, 2, 8.0
 # the engine modes that kv8 runs again under the profiler on each path
 # (``<mode>_profile``): chunked-paged prefill runs the extend kernel, and on
 # the MLA path the absorb's fp32 tile, on every chunk
@@ -1446,9 +1462,12 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
     to the plain extend's (``FinalChunks``), and a first token may differ
     from solo ``generate``'s only where solo's two best logits lie within
     twice the largest difference between the two runs' logits (closer
-    than that, the lossy read may flip them; farther, it cannot).  kv8's
-    engine runs again under the profiler in ``TRACED_MODES``
-    (``<mode>_profile``).  The caller counts the launches."""
+    than that, the lossy read may flip them; farther, it cannot).  Each
+    mode's requests run again under overload (``<mode>_overload``), and the
+    whole mode with a burst fault (``whole_fault``) and a shedding queue
+    (``whole_shed``); see ``overload_runs``.  kv8's engine runs again under
+    the profiler in ``TRACED_MODES`` (``<mode>_profile``).  The caller
+    counts the launches."""
     import numpy as np
 
     from repro_torch.checkpoint.packed import load_packed_forward_params
@@ -1527,18 +1546,34 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
             row["solo_generate_s"] = time.perf_counter() - t1
             need = -(-(ENGINE_PROMPT + ENGINE_BUDGETS[1]) // cfg.kv_chunk)
 
-            def engine_run(chunk, attn):
+            def engine_run(chunk, attn, *, n_pages=ENGINE_PAGES,
+                           rate=ENGINE_RATE, sampling=sps, submitted=None,
+                           **overload):
+                """run_trace's summary; ``submitted`` (a dict) receives
+                each accepted request's id by its index."""
                 reqs = [ServeRequest(tokens=prompts[i].tolist(),
                                      max_new_tokens=budgets[i],
-                                     sampling=sps[i]) for i in range(n)]
+                                     sampling=sampling[i]) for i in range(n)]
                 engine = Engine(model, params, max_slots=ENGINE_SLOTS,
-                                n_pages=ENGINE_PAGES,
+                                n_pages=n_pages,
                                 max_pages_per_request=need,
                                 burst_steps=ENGINE_BURST,
-                                prefill_chunk=chunk, prefill_attn=attn)
+                                prefill_chunk=chunk, prefill_attn=attn,
+                                **overload)
+                if submitted is not None:
+                    index = {id(r): i for i, r in enumerate(reqs)}
+                    accept = engine.submit
+
+                    def submit(req):
+                        rid = accept(req)
+                        submitted[index[id(req)]] = rid
+                        return rid
+                    engine.submit = submit
                 # run_trace drains and checks that every page came back
-                return run_trace(engine, poisson_trace(
-                    reqs, rate=ENGINE_RATE, seed=SEED))
+                st = run_trace(engine, poisson_trace(reqs, rate=rate,
+                                                     seed=SEED))
+                st["events"] = engine.events.kinds()
+                return st
 
             for mode, chunk, attn in ENGINE_MODES:
                 t1 = time.perf_counter()
@@ -1609,6 +1644,11 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                                    f"{fc['max_rel_err']:.3g} > "
                                    f"{TOL_CHUNK_LOGITS}")
                 row[mode]["seconds"] = time.perf_counter() - t1
+                audit.label = None  # the normal run's tokens are the check
+                row.update(overload_runs(
+                    mode, engine_run, chunk, attn, sps,
+                    [o.tokens if o is not None else None for o in outs],
+                    need, bad, f"kv{bits}"))
             if bits == KV_BITS[0]:  # traced runs: ~15 s of profiler each
                 audit.label = None
                 for mode, chunk, attn in ENGINE_MODES:
@@ -1636,7 +1676,13 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                                 "pages": ENGINE_PAGES,
                                 "burst": ENGINE_BURST,
                                 "prefill_chunk": ENGINE_CHUNK,
-                                "arrival_rate": ENGINE_RATE}}})
+                                "arrival_rate": ENGINE_RATE},
+                     "overload": {"pages": "2 x one request's",
+                                  "arrival_rate": OVER_RATE,
+                                  "priority_1": list(OVER_PRIORITY),
+                                  "fault": [FAULT_ROUND, "burst"],
+                                  "shed": {"queue_depth": SHED_DEPTH,
+                                           "arrival_rate": SHED_RATE}}}})
     if fp_calls:
         bad.append(f"the cache was materialized in fp: {sorted(set(fp_calls))}")
     unchecked = [name for name, r in audit.rows.items() if not r["checked"]]
@@ -1648,6 +1694,66 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
     bad += audit.bad
     if bad:
         fail(f"quantized-KV serving of {arch}: " + "; ".join(bad))
+
+
+def overload_runs(mode: str, engine_run, chunk, attn, sps, base,
+                  need: int, bad: list, tag: str) -> dict:
+    """The engine's overload policy on the card, in one admission mode:
+    ``engine_run``'s requests again over a pool of ``2 * need`` pages (4
+    slots' hot demand twice the pool) at ``OVER_RATE``, ``OVER_PRIORITY``'s
+    requests at priority 1.  In the whole mode also with a burst failure
+    at ``FAULT_ROUND`` (retried at once) and with a queue of
+    ``SHED_DEPTH`` at ``SHED_RATE``.  ``base`` holds each request's tokens
+    from the same mode's run at ``ENGINE_PAGES``; every run must give
+    them again bit for bit, each request that was not shed having
+    finished.  Failures go to ``bad``; returns the rows by run."""
+    from repro_torch.runtime.fault import FaultPlan, RetryPolicy
+
+    n = len(sps)
+    over_sps = [dataclasses.replace(sp, priority=1) if i in OVER_PRIORITY
+                else sp for i, sp in enumerate(sps)]
+    runs = {f"{mode}_overload": dict(n_pages=2 * need, rate=OVER_RATE,
+                                     sampling=over_sps)}
+    if mode == "whole":
+        runs["whole_fault"] = dict(
+            fault_plan=FaultPlan({(FAULT_ROUND, "burst"): 1}),
+            retry=RetryPolicy(backoff_s=0.0))
+        runs["whole_shed"] = dict(queue_depth=SHED_DEPTH, rate=SHED_RATE)
+    rows = {}
+    for name, kw in runs.items():
+        t0 = time.perf_counter()
+        submitted: dict = {}
+        st = engine_run(chunk, attn, submitted=submitted, **kw)
+        outs = st["outputs"]
+        same = [i for i, rid in submitted.items()
+                if outs[rid].finished_ok and outs[rid].tokens == base[i]]
+        rows[name] = {k: st[k] for k in (
+            "statuses", "n_preemptions", "n_preempted_requests", "n_shed",
+            "n_requests", "sustained_tok_s", "ttft_p50_s", "ttft_p99_s",
+            "p99_latency_s", "wall_s", "rounds", "n_tokens")}
+        rows[name].update(events=sorted(set(st["events"])),
+                          tokens_equal_full_pool=len(same),
+                          submitted=len(submitted),
+                          seconds=time.perf_counter() - t0)
+        why = []
+        if st["n_requests"] != n:
+            why.append(f"{st['n_requests']} of {n} requests accounted for")
+        if len(same) != len(submitted):
+            why.append(f"requests {sorted(set(submitted) - set(same))} did "
+                       f"not finish with their full-pool tokens")
+        if name.endswith("_overload") and not (
+                st["n_preemptions"] >= 1 and st["n_preempted_requests"] >= 1
+                and len(submitted) == n):
+            why.append(f"no request was preempted ({st['statuses']})")
+        if name == "whole_fault" and "burst_retry" not in st["events"]:
+            why.append("the injected burst failure was not retried")
+        if name == "whole_shed" and not (
+                st["n_shed"] >= 1 and len(submitted) + st["n_shed"] == n):
+            why.append(f"shed {st['n_shed']} with {len(submitted)} "
+                       f"accepted of {n}")
+        if why:
+            bad.append(f"{tag} {name}: " + "; ".join(why))
+    return rows
 
 
 def reset_counts(counted: dict) -> None:

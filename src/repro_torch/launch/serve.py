@@ -25,13 +25,20 @@ slots over ``--n-pages`` shared pages (page = ``kv_chunk`` tokens), bursts
 of ``--burst-steps`` decode steps, and ``--prefill-chunk N`` to admit
 prompts in page-aligned chunks between bursts, with the tokens of
 whole-prompt admission (the lossy ``prefill_attn="paged"`` mode is the
-``Engine``'s, from Python).  The engine needs ``--kv-bits 8`` or ``2``.  ``--temperature`` samples every token, the first included, from
-the (seed, token index) stream of ``serving.sampling``; request ``i``
-uses seed ``--seed + i``.
+``Engine``'s, from Python).  The engine needs ``--kv-bits 8`` or ``2``.
+``--temperature`` samples every token, the first included, from the (seed,
+token index) stream of ``serving.sampling``; request ``i`` uses seed
+``--seed + i``.  The engine's overload policy: ``--deadline-s`` ends a
+request that has not finished that many seconds after its submit,
+``--queue-depth`` bounds the queue (a refused submit is counted as shed),
+and ``--fail-at-round ROUND:STAGE[:COUNT]`` injects failures at a round's
+admit, ingest, burst or retire stage.  The run fails unless every
+submitted request ends with a status and every page comes back.
 """
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import time
@@ -45,6 +52,7 @@ from repro_torch.data.calibration import SyntheticCorpus
 from repro_torch.device import generator, resolve_device
 from repro_torch.launch.quantize import model_config
 from repro_torch.models.lm import Model
+from repro_torch.runtime.fault import FaultPlan
 from repro_torch.serving import (Engine, SamplingParams, ServeRequest,
                                  poisson_trace, run_trace)
 from repro_torch.serving.sampling import sample_tokens
@@ -127,18 +135,25 @@ def serve_engine(model: Model, params: dict, prompts: torch.Tensor,
                  max_slots: int = 4, n_pages: int = 64,
                  burst_steps: int = 8, arrival_rate: float = 0.5,
                  prefill_chunk: int | None = None,
-                 prefill_attn: str = "exact") -> tuple[Engine, dict]:
+                 prefill_attn: str = "exact", deadline_s: float = 0.0,
+                 queue_depth: int | None = None,
+                 fault_plan: FaultPlan | None = None
+                 ) -> tuple[Engine, dict]:
     """Serve each prompt row as one request of ``n_gen`` tokens through the
     engine on a Poisson trace; returns the engine and ``run_trace``'s
-    summary (every page is back on the free list when it returns)."""
+    summary (every page is back on the free list when it returns).
+    ``deadline_s``, ``queue_depth`` and ``fault_plan`` are the engine's
+    overload settings."""
     reqs = [ServeRequest(tokens=prompts[i].tolist(), max_new_tokens=n_gen,
                          sampling=SamplingParams(temperature=temperature,
-                                                 seed=seed + i))
+                                                 seed=seed + i,
+                                                 deadline_s=deadline_s))
             for i in range(prompts.shape[0])]
     need = -(-(prompts.shape[1] + n_gen) // model.codec.page_tokens)
     engine = Engine(model, params, max_slots=max_slots, n_pages=n_pages,
                     max_pages_per_request=need, burst_steps=burst_steps,
-                    prefill_chunk=prefill_chunk, prefill_attn=prefill_attn)
+                    prefill_chunk=prefill_chunk, prefill_attn=prefill_attn,
+                    queue_depth=queue_depth, fault_plan=fault_plan)
     stats = run_trace(engine, poisson_trace(reqs, rate=arrival_rate,
                                             seed=seed))
     return engine, stats
@@ -222,6 +237,21 @@ def main(argv=None) -> dict:
                     help="engine mode: admit prompts in chunks of this many "
                     "tokens (rounded up to a page multiple) between decode "
                     "bursts; 0 (default) admits whole prompts")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="engine mode: per-request deadline in seconds from "
+                    "submit; a request still queued or decoding then ends "
+                    "with status deadline_exceeded; 0 (default): none")
+    ap.add_argument("--queue-depth", type=int, default=0,
+                    help="engine mode: bound on queued requests; a submit "
+                    "beyond it is refused (EngineSaturated with a "
+                    "retry-after hint) and counted as shed; 0 (default): "
+                    "unbounded")
+    ap.add_argument("--fail-at-round", action="append", default=[],
+                    metavar="ROUND:STAGE[:COUNT]",
+                    help="engine mode: inject COUNT failures (default 1) at "
+                    "a round's stage, one of admit, ingest, burst, retire; "
+                    "a failed burst is retried, a request whose admit or "
+                    "ingest fails ends failed; repeatable")
     ap.add_argument("--profile", action="store_true",
                     help="after the timed run, trace one more generate with "
                     "torch.profiler and report device time by kernel and "
@@ -267,19 +297,32 @@ def main(argv=None) -> dict:
             model, params, prompts, args.gen, temperature=args.temperature,
             seed=args.seed, max_slots=args.max_slots, n_pages=args.n_pages,
             burst_steps=args.burst_steps, arrival_rate=args.arrival_rate,
-            prefill_chunk=args.prefill_chunk or None)
+            prefill_chunk=args.prefill_chunk or None,
+            deadline_s=args.deadline_s, queue_depth=args.queue_depth or None,
+            fault_plan=(FaultPlan.parse(args.fail_at_round)
+                        if args.fail_at_round else None))
         admit = (f"chunked ({engine.prefill_chunk} tokens/chunk, "
                  f"{engine.prefill_attn})" if engine.prefill_chunk
                  else "whole-prompt")
         result.update({k: v for k, v in st.items() if k != "outputs"},
                       admission=admit,
                       free_pages=engine.pools.free_pages(),
+                      events=dict(collections.Counter(engine.events.kinds())),
                       tokens={rid: o.tokens
                               for rid, o in st["outputs"].items()})
         print(json.dumps({k: v for k, v in result.items()
                           if k != "tokens"}))
-        print(f"all {st['n_requests']} requests finished "
-              f"{st['statuses']}; pages quiescent")
+        # every submitted request ends with a status: no hangs, no losses
+        if st["n_requests"] != args.batch:
+            raise RuntimeError(
+                f"{args.batch - st['n_requests']} of {args.batch} requests "
+                "never reached a terminal status")
+        print(f"all {st['n_requests']} requests terminal: {st['statuses']}; "
+              f"preemptions {st['n_preemptions']} "
+              f"({st['n_preempted_requests']} requests), shed "
+              f"{st['n_shed']}, deadline {st['n_deadline']}, failed "
+              f"{st['n_failed']}; events {result['events']}; pages "
+              f"quiescent")
         return result
     sampling = dict(temperature=args.temperature, seed=args.seed)
     generate(model, params, prompts, min(args.gen, 2), **sampling)  # warm-up

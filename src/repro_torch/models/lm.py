@@ -403,11 +403,16 @@ class Model:
         return [entry() for _ in range(cfg.n_layers)]
 
     def prefill(self, params: dict, tokens: torch.Tensor, *,
-                cache_len: Optional[int] = None):
+                cache_len: Optional[int] = None, logits: bool = True):
         """Returns (last-token logits (B, V) fp32, cache of length
         ``cache_len`` (default T), rounded by the codec).  A quantized cache
         is written already encoded: the prompt's K/V never sit in the cache
-        in fp."""
+        in fp.
+
+        ``logits=False`` returns ``(None, cache)``: the engine's resume of a
+        preempted request rebuilds its pages through this same prefill, but
+        its token 0 was drawn before the preemption, so the vocab-wide head
+        product is skipped."""
         b, t = tokens.shape
         s = self._cache_len(cache_len or t)
         x = self.embed(params, tokens)
@@ -420,6 +425,8 @@ class Model:
                     _encode_cache(self.codec, kv), self.codec, s))
             else:
                 cache.append(pad_cache_entry(kv, self.codec, s))
+        if not logits:
+            return None, cache
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self.head_logits(params, x[:, -1]), cache
 

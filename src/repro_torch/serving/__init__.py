@@ -2,6 +2,8 @@
 block-paged quantized KV pools, its request types, and arrival traces."""
 from repro_torch.serving.engine import (  # noqa: F401
     Engine,
+    EngineSaturated,
+    EngineStuck,
     RequestOutput,
     SamplingParams,
     ServeRequest,

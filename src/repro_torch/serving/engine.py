@@ -22,18 +22,51 @@ through transient fp prefix buffers (same tokens), ``"paged"`` reads the
 earlier chunks back from their quantized pages through the extend kernel
 (no buffer, lossy).
 
-The reference's overload policy (preemption with replay, deadlines,
-priorities, backpressure), fault injection and watchdog are not part of
-this engine yet.
+Overload policy:
+
+* Preemption and requeue.  When the request at the head of the queue
+  cannot be admitted (no free pages, or every slot held while a request
+  of strictly lower priority runs), the engine evicts the lowest-priority,
+  youngest eligible running request: its pages go back to the free list,
+  its emitted tokens are kept, and it is queued again under its own id.
+  On re-admission its prompt is ingested again the way it was admitted
+  (whole, or in the same chunks), which rebuilds its pages bit for bit,
+  and its emitted tokens are replayed: each burst step of the replay feeds
+  the original input token at the original position and takes the
+  original output token in place of a fresh draw.  The (seed, token
+  index) stream then resumes at the next index, so the final stream is
+  bitwise the one of a run that was never preempted.  The burst always
+  runs all ``max_slots`` rows, so a row's bits do not depend on what the
+  other slots hold.
+* Deadlines and priorities.  ``SamplingParams.deadline_s`` ends a request
+  that is queued (no tokens) or running (partial tokens) with status
+  ``deadline_exceeded``; ``priority`` orders admission (higher first, then
+  by id) and bounds who may be evicted.
+* Backpressure.  ``queue_depth`` bounds the queue and ``admit_watermark``
+  the outstanding page demand; ``submit`` then raises
+  :class:`EngineSaturated` with a retry-after hint, the pool occupancy and
+  the queue length instead of queueing without bound.
+* Fault injection and the watchdog.  ``fault_plan`` arms ``(round,
+  stage)`` failures (``runtime.fault.SERVE_STAGES``), checked before each
+  stage's device work.  A failed burst is retried under ``retry`` from the
+  same inputs, so its tokens do not change; a request whose admission or
+  ingest fails ends ``failed`` alone; a failed retire waits one round.
+  Only ``retry.recoverable`` errors are caught: a CUDA error propagates.
+  A busy engine that makes no progress for ``watchdog_rounds`` rounds
+  emits a ``stuck_round`` event, and raises :class:`EngineStuck` at twice
+  that.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
+import itertools
 import time
 from typing import Optional
 
 import torch
 
+from repro_torch.runtime.fault import EventLog, RetryPolicy
 from repro_torch.serving.paged import PagedPools
 from repro_torch.serving.sampling import sample_tokens
 
@@ -42,10 +75,17 @@ from repro_torch.serving.sampling import sample_tokens
 class SamplingParams:
     """Greedy at ``temperature == 0``, else sampled from ``logits /
     temperature`` on the (seed, token index) stream; ``eos_token`` stops a
-    request early when drawn (-1: never)."""
+    request early when drawn (-1: never).  ``priority`` orders admission
+    (higher first, first come first within a level) and bounds preemption:
+    a request evicts only strictly lower priority for a slot, and lower or
+    equal but younger for pages.  ``deadline_s`` (0: none) ends the request
+    with status ``deadline_exceeded`` once that many seconds have passed
+    since ``submit``, queued or running."""
     temperature: float = 0.0
     seed: int = 0
     eos_token: int = -1
+    priority: int = 0
+    deadline_s: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -66,7 +106,11 @@ class ServeRequest:
 
 @dataclasses.dataclass
 class RequestOutput:
-    """Terminal record of one request."""
+    """Terminal record of one request.  ``status``: ``ok`` (finished, never
+    preempted), ``preempted_N`` (finished after N preemptions, tokens the
+    same), ``deadline_exceeded`` (partial tokens), ``failed`` (isolated by a
+    fault) or ``shed`` (refused at submit; made by ``run_trace``, never by
+    the engine)."""
     request_id: int
     tokens: list
     prompt_len: int
@@ -74,6 +118,7 @@ class RequestOutput:
     finish_time: float
     first_token_time: float = 0.0
     status: str = "ok"
+    n_preempted: int = 0
 
     @property
     def latency(self) -> float:
@@ -86,19 +131,52 @@ class RequestOutput:
 
     @property
     def finished_ok(self) -> bool:
-        return self.status == "ok"
+        """Budget or EOS reached, preempted on the way or not."""
+        return self.status == "ok" or self.status.startswith("preempted")
+
+
+class EngineSaturated(RuntimeError):
+    """``submit`` refused by backpressure (``queue_depth`` or
+    ``admit_watermark``).  Carries ``retry_after_s`` (from the engine's
+    service-time estimate), ``occupancy`` (live page fraction) and
+    ``queued``; ``run_trace`` records such a request as ``shed``."""
+
+
+class EngineStuck(RuntimeError):
+    """The watchdog saw no progress for twice ``watchdog_rounds`` rounds
+    while the engine was busy: ``drain()`` fails instead of spinning."""
+
+
+@dataclasses.dataclass
+class _QueueEntry:
+    """A queued request; ``resume`` holds the tokens it had emitted when it
+    was preempted (at least token 0), None for a fresh submission."""
+    rid: int
+    req: ServeRequest
+    resume: Optional[list] = None
+
+    @property
+    def key(self):
+        # highest priority first, then by id: a preempted request keeps its
+        # id, so it comes back ahead of same-priority later submissions
+        return (-self.req.sampling.priority, self.rid)
 
 
 class Engine:
     """``submit()`` requests, drive rounds with ``step()`` or run them to
-    completion with ``drain()``.  A round admits queued requests into free
-    slots, advances every ingesting slot by one prompt chunk, runs one
-    decode burst over the live slots and retires the finished."""
+    completion with ``drain()``.  A round expires deadlines, admits queued
+    requests into free slots (preempting when the head cannot fit),
+    advances every ingesting slot by one prompt chunk, runs one decode
+    burst over the live slots and retires the finished."""
 
     def __init__(self, model, params, *, max_slots: int = 4,
                  n_pages: int = 64, max_pages_per_request: int = 8,
                  burst_steps: int = 8, prefill_chunk: Optional[int] = None,
-                 prefill_attn: str = "exact"):
+                 prefill_attn: str = "exact",
+                 queue_depth: Optional[int] = None,
+                 admit_watermark: Optional[float] = None,
+                 fault_plan=None, retry: Optional[RetryPolicy] = None,
+                 watchdog_rounds: int = 256, on_event=None):
         if model.cfg.attn_kind not in ("gqa", "mla"):
             raise ValueError(
                 f"paged serving supports GQA and MLA attention, model has "
@@ -123,6 +201,13 @@ class Engine:
         self.prefill_chunk = prefill_chunk
         self.prefill_attn = prefill_attn
         self.device = model.device
+        self.queue_depth = queue_depth
+        self.admit_watermark = admit_watermark
+        self.fault_plan = fault_plan
+        self.retry = retry if retry is not None else RetryPolicy()
+        self.watchdog_rounds = watchdog_rounds
+        self.events = EventLog(on_event, verbose=False)
+        self._now = time.time  # the request clock; tests patch it
 
         # per-slot state: host rows, uploaded with each burst
         b = max_slots
@@ -136,21 +221,30 @@ class Engine:
         self.eos = torch.full((b,), -1, dtype=torch.int64)
         self.max_new = torch.ones((b,), dtype=torch.int64)
 
-        self._queue: list[tuple[int, ServeRequest]] = []
+        self._queue: list[_QueueEntry] = []
         self._next_rid = 0
         self._slot_rid: list = [None] * b
         self._slot_pages: list = [None] * b
         self._slot_tokens: list = [None] * b
         self._slot_req: list = [None] * b
         self._ingest: list = [None] * b   # chunked-prefill progress
+        self._replay: list = [None] * b   # tokens still to replay
+        self._slot_base = [0] * b         # tokens held at (re-)admission
         self._submit_time: dict = {}
         self._first_token_time: dict = {}
+        self._n_preempted: dict = {}
+        self._round = 0
+        self._idle_rounds = 0
+        self._progress = False
+        self._service_ema: Optional[float] = None  # of finished latencies
+        self.n_preemptions = 0
         self.admission_stall_s = 0.0
 
     # ------------------------------------------------------------------ API
     def submit(self, request: ServeRequest) -> int:
         """Queue a request and return its id; admission happens at the next
-        ``step()``.  A request that can never fit is rejected here."""
+        ``step()``.  A request that can never fit is refused here, and
+        backpressure refuses with :class:`EngineSaturated`."""
         need = self._pages_for(request)
         sizing = self.pools.sizing(len(request.tokens),
                                    request.max_new_tokens)
@@ -163,25 +257,61 @@ class Engine:
             raise self.pools.exhausted(
                 need, have=self.pools.n_pages,
                 context=f" (submit: {sizing} can never fit)")
+        queued = len(self._queue)
+        if self.queue_depth is not None and queued >= self.queue_depth:
+            occ, hint = self.pools.occupancy(), self._retry_after()
+            raise self._saturated(
+                f"engine saturated: {queued} queued at queue_depth="
+                f"{self.queue_depth}, pool occupancy {occ:.0%} — "
+                f"retry after ~{hint:.2f}s", hint, occ, queued)
+        if self.admit_watermark is not None:
+            cap = self.admit_watermark * self.pools.n_pages
+            demand = ((self.pools.n_pages - self.pools.free_pages())
+                      + sum(self._pages_for(e.req) for e in self._queue)
+                      + need)
+            if demand > cap:
+                occ, hint = self.pools.occupancy(), self._retry_after()
+                raise self._saturated(
+                    f"engine saturated: outstanding demand of {demand} "
+                    f"pages exceeds the admit watermark ({cap:.0f} = "
+                    f"{self.admit_watermark:g} x {self.pools.n_pages} "
+                    f"pages), pool occupancy {occ:.0%} — retry after "
+                    f"~{hint:.2f}s", hint, occ, queued)
         rid = self._next_rid
         self._next_rid += 1
-        self._queue.append((rid, request))
-        self._submit_time[rid] = time.time()
+        self._queue.append(_QueueEntry(rid, request))
+        self._submit_time[rid] = self._now()
         return rid
 
+    def load(self) -> dict:
+        """Free pages, pool occupancy, queued and running requests."""
+        return {"free_pages": self.pools.free_pages(),
+                "occupancy": self.pools.occupancy(),
+                "queued": len(self._queue),
+                "running": sum(r is not None for r in self._slot_rid)}
+
     def step(self) -> list:
-        """One scheduling round; returns the requests that finished in it."""
+        """One scheduling round; returns the requests that reached a
+        terminal status in it."""
+        self._round += 1
+        self._progress = False
+        outs = self._expire_deadlines()
         t0 = time.time()
-        self._admit()
-        self._advance_ingest()
+        self._admit(outs)
+        self._advance_ingest(outs)
         self.admission_stall_s += time.time() - t0
         if bool(self.act.any()):
-            self._burst()
-        return self._retire()
+            self._burst_guarded(outs)
+        outs.extend(self._retire_guarded())
+        self._watchdog()
+        return outs
 
     @property
     def busy(self) -> bool:
-        return bool(self._queue) or any(r is not None for r in self._slot_rid)
+        """A request is queued, ingesting, decoding, or finished and not yet
+        retired (a retire fault defers retirement by one round)."""
+        return (bool(self._queue) or bool(self.act.any())
+                or any(r is not None for r in self._slot_rid))
 
     def drain(self) -> list:
         """Step until every submitted request has finished, then check that
@@ -196,26 +326,188 @@ class Engine:
     def _pages_for(self, req: ServeRequest) -> int:
         return -(-(len(req.tokens) + req.max_new_tokens) // self.page)
 
-    def _admit(self) -> None:
+    def _saturated(self, msg: str, hint: float, occ: float,
+                   queued: int) -> EngineSaturated:
+        err = EngineSaturated(msg)
+        err.retry_after_s, err.occupancy, err.queued = hint, occ, queued
+        return err
+
+    def _retry_after(self) -> float:
+        """The service time of a request (EMA of finished latencies, 0.1 s
+        before the first) times the requests ahead, over the slots."""
+        ema = self._service_ema if self._service_ema is not None else 0.1
+        return ema * (len(self._queue) + 1) / self.max_slots
+
+    def _check_fault(self, stage: str) -> None:
+        if self.fault_plan is not None:
+            self.fault_plan.check(self._round, stage)
+
+    def _expire_deadlines(self) -> list:
+        now = self._now()
+
+        def expired(rid, req):
+            d = req.sampling.deadline_s
+            return d > 0 and now - self._submit_time[rid] > d
+
+        outs, keep = [], []
+        for ent in self._queue:
+            if expired(ent.rid, ent.req):
+                outs.append(self._finish(ent.rid, ent.req,
+                                         list(ent.resume or []),
+                                         "deadline_exceeded"))
+            else:
+                keep.append(ent)
+        self._queue = keep
+        for s in range(self.max_slots):
+            rid = self._slot_rid[s]
+            if rid is not None and expired(rid, self._slot_req[s]):
+                outs.append(self._fail_slot(s, "deadline_exceeded"))
+        if outs:
+            self._progress = True
+        return outs
+
+    # ------------------------------------------------------------ admission
+    def _admit(self, outs: list) -> None:
         while self._queue:
+            ent = min(self._queue, key=lambda e: e.key)
+            need = self._pages_for(ent.req)
             slot = next((s for s in range(self.max_slots)
                          if self._slot_rid[s] is None), None)
             if slot is None:
-                return
-            rid, req = self._queue[0]
-            need = self._pages_for(req)
+                # only a strict priority inversion takes a slot: equal
+                # priorities keep theirs
+                victims = self._victims(ent, strict=True)
+                if not victims or not self._fits_after(need, victims):
+                    return
+                slot = victims[0]
+                self._preempt(slot, ent.rid)
             if need > self.pools.free_pages():
-                return  # wait for a retirement to free pages
-            self._queue.pop(0)
-            ids = self.pools.alloc(need, context=f" (request {rid})")
-            self._claim_slot(slot, rid, req, ids)
-            if (self.prefill_chunk is not None
-                    and len(req.tokens) > self.prefill_chunk):
-                state = (self.model.init_ingest(len(req.tokens))
-                         if self.prefill_attn == "exact" else None)
-                self._ingest[slot] = {"start": 0, "state": state}
-            else:
-                self._start(slot, req)
+                if not self._preempt_to_fit(need, ent):
+                    if any(r is not None for r in self._slot_rid):
+                        return  # wait for a retirement to free pages
+                    # nothing runs and it still does not fit: raise the
+                    # allocator's sizing error
+                    self.pools.alloc(need, context=f" (request {ent.rid})")
+            self._queue.remove(ent)
+            held = list(ent.resume or [])[:ent.req.max_new_tokens]
+            try:
+                self._check_fault("admit")
+                ids = self.pools.alloc(need, context=f" (request {ent.rid})")
+            except Exception as e:
+                if not self.retry.is_recoverable(e):
+                    raise
+                outs.append(self._finish(ent.rid, ent.req, held, "failed",
+                                         error=repr(e)))
+                continue
+            try:
+                if ent.resume is not None:
+                    self._start_resume(slot, ent, ids)
+                elif (self.prefill_chunk is not None
+                        and len(ent.req.tokens) > self.prefill_chunk):
+                    self._start_chunked(slot, ent.rid, ent.req, ids)
+                else:
+                    self._start(slot, ent.rid, ent.req, ids)
+            except Exception as e:
+                if not self.retry.is_recoverable(e):
+                    raise
+                # a poisoned request: free its pages and slot, fail it alone
+                self.pools.release(ids)
+                self._clear_slot(slot)
+                outs.append(self._finish(ent.rid, ent.req, held, "failed",
+                                         error=repr(e)))
+                continue
+            self._progress = True
+
+    def _victims(self, ent: _QueueEntry, *, strict: bool) -> list:
+        """Slots that may be preempted to admit ``ent``, best victim first
+        (lowest priority, then youngest).  A slot qualifies once it has
+        decoded at least one fresh token since its (re-)admission, so every
+        admission makes progress before it can be evicted and preemption
+        cannot livelock.  ``strict``: the victim's priority must be lower
+        (a slot); else lower or equal (pages)."""
+        eprio = ent.req.sampling.priority
+        out = []
+        for s in range(self.max_slots):
+            rid = self._slot_rid[s]
+            if rid is None or self._ingest[s] is not None:
+                continue
+            if len(self._slot_tokens[s]) - self._slot_base[s] < 1:
+                continue
+            vprio = self._slot_req[s].sampling.priority
+            if vprio < eprio or (not strict and vprio == eprio):
+                out.append((vprio, -rid, s))
+        return [s for _, _, s in sorted(out)]
+
+    def _fits_after(self, need: int, victims: list) -> bool:
+        have = self.pools.free_pages()
+        have += sum(len(self._slot_pages[s]) for s in victims)
+        return need <= have
+
+    def _preempt_to_fit(self, need: int, ent: _QueueEntry) -> bool:
+        """Preempt eligible victims, best first, until ``need`` pages are
+        free; preempt nobody (False) when all of them would not do."""
+        victims = self._victims(ent, strict=False)
+        if not self._fits_after(need, victims):
+            return False
+        for s in victims:
+            if need <= self.pools.free_pages():
+                break
+            self._preempt(s, ent.rid)
+        return True
+
+    def _preempt(self, slot: int, for_rid: int) -> None:
+        """Evict the request in ``slot``: free its pages, keep its emitted
+        tokens and queue it again under its own id."""
+        rid = self._slot_rid[slot]
+        req = self._slot_req[slot]
+        tokens = list(self._slot_tokens[slot])
+        self.pools.release(self._slot_pages[slot])
+        self._clear_slot(slot)
+        self._n_preempted[rid] = self._n_preempted.get(rid, 0) + 1
+        self.n_preemptions += 1
+        self._queue.append(_QueueEntry(rid, req, resume=tokens))
+        self.events.emit("preempt", request=rid, for_request=for_rid,
+                         round=self._round, n_tokens=len(tokens),
+                         pages_freed=self.pools.free_pages())
+
+    def _start(self, slot: int, rid: int, req: ServeRequest, ids) -> None:
+        """Whole-prompt admission: batch-1 prefill, its cache written into
+        the slot's first pages, token 0 drawn from its logits."""
+        t = len(req.tokens)
+        prompt = torch.tensor([req.tokens], device=self.device)
+        logits, cache = self.model.prefill(self.params, prompt, cache_len=t)
+        n_pp = -(-self.model._cache_len(t) // self.page)
+        self.pools.write_prefill(cache, ids[:n_pp])
+        tok0 = self._sample_token0(logits, req.sampling)
+        self._claim_slot(slot, rid, req, ids)
+        self._arm_decode(slot, req, tok0)
+
+    def _start_resume(self, slot: int, ent: _QueueEntry, ids) -> None:
+        """Admit a preempted request again: ingest its prompt as at its
+        first admission (the same pages, bit for bit; no head product for a
+        whole prompt), then replay its emitted tokens in the bursts."""
+        req, t = ent.req, len(ent.req.tokens)
+        if self.prefill_chunk is not None and t > self.prefill_chunk:
+            self._start_chunked(slot, ent.rid, req, ids, resume=ent.resume)
+            return
+        prompt = torch.tensor([req.tokens], device=self.device)
+        _, cache = self.model.prefill(self.params, prompt, cache_len=t,
+                                      logits=False)
+        n_pp = -(-self.model._cache_len(t) // self.page)
+        self.pools.write_prefill(cache, ids[:n_pp])
+        self._claim_slot(slot, ent.rid, req, ids)
+        self._arm_resume(slot, req, ent.resume)
+
+    def _start_chunked(self, slot: int, rid: int, req: ServeRequest, ids,
+                       resume: Optional[list] = None) -> None:
+        """Claim a slot for chunk-by-chunk ingestion: pages reserved, no
+        compute yet.  ``_advance_ingest`` moves it one chunk a round; the
+        slot stays inactive until its last chunk draws token 0 or, for a
+        resume, arms the replay."""
+        self._claim_slot(slot, rid, req, ids)
+        state = (self.model.init_ingest(len(req.tokens))
+                 if self.prefill_attn == "exact" else None)
+        self._ingest[slot] = {"start": 0, "state": state, "resume": resume}
 
     def _claim_slot(self, slot: int, rid: int, req: ServeRequest,
                     ids: list) -> None:
@@ -223,24 +515,29 @@ class Engine:
         self._slot_pages[slot] = ids
         self._slot_tokens[slot] = []
         self._slot_req[slot] = req
+        self._slot_base[slot] = 0
         self.tbl[slot] = 0
         self.tbl[slot, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
 
-    def _start(self, slot: int, req: ServeRequest) -> None:
-        """Whole-prompt admission: batch-1 prefill, its cache written into
-        the slot's first pages, token 0 drawn from its logits."""
-        t = len(req.tokens)
-        prompt = torch.tensor([req.tokens], device=self.device)
-        logits, cache = self.model.prefill(self.params, prompt, cache_len=t)
-        n_pp = -(-self.model._cache_len(t) // self.page)
-        self.pools.write_prefill(cache, self._slot_pages[slot][:n_pp])
-        self._arm_decode(slot, req, logits)
+    def _clear_slot(self, slot: int) -> None:
+        self._slot_rid[slot] = self._slot_pages[slot] = None
+        self._slot_tokens[slot] = self._slot_req[slot] = None
+        self._ingest[slot] = self._replay[slot] = None
+        self._slot_base[slot] = 0
+        self.act[slot] = False
 
-    def _advance_ingest(self) -> None:
+    def _advance_ingest(self, outs: list) -> None:
         """Advance every ingesting slot by ONE prompt chunk."""
         for s in range(self.max_slots):
             ing = self._ingest[s]
             if ing is None:
+                continue
+            try:
+                self._check_fault("ingest")
+            except Exception as e:
+                if not self.retry.is_recoverable(e):
+                    raise
+                outs.append(self._fail_slot(s, "failed", error=repr(e)))
                 continue
             req = self._slot_req[s]
             t = len(req.tokens)
@@ -259,48 +556,124 @@ class Engine:
                 last=last, pools=self.pools.pools, page_tbl=tbl)
             first = start // self.page
             self.pools.write_prefill(cc, pages[first:first + -(-n // self.page)])
-            if last:
-                self._ingest[s] = None
-                self._arm_decode(s, req, logits)
-            else:
+            self._progress = True
+            if not last:
                 ing["start"] = start + n
+                continue
+            self._ingest[s] = None
+            if ing["resume"] is not None:
+                self._arm_resume(s, req, ing["resume"])
+            else:
+                self._arm_decode(s, req,
+                                 self._sample_token0(logits, req.sampling))
 
-    def _arm_decode(self, slot: int, req: ServeRequest, logits) -> None:
-        """Draw token 0 from the prefill logits and arm the slot's decode
-        rows (inactive at once when token 0 already ends the request)."""
-        sp = req.sampling
-        rid = self._slot_rid[slot]
-        tok0 = int(sample_tokens(
+    def _sample_token0(self, logits, sp: SamplingParams) -> int:
+        """Token 0 from the prefill logits: the draw ``generate`` makes at
+        (seed, 0)."""
+        return int(sample_tokens(
             logits, torch.full((1,), sp.temperature, device=self.device),
             torch.full((1,), sp.seed, device=self.device),
             torch.zeros((1,), dtype=torch.int64, device=self.device),
             sampled=sp.temperature > 0)[0])
-        self._first_token_time[rid] = time.time()
-        self._slot_tokens[slot] = [tok0]
-        self.tok[slot, 0] = tok0
+
+    def _arm_sampling(self, slot: int, req: ServeRequest) -> None:
+        sp = req.sampling
         self.pos[slot] = len(req.tokens)
         self.nem[slot] = 1
-        self.act[slot] = not (req.max_new_tokens == 1 or tok0 == sp.eos_token)
         self.temp[slot] = sp.temperature
         self.seeds[slot] = sp.seed
         self.eos[slot] = sp.eos_token
         self.max_new[slot] = req.max_new_tokens
 
+    def _arm_decode(self, slot: int, req: ServeRequest, tok0: int) -> None:
+        """Record token 0 and arm the slot's decode rows (inactive at once
+        when token 0 already ends the request)."""
+        self._first_token_time[self._slot_rid[slot]] = self._now()
+        self._slot_tokens[slot] = [tok0]
+        # token 0 is admission work: the slot may be preempted only after a
+        # burst has decoded a fresh token
+        self._slot_base[slot] = 1
+        self._arm_sampling(slot, req)
+        self.tok[slot, 0] = tok0
+        self.act[slot] = not (req.max_new_tokens == 1
+                              or tok0 == req.sampling.eos_token)
+
+    def _arm_resume(self, slot: int, req: ServeRequest,
+                    tokens: list) -> None:
+        """Arm decode to continue a preempted stream: the slot enters the
+        burst as if it had just drawn token 0 (input ``tokens[0]`` at the
+        prompt's end, ``nem = 1``) with ``tokens[1:]`` queued as forced
+        outputs.  Once they are replayed ``nem`` is ``len(tokens)`` and the
+        next draw is (seed, len(tokens)), where the stream stopped."""
+        self._slot_tokens[slot] = list(tokens)
+        self._slot_base[slot] = len(tokens)
+        self._replay[slot] = collections.deque(tokens[1:]) or None
+        self._arm_sampling(slot, req)
+        self.tok[slot, 0] = tokens[0]
+        self.act[slot] = True
+
+    # --------------------------------------------------------------- decode
+    def _burst_guarded(self, outs: list) -> None:
+        """The burst under the retry policy.  An injected fault fires before
+        any device work, so a retry runs the same burst on the same pools
+        and rows; past ``max_restarts`` the decoding requests fail and the
+        engine serves on."""
+        attempt = 0
+        while True:
+            try:
+                self._check_fault("burst")
+                self._burst()
+                return
+            except Exception as e:
+                if not self.retry.is_recoverable(e):
+                    raise
+                attempt += 1
+                if attempt > self.retry.max_restarts:
+                    self.events.emit("burst_poisoned", round=self._round,
+                                     attempts=attempt, error=repr(e))
+                    for s in range(self.max_slots):
+                        if (self._slot_rid[s] is not None
+                                and self._ingest[s] is None):
+                            outs.append(self._fail_slot(s, "failed",
+                                                        error=repr(e)))
+                    return
+                back = self.retry.backoff(attempt)
+                self.events.emit("burst_retry", round=self._round,
+                                 attempt=attempt, backoff_s=back,
+                                 error=repr(e))
+                if back:
+                    time.sleep(back)
+
     def _burst(self) -> None:
         """``burst_steps`` paged decode steps with the slot state on the
-        device; one read-back at the end."""
+        device; one read-back at the end.  ``forced``/``fmask`` (steps,
+        slots) hold the replayed tokens: at a masked step the slot takes the
+        forced token in place of its draw.  Both keep a fixed shape."""
+        R, b = self.burst_steps, self.max_slots
+        forced = torch.zeros((R, b), dtype=torch.int64)
+        fmask = torch.zeros((R, b), dtype=torch.bool)
+        consumed = [0] * b
+        for s in range(b):
+            q = self._replay[s]
+            if q:
+                k = min(R, len(q))
+                forced[:k, s] = torch.tensor(list(itertools.islice(q, k)))
+                fmask[:k, s] = True
+                consumed[s] = k
         dev = self.device
         tbl = self.tbl.to(dev)
         tok, pos, nem, act = (self.tok.to(dev), self.pos.to(dev),
                               self.nem.to(dev), self.act.to(dev))
         temp, seeds = self.temp.to(dev), self.seeds.to(dev)
         eos, max_new = self.eos.to(dev), self.max_new.to(dev)
+        forced, fmask = forced.to(dev), fmask.to(dev)
         sampled = bool((self.temp > 0).any())
         toks, emitted = [], []
-        for _ in range(self.burst_steps):
+        for i in range(R):
             logits = self.model.paged_decode_step(
                 self.params, self.pools.pools, tbl, tok, pos, act)
             nxt = sample_tokens(logits, temp, seeds, nem, sampled=sampled)
+            nxt = torch.where(fmask[i], forced[i], nxt)  # replayed step
             done = act & ((nxt == eos) | (nem + 1 >= max_new))
             toks.append(torch.where(act, nxt, -1))
             emitted.append(act)
@@ -312,11 +685,33 @@ class Engine:
         self.nem, self.act = nem.cpu(), act.cpu()
         toks = torch.stack(toks).cpu()
         emitted = torch.stack(emitted).cpu()
-        for s in range(self.max_slots):
+        if bool(emitted.any()):
+            self._progress = True  # a replay advancing is progress too
+        for s in range(b):
             if self._slot_rid[s] is None or self._ingest[s] is not None:
                 continue
+            k = consumed[s]
+            if k:  # the first k emissions replay tokens already held
+                for _ in range(k):
+                    self._replay[s].popleft()
+                if not self._replay[s]:
+                    self._replay[s] = None
             self._slot_tokens[s].extend(
-                int(t) for t in toks[emitted[:, s], s])
+                int(t) for t in toks[emitted[:, s], s][k:])
+
+    # --------------------------------------------------------------- retire
+    def _retire_guarded(self) -> list:
+        try:
+            self._check_fault("retire")
+        except Exception as e:
+            if not self.retry.is_recoverable(e):
+                raise
+            # retirement is host bookkeeping and idempotent: the finished
+            # slots stay one more round
+            self.events.emit("retire_deferred", round=self._round,
+                             error=repr(e))
+            return []
+        return self._retire()
 
     def _retire(self) -> list:
         finished = []
@@ -324,15 +719,68 @@ class Engine:
             rid = self._slot_rid[s]
             if rid is None or bool(self.act[s]) or self._ingest[s] is not None:
                 continue
-            req = self._slot_req[s]
             self.pools.release(self._slot_pages[s])
-            finished.append(RequestOutput(
-                request_id=rid,
-                tokens=self._slot_tokens[s][:req.max_new_tokens],
-                prompt_len=len(req.tokens),
-                submit_time=self._submit_time.pop(rid),
-                finish_time=time.time(),
-                first_token_time=self._first_token_time.pop(rid)))
-            self._slot_rid[s] = self._slot_pages[s] = None
-            self._slot_tokens[s] = self._slot_req[s] = None
+            req = self._slot_req[s]
+            toks = self._slot_tokens[s][:req.max_new_tokens]
+            self._clear_slot(s)
+            finished.append(self._finish(rid, req, toks, "ok"))
         return finished
+
+    def _fail_slot(self, slot: int, status: str,
+                   error: Optional[str] = None) -> RequestOutput:
+        """End the request in ``slot`` with a status other than ok: free its
+        pages, clear the slot, keep the tokens it has."""
+        rid = self._slot_rid[slot]
+        req = self._slot_req[slot]
+        toks = list(self._slot_tokens[slot] or [])[:req.max_new_tokens]
+        self.pools.release(self._slot_pages[slot])
+        self._clear_slot(slot)
+        return self._finish(rid, req, toks, status, error=error)
+
+    def _finish(self, rid: int, req: ServeRequest, tokens: list,
+                status: str, error: Optional[str] = None) -> RequestOutput:
+        """The terminal record of ``rid``: every request ends here once."""
+        n_pre = self._n_preempted.pop(rid, 0)
+        if status == "ok" and n_pre:
+            status = f"preempted_{n_pre}"
+        out = RequestOutput(
+            request_id=rid,
+            tokens=tokens,
+            prompt_len=len(req.tokens),
+            submit_time=self._submit_time.pop(rid),
+            finish_time=self._now(),
+            first_token_time=self._first_token_time.pop(rid, 0.0),
+            status=status,
+            n_preempted=n_pre)
+        if out.finished_ok:
+            lat = out.latency
+            self._service_ema = (lat if self._service_ema is None
+                                 else 0.7 * self._service_ema + 0.3 * lat)
+        else:
+            self.events.emit("request_" + status, request=rid,
+                             round=self._round, n_tokens=len(tokens),
+                             **({"error": error} if error else {}))
+        self._progress = True
+        return out
+
+    # ------------------------------------------------------------- watchdog
+    def _watchdog(self) -> None:
+        """A busy engine must make progress every round (a token decoded, a
+        chunk ingested, a request admitted or ended).  ``watchdog_rounds``
+        idle rounds emit ``stuck_round``; twice that raises
+        :class:`EngineStuck`."""
+        if not self.busy or self._progress:
+            self._idle_rounds = 0
+            return
+        self._idle_rounds += 1
+        if self._idle_rounds == self.watchdog_rounds:
+            self.events.emit("stuck_round", round=self._round,
+                             idle_rounds=self._idle_rounds,
+                             queued=len(self._queue),
+                             free_pages=self.pools.free_pages())
+        if self._idle_rounds >= 2 * self.watchdog_rounds:
+            raise EngineStuck(
+                f"no scheduling progress for {self._idle_rounds} rounds "
+                f"(round {self._round}: {len(self._queue)} queued, "
+                f"{self.pools.free_pages()} of {self.pools.n_pages} pages "
+                "free) — the engine is wedged; see the stuck_round event")

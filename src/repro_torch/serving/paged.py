@@ -22,8 +22,9 @@ import torch
 
 
 class PageAllocatorExhausted(RuntimeError):
-    """The pool cannot satisfy an allocation; carries ``need``, ``have``
-    and ``occupancy`` for programmatic callers."""
+    """The pool cannot satisfy an allocation; carries ``need``, ``have``,
+    ``occupancy`` and ``retry_after_s`` (None unless the raiser knows when
+    pages will free) for programmatic callers."""
 
 
 class PageAccountingError(RuntimeError):
@@ -84,19 +85,27 @@ class PagedPools:
                 f"{self.page}/page = {need} pages")
 
     def exhausted(self, n: int, *, context: str = "",
-                  have: int | None = None) -> PageAllocatorExhausted:
+                  have: int | None = None,
+                  retry_after_s: float | None = None
+                  ) -> PageAllocatorExhausted:
         """The actionable error for an allocation of ``n`` pages that cannot
         be met — raised by ``alloc``, and by ``Engine.submit`` (with
-        ``have`` the pool's capacity) for a request that can never fit."""
+        ``have`` the pool's capacity) for a request that can never fit.
+        The message carries the live occupancy, and a retry-after sentence
+        when the caller passes ``retry_after_s`` (kept as an attribute
+        too)."""
         have = self.free_pages() if have is None else have
         occ = 1.0 - have / self.n_pages
+        hint = (f"  Retry after ~{retry_after_s:.2f}s."
+                if retry_after_s is not None else "")
         err = PageAllocatorExhausted(
             f"page allocator exhausted{context}: need {n} pages, "
             f"{have} of {self.n_pages} free (occupancy {occ:.0%}, page = "
             f"{self.page} tokens).  Retire requests, raise n_pages (one "
             f"page is ~{self.page_bytes() / 1e3:.1f}KB across all layers), "
-            f"or lower max_new_tokens/prompt lengths.")
+            f"or lower max_new_tokens/prompt lengths.{hint}")
         err.need, err.have, err.occupancy = n, have, occ
+        err.retry_after_s = retry_after_s
         return err
 
     def alloc(self, n: int, *, context: str = "") -> list[int]:

@@ -23,6 +23,8 @@ Tolerances are relative to the largest reference magnitude:
   * quantized-KV attention: 1e-5 — the same dequantized fp32 terms, the
     scale applied after each row's dot product and sums in another order;
     the paged and the flat decode kernels are compared bitwise;
+  * the engine under overload: bitwise, a preempted request's tokens are
+    those of the same engine over a pool where nobody is preempted;
   * MLA: the head-batched quant_matmul (expand) and quant_matmul_t
     (absorb) 1e-5 against each head's plain version (fp32 sums in another
     order), quant_matmul_t's rows compared bitwise across m; the latent
@@ -34,10 +36,13 @@ Tolerances are relative to the largest reference magnitude:
     within 1e-5 of the function's float64 value, which their fp32 plain
     versions themselves miss by more than 1e-5.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.core.quantizer import QuantSpec, quantize_weight_rtn
 from repro_torch.kernels.attn_colsum.ops import attn_colsum
 from repro_torch.kernels.attn_colsum.ref import attn_colsum_ref
@@ -63,6 +68,9 @@ from repro_torch.kernels.quant_matmul.ops import (mla_latent_weights,
 from repro_torch.kernels.quant_matmul.ref import (quant_matmul_ref,
                                                   quant_matmul_t_ref)
 from repro_torch.models.attention import kv_codec
+from repro_torch.models.lm import Model
+from repro_torch.serving import (Engine, SamplingParams, ServeRequest,
+                                 poisson_trace, run_trace)
 
 pytestmark = pytest.mark.cuda
 
@@ -1347,3 +1355,43 @@ def test_attn_colsum_kernel_refuses_wider_heads(cuda):
     q = torch.randn((1, 8, 2, 200), device=cuda)
     with pytest.raises(ValueError):
         attn_colsum(q, q)
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("chunk,attn", [(None, "exact"), (64, "paged")],
+                         ids=["whole", "chunked-paged"])
+def test_engine_under_oversubscription_equals_large_pool(cuda, kv_bits,
+                                                         chunk, attn):
+    """A 2-layer bf16 engine on the card (paged decode and, chunked, the
+    paged extend kernel) with 8 requests over a pool of half the hot demand
+    (4 slots x 2 pages against 4 pages), two of them at priority 1, one
+    sampled: every request finishes, some after a preemption, each with
+    the tokens of the same requests at one priority over 32 pages, where
+    nobody is preempted, bit for bit."""
+    cfg = dataclasses.replace(get_config("llama3-8b").reduced(), n_layers=2,
+                              dtype="bfloat16", kv_bits=kv_bits)
+    model = Model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(2, cfg.vocab_size, (8, 100)).tolist()
+    budgets = [int(b) for b in rng.integers(10, 29, 8)]
+
+    def serve(n_pages, priority):
+        reqs = [ServeRequest(tokens=prompts[i], max_new_tokens=budgets[i],
+                             sampling=SamplingParams(
+                                 temperature=0.8 if i == 7 else 0.0, seed=i,
+                                 priority=priority * int(i >= 6)))
+                for i in range(8)]
+        engine = Engine(model, params, max_slots=4, n_pages=n_pages,
+                        max_pages_per_request=2, burst_steps=4,
+                        prefill_chunk=chunk, prefill_attn=attn)
+        st = run_trace(engine, poisson_trace(reqs, rate=2.0, seed=0))
+        assert st["n_requests"] == 8
+        assert all(o.finished_ok for o in st["outputs"].values())
+        return st
+
+    full, tight = serve(32, 0), serve(4, 1)
+    assert full["n_preemptions"] == 0
+    assert tight["n_preemptions"] >= 1 and tight["n_preempted_requests"] >= 1
+    for rid in range(8):
+        assert tight["outputs"][rid].tokens == full["outputs"][rid].tokens

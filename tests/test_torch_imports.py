@@ -34,7 +34,8 @@ def test_sources_found():
 @pytest.mark.parametrize("module", [
     "kernels/flash_decode/ops.py", "kernels/flash_decode/ref.py",
     "kernels/flash_decode/kernel.py", "serving/engine.py",
-    "serving/paged.py", "serving/trace.py", "serving/sampling.py"])
+    "serving/paged.py", "serving/trace.py", "serving/sampling.py",
+    "runtime/fault.py"])
 def test_quantized_kv_serving_modules_are_checked(module):
     """The quantized-KV serving slice's modules are among the sources the
     boundary check reads."""

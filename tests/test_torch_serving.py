@@ -356,18 +356,32 @@ def test_sampling_stream_is_stateless():
     assert int(tok[1]) == int((logits[1] + g[1]).argmax())
 
 
-@pytest.mark.parametrize("kv_bits", [8, 2])
-def test_serve_cli_on_cpu(kv_bits):
+@pytest.mark.parametrize("kv_bits,overload", [
+    pytest.param(8, False, id="8"), pytest.param(2, False, id="2"),
+    pytest.param(8, True, id="8-overload")])
+def test_serve_cli_on_cpu(kv_bits, overload):
+    """The batch and engine modes of the CLI; with ``overload`` the engine
+    runs whole-prompt admission again with a bounded queue, a deadline and
+    a burst failure injected at round 2 (retried): every request finishes
+    with the same tokens."""
     common = ["--device", "cpu", "--kv-bits", str(kv_bits), "--batch", "3",
               "--prompt-len", "70", "--gen", "6"]
     out = serve.main(common)
     assert np.asarray(out["tokens"]).shape == (3, 6)
     assert out["kv_cache_bytes"] < out["kv_cache_fp_bytes"] / (
         1.5 if kv_bits == 8 else 5)
-    eng = serve.main(common + ["--mode", "engine", "--prefill-chunk", "64",
-                               "--temperature", "0.7"])
+    engine = common + ["--mode", "engine", "--temperature", "0.7"]
+    eng = serve.main(engine + ["--prefill-chunk", "64"])
     assert eng["statuses"] == {"ok": 3} and eng["free_pages"] == 64
     assert all(len(t) == 6 for t in eng["tokens"].values())
+    if overload:
+        plain = serve.main(engine)
+        over = serve.main(engine + ["--queue-depth", "2", "--fail-at-round",
+                                    "2:burst", "--deadline-s", "600"])
+        assert over["n_requests"] == 3 and over["statuses"] == {"ok": 3}
+        assert over["events"] == {"burst_retry": 1} and plain["events"] == {}
+        assert over["tokens"] == plain["tokens"] == eng["tokens"]
+        assert over["free_pages"] == 64
 
 
 @pytest.mark.parametrize("kv_bits", [0, 8, 2])
