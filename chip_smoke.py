@@ -29,7 +29,14 @@ Phases, in order; any failure exits non-zero before the final line:
   3. the main path: RSQ quantize of llama3-8b at full width and 1 layer
      (random weights from a seed) -> packed artifact -> keep-packed greedy
      serve in bf16, with every kernel's launches counted over that run
-     (``quant_matmul``'s by the kernel that ran, too);
+     (``quant_matmul``'s by the kernel that ran, too).  Every decode runs
+     in a captured loop (``--loop graph``: a generation's decode steps, an
+     engine burst, each one CUDA graph replay); the fp-cache serve, kv8
+     and kv2 ``generate`` and the whole-prompt kv8 engine run again with
+     ``--loop python`` (counted apart), and fail unless the two loops give
+     the same tokens bit for bit and launch every kernel the same number
+     of times, unless each graph key was captured once, and unless
+     sampled calls replayed from a graph agree with their plain versions;
      the keep-packed serve is compared with a serve of the same artifact
      with weights dequantized at load time, and two of layer 0's GPTQ
      solves (Hessians from the kernels, solver on the card) are compared
@@ -84,6 +91,7 @@ one JSON line.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -1244,11 +1252,14 @@ def check_solves(torch, entries: dict, proxy_card: dict, *, arch=ARCH,
     return rows
 
 
-def profile_engine(torch, run) -> dict:
+def profile_engine(torch, run) -> tuple[dict, object]:
     """Device time by kernel over one traced engine run (``run()``), the
     summed device-busy time, the traced run's own wall clock and its idle
     share (1 - busy / that wall): the ten largest kernels (``top``) and
-    every kernel of the port's own sources (``port``).  The profiler slows
+    every kernel of the port's own sources (``port``), with ``run()``'s
+    result.  The profiler lists the kernels that a CUDA graph's replay
+    launches (on the H100, a replayed decode and the same steps launched
+    from Python list the same kernels and busy time).  The profiler slows
     the host, so the caller reports the untraced run's wall beside it."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1257,7 +1268,7 @@ def profile_engine(torch, run) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run()
+        result = run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [{"name": ev.key[:60], "ms": ev.self_device_time_total / 1e3,
@@ -1268,7 +1279,8 @@ def profile_engine(torch, run) -> dict:
     busy = sum(r["ms"] for r in rows)
     return {"device_busy_ms": busy, "traced_wall_ms": wall_ms,
             "idle_share": 1.0 - busy / wall_ms, "top": rows[:10],
-            "port": [r for r in rows if "anonymous namespace" in r["name"]]}
+            "port": [r for r in rows if "anonymous namespace" in r["name"]]
+            }, result
 
 
 class KvAudit:
@@ -1282,7 +1294,14 @@ class KvAudit:
     inputs (the caches and pools are written in place by later steps) with
     its result.  ``settle()`` runs the plain versions on the copies after
     each run, outside its timing; the copies are device-to-device, a few
-    per sampled call.  No call is sampled while ``label`` is None."""
+    per sampled call.  No call is sampled while ``label`` is None.
+
+    Under a captured decode loop (``runtime.graphs``) the wrapper runs once,
+    at the capture, so its copies are nodes of the graph: every replay
+    copies the sampled calls' inputs again and the kernel writes their
+    outputs again, and ``settle()`` holds the last replay's inputs against
+    that replay's output (``graph_checked``).  A copy from a graph that was
+    captured but never replayed holds nothing and is dropped."""
 
     GQA = ("flash_decode", "paged_flash_decode", "paged_flash_extend")
     MLA = ("quant_matmul_t", "mla_flash_decode", "paged_mla_flash_decode",
@@ -1334,19 +1353,35 @@ class KvAudit:
         self.label = None
         self.calls: dict = {}
         self.pending: list = []
-        self.rows = {name: {"checked": 0, "max_abs_err": 0.0,
-                            "max_rel_err": 0.0, "runs": []}
+        self.rows = {name: {"checked": 0, "graph_checked": 0,
+                            "max_abs_err": 0.0, "max_rel_err": 0.0,
+                            "runs": []}
                      for name in names}
         self.n_past: set = set()
         self.bad: list = []
+        self.capturing = None  # the Replay whose region is being captured
 
     def install(self) -> None:
+        from repro_torch.runtime.graphs import Replay
+
         for name in self.names:
             setattr(self.att, name, self._wrap(name))
+        self.real_ready = Replay.ready
+
+        def ready(replay):
+            self.capturing = replay
+            try:
+                return self.real_ready(replay)
+            finally:
+                self.capturing = None
+        Replay.ready = ready
 
     def restore(self) -> None:
+        from repro_torch.runtime.graphs import Replay
+
         for name, fn in self.real.items():
             setattr(self.att, name, fn)
+        Replay.ready = self.real_ready
 
     def _wrap(self, name):
         real, torch = self.real[name], self.torch
@@ -1359,16 +1394,23 @@ class KvAudit:
                 if i < AUDIT_FIRST or i % AUDIT_EVERY == 0:
                     kept = tuple(a.clone() if isinstance(a, torch.Tensor)
                                  else a for a in args)
-                    self.pending.append((name, self.label, kept, kw, out))
+                    owner = (self.capturing if
+                             torch.cuda.is_current_stream_capturing()
+                             else None)
+                    self.pending.append((name, self.label, kept, kw, out,
+                                         owner))
             return out
         return audited
 
     def settle(self) -> None:
-        for name, label, args, kw, got in self.pending:
+        for name, label, args, kw, got, owner in self.pending:
+            if owner is not None and owner.replays == 0:
+                continue  # captured, never replayed: nothing was computed
             want = self.plain[name](*args, **kw)
             abs_err, rel_err = errors(got, want)
             row = self.rows[name]
             row["checked"] += 1
+            row["graph_checked"] += owner is not None
             row["max_abs_err"] = max(row["max_abs_err"], abs_err)
             row["max_rel_err"] = max(row["max_rel_err"], rel_err)
             if label not in row["runs"]:
@@ -1467,7 +1509,13 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
     whole mode with a burst fault (``whole_fault``) and a shedding queue
     (``whole_shed``); see ``overload_runs``.  kv8's engine runs again under
     the profiler in ``TRACED_MODES`` (``<mode>_profile``).  The caller
-    counts the launches."""
+    counts the launches.
+
+    Decode runs in the captured loops (``loop="graph"``): ``generate``'s
+    graphs are held to one capture per key, each engine to its two
+    (greedy, sampled), captured when it is built; the batch-4 ``generate``
+    and kv8's whole-prompt engine run again with ``loop="python"``
+    (``loop_pair``), which must give the same tokens and launches."""
     import numpy as np
 
     from repro_torch.checkpoint.packed import load_packed_forward_params
@@ -1511,19 +1559,29 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                 generator=torch.Generator(device=dev).manual_seed(SEED))
             audit.label = f"kv{bits} generate"
             serve.generate(model, params, prompts, 2)  # warm-up
-            stats: dict = {}
-            toks = serve.generate(model, params, prompts, KV_GEN,
-                                  stats=stats)
+            stats = {"graph": {}, "python": {}}
+            toks, toks_py, _ = loop_pair(
+                torch, lambda loop: serve.generate(
+                    model, params, prompts, KV_GEN, stats=stats[loop],
+                    loop=loop), f"kv{bits} generate", bad)
             audit.settle()
+            st = stats["graph"]
             if toks.shape != (SERVE_BATCH, KV_GEN) or not bool(
-                    torch.isfinite(stats["first_logits"]).all()):
+                    torch.isfinite(st["first_logits"]).all()):
                 bad.append(f"kv{bits} generate: tokens {tuple(toks.shape)} "
                            f"or non-finite logits")
+            if not torch.equal(toks, toks_py):
+                bad.append(f"kv{bits} generate: the graph loop's tokens "
+                           f"differ from the Python loop's")
             cache_b, fp_b = serve.kv_cache_bytes(model, SERVE_BATCH,
                                                  KV_PROMPT + KV_GEN)
+            decode = SERVE_BATCH * (KV_GEN - 1)
             row = {"generate": {
-                "prefill_tok_s": SERVE_BATCH * KV_PROMPT / stats["prefill_s"],
-                "decode_tok_s": SERVE_BATCH * (KV_GEN - 1) / stats["decode_s"],
+                "prefill_tok_s": SERVE_BATCH * KV_PROMPT / st["prefill_s"],
+                "decode_tok_s": decode / st["decode_s"],
+                "python_decode_tok_s": decode / stats["python"]["decode_s"],
+                "capture_s": st["capture_s"],
+                "tokens_equal_python_loop": bool(torch.equal(toks, toks_py)),
                 "kv_cache_bytes": cache_b, "kv_cache_fp_bytes": fp_b,
                 "seconds": time.perf_counter() - t0}}
             t1 = time.perf_counter()
@@ -1544,13 +1602,29 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                 solo_logits.append(st_i["first_logits"])
             audit.settle()
             row["solo_generate_s"] = time.perf_counter() - t1
+            # one graph a key: the warm-up's, KV_GEN's, and each distinct
+            # (budget, sampled) of the solo runs, every one captured once
+            keys = {(SERVE_BATCH, KV_PROMPT, 2, False),
+                    (SERVE_BATCH, KV_PROMPT, KV_GEN, False)} | {
+                (1, ENGINE_PROMPT, budgets[i], sps[i].temperature > 0)
+                for i in range(n)}
+            captured = [r.captured for r, _ in model.graphs.values()]
+            row["generate"]["captures"] = sum(captured)
+            if sorted(k[1:] for k in model.graphs) != sorted(keys) or \
+                    not all(captured):
+                bad.append(f"kv{bits} generate: graphs {sorted(model.graphs)}"
+                           f" (captured {captured}), not one for each of "
+                           f"{sorted(keys)}")
             need = -(-(ENGINE_PROMPT + ENGINE_BUDGETS[1]) // cfg.kv_chunk)
 
             def engine_run(chunk, attn, *, n_pages=ENGINE_PAGES,
                            rate=ENGINE_RATE, sampling=sps, submitted=None,
-                           **overload):
-                """run_trace's summary; ``submitted`` (a dict) receives
-                each accepted request's id by its index."""
+                           loop="graph", traced=False, **overload):
+                """run_trace's summary with the engine's ``captures`` and
+                ``capture_s``; ``submitted`` (a dict) receives each
+                accepted request's id by its index.  The engine captures
+                its graphs when it is built, before the trace starts;
+                ``traced`` profiles the trace alone (``profile``)."""
                 reqs = [ServeRequest(tokens=prompts[i].tolist(),
                                      max_new_tokens=budgets[i],
                                      sampling=sampling[i]) for i in range(n)]
@@ -1559,7 +1633,7 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                                 max_pages_per_request=need,
                                 burst_steps=ENGINE_BURST,
                                 prefill_chunk=chunk, prefill_attn=attn,
-                                **overload)
+                                loop=loop, **overload)
                 if submitted is not None:
                     index = {id(r): i for i, r in enumerate(reqs)}
                     accept = engine.submit
@@ -1570,9 +1644,16 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                         return rid
                     engine.submit = submit
                 # run_trace drains and checks that every page came back
-                st = run_trace(engine, poisson_trace(reqs, rate=rate,
-                                                     seed=SEED))
-                st["events"] = engine.events.kinds()
+                def trace():
+                    return run_trace(engine, poisson_trace(reqs, rate=rate,
+                                                           seed=SEED))
+                prof = None
+                if traced:
+                    prof, st = profile_engine(torch, trace)
+                else:
+                    st = trace()
+                st.update(events=engine.events.kinds(), profile=prof,
+                          **serve.graph_stats(engine.graphs.values()))
                 return st
 
             for mode, chunk, attn in ENGINE_MODES:
@@ -1583,7 +1664,15 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                 lossy = bits in lossy_paged_bits and attn == "paged"
                 finals = FinalChunks(model) if lossy else None
                 audit.label = f"kv{bits} {mode}"
-                st = engine_run(chunk, attn)
+                python = None
+                if mode == "whole" and bits == KV_BITS[0]:
+                    # and the debug loop on the same trace: the same streams
+                    st, python, _ = loop_pair(
+                        torch, lambda loop: engine_run(chunk, attn,
+                                                       loop=loop),
+                        f"kv{bits} {mode} engine", bad)
+                else:
+                    st = engine_run(chunk, attn)
                 audit.settle()
                 outs = [st["outputs"].get(i) for i in range(n)]
                 ok = [o is not None and o.status == "ok"
@@ -1605,7 +1694,22 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                         "sustained_tok_s", "ttft_p50_s", "ttft_p99_s",
                         "p50_latency_s", "p99_latency_s", "wall_s",
                         "n_tokens", "rounds", "admission_stall_s",
-                        "statuses")}
+                        "statuses", "captures", "capture_s")}
+                if st["captures"] != 2:
+                    bad.append(f"kv{bits} {mode}: {st['captures']} burst "
+                               f"graphs captured, not 2 (greedy, sampled)")
+                if python is not None:
+                    same = sorted(python["outputs"]) == sorted(st["outputs"])\
+                        and all(python["outputs"][rid].tokens == o.tokens
+                                for rid, o in st["outputs"].items())
+                    row[mode]["python_loop"] = {
+                        k: python[k] for k in ("sustained_tok_s",
+                                               "ttft_p50_s", "ttft_p99_s",
+                                               "wall_s", "rounds")}
+                    row[mode]["python_loop"]["tokens_equal"] = same
+                    if not same:
+                        bad.append(f"kv{bits} {mode}: the graph loop's "
+                                   f"streams differ from the Python loop's")
                 row[mode].update(
                     first_token_match_solo_generate=sum(first) / n,
                     first_token_enforced=not lossy,
@@ -1654,15 +1758,19 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                 for mode, chunk, attn in ENGINE_MODES:
                     if mode not in TRACED_MODES:
                         continue
-                    traced = profile_engine(torch, lambda: engine_run(chunk,
-                                                                      attn))
+                    traced = engine_run(chunk, attn, traced=True)["profile"]
                     traced["untraced_wall_ms"] = row[mode]["wall_s"] * 1e3
+                    traced["untraced_idle_share"] = 1.0 - (
+                        traced["device_busy_ms"] / traced["untraced_wall_ms"])
                     row[f"{mode}_profile"] = traced
             row["seconds"] = time.perf_counter() - t0
             report[f"kv{bits}"] = row
             log({"kv_serve": {"arch": arch, "kv_bits": bits, **row}})
             del model
         del params
+        # captured graphs go with their owners (an engine in a reference
+        # cycle, as engine_run's submit hook makes, with a collection)
+        gc.collect()
         torch.cuda.empty_cache()
     finally:
         audit.restore()
@@ -1689,6 +1797,13 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
     if unchecked:
         bad.append(f"never held to the plain version on the main path: "
                    f"{unchecked}")
+    # the decode kernels run inside the captured loops; the extend in the
+    # eager chunked prefill
+    unreplayed = [name for name, r in audit.rows.items()
+                  if not r["graph_checked"] and not name.endswith("_extend")]
+    if unreplayed:
+        bad.append(f"never held to the plain version on a graph replay: "
+                   f"{unreplayed}")
     if not {0} < audit.n_past:
         bad.append(f"extend checked only at n_past {sorted(audit.n_past)}")
     bad += audit.bad
@@ -1756,6 +1871,60 @@ def overload_runs(mode: str, engine_run, chunk, attn, sps, base,
     return rows
 
 
+def launch_delta(after: dict, before: dict) -> dict:
+    """{wrapper or kernel: launches} between two ``runtime.graphs``
+    ``read_counts()`` snapshots, zeros left out."""
+    out = {}
+    for name, (n, by) in after.items():
+        out[name] = n - before[name][0]
+        out.update({k: v - before[name][1][k] for k, v in by.items()})
+    return {k: v for k, v in out.items() if v}
+
+
+def loop_pair(torch, run, tag: str, bad: list) -> tuple:
+    """``run("graph")``, then ``run("python")`` (the debug loop) with its
+    launches counted apart: every count is put back after it, so a path's
+    launches are its graph runs'.  Fails (into ``bad``) unless the two
+    runs launched the same kernels the same number of times.  Returns
+    (graph result, python result, graph launches)."""
+    from repro_torch.runtime.graphs import read_counts, write_counts
+
+    c0 = read_counts()
+    graph = run("graph")
+    torch.cuda.synchronize()
+    c1 = read_counts()
+    python = run("python")
+    torch.cuda.synchronize()
+    n_graph, n_python = launch_delta(c1, c0), launch_delta(read_counts(), c1)
+    write_counts(c1)
+    if n_graph != n_python:
+        bad.append(f"{tag}: launches differ between the graph loop "
+                   f"{n_graph} and the Python loop {n_python}")
+    return graph, python, n_graph
+
+
+def serve_loops(torch, serve, serve_args, tag: str) -> tuple[dict, dict]:
+    """The keep-packed fp-cache serve through the CLI with ``--loop graph``
+    and again with ``--loop python`` (``loop_pair``): the same tokens bit
+    for bit and the same launches, or the run fails.  Returns the graph
+    run's result and the comparison row."""
+    bad: list = []
+    graph, python, n_graph = loop_pair(
+        torch, lambda loop: serve.main(serve_args + ["--loop", loop]), tag,
+        bad)
+    if graph["tokens"] != python["tokens"]:
+        bad.append(f"{tag}: the graph loop's tokens differ from the Python "
+                   f"loop's")
+    if bad:
+        fail("; ".join(bad))
+    return graph, {"tokens_equal": True, "launches_equal": True,
+                   "launches": n_graph,
+                   "graph_decode_tok_s": graph["decode_tok_s"],
+                   "python_decode_tok_s": python["decode_tok_s"],
+                   "captures": graph["captures"],
+                   "capture_s": graph["capture_s"]}
+
+
 def reset_counts(counted: dict) -> None:
     """Every launch count of ``counted``'s wrappers to 0 (by kernel too,
     where a wrapper counts them)."""
@@ -1808,7 +1977,7 @@ def main_path(torch) -> tuple[dict, dict]:
         entries = {name: e for name, e in load_packed_artifact(art)[0].items()
                    if name.removeprefix("layer0/") in SOLVE_CHECK}
         torch.cuda.empty_cache()
-        packed = serve.main(serve_args)
+        packed, loops = serve_loops(torch, serve, serve_args, "fp cache")
         launches = read_counts(counted)
         dequant = serve.main(serve_args + ["--no-keep-packed"])
         traced = serve.main(serve_args + ["--profile"])["profile"]
@@ -1839,7 +2008,7 @@ def main_path(torch) -> tuple[dict, dict]:
         "dequantized_decode_tok_s": dequant["decode_tok_s"],
         "resident_packed_bytes": packed["resident_packed_bytes"],
         "resident_fp_bytes": packed["resident_fp_bytes"],
-        "launches": launches}})
+        "loops": loops, "launches": launches}})
     log({"decode_profile": traced})
 
     tokens = torch.tensor(packed["tokens"])
@@ -1917,7 +2086,7 @@ def mla_path(torch) -> dict:
         wkv_b = meta["entries"]["layer0/mixer/wkv_b"]
         del loaded
         torch.cuda.empty_cache()
-        packed = serve.main(serve_args)
+        packed, loops = serve_loops(torch, serve, serve_args, "MLA fp cache")
         dequant = serve.main(serve_args + ["--no-keep-packed"])
         traced = serve.main(serve_args + ["--profile"])["profile"]
         t1 = time.perf_counter()
@@ -1954,7 +2123,7 @@ def mla_path(torch) -> dict:
         "dequantized_decode_tok_s": dequant["decode_tok_s"],
         "resident_packed_bytes": packed["resident_packed_bytes"],
         "resident_fp_bytes": packed["resident_fp_bytes"],
-        "launches": launches}})
+        "loops": loops, "launches": launches}})
     log({"mla_decode_profile": traced})
 
     tokens = torch.tensor(packed["tokens"])

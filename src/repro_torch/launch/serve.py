@@ -1,6 +1,13 @@
-"""Serving entry point of the PyTorch port: prefill + a plain Python decode
-loop (``--mode batch``), or the continuous-batching engine over paged
+"""Serving entry point of the PyTorch port: prefill + a decode loop
+(``--mode batch``), or the continuous-batching engine over paged
 quantized KV pools (``--mode engine``).
+
+``--loop graph`` (the default, the counterpart of the reference's ``--loop
+scan``) captures the decode steps of a generation, or of an engine burst,
+once as a CUDA graph and replays it; ``--loop python`` launches every
+step from Python (the debug loop; the same tokens bit for bit).  Decode
+tokens/s exclude the capture, which the JSON line reports apart
+(``captures``, ``capture_s``).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3-8b \\
       --n-layers 2 --packed /tmp/rsq_art --dtype bfloat16 --kv-bits 8
@@ -42,6 +49,7 @@ import collections
 import dataclasses
 import json
 import time
+import weakref
 
 import torch
 
@@ -53,6 +61,7 @@ from repro_torch.device import generator, resolve_device
 from repro_torch.launch.quantize import model_config
 from repro_torch.models.lm import Model
 from repro_torch.runtime.fault import FaultPlan
+from repro_torch.runtime.graphs import LOOPS, Replay
 from repro_torch.serving import (Engine, SamplingParams, ServeRequest,
                                  poisson_trace, run_trace)
 from repro_torch.serving.sampling import sample_tokens
@@ -63,17 +72,74 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def decode_graph(model: Model, params: dict, b: int, t: int, n_gen: int,
+                 sampled: bool) -> tuple[Replay, dict]:
+    """The counterpart of the reference's ``_scan_decode_fn``: the n_gen - 1
+    decode steps of a (b, t) prompt batch as one region, sampling inside it
+    with the token index on the device, captured as one CUDA graph on the
+    card.  Kept on ``model.graphs`` by (params, b, t, n_gen, sampled), as
+    the reference's ``lru_cache`` keeps its programs by (model, n_gen,
+    sampled); the temperature and the seeds are buffer values, not keys.
+    Returns the ``Replay`` and its static inputs: ``cache`` (the one static
+    storage of the flat cache, which the caller loads with the prefill's),
+    ``tok`` (B, 1) token 0, ``temp`` and ``seeds`` (B,)."""
+    key = (id(params), b, t, n_gen, sampled)
+    if key not in model.graphs:
+        dev = model.device
+        static = {"cache": model.init_cache(b, t + n_gen),
+                  "tok": torch.zeros((b, 1), dtype=torch.int64, device=dev),
+                  "pos": torch.full((1,), t, dtype=torch.int64, device=dev),
+                  "temp": torch.zeros((b,), device=dev),
+                  "seeds": torch.zeros((b,), dtype=torch.int64, device=dev)}
+        # the region is kept on the model: a proxy, not a cycle through it
+        owner = weakref.proxy(model)
+
+        def steps(n: int) -> torch.Tensor:
+            tok, pos, toks = static["tok"], static["pos"], []
+            for i in range(n):
+                logits = owner.decode_step(params, static["cache"], tok, pos)
+                index = torch.full((b,), i + 1, dtype=torch.int64,
+                                   device=dev)
+                tok = sample_tokens(logits, static["temp"], static["seeds"],
+                                    index, sampled=sampled)[:, None]
+                toks.append(tok)
+                pos = pos + 1
+            return torch.cat(toks, dim=1)
+
+        model.graphs[key] = (Replay(lambda: steps(n_gen - 1), dev,
+                                    warm_up=lambda: steps(1), params=params),
+                             static)
+    return model.graphs[key]
+
+
+def graph_stats(replays) -> dict:
+    """``captures`` (graphs captured) and ``capture_s`` (seconds spent on
+    their warm-ups and captures) of some ``Replay``s."""
+    replays = list(replays)
+    return {"captures": sum(r.captured for r in replays),
+            "capture_s": sum(r.capture_s for r in replays)}
+
+
 @torch.no_grad()
 def generate(model: Model, params: dict, prompts: torch.Tensor, n_gen: int,
              *, temperature: float = 0.0, seed: int = 0,
-             stats: dict | None = None) -> torch.Tensor:
+             stats: dict | None = None, loop: str = "graph") -> torch.Tensor:
     """prompts: (B, T) -> (B, n_gen) tokens.  Token 0 comes from the
     prefill logits, then n_gen - 1 decode steps, through the quantized
     cache when the model's ``kv_bits`` is set.  Greedy at temperature 0;
     otherwise row ``i`` draws token ``j`` from the (seed + i, j) stream,
-    the engine's for a request with that seed.  ``stats`` (optional)
-    receives ``prefill_s``, ``decode_s`` and the prefill
+    the engine's for a request with that seed.
+
+    ``loop="graph"`` (default) runs the decode steps as one captured
+    region (:func:`decode_graph`): a CUDA graph replay on the card, the
+    same region called on the CPU.  ``"python"`` is the debug loop, a
+    ``decode_step`` a token from Python with the position as an int; the
+    tokens are the same bit for bit.  ``stats`` (optional) receives
+    ``prefill_s``, ``decode_s`` (without the capture), ``capture_s`` (0.0
+    when the graph was already captured) and the prefill
     ``first_logits``."""
+    if loop not in LOOPS:
+        raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
     b, t = prompts.shape
     dev = model.device
     temp = torch.full((b,), float(temperature), device=dev)
@@ -92,16 +158,30 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, n_gen: int,
         _sync(dev)
         stats["prefill_s"] = time.perf_counter() - t0
         stats["first_logits"] = logits
-    t1 = time.perf_counter()
-    toks = [tok]
-    for i in range(n_gen - 1):
-        logits = model.decode_step(params, cache, tok, t + i)
-        tok = draw(logits, i + 1)
-        toks.append(tok)
-    out = torch.cat(toks, dim=1)
+    capture_s = 0.0
+    if loop == "graph" and n_gen > 1:
+        replay, static = decode_graph(model, params, b, t, n_gen, sampled)
+        for dst, src in zip(static["cache"], cache):
+            for key, a in src.items():
+                dst[key].copy_(a)
+        static["tok"].copy_(tok)
+        static["temp"].copy_(temp)
+        static["seeds"].copy_(seeds)
+        capture_s = replay.ready()
+        t1 = time.perf_counter()
+        out = torch.cat([tok, replay.run()], dim=1)
+    else:
+        t1 = time.perf_counter()
+        toks = [tok]
+        for i in range(n_gen - 1):
+            logits = model.decode_step(params, cache, tok, t + i)
+            tok = draw(logits, i + 1)
+            toks.append(tok)
+        out = torch.cat(toks, dim=1)
     if stats is not None:
         _sync(dev)
         stats["decode_s"] = time.perf_counter() - t1
+        stats["capture_s"] = capture_s
     return out
 
 
@@ -137,13 +217,14 @@ def serve_engine(model: Model, params: dict, prompts: torch.Tensor,
                  prefill_chunk: int | None = None,
                  prefill_attn: str = "exact", deadline_s: float = 0.0,
                  queue_depth: int | None = None,
-                 fault_plan: FaultPlan | None = None
+                 fault_plan: FaultPlan | None = None, loop: str = "graph"
                  ) -> tuple[Engine, dict]:
     """Serve each prompt row as one request of ``n_gen`` tokens through the
     engine on a Poisson trace; returns the engine and ``run_trace``'s
     summary (every page is back on the free list when it returns).
     ``deadline_s``, ``queue_depth`` and ``fault_plan`` are the engine's
-    overload settings."""
+    overload settings; ``loop`` its burst loop (the engine captures its
+    graphs when it is built, before the trace starts)."""
     reqs = [ServeRequest(tokens=prompts[i].tolist(), max_new_tokens=n_gen,
                          sampling=SamplingParams(temperature=temperature,
                                                  seed=seed + i,
@@ -153,7 +234,8 @@ def serve_engine(model: Model, params: dict, prompts: torch.Tensor,
     engine = Engine(model, params, max_slots=max_slots, n_pages=n_pages,
                     max_pages_per_request=need, burst_steps=burst_steps,
                     prefill_chunk=prefill_chunk, prefill_attn=prefill_attn,
-                    queue_depth=queue_depth, fault_plan=fault_plan)
+                    queue_depth=queue_depth, fault_plan=fault_plan,
+                    loop=loop)
     stats = run_trace(engine, poisson_trace(reqs, rate=arrival_rate,
                                             seed=seed))
     return engine, stats
@@ -161,20 +243,22 @@ def serve_engine(model: Model, params: dict, prompts: torch.Tensor,
 
 @torch.no_grad()
 def profile_generate(model: Model, params: dict, prompts: torch.Tensor,
-                     n_gen: int, top: int = 12) -> dict:
-    """One traced ``generate`` under ``torch.profiler``: device time by
-    kernel name and the summed device-busy time (the profiler slows the
+                     n_gen: int, top: int = 12, loop: str = "graph") -> dict:
+    """One traced greedy ``generate`` under ``torch.profiler``: device time
+    by kernel name and the summed device-busy time (the profiler slows the
     host, so the traced wall time is not the run's; compare the busy time
-    with an untraced run of the same work)."""
+    with an untraced run of the same work).  The decode graph is captured
+    by an untraced call first, so the trace holds replays only."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if model.device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
+    generate(model, params, prompts, n_gen, loop=loop)
     _sync(model.device)
     with profile(activities=activities) as prof:
-        generate(model, params, prompts, n_gen)
+        generate(model, params, prompts, n_gen, loop=loop)
         _sync(model.device)
     rows = []
     for ev in prof.key_averages():
@@ -252,6 +336,12 @@ def main(argv=None) -> dict:
                     "a round's stage, one of admit, ingest, burst, retire; "
                     "a failed burst is retried, a request whose admit or "
                     "ingest fails ends failed; repeatable")
+    ap.add_argument("--loop", choices=LOOPS, default="graph",
+                    help="decode loop: 'graph' (default) captures the "
+                    "decode steps of a generation (batch mode) or of a "
+                    "burst (engine mode) once as a CUDA graph and replays "
+                    "it; 'python' launches every step from Python (debug; "
+                    "the same tokens bit for bit)")
     ap.add_argument("--profile", action="store_true",
                     help="after the timed run, trace one more generate with "
                     "torch.profiler and report device time by kernel and "
@@ -267,7 +357,8 @@ def main(argv=None) -> dict:
                  "--kv-bits 8 or --kv-bits 2")
     model = Model(cfg, device)  # raises on an unsupported --kv-bits
     result: dict = {"arch": args.arch, "n_layers": cfg.n_layers,
-                    "device": str(device), "kv_bits": cfg.kv_bits}
+                    "device": str(device), "kv_bits": cfg.kv_bits,
+                    "loop": args.loop}
     if args.packed:
         loader = (load_packed_forward_params if args.keep_packed
                   else load_packed_params)
@@ -300,13 +391,14 @@ def main(argv=None) -> dict:
             prefill_chunk=args.prefill_chunk or None,
             deadline_s=args.deadline_s, queue_depth=args.queue_depth or None,
             fault_plan=(FaultPlan.parse(args.fail_at_round)
-                        if args.fail_at_round else None))
+                        if args.fail_at_round else None), loop=args.loop)
         admit = (f"chunked ({engine.prefill_chunk} tokens/chunk, "
                  f"{engine.prefill_attn})" if engine.prefill_chunk
                  else "whole-prompt")
         result.update({k: v for k, v in st.items() if k != "outputs"},
                       admission=admit,
                       free_pages=engine.pools.free_pages(),
+                      **graph_stats(engine.graphs.values()),
                       events=dict(collections.Counter(engine.events.kinds())),
                       tokens={rid: o.tokens
                               for rid, o in st["outputs"].items()})
@@ -324,13 +416,15 @@ def main(argv=None) -> dict:
               f"{st['n_failed']}; events {result['events']}; pages "
               f"quiescent")
         return result
-    sampling = dict(temperature=args.temperature, seed=args.seed)
+    sampling = dict(temperature=args.temperature, seed=args.seed,
+                    loop=args.loop)
     generate(model, params, prompts, min(args.gen, 2), **sampling)  # warm-up
     stats: dict = {}
     out = generate(model, params, prompts, args.gen, stats=stats, **sampling)
     result.update(
         tokens=out.cpu().tolist(), first_logits=stats["first_logits"],
         prefill_s=stats["prefill_s"], decode_s=stats["decode_s"],
+        **graph_stats(r for r, _ in model.graphs.values()),
         prefill_tok_s=args.batch * args.prompt_len / stats["prefill_s"],
         decode_tok_s=(args.batch * (args.gen - 1) / stats["decode_s"]
                       if args.gen > 1 else 0.0))
@@ -338,7 +432,8 @@ def main(argv=None) -> dict:
         result["kv_cache_bytes"], result["kv_cache_fp_bytes"] = kv_cache_bytes(
             model, args.batch, args.prompt_len + args.gen)
     if args.profile:
-        prof = profile_generate(model, params, prompts, args.gen)
+        prof = profile_generate(model, params, prompts, args.gen,
+                                loop=args.loop)
         wall_ms = (stats["prefill_s"] + stats["decode_s"]) * 1e3
         prof["untraced_wall_ms"] = wall_ms
         prof["idle_share"] = 1.0 - prof["device_busy_ms"] / wall_ms

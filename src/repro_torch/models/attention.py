@@ -13,7 +13,8 @@ The quantized cache never leaves codes + scales on the serving path: prefill
 encodes, decode appends one encoded token, and attention reads the codes
 through ``kernels.flash_decode``.  ``kv_dequantize`` and ``kv_log_decode``
 materialize a cache in fp and exist for tests only.  Unlike the reference,
-appends write into the cache tensors in place.
+appends write into the cache tensors in place, at a position given as an
+int or as a device tensor (a captured decode loop's, ``runtime.graphs``).
 """
 from __future__ import annotations
 
@@ -79,11 +80,22 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.transpose(1, 2).to(q.dtype)
 
 
+def position_index(pos, device) -> torch.Tensor:
+    """A flat cache's decode position as a (1,) int64 tensor on ``device``:
+    an int is filled there (no host-to-device copy), a 0-d or (1,) int
+    tensor is reshaped.  The decode step takes either; a captured decode
+    loop passes a tensor, which a graph replay may change."""
+    if isinstance(pos, torch.Tensor):
+        return pos.reshape(1).to(device=device, dtype=torch.int64)
+    return torch.full((1,), pos, dtype=torch.int64, device=device)
+
+
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
-                     v_cache: torch.Tensor, pos: int) -> torch.Tensor:
+                     v_cache: torch.Tensor, pos) -> torch.Tensor:
     """Single-token attention against a (B, S, KV, Dh) cache; positions
-    > pos are masked.  q: (B, 1, H, Dh) -> (B, 1, H, Dv).  The query is
-    grouped as (KV, G) and contracted against the un-repeated cache."""
+    > pos (an int or a (1,) tensor) are masked.  q: (B, 1, H, Dh) ->
+    (B, 1, H, Dv).  The query is grouped as (KV, G) and contracted
+    against the un-repeated cache."""
     b, _, h, dh = q.shape
     s_len, kv_heads = k_cache.shape[1], k_cache.shape[2]
     g = h // kv_heads
@@ -240,11 +252,13 @@ class Kv8Codec:
         del pos, cur_scale
         return kv_quantize(x)
 
-    def append(self, codes, scales, x, pos: int) -> None:
-        """Write one token's codes and scale at ``pos`` of a flat cache."""
-        q, sc = self.encode_token(x, pos, None)
-        codes[:, pos] = q[:, 0]
-        scales[:, pos] = sc[:, 0]
+    def append(self, codes, scales, x, pos) -> None:
+        """Write one token's codes and scale at ``pos`` (an int, or a 0-d
+        or (1,) int tensor) of a flat cache."""
+        i = position_index(pos, codes.device)
+        q, sc = self.encode_token(x, i, None)
+        codes.index_copy_(1, i, q)
+        scales.index_copy_(1, i, sc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -285,23 +299,25 @@ class Kv2Codec:
 
     def encode_token(self, x, pos, cur_scale):
         """One token (B, 1, ..., D) against the current scale of its chunk
-        (B, 1, ...); ``pos`` is an int (flat cache, shared by the batch) or
-        a (B,) tensor (paged cache)."""
+        (B, 1, ...); ``pos`` is a (1,) int tensor (flat cache, shared by the
+        batch) or a (B,) one (paged cache).  The stamp is chosen on the
+        device, so the position may change between replays of a graph."""
         xf = x.float()
         lead = torch.clamp_min(xf.abs().amax(-1), 1e-8).to(cur_scale.dtype)
-        if isinstance(pos, torch.Tensor):
-            stamp = (pos % self.chunk == 0).reshape(
-                (-1,) + (1,) * (cur_scale.ndim - 1))
-            sc = torch.where(stamp, lead, cur_scale)
-        else:
-            sc = lead if pos % self.chunk == 0 else cur_scale
+        stamp = (pos % self.chunk == 0).reshape(
+            (-1,) + (1,) * (cur_scale.ndim - 1))
+        sc = torch.where(stamp, lead, cur_scale)
         return kv_pack(_kv_log_codes(xf, sc)), sc
 
-    def append(self, codes, scales, x, pos: int) -> None:
-        ci = pos // self.chunk
-        tok, sc = self.encode_token(x, pos, scales[:, ci:ci + 1])
-        codes[:, pos] = tok[:, 0]
-        scales[:, ci] = sc[:, 0]
+    def append(self, codes, scales, x, pos) -> None:
+        """Write one token's codes at ``pos`` (an int, or a 0-d or (1,) int
+        tensor) of a flat cache, and its chunk's scale row: stamped at a
+        chunk boundary, else kept."""
+        i = position_index(pos, codes.device)
+        ci = i // self.chunk
+        tok, sc = self.encode_token(x, i, scales.index_select(1, ci))
+        codes.index_copy_(1, i, tok)
+        scales.index_copy_(1, ci, sc)
 
 
 @functools.lru_cache(maxsize=None)
@@ -538,7 +554,7 @@ def _mla_scaled(cfg, q_lat, q_rope):
     return q_lat.float() * scale, q_rope.float() * scale
 
 
-def mla_decode(p: dict, cfg, x: torch.Tensor, c_cache, rope_cache, pos: int,
+def mla_decode(p: dict, cfg, x: torch.Tensor, c_cache, rope_cache, pos,
                *, c_scale=None, r_scale=None, kv_bits: int = 0,
                chunk: int = 1, tile: int = 64) -> torch.Tensor:
     """Latent-space ("absorbed") MLA decode of one token.  x: (B, 1, D);
@@ -546,23 +562,23 @@ def mla_decode(p: dict, cfg, x: torch.Tensor, c_cache, rope_cache, pos: int,
     or their codes with ``c_scale``/``r_scale`` for ``kv_bits`` 8 or 2,
     attended on the codes through ``mla_flash_decode`` (``tile`` = the page
     size, so this equals :func:`mla_decode_paged` bitwise).  Positions >
-    pos are masked."""
+    pos (an int or a (1,) tensor) are masked."""
     b = x.shape[0]
     h, dv = cfg.n_heads, cfg.v_head_dim
-    positions = torch.full((1,), pos, device=x.device)
+    positions = position_index(pos, x.device)
     q_lat, q_rope, expand_v = _mla_q_and_expand(p, cfg, x, positions)
     if kv_bits in (8, 2):
         ql, qr = _mla_scaled(cfg, q_lat, q_rope)
         ctx_lat = mla_flash_decode(
-            ql[:, 0], qr[:, 0], c_cache, c_scale, rope_cache, r_scale, pos,
-            kv_bits=kv_bits, chunk=chunk, dl=cfg.kv_lora_rank,
+            ql[:, 0], qr[:, 0], c_cache, c_scale, rope_cache, r_scale,
+            positions, kv_bits=kv_bits, chunk=chunk, dl=cfg.kv_lora_rank,
             dr=cfg.qk_rope_dim, tile=tile)[:, None]        # (B, 1, H, kvr)
     else:
         scale = (cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5
         cf, rf = c_cache.float(), rope_cache.float()
         scores = (matmul(q_lat[:, 0], cf.transpose(1, 2))
                   + matmul(q_rope[:, 0].float(), rf.transpose(1, 2))) * scale
-        valid = torch.arange(c_cache.shape[1], device=x.device) <= pos
+        valid = torch.arange(c_cache.shape[1], device=x.device) <= positions
         prob = torch.softmax(torch.where(valid, scores, NEG_INF), dim=-1)
         ctx_lat = matmul(prob, cf)[:, None]                  # (B, 1, H, kvr)
     return linear(expand_v(ctx_lat).reshape(b, 1, h * dv).to(x.dtype),

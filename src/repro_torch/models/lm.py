@@ -111,39 +111,41 @@ def _mix_out(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
-                 pos: int) -> torch.Tensor:
+                 pos) -> torch.Tensor:
     """One-token step. x: (B, 1, D); writes this token's K/V (or its codes
     and scales) into the cache at ``pos`` (in place) and attends over
-    positions <= pos, on the codes directly for a quantized cache."""
+    positions <= pos, on the codes directly for a quantized cache.
+    ``pos``: an int, or a 0-d or (1,) int tensor on the device (the same
+    bits either way; a captured loop's position changes at replay)."""
     codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
-    positions = torch.full((1,), pos, device=x.device)
+    positions = att.position_index(pos, x.device)
     if _is_mla(cfg):
         c_kv, k_rope = att.mla_latent(p["mixer"], cfg, h, positions)
         if codec.quantized:
-            codec.append(cache["c"], cache["cs"], c_kv, pos)
-            codec.append(cache["r"], cache["rs"], k_rope, pos)
+            codec.append(cache["c"], cache["cs"], c_kv, positions)
+            codec.append(cache["r"], cache["rs"], k_rope, positions)
         else:
-            cache["c"][:, pos] = c_kv[:, 0]
-            cache["r"][:, pos] = k_rope[:, 0]
+            cache["c"].index_copy_(1, positions, c_kv)
+            cache["r"].index_copy_(1, positions, k_rope)
         mix = att.mla_decode(
-            p["mixer"], cfg, h, cache["c"], cache["r"], pos,
+            p["mixer"], cfg, h, cache["c"], cache["r"], positions,
             c_scale=cache.get("cs"), r_scale=cache.get("rs"),
             kv_bits=codec.kv_bits, chunk=codec.chunk,
             tile=codec.page_tokens if codec.quantized else 1)
         return _ffn_out(p, cfg, x, mix)
     q, k, v = att.gqa_qkv(p["mixer"], cfg, h, positions)
     if codec.quantized:
-        codec.append(cache["k"], cache["ks"], k, pos)
-        codec.append(cache["v"], cache["vs"], v, pos)
+        codec.append(cache["k"], cache["ks"], k, positions)
+        codec.append(cache["v"], cache["vs"], v, positions)
         out = att.decode_attention_quantized(
-            q, cache["k"], cache["ks"], cache["v"], cache["vs"], pos,
+            q, cache["k"], cache["ks"], cache["v"], cache["vs"], positions,
             kv_bits=codec.kv_bits, chunk=codec.chunk,
             tile=codec.page_tokens)
     else:
-        cache["k"][:, pos] = k[:, 0]
-        cache["v"][:, pos] = v[:, 0]
-        out = att.decode_attention(q, cache["k"], cache["v"], pos)
+        cache["k"].index_copy_(1, positions, k)
+        cache["v"].index_copy_(1, positions, v)
+        out = att.decode_attention(q, cache["k"], cache["v"], positions)
     return _mix_out(p, cfg, x, out)
 
 
@@ -318,6 +320,11 @@ class Model:
         self.codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)  # checks bits
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
+        # launch.serve.generate's captured decode loops over this model, by
+        # (params, batch, prompt length, n_gen, sampled): each holds its
+        # static cache and the params it was captured on, and goes with
+        # the model
+        self.graphs: dict = {}
 
     # ------------------------------------------------------------------ init
     def init(self, gen: torch.Generator) -> dict:
@@ -431,9 +438,12 @@ class Model:
         return self.head_logits(params, x[:, -1]), cache
 
     def decode_step(self, params: dict, cache: list[dict],
-                    token: torch.Tensor, pos: int) -> torch.Tensor:
-        """token: (B, 1); pos: its position.  Updates ``cache`` in place and
+                    token: torch.Tensor, pos) -> torch.Tensor:
+        """token: (B, 1); pos: its position, an int or a 0-d or (1,) int
+        tensor on the device (what a captured loop passes: the same logits
+        and cache bytes as the int).  Updates ``cache`` in place and
         returns the (B, V) fp32 logits."""
+        pos = att.position_index(pos, self.device)
         x = self.embed(params, token)
         for p_blk, c in zip(params["layers"], cache):
             x = decode_block(p_blk, self.cfg, x, c, pos)

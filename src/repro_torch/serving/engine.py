@@ -4,10 +4,19 @@ Requests arrive (``submit``), prefill into freshly allocated pages, join
 the running decode batch at the next scheduling round (``step``), and
 retire as soon as they reach EOS or their token budget, releasing their
 pages for the next admission.  Decode runs in bursts: ``burst_steps``
-paged decode steps in a Python loop whose per-slot state (token, position,
-emitted count, liveness) stays on the device, so the host reads back once
-per burst.  A slot that finishes mid-burst deactivates in place and its
-later appends go to the trash page, as the reference's scan does.
+paged decode steps whose per-slot state (token, position, emitted count,
+liveness) stays on the device, so the host reads back once per burst.  A
+slot that finishes mid-burst deactivates in place and its later appends go
+to the trash page, as the reference's scan does.  With ``loop="graph"``
+(the default, the counterpart of the reference's jitted ``_burst_fn``) a
+burst is one CUDA graph over the engine's pools, which never move: the
+slot rows are copied into static inputs and the graph is replayed; one
+graph for greedy bursts and one for sampled ones, both captured when the
+engine is built, on all-inactive slots (their appends go to the trash
+page), so no request's time includes a capture (``capture_s``).  On the
+CPU the same burst runs over the same static inputs without a graph.
+``loop="python"`` launches each step from Python (the debug loop; the same
+tokens bit for bit).
 
 Determinism: a request's tokens equal the ones ``launch.serve.generate``
 gives for its prompt alone at batch 1 with the same ``SamplingParams``
@@ -67,8 +76,36 @@ from typing import Optional
 import torch
 
 from repro_torch.runtime.fault import EventLog, RetryPolicy
+from repro_torch.runtime.graphs import LOOPS, Replay
 from repro_torch.serving.paged import PagedPools
 from repro_torch.serving.sampling import sample_tokens
+
+def decode_burst(model, params, pools: list, ins: dict, n: int,
+                sampled: bool) -> tuple:
+    """``n`` paged decode steps of every slot from the burst inputs ``ins``
+    (device tensors, named as ``Engine._burst_rows`` names the slot rows
+    and the replay pair), pools written in place.
+    At a step where ``fmask`` is set a slot takes the ``forced`` token in
+    place of its draw (a preempted request's replay).  Returns the final
+    (tok, pos, nem, act) and the (n, slots) tokens (-1 where inactive) and
+    emitted mask.  A module function, so that a graph of it refers to the
+    model, the params and the pools but not to the engine."""
+    tok, pos, nem, act = ins["tok"], ins["pos"], ins["nem"], ins["act"]
+    toks, emitted = [], []
+    for i in range(n):
+        logits = model.paged_decode_step(params, pools, ins["tbl"], tok, pos,
+                                         act)
+        nxt = sample_tokens(logits, ins["temp"], ins["seeds"], nem,
+                            sampled=sampled)
+        nxt = torch.where(ins["fmask"][i], ins["forced"][i], nxt)
+        done = act & ((nxt == ins["eos"]) | (nem + 1 >= ins["max_new"]))
+        toks.append(torch.where(act, nxt, -1))
+        emitted.append(act)
+        nem = nem + act.long()
+        pos = pos + act.long()
+        tok = nxt[:, None]
+        act = act & ~done
+    return tok, pos, nem, act, torch.stack(toks), torch.stack(emitted)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -176,7 +213,8 @@ class Engine:
                  queue_depth: Optional[int] = None,
                  admit_watermark: Optional[float] = None,
                  fault_plan=None, retry: Optional[RetryPolicy] = None,
-                 watchdog_rounds: int = 256, on_event=None):
+                 watchdog_rounds: int = 256, on_event=None,
+                 loop: str = "graph"):
         if model.cfg.attn_kind not in ("gqa", "mla"):
             raise ValueError(
                 f"paged serving supports GQA and MLA attention, model has "
@@ -185,6 +223,8 @@ class Engine:
         if prefill_attn not in ("exact", "paged"):
             raise ValueError(f"prefill_attn must be 'exact' or 'paged', got "
                              f"{prefill_attn!r}")
+        if loop not in LOOPS:
+            raise ValueError(f"loop must be one of {LOOPS}, got {loop!r}")
         self.model = model
         self.params = params
         self.pools = PagedPools(model, n_pages)  # checks kv_bits
@@ -239,6 +279,23 @@ class Engine:
         self._service_ema: Optional[float] = None  # of finished latencies
         self.n_preemptions = 0
         self.admission_stall_s = 0.0
+
+        # the burst: static device inputs and one region each for greedy
+        # and sampled bursts, captured here on the all-inactive rows above
+        self.loop = loop
+        self.graphs: dict = {}
+        self.capture_s = 0.0
+        if loop == "graph":
+            R = burst_steps
+            self._static = {name: a.to(self.device, copy=True)
+                            for name, a in self._burst_rows().items()}
+            for sampled in (False, True):
+                args = (model, params, self.pools.pools, self._static)
+                self.graphs[sampled] = Replay(
+                    lambda a=args, s=sampled: decode_burst(*a, R, s),
+                    self.device, params=params,
+                    warm_up=lambda a=args, s=sampled: decode_burst(*a, 1, s))
+                self.capture_s += self.graphs[sampled].ready()
 
     # ------------------------------------------------------------------ API
     def submit(self, request: ServeRequest) -> int:
@@ -644,50 +701,46 @@ class Engine:
                 if back:
                     time.sleep(back)
 
-    def _burst(self) -> None:
-        """``burst_steps`` paged decode steps with the slot state on the
-        device; one read-back at the end.  ``forced``/``fmask`` (steps,
-        slots) hold the replayed tokens: at a masked step the slot takes the
-        forced token in place of its draw.  Both keep a fixed shape."""
+    def _burst_rows(self) -> dict:
+        """The host rows of the next burst: the slot state (page table,
+        token, position, emitted count, liveness, sampling, EOS, budget)
+        and ``forced``/``fmask`` (steps, slots), the replayed tokens (at a
+        masked step the slot takes the forced token in place of its draw).
+        All of fixed shape."""
         R, b = self.burst_steps, self.max_slots
         forced = torch.zeros((R, b), dtype=torch.int64)
         fmask = torch.zeros((R, b), dtype=torch.bool)
-        consumed = [0] * b
         for s in range(b):
             q = self._replay[s]
             if q:
                 k = min(R, len(q))
                 forced[:k, s] = torch.tensor(list(itertools.islice(q, k)))
                 fmask[:k, s] = True
-                consumed[s] = k
-        dev = self.device
-        tbl = self.tbl.to(dev)
-        tok, pos, nem, act = (self.tok.to(dev), self.pos.to(dev),
-                              self.nem.to(dev), self.act.to(dev))
-        temp, seeds = self.temp.to(dev), self.seeds.to(dev)
-        eos, max_new = self.eos.to(dev), self.max_new.to(dev)
-        forced, fmask = forced.to(dev), fmask.to(dev)
+        return {"tbl": self.tbl, "tok": self.tok, "pos": self.pos,
+                "nem": self.nem, "act": self.act, "temp": self.temp,
+                "seeds": self.seeds, "eos": self.eos,
+                "max_new": self.max_new, "forced": forced, "fmask": fmask}
+
+    def _burst(self) -> None:
+        """``burst_steps`` paged decode steps with the slot state on the
+        device (``decode_burst``, a graph replay with ``loop="graph"``); one
+        read-back at the end."""
+        rows = self._burst_rows()
+        consumed = rows["fmask"].sum(0).tolist()  # replayed, per slot
         sampled = bool((self.temp > 0).any())
-        toks, emitted = [], []
-        for i in range(R):
-            logits = self.model.paged_decode_step(
-                self.params, self.pools.pools, tbl, tok, pos, act)
-            nxt = sample_tokens(logits, temp, seeds, nem, sampled=sampled)
-            nxt = torch.where(fmask[i], forced[i], nxt)  # replayed step
-            done = act & ((nxt == eos) | (nem + 1 >= max_new))
-            toks.append(torch.where(act, nxt, -1))
-            emitted.append(act)
-            nem = nem + act.long()
-            pos = pos + act.long()
-            tok = nxt[:, None]
-            act = act & ~done
-        self.tok, self.pos = tok.cpu(), pos.cpu()
-        self.nem, self.act = nem.cpu(), act.cpu()
-        toks = torch.stack(toks).cpu()
-        emitted = torch.stack(emitted).cpu()
+        if self.loop == "graph":
+            for name, a in rows.items():
+                self._static[name].copy_(a)
+            out = self.graphs[sampled].run()
+        else:
+            ins = {name: a.to(self.device) for name, a in rows.items()}
+            out = decode_burst(self.model, self.params, self.pools.pools,
+                               ins, self.burst_steps, sampled)
+        tok, pos, nem, act, toks, emitted = (a.cpu() for a in out)
+        self.tok, self.pos, self.nem, self.act = tok, pos, nem, act
         if bool(emitted.any()):
             self._progress = True  # a replay advancing is progress too
-        for s in range(b):
+        for s in range(self.max_slots):
             if self._slot_rid[s] is None or self._ingest[s] is not None:
                 continue
             k = consumed[s]

@@ -25,6 +25,10 @@ Tolerances are relative to the largest reference magnitude:
     the paged and the flat decode kernels are compared bitwise;
   * the engine under overload: bitwise, a preempted request's tokens are
     those of the same engine over a pool where nobody is preempted;
+  * the captured decode loops (``runtime.graphs``): bitwise, a CUDA graph
+    replays the launches of the Python loop on the same shapes, so
+    ``generate`` and the engine give the same tokens and launch counts
+    with ``loop="graph"`` and ``loop="python"``;
   * MLA: the head-batched quant_matmul (expand) and quant_matmul_t
     (absorb) 1e-5 against each head's plain version (fp32 sums in another
     order), quant_matmul_t's rows compared bitwise across m; the latent
@@ -37,6 +41,7 @@ Tolerances are relative to the largest reference magnitude:
     versions themselves miss by more than 1e-5.
 """
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -67,8 +72,10 @@ from repro_torch.kernels.quant_matmul.ops import (mla_latent_weights,
                                                   quant_matmul_t)
 from repro_torch.kernels.quant_matmul.ref import (quant_matmul_ref,
                                                   quant_matmul_t_ref)
+from repro_torch.launch.serve import generate
 from repro_torch.models.attention import kv_codec
 from repro_torch.models.lm import Model
+from repro_torch.runtime.graphs import Replay, read_counts
 from repro_torch.serving import (Engine, SamplingParams, ServeRequest,
                                  poisson_trace, run_trace)
 
@@ -1395,3 +1402,194 @@ def test_engine_under_oversubscription_equals_large_pool(cuda, kv_bits,
     assert tight["n_preemptions"] >= 1 and tight["n_preempted_requests"] >= 1
     for rid in range(8):
         assert tight["outputs"][rid].tokens == full["outputs"][rid].tokens
+
+
+# ------------------------------------------------------ captured decode loops
+EXPERT_FREE = dict(n_routed_experts=0, n_shared_experts=0, moe_top_k=0,
+                   moe_d_ff=0)
+
+
+def _graph_model(cuda, kind, kv_bits):
+    """A 2-layer bf16 model on the card (llama3-8b's reduced GQA, or
+    deepseek-v3's reduced, expert-free MLA) with every block projection
+    RTN-packed at 3 bits, so that its decode runs ``qmm_decode`` (and MLA's
+    absorb ``qmm_t_decode``) besides the attention kernels and the LM
+    head's cuBLAS product."""
+    arch = "llama3-8b" if kind == "gqa" else "deepseek-v3-671b"
+    extra = {} if kind == "gqa" else EXPERT_FREE
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16",
+                              kv_bits=kv_bits, **extra)
+    model = Model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    spec = QuantSpec(bits=3, group_size=32)
+    for layer in params["layers"]:
+        for part in ("mixer", "ffn"):
+            for name, w in layer[part].items():
+                if w.ndim == 2:
+                    _, q, sc, zr = quantize_weight_rtn(w.float(), spec)
+                    layer[part][name] = pack_weight(q, sc, zr, spec)
+    return model, params
+
+
+def _count_delta(after, before):
+    return {name: (n - before[name][0],
+                   {k: v - before[name][1][k] for k, v in by.items()})
+            for name, (n, by) in after.items()}
+
+
+def _loops(run):
+    """``run(loop)`` for the graph loop, then the Python loop; their
+    results and the launches each one counted."""
+    c0 = read_counts()
+    graph = run("graph")
+    torch.cuda.synchronize()
+    c1 = read_counts()
+    python = run("python")
+    torch.cuda.synchronize()
+    return graph, python, _count_delta(c1, c0), _count_delta(read_counts(),
+                                                             c1)
+
+
+@pytest.mark.parametrize("kind", ["gqa", "mla"])
+@pytest.mark.parametrize("kv_bits", [0, 8, 2])
+def test_generate_graph_equals_python_loop(cuda, kind, kv_bits):
+    """``generate`` through a captured CUDA graph gives the Python loop's
+    tokens bit for bit, greedy and sampled, over a prompt whose decode
+    crosses a kv page (and, kv2, a scale chunk), and counts the same
+    launches of every kernel (the graph's warm-up and capture count
+    none)."""
+    model, params = _graph_model(cuda, kind, kv_bits)
+    prompts = torch.randint(2, model.cfg.vocab_size, (3, 60),
+                            generator=torch.Generator(device=cuda)
+                            .manual_seed(1), device=cuda)
+    for temperature in (0.0, 1.3):
+        graph, python, n_graph, n_python = _loops(
+            lambda loop: generate(model, params, prompts, 9,
+                                  temperature=temperature, seed=4,
+                                  loop=loop))
+        assert torch.equal(graph, python), (graph.tolist(), python.tolist())
+        assert n_graph == n_python
+    assert n_python["quant_matmul"][1]["qmm_decode"] > 0
+    attention = ("mla_flash_decode" if kind == "mla" else "flash_decode")
+    assert (n_python[attention][0] > 0) == bool(kv_bits)
+    assert all(r.captured for r, _ in model.graphs.values())
+
+
+def test_generate_one_capture_per_key(cuda):
+    """A graph is captured once per (params, batch, prompt length, n_gen,
+    sampled): a second call with the same shapes and another temperature
+    replays it; a new prompt length or a new params dict (the graph reads
+    the old one's addresses) captures another."""
+    model, params = _graph_model(cuda, "gqa", 8)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    prompts = torch.randint(2, model.cfg.vocab_size, (2, 40), generator=g,
+                            device=cuda)
+    st: dict = {}
+    first = generate(model, params, prompts, 6, temperature=0.7, stats=st)
+    assert len(model.graphs) == 1 and st["capture_s"] > 0
+    replay, _ = next(iter(model.graphs.values()))
+    again = generate(model, params, prompts, 6, temperature=0.9, stats=st)
+    assert len(model.graphs) == 1 and st["capture_s"] == 0.0
+    assert replay.replays == 2
+    assert torch.equal(again, generate(model, params, prompts, 6,
+                                       temperature=0.9, loop="python"))
+    assert torch.equal(first, generate(model, params, prompts, 6,
+                                       temperature=0.7, loop="python"))
+    generate(model, params, prompts[:, :30], 6, temperature=0.7)
+    assert len(model.graphs) == 2
+    other = {k: v for k, v in params.items()}
+    generate(model, other, prompts, 6, temperature=0.7, stats=st)
+    assert len(model.graphs) == 3 and st["capture_s"] > 0
+    assert all(r.captured for r, _ in model.graphs.values())
+
+
+def test_generate_capture_error_propagates(cuda):
+    """An error raised while the decode loop is captured leaves
+    ``generate``: no eager loop runs in its place (no decode kernel's count
+    moves: the prefill's do), and no graph is kept."""
+    model, params = _graph_model(cuda, "gqa", 8)
+    prompts = torch.randint(2, model.cfg.vocab_size, (2, 40), device=cuda)
+    step, calls = model.decode_step, []
+
+    def failing(*args, **kw):
+        calls.append(torch.cuda.is_current_stream_capturing())
+        if calls[-1]:
+            raise RuntimeError("refused under capture")
+        return step(*args, **kw)
+
+    model.decode_step = failing
+    before = read_counts()
+    with pytest.raises(RuntimeError, match="refused under capture"):
+        generate(model, params, prompts, 5)
+    assert calls == [False, True]  # the warm-up's step, then the capture's
+    after = read_counts()
+    assert after["flash_decode"] == before["flash_decode"]
+    assert after["quant_matmul"][1]["qmm_decode"] == \
+        before["quant_matmul"][1]["qmm_decode"]
+    assert not any(r.captured for r, _ in model.graphs.values())
+
+
+def test_capture_survives_garbage_that_holds_a_graph(cuda):
+    """A captured graph whose owner is unreachable in a reference cycle
+    waits for Python's cyclic collector; a collection while another region
+    is captured would destroy that graph inside the capture, which CUDA
+    refuses (the capture is invalidated).  The collector is off while a
+    region is captured, so this one's many allocations run none."""
+    x = torch.arange(8.0, device=cuda)
+    held = Replay(lambda: x * 2, cuda)
+    assert torch.equal(held.run(), x * 2)
+
+    class Owner:
+        pass
+    owner = Owner()
+    owner.me, owner.replay = owner, held
+    del owner, held
+    assert gc.isenabled()
+
+    def region():
+        junk = [[i] for i in range(50000)]  # many collections' worth
+        return x + len(junk)
+
+    # a warm-up that allocates little, so the garbage lives until the capture
+    replay = Replay(region, cuda, warm_up=lambda: x + 1)
+    assert torch.equal(replay.run(), x + 50000)
+    assert gc.isenabled()
+    gc.collect()
+
+
+@pytest.mark.parametrize("kind,kv_bits,chunk,attn", [
+    ("gqa", 8, None, "exact"), ("gqa", 2, 64, "exact"),
+    ("gqa", 8, 64, "paged"), ("mla", 8, None, "exact"),
+    ("mla", 2, 64, "paged")])
+def test_engine_graph_equals_python_loop(cuda, kind, kv_bits, chunk, attn):
+    """The engine's bursts through its two graphs (greedy, sampled; both
+    captured when it is built) give the Python loop's streams bit for bit
+    and the same launch counts, over an oversubscribed pool where requests
+    are preempted and replayed."""
+    model, params = _graph_model(cuda, kind, kv_bits)
+    rng = np.random.default_rng(6)
+    prompts = rng.integers(2, model.cfg.vocab_size, (6, 100)).tolist()
+    budgets = [int(b) for b in rng.integers(8, 25, 6)]
+
+    def serve(loop):
+        reqs = [ServeRequest(tokens=prompts[i], max_new_tokens=budgets[i],
+                             sampling=SamplingParams(
+                                 temperature=0.8 if i == 5 else 0.0, seed=i,
+                                 priority=int(i >= 4)))
+                for i in range(6)]
+        engine = Engine(model, params, max_slots=4, n_pages=4,
+                        max_pages_per_request=2, burst_steps=4,
+                        prefill_chunk=chunk, prefill_attn=attn, loop=loop)
+        assert sum(r.captured for r in engine.graphs.values()) == (
+            2 if loop == "graph" else 0)
+        st = run_trace(engine, poisson_trace(reqs, rate=2.0, seed=0))
+        assert st["n_requests"] == 6
+        assert all(o.finished_ok for o in st["outputs"].values())
+        return st
+
+    graph, python, n_graph, n_python = _loops(serve)
+    assert graph["n_preemptions"] >= 1
+    assert graph["n_preemptions"] == python["n_preemptions"]
+    for rid in range(6):
+        assert graph["outputs"][rid].tokens == python["outputs"][rid].tokens
+    assert n_graph == n_python

@@ -356,24 +356,37 @@ def test_sampling_stream_is_stateless():
     assert int(tok[1]) == int((logits[1] + g[1]).argmax())
 
 
-@pytest.mark.parametrize("kv_bits,overload", [
-    pytest.param(8, False, id="8"), pytest.param(2, False, id="2"),
-    pytest.param(8, True, id="8-overload")])
-def test_serve_cli_on_cpu(kv_bits, overload):
+@pytest.mark.parametrize("kv_bits,overload,loop", [
+    pytest.param(8, False, None, id="8"), pytest.param(2, False, None, id="2"),
+    pytest.param(8, True, None, id="8-overload"),
+    pytest.param(8, False, "python", id="8-loop-python"),
+    pytest.param(2, False, "graph", id="2-loop-graph")])
+def test_serve_cli_on_cpu(kv_bits, overload, loop):
     """The batch and engine modes of the CLI; with ``overload`` the engine
     runs whole-prompt admission again with a bounded queue, a deadline and
     a burst failure injected at round 2 (retried): every request finishes
-    with the same tokens."""
+    with the same tokens.  ``--loop`` (default ``graph``) names the decode
+    loop in the JSON line, with ``captures`` and ``capture_s`` (none on
+    the CPU); with ``--loop python`` both modes give the tokens of the
+    default loop."""
     common = ["--device", "cpu", "--kv-bits", str(kv_bits), "--batch", "3",
               "--prompt-len", "70", "--gen", "6"]
-    out = serve.main(common)
+    flags = [] if loop is None else ["--loop", loop]
+    out = serve.main(common + flags)
     assert np.asarray(out["tokens"]).shape == (3, 6)
     assert out["kv_cache_bytes"] < out["kv_cache_fp_bytes"] / (
         1.5 if kv_bits == 8 else 5)
+    assert out["loop"] == (loop or "graph")
+    assert out["captures"] == 0 and out["capture_s"] == 0.0
     engine = common + ["--mode", "engine", "--temperature", "0.7"]
-    eng = serve.main(engine + ["--prefill-chunk", "64"])
+    eng = serve.main(engine + ["--prefill-chunk", "64"] + flags)
     assert eng["statuses"] == {"ok": 3} and eng["free_pages"] == 64
     assert all(len(t) == 6 for t in eng["tokens"].values())
+    assert eng["loop"] == (loop or "graph") and eng["captures"] == 0
+    if loop == "python":
+        assert serve.main(common)["tokens"] == out["tokens"]
+        assert serve.main(engine + ["--prefill-chunk", "64"])["tokens"] == \
+            eng["tokens"]
     if overload:
         plain = serve.main(engine)
         over = serve.main(engine + ["--queue-depth", "2", "--fail-at-round",
