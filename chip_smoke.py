@@ -25,9 +25,17 @@ Phases, in order; any failure exits non-zero before the final line:
      latent decode at B 4, S 8192 and at the engine's 4 slots at
      positions 512-575, paged bitwise equal to flat; ``fwht``
      (through ``hadamard_transform``) at the models' widths, though no path
-     of the system runs it;
+     of the system runs it; GPTQ's in-block solve (``solve_block``, which
+     has no Pallas counterpart: the reference's XLA compiles that loop)
+     bitwise against its plain loop at llama3-8b's wk, wd and wq + wo (N 2)
+     and deepseek-v3's wkv_a (576 columns) and wkv_b (d_in 512), over every
+     bit width, group and sym / asym, and a whole 4096 x 1024 solve on the
+     kernel bitwise against the same solve on the plain loop;
   3. the main path: RSQ quantize of llama3-8b at full width and 1 layer
-     (random weights from a seed) -> packed artifact -> keep-packed greedy
+     (random weights from a seed; GPTQ's solves grouped by shape, each
+     block of rows one ``solve_block`` launch a group; the layer's
+     ``seconds`` and ``solve_s`` on the ``main_path`` line) -> packed
+     artifact -> keep-packed greedy
      serve in bf16, with every kernel's launches counted over that run
      (``quant_matmul``'s by the kernel that ran, too).  Every decode runs
      in a captured loop (``--loop graph``: a generation's decode steps, an
@@ -66,9 +74,15 @@ Phases, in order; any failure exits non-zero before the final line:
      0's ``mixer/wkv_b`` solve redone on the host CPU, and the kv8 / kv2
      path (``mla_flash_decode``, ``paged_mla_flash_decode``,
      ``paged_mla_flash_extend``) with the same checks, its launches
-     counted from zero.
+     counted from zero;
+  5. the strategy sweep: the quantize CLI on llama3-8b's layer 0 at full
+     width, once with each of the paper's eight token-importance strategies
+     and once with AttnCon on the calibration set expanded twofold: each
+     run's seconds, proxy losses and ``ppl_ratio``; fails on a loss that is
+     not finite.
 Each path fails if a kernel it runs was never launched.  The last two
-lines are the ``kernels`` JSON object (eleven kernels; ``quant_matmul``'s
+lines are the ``kernels`` JSON object (twelve kernels, ``solve_block``'s
+with its launches on both paths; ``quant_matmul``'s
 entry is its decode row with ``prefill`` and ``prefill_fp32`` rows beside
 it, each with its kernel's launches on both paths, ``quant_matmul_t``'s its
 decode row with a ``prefill`` row, each with its kernel's MLA launches) and
@@ -171,6 +185,17 @@ AUDIT_FIRST, AUDIT_EVERY = 8, 7
 # calibration, serving and engine settings as above
 MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 2
 MLA_SOLVE_CHECK = ("mixer/wkv_b",)  # d_in 512: ragged 3-bit words
+# the strategy sweep: llama3-8b's layer 0 at full width calibrated once with
+# each of the paper's eight token-importance strategies, and once more with
+# AttnCon on the calibration set expanded by SWEEP_EXPANSION circular shifts
+SWEEP_STRATEGIES = ("uniform", "first_n", "first_last_n", "token_freq",
+                    "act_norm", "act_diff", "token_sim", "attn_con")
+SWEEP_EXPANSION = 2
+# phase 2 shapes of GPTQ's in-block solve (N matrices of one shape, d_out):
+# llama3-8b's wk (one of wk + wv), wd, wq + wo solved together;
+# deepseek-v3's wkv_a (576 columns: ragged) and wkv_b (d_in 512)
+SOLVE_SHAPES = {"wk": (1, 1024), "wd": (1, 4096), "wq+wo": (2, 4096),
+                "wkv_a": (1, 576), "wkv_b": (1, 32768)}
 # phase 2 shapes of the MLA kernels (deepseek-v3: 128 heads, latent 512,
 # rope 64, nope and value heads 128)
 MLA_H, MLA_DN, MLA_DV, MLA_DL, MLA_DR = 128, 128, 128, 512, 64
@@ -576,6 +601,140 @@ def check_hadamard(torch, checks: Checks) -> None:
                    got, want, tol, ms, plain_ms, library_ms, nbytes, flops,
                    "float32", d == 4096 and dtype == torch.float32)
             del x, want, got, sets
+    torch.cuda.empty_cache()
+
+
+def solve_inputs(torch, g, n: int, block: int, d_out: int):
+    """N blocks of rows drawn from ``g`` and the diagonal U tiles of
+    Hessians 2·XᵀX of features of uneven scale, all on the card."""
+    from repro_torch.core.gptq import hinv_cholesky, prepare_hessian
+
+    dev = torch.device("cuda")
+    wb = torch.randn((n, block, d_out), generator=g, device=dev)
+    x = torch.randn((n, 4 * block, block), generator=g, device=dev)
+    x = x * torch.rand((n, 1, block), generator=g, device=dev)
+    ub = torch.stack([hinv_cholesky(prepare_hessian(2.0 * xi.T @ xi))
+                      for xi in x])
+    return wb, ub
+
+
+def host_ms(torch, fn, reps: int = 2) -> float:
+    """Wall ms per call of ``fn`` after a synchronize on each side (for the
+    plain in-block loop: its ~1.5k launches a call are too many to replay
+    from a CUDA graph in ``Timer``'s cycles of cold copies)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def check_gptq_block(torch, checks: Checks) -> None:
+    """Phase 2, GPTQ's in-block solve (``solve_block``, no Pallas
+    counterpart: the reference's XLA compiles the loop): bitwise against
+    its plain loop on the card at SOLVE_SHAPES (3-bit, group 128, sym,
+    timed; ``wd`` the representative row), then over every bit width,
+    group and sym / asym at ``wk``'s block, and one whole llama3-8b ``wk``
+    solve (4096 x 1024) on the kernel against the same solve on the plain
+    loop."""
+    from repro_torch.core import gptq
+    from repro_torch.core.quantizer import QuantSpec
+    from repro_torch.kernels.gptq_block.ops import solve_block
+    from repro_torch.kernels.gptq_block.ref import (solve_block_ref,
+                                                    solver_params)
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    timer = checks.timer
+    names = ("q", "deq", "err", "scale", "zero")
+
+    def bitwise(tag, got, want) -> None:
+        for name, a, b in zip(names, got, want):
+            if a.shape != b.shape or not torch.equal(a, b):
+                checks.bad.append(f"solve_block {tag}: {name} differs from "
+                                  f"the plain loop")
+
+    main = QuantSpec(bits=BITS, group_size=GROUP)
+    block = 128
+    for wname, (n, d_out) in SOLVE_SHAPES.items():
+        wb, ub = solve_inputs(torch, g, n, block, d_out)
+        got = solve_block(wb, ub, main, GROUP)
+        want = solve_block_ref(wb, ub, main, GROUP)
+        bitwise(wname, got, want)
+        # read the block's rows and U tile, write q, deq and err
+        nbytes = n * ((block * d_out + block * block) + 3 * block * d_out) * 4
+        # per column: the later rows' update (a product and a difference
+        # each) and the row's ~8 quantize steps
+        flops = n * d_out * (block * (block - 1) + 8 * block)
+        sets = checks.clones((wb, ub), nbytes)
+        ms = timer.ms(lambda a=a: solve_block(a[0], a[1], main, GROUP)
+                      for a in sets)
+        plain_ms = host_ms(torch, lambda: solve_block_ref(wb, ub, main,
+                                                          GROUP))
+        checks.record("solve_block", {"weight": wname, "N": n,
+                                      "block": block, "d_out": d_out},
+                      got[1], want[1], 0.0, ms, plain_ms, None, nbytes,
+                      flops, "float32", wname == "wd")
+        del wb, ub, got, want, sets
+
+    wb, ub = solve_inputs(torch, g, 1, block, 1024)
+    for bits in (2, 3, 4, 8):
+        for group in (32, 64, 128, -1):
+            for sym in (True, False):
+                spec = QuantSpec(bits=bits, group_size=group, sym=sym)
+                fixed = None if group > 0 else solver_params(
+                    torch.randn((1, 4096, 1024), generator=g, device=dev),
+                    spec)
+                rows = group if group > 0 else block
+                bitwise(f"wk bits {bits} group {group} sym {sym}",
+                        solve_block(wb, ub, spec, rows, fixed),
+                        solve_block_ref(wb, ub, spec, rows, fixed))
+
+    # one whole solve: kernel against the plain loop (the rest is the same
+    # torch code), llama3-8b's wk with a Hessian of uneven features
+    w = torch.randn((4096, 1024), generator=g, device=dev) * 4096 ** -0.5
+    x = torch.randn((2048, 4096), generator=g, device=dev)
+    x = x * torch.rand((1, 4096), generator=g, device=dev)
+    h = 2.0 * x.T @ x
+    t0 = time.perf_counter()
+    got = gptq.gptq_quantize(w, h, main)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    gptq.solve_block = solve_block_ref
+    try:
+        t0 = time.perf_counter()
+        want = gptq.gptq_quantize(w, h, main)
+        torch.cuda.synchronize()
+        plain_s = time.perf_counter() - t0
+    finally:
+        gptq.solve_block = solve_block
+    same = {k: bool(torch.equal(got[k], want[k])) for k in got}
+    log({"gptq_solve_check": {"weight": "wk", "d_in": 4096, "d_out": 1024,
+                              "bitwise": same, "kernel_s": kernel_s,
+                              "plain_loop_s": plain_s,
+                              "proxy_loss": float(got["err"])}})
+    if not all(same.values()):
+        checks.bad.append(f"gptq_quantize on solve_block differs from the "
+                          f"plain loop: {same}")
+    del w, x, h, got, want
+
+    # where one solve's time goes: llama3-8b's wd (14336 x 4096: 112
+    # launches, the Cholesky factor and inverse at d 14336, the deferred
+    # products), warm, under the profiler
+    w = torch.randn((14336, 4096), generator=g, device=dev) * 14336 ** -0.5
+    x = torch.randn((CALIB_BATCH * CALIB_SEQ, 14336), generator=g,
+                    device=dev)
+    h = 2.0 * x.T @ x
+    del x
+    gptq.gptq_quantize(w, h, main)
+    before = solve_block.launches
+    prof, _ = profile_engine(torch, lambda: gptq.gptq_quantize(w, h, main))
+    log({"gptq_solve_profile": {"weight": "wd", "d_in": 14336,
+                                "d_out": 4096, "launches":
+                                solve_block.launches - before, **prof}})
+    del w, h
     torch.cuda.empty_cache()
 
 
@@ -1949,13 +2108,15 @@ def main_path(torch) -> tuple[dict, dict]:
     from repro_torch.checkpoint.packed import load_packed_artifact
     from repro_torch.kernels.attn_colsum.ops import attn_colsum
     from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.gptq_block.ops import solve_block
     from repro_torch.kernels.gram.ops import weighted_gram
     from repro_torch.kernels.hadamard.ops import fwht
     from repro_torch.kernels.quant_matmul.ops import quant_matmul
     from repro_torch.launch import quantize, serve
 
     counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
-               "quant_matmul": quant_matmul, "fwht": fwht}
+               "quant_matmul": quant_matmul, "fwht": fwht,
+               "solve_block": solve_block}
     art = ROOT / "build" / "chip_smoke_artifact"
     shutil.rmtree(art, ignore_errors=True)
     common = ["--arch", ARCH, "--n-layers", str(N_LAYERS), "--device", "cuda"]
@@ -2050,6 +2211,7 @@ def mla_path(torch) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.kernels.attn_colsum.ops import attn_colsum
     from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.gptq_block.ops import solve_block
     from repro_torch.kernels.gram.ops import weighted_gram
     from repro_torch.kernels.hadamard.ops import fwht
     from repro_torch.kernels.quant_matmul.ops import (quant_matmul,
@@ -2058,7 +2220,8 @@ def mla_path(torch) -> dict:
 
     counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
                "quant_matmul": quant_matmul,
-               "quant_matmul_t": quant_matmul_t, "fwht": fwht}
+               "quant_matmul_t": quant_matmul_t, "fwht": fwht,
+               "solve_block": solve_block}
     counted.update({name: getattr(fd_ops, name) for name in KvAudit.MLA
                     if name != "quant_matmul_t"})
     art = ROOT / "build" / "chip_smoke_mla_artifact"
@@ -2152,6 +2315,48 @@ def mla_path(torch) -> dict:
     check_solves(torch, entries, proxy0, arch=MLA_ARCH, n_layers=MLA_LAYERS,
                  paths=MLA_SOLVE_CHECK)
     return launches
+
+
+def strategy_sweep(torch) -> list:
+    """The paper's strategy comparison at full width: the quantize CLI on
+    llama3-8b, 1 layer, N_CALIB x CALIB_SEQ tokens, once per strategy of
+    SWEEP_STRATEGIES and once with AttnCon and ``--expansion
+    SWEEP_EXPANSION``.  Logs each run's seconds (the CLI call, model
+    init and both perplexities included), its layer's calibration and solve
+    seconds, the proxy loss of every weight and ``ppl_ratio``; fails if a
+    loss or a ratio is not finite."""
+    from repro_torch.launch import quantize
+
+    common = ["--arch", ARCH, "--n-layers", "1", "--device", "cuda",
+              "--bits", str(BITS), "--group-size", str(GROUP),
+              "--n-calib", str(N_CALIB), "--calib-seq", str(CALIB_SEQ),
+              "--batch", str(CALIB_BATCH), "--dtype", "float32",
+              "--seed", str(SEED)]
+    runs, bad = [], []
+    for importance, expansion in ([(name, 1) for name in SWEEP_STRATEGIES]
+                                  + [("attn_con", SWEEP_EXPANSION)]):
+        t0 = time.perf_counter()
+        q = quantize.main(common + ["--importance", importance,
+                                    "--expansion", str(expansion)])
+        seconds = time.perf_counter() - t0
+        layer = q["report"]["layers"]["layer0"]
+        row = {"importance": importance, "expansion": expansion,
+               "seconds": seconds, "layer_seconds": layer["seconds"],
+               "solve_s": layer["solve_s"],
+               "ppl_ratio": q["summary"]["ppl_ratio"],
+               "proxy_losses": layer["weights"]}
+        del q
+        torch.cuda.empty_cache()
+        log({"strategy_run": row})
+        runs.append(row)
+        values = list(row["proxy_losses"].values()) + [row["ppl_ratio"]]
+        if len(row["proxy_losses"]) != 7 or not all(
+                math.isfinite(v) for v in values):
+            bad.append(f"{importance} x{expansion}: {values}")
+    if bad:
+        fail("strategy sweep: a loss or a perplexity ratio is not finite: "
+             + "; ".join(bad))
+    return runs
 
 
 def card_torch(src: Path):
@@ -2432,7 +2637,7 @@ def main() -> None:
 
     checks = Checks(Timer(torch))
     for phase in (check_kernels, check_hadamard, check_kv_kernels,
-                  check_mla_kernels):
+                  check_mla_kernels, check_gptq_block):
         t0 = time.perf_counter()
         phase(torch, checks)
         log({"phase_seconds": {phase.__name__: time.perf_counter() - t0}})
@@ -2446,6 +2651,9 @@ def main() -> None:
     t0 = time.perf_counter()
     mla_launches = mla_path(torch)
     log({"phase_seconds": {"mla_path": time.perf_counter() - t0}})
+    t0 = time.perf_counter()
+    strategy_sweep(torch)
+    log({"phase_seconds": {"strategy_sweep": time.perf_counter() - t0}})
     launches.update({name: mla_launches[name] for name in KvAudit.MLA})
     launches["fwht"] += mla_launches["fwht"]
     # quant_matmul's three kernels, each with its launches on both paths;
@@ -2468,7 +2676,8 @@ def main() -> None:
                "mla_flash_decode": f"{csrc}/mla_decode.cu",
                "paged_mla_flash_decode": f"{csrc}/mla_decode.cu",
                "paged_mla_flash_extend": f"{csrc}/mla_decode.cu",
-               "fwht": f"{csrc}/hadamard.cu"}
+               "fwht": f"{csrc}/hadamard.cu",
+               "solve_block": f"{csrc}/gptq_block.cu"}
     replaces = {"gram": "src/repro/kernels/gram/kernel.py:33",
                 "attn_colsum": "src/repro/kernels/attn_colsum/kernel.py:74",
                 "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:66",
@@ -2480,7 +2689,9 @@ def main() -> None:
                 "mla_flash_decode": f"{fd}:438",
                 "paged_mla_flash_decode": f"{fd}:520",
                 "paged_mla_flash_extend": f"{fd}:632",
-                "fwht": "src/repro/kernels/hadamard/kernel.py:51"}
+                "fwht": "src/repro/kernels/hadamard/kernel.py:51",
+                # no Pallas kernel: the loop XLA compiles (row_step)
+                "solve_block": "src/repro/core/gptq.py:127"}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
     kernels = []
@@ -2506,6 +2717,12 @@ def main() -> None:
                                 for key in keys}
             entry["prefill"].update(kernel="qmm_t_tile", kernel_launches={
                 "mla_path": mla_launches["qmm_t_tile"]})
+        if name == "solve_block":  # both paths calibrate through it
+            entry["kernel_launches"] = {"main_path": launches[name],
+                                        "mla_path": mla_launches[name]}
+            entry["pallas"] = ("none: the reference's XLA compiles this "
+                               "loop (a fori_loop in the scan over blocks, "
+                               "vmapped by gptq_quantize_batched)")
         if name in NO_PATH:
             entry["path"] = NO_PATH[name]
         kernels.append(entry)

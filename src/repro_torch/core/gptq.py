@@ -1,9 +1,13 @@
-"""GPTQ / OBC solver in plain PyTorch (no kernel of its own).
+"""GPTQ / OBC solver: one weight, or a stack of weights of one shape.
 
 The reference restructures the per-row recursion into 128-row blocks: rows
 of a block are quantized one at a time with their error compensated inside
 the block, and the compensation of all later rows is deferred to one dense
-matmul per block.  This is the same algorithm, eager, one weight at a time.
+matmul per block.  Here the in-block loop is one ``solve_block`` launch per
+block for the whole stack (``kernels/gptq_block``: the CUDA kernel on the
+card, its plain version on the CPU), and the deferred compensation a
+batched product, which the reference also leaves to the compiler
+(``torch.bmm`` here; TF32 stays off).
 
 Math (paper Eq. 2): quantize row i, then spread
     err = (w_i - quant(w_i)) / U_ii
@@ -14,32 +18,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quantizer import QuantSpec, dequantize, quantize_rtn
-
-
-def solver_params(w_group: torch.Tensor, spec: QuantSpec):
-    """(scale, zero) of one group as the reference's compiled solver
-    computes them.
-
-    ``quantizer.find_params`` divides by the constant ``maxq * 0.5`` (or
-    ``maxq``).  Inside the reference's jitted ``gptq_quantize`` XLA rewrites
-    that division into a multiply by the constant's fp32 reciprocal, which
-    rounds differently in the last bit and then flips codes that sit on a
-    rounding boundary.  The solver reproduces the compiled form so that its
-    codes match the reference's."""
-    wf = w_group.float()
-    maxq = spec.maxq
-    if spec.sym:
-        inv = torch.tensor(1.0 / (maxq * 0.5), dtype=torch.float32)
-        scale = torch.clamp_min(wf.abs().amax(dim=0) * inv, 1e-9)
-        zero = torch.full_like(scale, float((maxq + 1) // 2))
-    else:
-        lo = torch.clamp_max(wf.amin(dim=0), 0.0)
-        hi = torch.clamp_min(wf.amax(dim=0), 0.0)
-        inv = torch.tensor(1.0 / maxq, dtype=torch.float32)
-        scale = torch.clamp_min((hi - lo) * inv, 1e-9)
-        zero = torch.round(-lo / scale)
-    return scale, zero
+from repro_torch.core.quantizer import QuantSpec
+from repro_torch.kernels.gptq_block.ops import solve_block
+from repro_torch.kernels.gptq_block.ref import solver_params
 
 
 def prepare_hessian(h: torch.Tensor, damp: float = 0.01) -> torch.Tensor:
@@ -58,8 +39,8 @@ def _inv_upper(u: torch.Tensor) -> torch.Tensor:
     """Inverse of an upper-triangular matrix.
 
     The reference needs a hand-blocked inverse so that vmapped and single
-    solves round identically; the port solves one weight at a time, so a
-    triangular solve does the job."""
+    solves round identically; the port factors each matrix of a stack on
+    its own, so a triangular solve does the job."""
     eye = torch.eye(u.shape[-1], dtype=u.dtype, device=u.device)
     return torch.linalg.solve_triangular(u, eye, upper=True)
 
@@ -77,8 +58,27 @@ def gptq_quantize(w: torch.Tensor, h: torch.Tensor, spec: QuantSpec, *,
 
     Returns ``w_deq`` (w's dtype), ``q`` int32 codes, ``scale``/``zero``
     (n_groups, d_out) and ``err``, the proxy loss
-    sum_i ||(w_i - q_i) / U_ii||² (0-d tensor)."""
-    d_in, d_out = w.shape
+    sum_i ||(w_i - q_i) / U_ii||² (0-d tensor).  The one-matrix case of
+    :func:`gptq_quantize_batched`, bit for bit."""
+    out = gptq_quantize_batched(w[None], h[None], spec, damp=damp,
+                                block=block)
+    return {k: v[0] for k, v in out.items()}
+
+
+def gptq_quantize_batched(ws: torch.Tensor, hs: torch.Tensor,
+                          spec: QuantSpec, *, damp: float = 0.01,
+                          block: int = 128) -> dict:
+    """ws: (N, d_in, d_out); hs: (N, d_in, d_in): N independent solves
+    (the counterpart of the reference's vmapped ``gptq_quantize_batched``).
+
+    Returns the outputs of :func:`gptq_quantize` with a leading N axis
+    (``err`` (N,)).  Each matrix's H is prepared and factored on its own, so
+    U rounds as in a single solve; every block of rows is one
+    ``solve_block`` call for all N."""
+    n, d_in, d_out = ws.shape
+    if hs.shape != (n, d_in, d_in):
+        raise ValueError(f"hs must be ({n}, {d_in}, {d_in}), got "
+                         f"{tuple(hs.shape)}")
     block = min(block, d_in)
     if d_in % block:
         raise ValueError(f"d_in {d_in} is not a multiple of block {block}")
@@ -87,38 +87,25 @@ def gptq_quantize(w: torch.Tensor, h: torch.Tensor, spec: QuantSpec, *,
         raise ValueError(f"group {gs} does not tile block {block}")
     rows_per_group = min(gs, block)
 
-    u = hinv_cholesky(prepare_hessian(h, damp))
-    wc = w.float().clone()
-    q = torch.empty((d_in, d_out), dtype=torch.int32, device=w.device)
-    deq = torch.empty((d_in, d_out), dtype=torch.float32, device=w.device)
-    scales, zeros = [], []
-    if gs > block:  # one global group, from the original weight
-        s_cur, z_cur = solver_params(wc, spec)
-        scales.append(s_cur)
-        zeros.append(z_cur)
-    err_total = torch.zeros((), dtype=torch.float32, device=w.device)
+    u = torch.stack([hinv_cholesky(prepare_hessian(hs[i], damp))
+                     for i in range(n)])
+    wc = ws.float().clone()
+    # one global group, from the original weight
+    fixed = solver_params(wc, spec) if gs > block else None
+    qs, deqs, scales, zeros = [], [], [], []
+    err_total = torch.zeros((n,), dtype=torch.float32, device=ws.device)
     for b0 in range(0, d_in, block):
-        wb = wc[b0:b0 + block].clone()
-        ub = u[b0:b0 + block, b0:b0 + block]
-        errb = torch.empty((block, d_out), dtype=torch.float32,
-                           device=w.device)
-        for i in range(block):
-            if gs <= block and i % rows_per_group == 0:
-                # params from the current (already compensated) group rows
-                s_cur, z_cur = solver_params(wb[i:i + rows_per_group], spec)
-                scales.append(s_cur)
-                zeros.append(z_cur)
-            row = wb[i]
-            qrow = quantize_rtn(row, s_cur, z_cur, spec)
-            drow = dequantize(qrow, s_cur, z_cur)
-            err = (row - drow) / ub[i, i]
-            wb[i + 1:] -= ub[i, i + 1:, None] * err[None, :]
-            q[b0 + i] = qrow
-            deq[b0 + i] = drow
-            errb[i] = err
-        # deferred compensation of every row after this block: one matmul
-        wc[b0 + block:] -= u[b0:b0 + block, b0 + block:].T @ errb
-        err_total += (errb * errb).sum()
-    return {"w_deq": deq.to(w.dtype), "q": q,
-            "scale": torch.stack(scales), "zero": torch.stack(zeros),
+        b1 = b0 + block
+        q, deq, errb, s, z = solve_block(wc[:, b0:b1], u[:, b0:b1, b0:b1],
+                                         spec, rows_per_group, fixed)
+        if b1 < d_in:  # deferred compensation of every later row
+            wc[:, b1:] -= torch.bmm(u[:, b0:b1, b1:].transpose(1, 2), errb)
+        err_total += (errb * errb).sum((1, 2))
+        qs.append(q)
+        deqs.append(deq)
+        if fixed is None or not scales:
+            scales.append(s)
+            zeros.append(z)
+    return {"w_deq": torch.cat(deqs, 1).to(ws.dtype), "q": torch.cat(qs, 1),
+            "scale": torch.cat(scales, 1), "zero": torch.cat(zeros, 1),
             "err": err_total}

@@ -1,17 +1,24 @@
 """RSQ layer-wise quantization pipeline (Rotate -> Scale -> Quantize).
 
+  0. expand the calibration set with circular shifts (paper Sec. 4.4);
   1. fuse norms + rotate the model (skippable -> GPTQ baseline);
   2. layer by layer: capture every weight's input with the block's AttnCon
-     column sums, turn them into token importances R, accumulate
-     H_w = 2 X R² Xᵀ per weight (``gram`` kernel), run GPTQ, write the
-     dequantized weights back and propagate the *quantized* block's
-     outputs to the next layer (the standard GPTQ error-feedback scheme).
+     column sums and output, turn them into token importances R (any of
+     the paper's eight strategies, optionally restricted to a chunk of
+     positions), accumulate H_w = 2 X R² Xᵀ per weight (``gram`` kernel),
+     run GPTQ, write the dequantized weights back and propagate the
+     *quantized* block's outputs to the next layer (the standard GPTQ
+     error-feedback scheme).
 
 Baselines are config points: GPTQ = no rotation + uniform; QuaRot =
 rotation + uniform; RSQ = rotation + a token-importance strategy.  This is
-the reference's sequential schedule, one weight solve at a time; with
-``pack_output`` every solve's (q, scale, zero) is also packed into the
-serving artifact (``RSQPipeline.artifact``, saved by
+the reference's sequential schedule.  The solves of a layer are grouped by
+shape, as the reference's: weights sharing (d_in, d_out) stack into one
+``gptq_quantize_batched`` call (one ``solve_block`` launch a block for the
+whole group), and the proxy losses stay on the device until the layer's
+one read-back (``finalize_layer_report``).  With ``pack_output`` every
+solve's (q, scale, zero) is also packed into the serving artifact
+(``RSQPipeline.artifact``, saved by
 ``checkpoint.packed.save_packed_artifact``).
 """
 from __future__ import annotations
@@ -23,7 +30,8 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.core import hessian as hess
-from repro_torch.core.gptq import gptq_quantize
+from repro_torch.core.expansion import expand_dataset
+from repro_torch.core.gptq import gptq_quantize_batched
 from repro_torch.core.importance import ImportanceInputs, get_strategy
 from repro_torch.core.quantizer import QuantSpec, pack_codes
 from repro_torch.core.rotation import rotate_model
@@ -40,9 +48,14 @@ class RSQConfig:
     importance: str = "attn_con"  # see core.importance.STRATEGIES
     r_min: float = 0.01
     r_max: float = 1.0
+    first_n: int = 1024  # for the First-N / First&Last-N heuristics
+    expansion: int = 1  # dataset expansion factor M (paper: 8)
     damp: float = 0.01
     gptq_block: int = 128
     seed: int = 0  # draws the rotation when none is given
+    # restrict the loss to a token chunk (Tab. 1 reproduction)
+    chunk_lo: float = 0.0
+    chunk_hi: float = 1.0
     # collect every solve's packed codes into ``RSQPipeline.artifact``
     pack_output: bool = False
 
@@ -52,9 +65,22 @@ class RSQConfig:
 
 
 def _strategy_kwargs(rsq: RSQConfig) -> dict:
+    if rsq.importance in ("first_n", "first_last_n"):
+        return {"n": rsq.first_n}
     if rsq.importance == "uniform":
         return {}
     return {"r_min": rsq.r_min, "r_max": rsq.r_max}
+
+
+def _chunk_mask(r: torch.Tensor, rsq: RSQConfig) -> torch.Tensor:
+    """Tab.-1 style chunk restriction on top of any strategy: positions
+    outside [chunk_lo·T, chunk_hi·T) weigh 0."""
+    if rsq.chunk_lo <= 0.0 and rsq.chunk_hi >= 1.0:
+        return r
+    t = r.shape[-1]
+    idx = torch.arange(t, device=r.device)
+    mask = (idx >= int(rsq.chunk_lo * t)) & (idx < int(rsq.chunk_hi * t))
+    return r * mask.to(r.dtype)
 
 
 def _is_quantizable(w: torch.Tensor) -> bool:
@@ -72,30 +98,59 @@ def _solve_spec(rsq: RSQConfig, d_in: int) -> tuple[QuantSpec, int]:
     return spec, block
 
 
+def finalize_layer_report(report: dict) -> dict:
+    """A layer's deferred solve report ({path: 0-d tensor}) as floats, with
+    one read-back from the device for the whole layer."""
+    if not report:
+        return {}
+    vals = torch.stack([v.float() for v in report.values()]).tolist()
+    return dict(zip(report, vals))
+
+
 def quantize_layer_weights(p_block: dict, hessians: dict[str, torch.Tensor],
                            rsq: RSQConfig, *,
                            collect: Optional[dict] = None) -> tuple[dict, dict]:
-    """GPTQ-solve every captured weight of one block.
+    """GPTQ-solve every captured weight of one block, grouped by shape.
 
-    Returns (new block params with dequantized weights, {path: proxy
-    loss}).  ``collect`` receives {path: {"q", "scale", "zero", "dtype"}}."""
+    Weights sharing (d_in, d_out) (q/o, k/v, gate/up, every matrix of a
+    stacked (E, d_in, d_out) tensor with its (E, d_in, d_in) Hessians)
+    stack into one ``gptq_quantize_batched`` call; a lone 2-D weight is its
+    one-matrix case, which is ``gptq_quantize``.  Returns (new block params
+    with dequantized weights, {path: proxy loss}): a stacked weight reports
+    the mean of its matrices' losses, and the losses stay on the device
+    until one read-back for the layer (:func:`finalize_layer_report`).
+    ``collect`` receives {path: {"q", "scale", "zero", "dtype"}}."""
     new_p = {k: (dict(v) if isinstance(v, dict) else v)
              for k, v in p_block.items()}
-    report = {}
+    groups: dict[tuple, list] = {}
     for path, h in hessians.items():
         sub, name = path.split("/")
         w = new_p[sub][name]
-        if not _is_quantizable(w):
-            continue
-        spec, block = _solve_spec(rsq, w.shape[0])
-        out = gptq_quantize(w, h, spec, damp=rsq.damp, block=block)
-        new_p[sub][name] = out["w_deq"].to(w.dtype)
-        report[path] = float(out["err"])
-        if collect is not None:
-            collect[path] = {"q": out["q"], "scale": out["scale"],
-                             "zero": out["zero"],
-                             "dtype": str(w.dtype).removeprefix("torch.")}
-    return new_p, report
+        if _is_quantizable(w):
+            groups.setdefault(tuple(w.shape[-2:]), []).append(
+                (path, sub, name, w, h))
+    report = {}
+    for (d_in, _), items in groups.items():
+        spec, block = _solve_spec(rsq, d_in)
+        # a 2-D weight is a stack of one
+        ws = torch.cat([w if w.ndim == 3 else w[None]
+                        for _, _, _, w, _ in items])
+        hs = torch.cat([h if h.ndim == 3 else h[None]
+                        for _, _, _, _, h in items])
+        out = gptq_quantize_batched(ws, hs, spec, damp=rsq.damp, block=block)
+        o = 0
+        for path, sub, name, w, _ in items:
+            k = w.shape[0] if w.ndim == 3 else 1
+            sol = {key: v[o] if w.ndim == 2 else v[o:o + k]
+                   for key, v in out.items()}
+            o += k
+            new_p[sub][name] = sol["w_deq"].to(w.dtype)
+            report[path] = sol["err"].mean()
+            if collect is not None:
+                collect[path] = {"q": sol["q"], "scale": sol["scale"],
+                                 "zero": sol["zero"],
+                                 "dtype": str(w.dtype).removeprefix("torch.")}
+    return new_p, finalize_layer_report(report)
 
 
 class RSQPipeline:
@@ -107,14 +162,17 @@ class RSQPipeline:
         self.skw = _strategy_kwargs(rsq)
         self.artifact: Optional[dict] = None
 
-    def _importance(self, z_in, colsum) -> torch.Tensor:
-        inp = ImportanceInputs(z_in=z_in, attn_colsum=colsum)
-        return self.strategy(inp, **self.skw)
+    def _importance(self, z_in, z_out, tokens, colsum, counts
+                    ) -> torch.Tensor:
+        inp = ImportanceInputs(z_in=z_in, z_out=z_out, tokens=tokens,
+                               attn_colsum=colsum, token_counts=counts)
+        return _chunk_mask(self.strategy(inp, **self.skw), self.rsq)
 
     def run(self, params: dict, calib_tokens: torch.Tensor, *,
             batch_size: int = 8, rotation: Optional[torch.Tensor] = None,
             verbose: bool = False) -> tuple[dict, dict]:
-        """Quantize ``params``. calib_tokens: (N, T) integer tokens.
+        """Quantize ``params``. calib_tokens: (N, T) integer tokens, before
+        expansion (``rsq.expansion`` M makes N·M samples of them).
 
         ``rotation``: the (d_model, d_model) Q to rotate with; drawn from
         ``torch.Generator(rsq.seed)`` when None.  Returns (new_params,
@@ -129,9 +187,12 @@ class RSQPipeline:
         new_params = dict(params)
         new_params["layers"] = list(params["layers"])
 
-        calib = calib_tokens.to(model.device)
-        acts = [model.embed(params, calib[i:i + batch_size])
+        calib = expand_dataset(calib_tokens.to(model.device), rsq.expansion)
+        counts = torch.bincount(calib.reshape(-1), minlength=cfg.vocab_size
+                                )[:cfg.vocab_size].float()
+        toks = [calib[i:i + batch_size]
                 for i in range(0, calib.shape[0], batch_size)]
+        acts = [model.embed(params, tok) for tok in toks]
         entries: dict[str, dict] = {}
         meta: dict[str, dict] = {}
         def clock() -> float:  # wall time after the device has caught up
@@ -142,13 +203,13 @@ class RSQPipeline:
         for li, p_blk in enumerate(params["layers"]):
             t0 = clock()
             hessians: dict[str, torch.Tensor] = {}
-            for x_b in acts:
-                _, caps, _, colsum = capture_block(p_blk, cfg, x_b)
-                r = self._importance(x_b, colsum).reshape(-1)
+            for x_b, tok in zip(acts, toks):
+                y, caps, _, colsum = capture_block(p_blk, cfg, x_b)
+                r = self._importance(x_b, y, tok, colsum, counts).reshape(-1)
                 for path, x_c in caps.items():
                     hessians[path] = hess.accumulate(
                         hessians.get(path), x_c.reshape(-1, x_c.shape[-1]), r)
-                del caps
+                del caps, y
             t1 = clock()
             collect = {} if rsq.pack_output else None
             p_new, weights = quantize_layer_weights(p_blk, hessians, rsq,

@@ -1,5 +1,5 @@
 // Helpers shared by the Hopper kernels (gram.cu, quant_matmul.cu,
-// mla_decode.cu, hadamard.cu): named barriers, the async-proxy fence,
+// mla_decode.cu, hadamard.cu, gptq_block.cu): named barriers, the async-proxy fence,
 // wgmma's fence / commit / wait, its shared-memory descriptor for K-major
 // operands in the 128-byte swizzle, the exact split of fp32 values into
 // three bf16 terms that their fp32-accurate products rest on, and the

@@ -13,6 +13,7 @@ def counted() -> dict:
     """{name: wrapper} of every wrapper that counts its launches."""
     from repro_torch.kernels.attn_colsum.ops import attn_colsum
     from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.gptq_block.ops import solve_block
     from repro_torch.kernels.gram.ops import weighted_gram
     from repro_torch.kernels.hadamard.ops import fwht
     from repro_torch.kernels.quant_matmul.ops import (quant_matmul,
@@ -26,4 +27,4 @@ def counted() -> dict:
             "mla_flash_decode": fd.mla_flash_decode,
             "paged_mla_flash_decode": fd.paged_mla_flash_decode,
             "paged_mla_flash_extend": fd.paged_mla_flash_extend,
-            "fwht": fwht}
+            "fwht": fwht, "solve_block": solve_block}

@@ -9,7 +9,9 @@ the fp model and optionally writes the packed serving artifact.
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  ``--n-layers`` cuts the
 depth of the chosen architecture and keeps its widths; ``--arch
-deepseek-v3-671b --n-layers 2`` quantizes two of its dense MLA layers.
+deepseek-v3-671b --n-layers 2`` quantizes two of its dense MLA layers.  ``--importance``
+picks any of the paper's eight token-importance strategies and
+``--expansion M`` adds M - 1 circular shifts of every calibration sample.
 """
 from __future__ import annotations
 
@@ -58,9 +60,15 @@ def main(argv=None) -> dict:
                     "architecture's own); widths are kept")
     ap.add_argument("--bits", type=int, default=3)
     ap.add_argument("--group-size", type=int, default=128)
-    ap.add_argument("--importance", default="attn_con")
+    ap.add_argument("--importance", default="attn_con",
+                    help="token-importance strategy: uniform, first_n, "
+                    "first_last_n, token_freq, act_norm, act_diff, "
+                    "token_sim or attn_con")
     ap.add_argument("--r-min", type=float, default=0.01)
     ap.add_argument("--no-rotate", action="store_true")
+    ap.add_argument("--expansion", type=int, default=1,
+                    help="dataset expansion factor M: each calibration "
+                    "sample and its M - 1 circular shifts")
     ap.add_argument("--n-calib", type=int, default=32)
     ap.add_argument("--calib-seq", type=int, default=128)
     ap.add_argument("--batch", type=int, default=8)
@@ -84,7 +92,8 @@ def main(argv=None) -> dict:
                           seed=args.seed)
     rsq = RSQConfig(bits=args.bits, group_size=args.group_size,
                     rotate=not args.no_rotate, importance=args.importance,
-                    r_min=args.r_min, seed=args.seed,
+                    r_min=args.r_min, expansion=args.expansion,
+                    seed=args.seed,
                     pack_output=args.pack_out is not None)
     base_ppl = eval_ppl(model, params, heldout, args.batch)
     pipe = RSQPipeline(model, rsq)

@@ -38,7 +38,12 @@ Tolerances are relative to the largest reference magnitude:
     request decoded alone and in a batch, and two calls.  With unscaled
     unit queries (scores of tens) the extend and the decode are held
     within 1e-5 of the function's float64 value, which their fp32 plain
-    versions themselves miss by more than 1e-5.
+    versions themselves miss by more than 1e-5;
+  * GPTQ's in-block solve (``solve_block``): bitwise, codes, dequantized
+    rows, errors, scales and zeros; each step is the one correctly rounded
+    operation the plain loop performs, with no FMA contraction.  A whole
+    ``gptq_quantize_batched`` on the kernel is bitwise the same solve on
+    the plain loop (the rest of the solve is the same torch code).
 """
 import dataclasses
 import gc
@@ -48,6 +53,9 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.core import gptq as gptq_mod
+from repro_torch.core.gptq import (gptq_quantize_batched, hinv_cholesky,
+                                   prepare_hessian)
 from repro_torch.core.quantizer import QuantSpec, quantize_weight_rtn
 from repro_torch.kernels.attn_colsum.ops import attn_colsum
 from repro_torch.kernels.attn_colsum.ref import attn_colsum_ref
@@ -63,6 +71,8 @@ from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
                                                   paged_flash_extend_ref,
                                                   paged_mla_flash_decode_ref,
                                                   paged_mla_flash_extend_ref)
+from repro_torch.kernels.gptq_block.ops import solve_block
+from repro_torch.kernels.gptq_block.ref import solve_block_ref, solver_params
 from repro_torch.kernels.gram.ops import weighted_gram
 from repro_torch.kernels.gram.ref import weighted_gram_ref
 from repro_torch.kernels.hadamard.ops import fwht
@@ -1593,3 +1603,64 @@ def test_engine_graph_equals_python_loop(cuda, kind, kv_bits, chunk, attn):
     for rid in range(6):
         assert graph["outputs"][rid].tokens == python["outputs"][rid].tokens
     assert n_graph == n_python
+
+
+SOLVE_SPECS = [(bits, group, sym) for bits in (2, 3, 4, 8)
+               for group in (32, 64, 128, -1) for sym in (True, False)]
+
+
+def _solve_inputs(cuda, n, block, d_out, seed):
+    """N blocks of rows and the diagonal U tiles of real Hessians."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    wb = torch.randn((n, block, d_out), generator=g, device=cuda)
+    x = torch.randn((n, 4 * block, block), generator=g, device=cuda)
+    x = x * torch.rand((n, 1, block), generator=g, device=cuda)
+    ub = torch.stack([hinv_cholesky(prepare_hessian(2.0 * xi.T @ xi))
+                      for xi in x])
+    return wb, ub
+
+
+@pytest.mark.parametrize("bits,group,sym", SOLVE_SPECS)
+@pytest.mark.parametrize("n,block,d_out", [(1, 128, 48), (3, 64, 576),
+                                           (1, 128, 1000), (3, 128, 576)])
+def test_solve_block_kernel_bitwise_plain(cuda, bits, group, sym, n, block,
+                                          d_out):
+    """Ragged d_out, blocks of 64 and 128, every bit width, in-block groups
+    (32 / 64 / 128 where they tile the block) and one global group."""
+    spec = QuantSpec(bits=bits, group_size=group, sym=sym)
+    wb, ub = _solve_inputs(cuda, n, block, d_out, bits + block + d_out)
+    if group == -1 or group > block:  # one global group, fixed beforehand
+        rows, fixed = block, solver_params(
+            torch.randn((n, 4 * block, d_out), device=cuda), spec)
+    else:
+        rows, fixed = group, None
+    before = solve_block.launches
+    got = solve_block(wb, ub, spec, rows, fixed)
+    torch.cuda.synchronize()
+    assert solve_block.launches == before + 1
+    want = solve_block_ref(wb, ub, spec, rows, fixed)
+    for name, a, b in zip(("q", "deq", "err", "scale", "zero"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.equal(a, b), (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("bits,group,sym", [(3, 128, True), (2, 32, True),
+                                            (4, -1, True), (3, 64, False),
+                                            (8, 128, False)])
+def test_gptq_batched_on_the_kernel_equals_the_plain_loop(cuda, monkeypatch,
+                                                         bits, group, sym):
+    """A whole batched solve (3 matrices, d_in 384, d_out 200): the kernel
+    against the same solve with the in-block loop on its plain version."""
+    spec = QuantSpec(bits=bits, group_size=group, sym=sym)
+    g = torch.Generator(device=cuda).manual_seed(bits)
+    ws = torch.randn((3, 384, 200), generator=g, device=cuda)
+    x = torch.randn((3, 1024, 384), generator=g, device=cuda)
+    hs = 2.0 * x.transpose(1, 2) @ x
+    before = solve_block.launches
+    got = gptq_quantize_batched(ws, hs, spec)
+    torch.cuda.synchronize()
+    assert solve_block.launches == before + 3  # one a block of 128 rows
+    monkeypatch.setattr(gptq_mod, "solve_block", solve_block_ref)
+    want = gptq_quantize_batched(ws, hs, spec)
+    for name in ("q", "w_deq", "scale", "zero", "err"):
+        assert torch.equal(got[name], want[name]), name

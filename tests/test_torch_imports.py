@@ -61,6 +61,16 @@ def test_hadamard_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "kernels/gptq_block/__init__.py", "kernels/gptq_block/ops.py",
+    "kernels/gptq_block/ref.py", "kernels/gptq_block/kernel.py",
+    "core/expansion.py", "core/importance.py", "core/gptq.py"])
+def test_calibration_modules_are_checked(module):
+    """The batched solve's kernel, the strategies and dataset expansion are
+    among the sources the boundary check reads."""
+    assert ROOT / "src" / "repro_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = _imported_roots(path) & FORBIDDEN
