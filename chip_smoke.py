@@ -29,8 +29,14 @@ Phases, in order; any failure exits non-zero before the final line:
      has no Pallas counterpart: the reference's XLA compiles that loop)
      bitwise against its plain loop at llama3-8b's wk, wd and wq + wo (N 2)
      and deepseek-v3's wkv_a (576 columns) and wkv_b (d_in 512), over every
-     bit width, group and sym / asym, and a whole 4096 x 1024 solve on the
-     kernel bitwise against the same solve on the plain loop;
+     bit width, group and sym / asym, on errors that lie halfway between
+     two fp32 subnormals (``subnormal_tie_inputs``), and a whole 4096 x
+     1024 solve on the kernel bitwise against the same solve on the plain
+     loop; beside its byte bound, the cost of a row measured (the slope
+     from 64 rows to 128) and a chain bound estimated from the SASS of the
+     instance each shape runs (``loop_chain_cycles``: one row's dependent
+     path with assumed latencies x the block's rows), and each instance's
+     registers and spills from ``ptxas``;
   3. the main path: RSQ quantize of llama3-8b at full width and 1 layer
      (random weights from a seed; GPTQ's solves grouped by shape, each
      block of rows one ``solve_block`` launch a group; the layer's
@@ -96,11 +102,11 @@ m 4, 256 and 512), the three GQA attention wrappers on phase 2's inputs
 (kv8 and kv2), and MLA's absorb (``quant_matmul_t``) and expand
 (``quant_matmul``, fp32), each at m 4 and 128, extend (kv8 and kv2) and
 latent decode (flat and paged, kv8 and kv2, at B 4, S 8192 and at the
-engine's 4 slots at positions 512-575),
-with ``repro_torch`` imported from OTHER/src (another checkout,
-e.g. the parent commit from ``git archive``) and from this one in turns
-(other, this, this, other; one process each) and prints the four runs as
-one JSON line.
+engine's 4 slots at positions 512-575), and GPTQ's in-block solve
+(``solve_block``) at phase 2's five shapes, with ``repro_torch`` imported
+from OTHER/src (another checkout, e.g. the parent commit from ``git
+archive``) and from this one in turns (other, this, this, other; one
+process each) and prints the four runs as one JSON line.
 """
 from __future__ import annotations
 
@@ -211,6 +217,24 @@ ME_L, ME_PAST = 256, 16
 PEAK_BYTES = 3.35e12
 PEAK_FLOPS = {"float32": 67e12, "tfloat32": 495e12,
               "bfloat16": 989e12}
+
+# a lane of ``solve_block``'s kernel owns its rows CHUNK at a time (one
+# round: CHUNK x lanes rows; csrc/gptq_block.cu)
+SOLVE_CHUNK = 4
+# dependent-issue latencies (cycles) assumed for Hopper's SASS ops in the
+# chain estimate of ``loop_chain_cycles``: fp32 and integer ALU ops 4 (any op
+# not listed, branches and reconvergence too), the special-function unit's
+# 20, conversions and rounding 10, shared-memory loads 30, shuffles 24.  An
+# estimate, not a measurement: phase 2 logs the measured cost of a row
+# beside it
+SASS_LATENCY = {"MUFU": 20, "FRND": 10, "F2I": 10, "I2F": 10, "F2F": 10,
+                "FCHK": 10, "LDS": 30, "SHFL": 24, "S2R": 20, "LDC": 10,
+                "LDG": 500}
+SASS_NO_DEST = {"ST", "STS", "STG", "STL", "RED", "BAR", "BRA", "EXIT",
+                "CALL", "RET", "BSSY", "BSYNC", "WARPSYNC", "NOP", "DEPBAR",
+                "MEMBAR", "FENCE", "ERRBAR", "YIELD", "JMP", "CCTL"}
+SASS_COLD = {"CALL.REL.NOINC", "CALL.REL", "MUFU.RCP64H", "SHFL.BFLY"}
+SASS_REG = re.compile(r"(?<![\w.])(U?R\d+|U?P\d)(\.64)?(?!\w)")
 
 # tolerances, relative to the largest reference magnitude
 TOL_FP32 = 1e-5  # fp32 products summed in another order
@@ -324,12 +348,13 @@ class Checks:
         self.bad: list = []
 
     def record(self, name, shape, got, want, tol, ms, plain_ms, library_ms,
-               nbytes, flops, dtype, representative):
+               nbytes, flops, dtype, representative, **extra):
         abs_err, rel_err = errors(got, want)
         b_ms, b_by = bound(nbytes, flops, dtype)
         row = {"name": name, "shape": shape, "max_abs_err": abs_err,
                "rel_err": rel_err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by}
+               "library_ms": library_ms, "bound_ms": b_ms, "bound_by": b_by,
+               **extra}
         log({"check": row})
         if not (rel_err <= tol):
             self.bad.append(f"{name} {shape}: rel err {rel_err:.3g} > {tol}")
@@ -631,6 +656,167 @@ def host_ms(torch, fn, reps: int = 2) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
+def solve_bytes(n: int, block: int, d_out: int) -> int:
+    """``solve_block``'s least traffic: read the block's rows and U tile,
+    write q, deq and err."""
+    return n * ((block * d_out + block * block) + 3 * block * d_out) * 4
+
+
+def solve_block_ms(checks: Checks, wb, ub, spec, rows: int = GROUP) -> float:
+    """ms per ``solve_block`` call (one block, ``rows`` a group) from
+    ``Timer`` over cold copies of (wb, ub), with the ``repro_torch`` that
+    is on sys.path."""
+    from repro_torch.kernels.gptq_block.ops import solve_block
+
+    n, block, d_out = wb.shape
+    sets = checks.clones((wb, ub), solve_bytes(n, block, d_out))
+    return checks.timer.ms(lambda a=a: solve_block(a[0], a[1], spec, rows)
+                           for a in sets)
+
+
+def ptxas_kernels(report: str) -> dict:
+    """{mangled kernel: {registers, spill_store_bytes, stack_frame_bytes}}
+    from an ``nvcc -Xptxas -v`` log."""
+    out = {}
+    for chunk in report.split("Compiling entry function '")[1:]:
+        name = chunk.split("'", 1)[0]
+        found = {key: re.search(pattern, chunk) for key, pattern in (
+            ("registers", r"Used (\d+) registers"),
+            ("spill_store_bytes", r"(\d+) bytes spill stores"),
+            ("stack_frame_bytes", r"(\d+) bytes stack frame"))}
+        out[name] = {key: int(m.group(1)) if m else None
+                     for key, m in found.items()}
+    return out
+
+
+def sass_functions(lib: Path) -> dict:
+    """{mangled kernel: [(address, instruction text), ...]} from
+    ``cuobjdump -sass`` of a built library (cuobjdump from nvcc's
+    toolkit)."""
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    text = subprocess.run([str(cuobjdump), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    funcs, cur = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = funcs.setdefault(m.group(1), [])
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;", line)
+        if m and cur is not None:
+            cur.append((int(m.group(1), 16), m.group(2)))
+    return funcs
+
+
+def _sass_regs(token: str, width: int = 1) -> list:
+    out = []
+    for m in SASS_REG.finditer(token):
+        name, wide = m.group(1), m.group(2)
+        prefix = name.rstrip("0123456789")
+        first = int(name[len(prefix):])
+        n = 2 if wide else width
+        out += [f"{prefix}{first + i}" for i in range(n)]
+    return out
+
+
+def _branch_target(text: str):
+    m = re.search(r"\bBRA(?:\.\S+)?\s+(?:`\()?(0x[0-9a-f]+)", text)
+    return int(m.group(1), 16) if m else None
+
+
+def loop_chain_cycles(instrs: list):
+    """The longest dependent path through one pass of a kernel's largest
+    loop after its first barrier (the rows' round loop, past staging), in
+    cycles of SASS_LATENCY, every register a value of the chain, issue
+    width and memory ignored.  A forward branch to inside the loop is
+    taken when the code it skips is cold (it holds a CALL, an fp64
+    reciprocal or a butterfly shuffle: a group's first row, a division's
+    slow path); any other branch is not.  Returns (cycles, instructions in
+    the loop), or (None, 0) if no loop is found."""
+    start = next(k for k, (_, t) in enumerate(instrs)
+                 if t.startswith("BAR.SYNC"))
+    index = {addr: k for k, (addr, _) in enumerate(instrs)}
+    loops = [(index[tgt], k) for k, (addr, t) in enumerate(instrs[start:],
+                                                            start)
+             if (tgt := _branch_target(t)) is not None and tgt <= addr
+             and tgt in index and index[tgt] > start]
+    if not loops:
+        return None, 0
+    first, last = max(loops, key=lambda lk: lk[1] - lk[0])
+    ready: dict = {}
+    longest, k = 0, first
+    while k < last:
+        text = instrs[k][1]
+        guard = []
+        if text.startswith("@"):
+            g, text = text.split(None, 1)
+            guard = _sass_regs(g)
+        op, _, rest = text.partition(" ")
+        base = op.split(".")[0]
+        target = _branch_target(text) if base == "BRA" else None
+        if target is not None and target in index and \
+                k < index[target] <= last and any(
+                    t.split()[int(t.startswith("@"))] in SASS_COLD
+                    for _, t in instrs[k + 1:index[target]]):
+            k = index[target]
+            continue
+        ops = [o.strip() for o in rest.split(",")] if rest else []
+        ndest = 0 if base in SASS_NO_DEST or not ops else 1
+        if ndest and len(ops) > 1 and (
+                base.endswith("SETP") or base == "SHFL" or
+                (base in ("IADD3", "LEA") and ".X" not in op and
+                 re.fullmatch(r"U?P\d", ops[1]))):
+            ndest = 2
+        parts = op.split(".")
+        width = 4 if "128" in parts else 2 if ("64" in parts or
+                                               "WIDE" in parts) else 1
+        dests = [r for o in ops[:ndest] for r in _sass_regs(o, width)]
+        srcs = guard + [r for o in ops[ndest:] for r in _sass_regs(o)]
+        done = max((ready.get(r, 0) for r in srcs), default=0) + \
+            SASS_LATENCY.get(base, 4)
+        for r in dests:
+            ready[r] = done
+        if dests:
+            longest = max(longest, done)
+        k += 1
+    return longest, last - first + 1
+
+
+def max_sm_mhz() -> float:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True)
+    return float(smi.stdout.strip().splitlines()[0])
+
+
+def solve_instances() -> dict:
+    """{(R, every_row): {kernel, registers, spills, chain}} of every built
+    instance of ``gptq_block_kernel<R, EVERY_ROW>``: registers from this
+    run's ptxas log; from the library's SASS, the chain of one round of
+    SOLVE_CHUNK R rows (the loop of its widest phase) and from it one
+    row's."""
+    from repro_torch.kernels import build
+
+    regs = ptxas_kernels(build.ptxas_report("gptq_block"))
+    out = {}
+    for name, instrs in sass_functions(build._target("gptq_block")).items():
+        m = re.search(r"gptq_block_kernelILi(\d+)ELb([01])E", name)
+        if m:
+            lanes, every_row = int(m.group(1)), m.group(2) == "1"
+            cycles, body = loop_chain_cycles(instrs)
+            out[(lanes, every_row)] = {
+                "kernel": f"gptq_block_kernel<{lanes}, "
+                          f"{str(every_row).lower()}>",
+                **regs.get(name, {}), "sass_instructions": len(instrs),
+                "round_instructions": body, "round_chain_cycles": cycles,
+                "row_chain_cycles": None if cycles is None
+                else cycles / (SOLVE_CHUNK * lanes)}
+    return out
+
+
 def check_gptq_block(torch, checks: Checks) -> None:
     """Phase 2, GPTQ's in-block solve (``solve_block``, no Pallas
     counterpart: the reference's XLA compiles the loop): bitwise against
@@ -641,14 +827,19 @@ def check_gptq_block(torch, checks: Checks) -> None:
     loop."""
     from repro_torch.core import gptq
     from repro_torch.core.quantizer import QuantSpec
+    from repro_torch.kernels.gptq_block.kernel import plan
     from repro_torch.kernels.gptq_block.ops import solve_block
     from repro_torch.kernels.gptq_block.ref import (solve_block_ref,
-                                                    solver_params)
+                                                    solver_params,
+                                                    subnormal_tie_inputs)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(7)
-    timer = checks.timer
     names = ("q", "deq", "err", "scale", "zero")
+    instances = solve_instances()
+    for inst in instances.values():
+        log({"gptq_block_instance": inst})
+    mhz = max_sm_mhz()
 
     def bitwise(tag, got, want) -> None:
         for name, a, b in zip(names, got, want):
@@ -663,21 +854,38 @@ def check_gptq_block(torch, checks: Checks) -> None:
         got = solve_block(wb, ub, main, GROUP)
         want = solve_block_ref(wb, ub, main, GROUP)
         bitwise(wname, got, want)
-        # read the block's rows and U tile, write q, deq and err
-        nbytes = n * ((block * d_out + block * block) + 3 * block * d_out) * 4
         # per column: the later rows' update (a product and a difference
         # each) and the row's ~8 quantize steps
         flops = n * d_out * (block * (block - 1) + 8 * block)
-        sets = checks.clones((wb, ub), nbytes)
-        ms = timer.ms(lambda a=a: solve_block(a[0], a[1], main, GROUP)
-                      for a in sets)
+        ms = solve_block_ms(checks, wb, ub, main)
         plain_ms = host_ms(torch, lambda: solve_block_ref(wb, ub, main,
                                                           GROUP))
+        # what a row costs, measured: the slope from the same columns' first
+        # 64 rows (one group) to all 128, in cycles of the card's highest
+        # SM clock
+        ms_64 = solve_block_ms(checks, wb[:, :64].contiguous(),
+                               ub[:, :64, :64].contiguous(), main, 64)
+        # beside it the chain bound of the instance this shape runs, an
+        # estimate: one row's dependent path reckoned from its SASS with
+        # the latencies SASS_LATENCY assumes, x the block's rows
+        how = plan(n, block, d_out, GROUP, False)
+        inst = instances[(how["lanes"], how["every_row"])]
+        row_chain = inst["row_chain_cycles"]
         checks.record("solve_block", {"weight": wname, "N": n,
                                       "block": block, "d_out": d_out},
-                      got[1], want[1], 0.0, ms, plain_ms, None, nbytes,
-                      flops, "float32", wname == "wd")
-        del wb, ub, got, want, sets
+                      got[1], want[1], 0.0, ms, plain_ms, None,
+                      solve_bytes(n, block, d_out), flops, "float32",
+                      wname == "wd", plan=how, instance=inst["kernel"],
+                      registers=inst["registers"],
+                      spill_store_bytes=inst["spill_store_bytes"],
+                      ms_block_64=ms_64,
+                      row_cycles_measured=(ms - ms_64) / (block - 64)
+                      * mhz * 1e3,
+                      chain_estimate_row_cycles=row_chain,
+                      chain_estimate_ms=None if row_chain is None
+                      else block * row_chain / (mhz * 1e3),
+                      max_sm_mhz=mhz)
+        del wb, ub, got, want
 
     wb, ub = solve_inputs(torch, g, 1, block, 1024)
     for bits in (2, 3, 4, 8):
@@ -691,6 +899,21 @@ def check_gptq_block(torch, checks: Checks) -> None:
                 bitwise(f"wk bits {bits} group {group} sym {sym}",
                         solve_block(wb, ub, spec, rows, fixed),
                         solve_block_ref(wb, ub, spec, rows, fixed))
+
+    # errors exactly halfway between two fp32 subnormals, which a division
+    # through the fp64 reciprocal would round the other way: at R 8 and
+    # R 1, a group's own scale and a fixed one
+    for d_out in (4096, 32768):
+        wb, ub = (t.to(dev) for t in subnormal_tie_inputs(block, d_out))
+        for sym, rows, scale in ((True, 128, None), (False, 32, None),
+                                 (True, 128, 1000.0)):
+            spec = QuantSpec(bits=3 if sym else 4, group_size=rows, sym=sym)
+            fixed = None if scale is None else (
+                torch.full((1, d_out), scale, device=dev),
+                torch.full((1, d_out), 4.0, device=dev))
+            bitwise(f"subnormal ties d_out {d_out} sym {sym} rows {rows} "
+                    f"fixed {scale}", solve_block(wb, ub, spec, rows, fixed),
+                    solve_block_ref(wb, ub, spec, rows, fixed))
 
     # one whole solve: kernel against the plain loop (the rest is the same
     # torch code), llama3-8b's wk with a Hessian of uneven features
@@ -2578,6 +2801,26 @@ def time_attn_colsum(torch) -> list:
     return out
 
 
+def time_solve_block(torch) -> list:
+    """``solve_block`` at SOLVE_SHAPES (3-bit, group 128, sym, blocks of
+    128 rows) on phase 2's inputs (``solve_inputs``), with the
+    ``repro_torch`` that is on sys.path; ms per call from ``Timer`` over
+    cold copies (``solve_block_ms``)."""
+    from repro_torch.core.quantizer import QuantSpec
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    checks = Checks(Timer(torch))
+    main = QuantSpec(bits=BITS, group_size=GROUP)
+    out = []
+    for wname, (n, d_out) in SOLVE_SHAPES.items():
+        wb, ub = solve_inputs(torch, g, n, 128, d_out)
+        out.append({"weight": wname, "N": n, "block": 128, "d_out": d_out,
+                    "ms": solve_block_ms(checks, wb, ub, main)})
+        del wb, ub
+    torch.cuda.empty_cache()
+    return out
+
+
 # one process of ``compare``: times the tree named by argv[1]
 TIME_ONE_TREE = ("import sys; from pathlib import Path; import chip_smoke "
                  "as c; t = c.card_torch(Path(sys.argv[1])); "
@@ -2585,17 +2828,18 @@ TIME_ONE_TREE = ("import sys; from pathlib import Path; import chip_smoke "
                  "'attn_colsum': c.time_attn_colsum(t), "
                  "'quant_matmul': c.time_quant_matmul(t), "
                  "'gqa_attention': c.time_gqa_attention(t), "
-                 "'mla': c.time_mla(t)})")
+                 "'mla': c.time_mla(t), "
+                 "'solve_block': c.time_solve_block(t)})")
 
 
 def compare(other: Path) -> None:
     """Times ``gram`` (``time_gram``), ``attn_colsum``
     (``time_attn_colsum``), ``quant_matmul`` (``time_quant_matmul``), the
-    three GQA attention wrappers (``time_gqa_attention``) and MLA's absorb,
-    fp32 expand and extend (``time_mla``) of another checkout's ``src`` and
-    of this one in turns,
-    other, this, this, other, one process each on the same card, and prints
-    them as one JSON line."""
+    three GQA attention wrappers (``time_gqa_attention``), MLA's absorb,
+    fp32 expand, extend and latent decode (``time_mla``) and GPTQ's
+    in-block solve (``time_solve_block``) of another checkout's ``src`` and
+    of this one in turns, other, this, this, other, one process each on the
+    same card, and prints them as one JSON line."""
     card_torch(SRC)
     order = [other.resolve(), SRC, SRC, other.resolve()]
     runs = []
@@ -2626,14 +2870,13 @@ def main() -> None:
     built = build.build_all()
     log({"build": built})
     for name in build.SOURCES:  # nvcc -Xptxas -v of this run's builds
-        report = build.ptxas_report(name)
-        regs = [int(r) for r in re.findall(r"Used (\d+) registers", report)]
-        spills = [int(b) for b in re.findall(r"(\d+) bytes spill stores",
-                                             report)]
-        if regs:
-            log({"ptxas": {"source": name, "kernels": len(regs),
-                           "max_registers": max(regs),
-                           "max_spill_store_bytes": max(spills or [0])}})
+        found = ptxas_kernels(build.ptxas_report(name)).values()
+        if found:
+            log({"ptxas": {"source": name, "kernels": len(found),
+                           "max_registers": max(k["registers"] or 0
+                                                for k in found),
+                           "max_spill_store_bytes": max(
+                               k["spill_store_bytes"] or 0 for k in found)}})
 
     checks = Checks(Timer(torch))
     for phase in (check_kernels, check_hadamard, check_kv_kernels,
@@ -2720,6 +2963,8 @@ def main() -> None:
         if name == "solve_block":  # both paths calibrate through it
             entry["kernel_launches"] = {"main_path": launches[name],
                                         "mla_path": mla_launches[name]}
+            entry.update({key: row[key] for key in (
+                "instance", "registers", "spill_store_bytes")})
             entry["pallas"] = ("none: the reference's XLA compiles this "
                                "loop (a fori_loop in the scan over blocks, "
                                "vmapped by gptq_quantize_batched)")

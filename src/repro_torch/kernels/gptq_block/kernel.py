@@ -20,6 +20,21 @@ def _lib():
     return fn
 
 
+def plan(n: int, block: int, d_out: int, rows_per_group: int,
+         fixed: bool) -> dict:
+    """The kernel instance and launch shape a call takes: lanes a column
+    (R), threads a block, blocks along d_out, and whether a group may start
+    at any row (else only at a round's first row)."""
+    fn = build.library("gptq_block").gptq_block_plan
+    fn.argtypes = [build.I, build.I, build.I, build.I, build.I, build.P]
+    fn.restype = build.I
+    out = (ctypes.c_int * 4)()
+    build.check(fn(n, block, d_out, rows_per_group, int(fixed), out),
+                "gptq_block_plan")
+    return {"lanes": out[0], "threads": out[1], "grid_x": out[2],
+            "every_row": bool(out[3])}
+
+
 def solve_block_cuda(wb: torch.Tensor, ub: torch.Tensor, bits: int,
                      sym: bool, rows_per_group: int, inv: float, fixed,
                      q, deq, err, scale, zero) -> None:

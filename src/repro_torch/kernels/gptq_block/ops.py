@@ -13,7 +13,7 @@ import torch
 from repro_torch.core.quantizer import QuantSpec
 from repro_torch.kernels.gptq_block.ref import inv_step, solve_block_ref
 
-MAX_BLOCK = 128  # the kernel stages a block x block tile of U
+MAX_BLOCK = 128  # the kernel's largest instance holds 128 rows a column
 
 
 def solve_block(wb: torch.Tensor, ub: torch.Tensor, spec: QuantSpec,

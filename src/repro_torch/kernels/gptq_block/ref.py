@@ -72,3 +72,35 @@ def solve_block_ref(wb: torch.Tensor, ub: torch.Tensor, spec: QuantSpec,
         deq[:, i] = drow
         errb[:, i] = err
     return q, deq, errb, torch.stack(scales, 1), torch.stack(zeros, 1)
+
+
+def subnormal_tie_inputs(block: int, d_out: int, seed: int = 0):
+    """(wb, ub) of one matrix, (1, block, d_out) and (1, block, block) fp32
+    on the CPU, on which every error (x - deq) / U_ii of the row loop lies
+    exactly halfway between two fp32 subnormals.
+
+    U is diagonal with U_ii = 2 B (B odd); row i holds x = ±m B 2^-149 (m
+    odd, m B < 2^24), far below the 1e-9 floor of a group's scale, so q is
+    the zero point, deq is 0 and the error is x / U_ii = ±m 2^-150, which
+    IEEE division rounds to the even neighbour.  Each (m, B) is one where
+    the product of x with the fp64 reciprocal of U_ii rounds the other
+    way: a division formed so fails on every element."""
+    b = torch.arange(3, 1024, 2, dtype=torch.float64)[:, None]
+    m = torch.tensor([2.0 ** j - k for j in range(3, 23) for k in (1, 3, 5, 7)],
+                     dtype=torch.float64)[None, :]
+    x = m * b * 2.0 ** -149  # exact in fp32 where m B < 2^24
+    u = (2.0 * b).expand_as(x)
+    usable = (m * b < 2.0 ** 24) & (x.float() / u.float() != (x * (1.0 / u))
+                                    .float())
+    rows = [(u[k, 0], x[k][usable[k]]) for k in range(b.shape[0])
+            if usable[k].any()]
+    gen = torch.Generator().manual_seed(seed)
+    wb = torch.empty((1, block, d_out), dtype=torch.float32)
+    ub = torch.zeros((1, block, block), dtype=torch.float32)
+    for i in range(block):
+        ui, xs = rows[i % len(rows)]
+        pick = torch.randint(len(xs), (d_out,), generator=gen)
+        sign = torch.randint(2, (d_out,), generator=gen) * 2.0 - 1.0
+        wb[0, i] = (xs[pick] * sign).float()
+        ub[0, i, i] = float(ui)
+    return wb, ub

@@ -71,8 +71,11 @@ from repro_torch.kernels.flash_decode.ref import (flash_decode_ref,
                                                   paged_flash_extend_ref,
                                                   paged_mla_flash_decode_ref,
                                                   paged_mla_flash_extend_ref)
+from repro_torch.kernels.gptq_block.kernel import plan
 from repro_torch.kernels.gptq_block.ops import solve_block
-from repro_torch.kernels.gptq_block.ref import solve_block_ref, solver_params
+from repro_torch.kernels.gptq_block.ref import (solve_block_ref,
+                                                solver_params,
+                                                subnormal_tie_inputs)
 from repro_torch.kernels.gram.ops import weighted_gram
 from repro_torch.kernels.gram.ref import weighted_gram_ref
 from repro_torch.kernels.hadamard.ops import fwht
@@ -1622,14 +1625,17 @@ def _solve_inputs(cuda, n, block, d_out, seed):
 
 @pytest.mark.parametrize("bits,group,sym", SOLVE_SPECS)
 @pytest.mark.parametrize("n,block,d_out", [(1, 128, 48), (3, 64, 576),
-                                           (1, 128, 1000), (3, 128, 576)])
+                                           (1, 128, 1000), (3, 128, 576),
+                                           (2, 96, 2050), (1, 24, 33),
+                                           (1, 128, 32768)])
 def test_solve_block_kernel_bitwise_plain(cuda, bits, group, sym, n, block,
                                           d_out):
-    """Ragged d_out, blocks of 64 and 128, every bit width, in-block groups
-    (32 / 64 / 128 where they tile the block) and one global group."""
+    """Ragged d_out, blocks of 24, 64, 96 and 128, a wide one (one lane a
+    column), every bit width, in-block groups (32 / 64 / 128 where they
+    tile the block) and, where they do not, one global group."""
     spec = QuantSpec(bits=bits, group_size=group, sym=sym)
     wb, ub = _solve_inputs(cuda, n, block, d_out, bits + block + d_out)
-    if group == -1 or group > block:  # one global group, fixed beforehand
+    if group == -1 or block % group:  # one global group, fixed beforehand
         rows, fixed = block, solver_params(
             torch.randn((n, 4 * block, d_out), device=cuda), spec)
     else:
@@ -1642,6 +1648,64 @@ def test_solve_block_kernel_bitwise_plain(cuda, bits, group, sym, n, block,
     for name, a, b in zip(("q", "deq", "err", "scale", "zero"), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert torch.equal(a, b), (name, _rel(a, b))
+
+
+# a divisor of each block that is not a multiple of 4
+ODD_GROUP = {24: 6, 64: 2, 96: 6, 128: 2}
+
+
+@pytest.mark.parametrize("sym", [True, False])
+@pytest.mark.parametrize("groups", ["block", "8", "odd"])
+@pytest.mark.parametrize("block", [24, 64, 96, 128])
+@pytest.mark.parametrize("n,d_out,lanes", [(1, 300, 8), (1, 5000, 4),
+                                           (2, 6000, 2), (1, 18000, 1)])
+def test_solve_block_every_instance_bitwise_plain(cuda, sym, groups, block,
+                                                  n, d_out, lanes):
+    """Every instance of the kernel: R = 8, 4, 2 and 1 lanes a column
+    (picked from N x d_out, and cut to what the groups allow: a group of 8
+    rows starts on rounds of 8), groups checked once a round, and at every row
+    (a group size that is not a multiple of 4: R = 1); blocks of 24, 64,
+    96 and 128 rows; a U tile whose rows are not 16-byte aligned (the
+    4-byte staging path) beside an aligned one."""
+    rows = {"block": block, "8": 8, "odd": ODD_GROUP[block]}[groups]
+    spec = QuantSpec(bits=3, group_size=rows, sym=sym)
+    how = plan(n, block, d_out, rows, False)
+    want_lanes = {"block": lanes, "8": min(lanes, 2), "odd": 1}[groups]
+    assert (how["lanes"], how["every_row"]) == (want_lanes, groups == "odd")
+    wb, ub = _solve_inputs(cuda, n, block, d_out, block + d_out + sym)
+    for tile in (ub, torch.nn.functional.pad(ub, (0, 1))[..., :block]):
+        assert (tile.stride(1) % 4 == 0) == (tile is ub)
+        got = solve_block(wb, tile, spec, rows)
+        want = solve_block_ref(wb, tile, spec, rows)
+        for name, a, b in zip(("q", "deq", "err", "scale", "zero"), got,
+                              want):
+            assert a.shape == b.shape and torch.equal(a, b), (name,
+                                                              _rel(a, b))
+
+
+@pytest.mark.parametrize("sym,rows,fixed", [(True, 128, False),
+                                            (False, 32, False),
+                                            (True, 128, True)])
+@pytest.mark.parametrize("d_out,lanes", [(256, 8), (18000, 1)])
+def test_solve_block_subnormal_ties_bitwise_plain(cuda, sym, rows, fixed,
+                                                  d_out, lanes):
+    """Errors exactly halfway between two fp32 subnormals
+    (``subnormal_tie_inputs``), where a division through the fp64
+    reciprocal rounds the other way from IEEE division: the kernel's
+    correctly rounded divisions round them to even as the plain loop does,
+    at R = 8 and R = 1, with a group's own scale and a fixed one (1000,
+    where x / s is subnormal too)."""
+    wb, ub = (t.to(cuda) for t in subnormal_tie_inputs(128, d_out,
+                                                       seed=d_out + rows))
+    spec = QuantSpec(bits=3 if sym else 4, group_size=rows, sym=sym)
+    pair = ((torch.full((1, d_out), 1000.0, device=cuda),
+             torch.full((1, d_out), 4.0, device=cuda)) if fixed else None)
+    assert plan(1, 128, d_out, rows, fixed)["lanes"] == lanes
+    got = solve_block(wb, ub, spec, rows, pair)
+    want = solve_block_ref(wb, ub, spec, rows, pair)
+    assert bool((want[2] != 0).all())
+    for name, a, b in zip(("q", "deq", "err", "scale", "zero"), got, want):
+        assert a.shape == b.shape and torch.equal(a, b), (name, _rel(a, b))
 
 
 @pytest.mark.parametrize("bits,group,sym", [(3, 128, True), (2, 32, True),

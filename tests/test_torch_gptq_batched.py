@@ -14,7 +14,11 @@
   * the port's grouped ``quantize_layer_weights`` against the same weights
     solved one at a time with ``gptq_quantize``: bitwise on the CPU;
   * the port's and the reference's ``quantize_layer_weights`` on the same
-    Hessians of a ``llama3-8b-smoke`` block: codes >= 99%, losses within 1%.
+    Hessians of a ``llama3-8b-smoke`` block: codes >= 99%, losses within 1%;
+  * the plain in-block loop on errors that lie exactly halfway between two
+    fp32 subnormals (``subnormal_tie_inputs``, which the kernel is held to
+    on the card): IEEE division's quotient, rounded to even, where a product
+    with the fp64 reciprocal rounds the other way.
 """
 import dataclasses
 
@@ -38,6 +42,7 @@ from repro_torch.core.pipeline import (RSQConfig, _solve_spec,
                                        quantize_layer_weights)
 from repro_torch.core.quantizer import QuantSpec
 from repro_torch.kernels.gptq_block.ops import solve_block
+from repro_torch.kernels.gptq_block.ref import subnormal_tie_inputs
 
 ARCH = "llama3-8b-smoke"  # d_model 64, 4 heads / 2 KV, d_ff 128
 
@@ -53,19 +58,31 @@ def _stack(n, d_in, d_out, seed):
     return ws, (2.0 * np.einsum("nti,ntj->nij", x, x)).astype(np.float32)
 
 
-@pytest.mark.parametrize("n,bits,group,sym", [
-    (3, 2, 32, True), (3, 3, 128, True), (3, 4, -1, True), (3, 3, 64, True),
-    (4, 2, 128, True), (4, 4, 32, True), (4, 3, -1, True),
-    (3, 3, 64, False)], ids=lambda v: str(v))
-def test_batched_matches_reference(n, bits, group, sym):
+def _case(n, bits, group, sym, d_in=256, block=128):
+    """Cases at d_in 256, block 128 keep the ids they had before the d_in
+    and block parameters."""
+    parts = (n, bits, group, sym) + ((d_in, block) if (d_in, block) != (
+        256, 128) else ())
+    return pytest.param(n, bits, group, sym, d_in, block,
+                        id="-".join(map(str, parts)))
+
+
+@pytest.mark.parametrize("n,bits,group,sym,d_in,block", [
+    _case(3, 2, 32, True), _case(3, 3, 128, True), _case(3, 4, -1, True),
+    _case(3, 3, 64, True), _case(4, 2, 128, True), _case(4, 4, 32, True),
+    _case(4, 3, -1, True), _case(3, 3, 64, False),
+    _case(3, 3, 32, True, 192, 96)])
+def test_batched_matches_reference(n, bits, group, sym, d_in, block):
     """N 3 (q/k/v-like) and 4 (an expert-like (E, d_in, d_out) stack);
-    d_in 256 at the reference's default block of 128."""
-    ws, hs = _stack(n, 256, 48, 10 * bits + n)
+    d_in 256 at the reference's default block of 128, and d_in 192 at a
+    block of 96 rows."""
+    ws, hs = _stack(n, d_in, 48, 10 * bits + n)
     out_r = ref_batched(jnp.asarray(ws), jnp.asarray(hs),
-                        RefSpec(bits=bits, group_size=group, sym=sym))
+                        RefSpec(bits=bits, group_size=group, sym=sym),
+                        block=block)
     out_p = gptq_quantize_batched(torch.from_numpy(ws), torch.from_numpy(hs),
                                   QuantSpec(bits=bits, group_size=group,
-                                            sym=sym))
+                                            sym=sym), block=block)
     assert out_p["q"].shape == out_r["q"].shape
     assert out_p["scale"].shape == out_r["scale"].shape
     equal = out_p["q"].numpy() == np.asarray(out_r["q"])  # (N, d_in, d_out)
@@ -194,3 +211,27 @@ def test_solve_block_refuses_other_devices():
     ub = torch.empty((1, 8, 8), device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         solve_block(wb, ub, QuantSpec(bits=3, group_size=8), 8)
+
+
+@pytest.mark.parametrize("sym,rows,fixed", [(True, 128, False),
+                                            (False, 32, False),
+                                            (True, 128, True)])
+def test_plain_loop_rounds_subnormal_ties_as_ieee_division(sym, rows, fixed):
+    """Every error of ``subnormal_tie_inputs`` is the fp32 quotient x / U_ii
+    (a subnormal, tie rounded to even), not the fp64 reciprocal's product;
+    q is the zero point and deq 0, with a group's own scale (1e-9, sym and
+    asym) or a fixed one (1000, where x / s is subnormal too)."""
+    wb, ub = subnormal_tie_inputs(128, 96, seed=rows)
+    spec = QuantSpec(bits=3 if sym else 4, group_size=rows, sym=sym)
+    pair = ((torch.full((1, 96), 1000.0), torch.full((1, 96), 4.0))
+            if fixed else None)
+    q, deq, err, scale, zero = solve_block(wb, ub, spec, rows, pair)
+    u = torch.diagonal(ub[0])[:, None]
+    assert torch.equal(err[0], wb[0] / u)
+    assert bool((err != 0).all())
+    assert bool((err.abs() < torch.finfo(torch.float32).tiny).all())
+    recip = (wb[0].double() * (1.0 / u.double())).float()
+    assert bool((recip != err[0]).all())
+    assert torch.equal(deq.abs(), torch.zeros_like(deq))
+    assert torch.equal(q, zero.repeat_interleave(128 // scale.shape[1], 1)
+                       .int())
