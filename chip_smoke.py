@@ -20,7 +20,10 @@ Phases, in order; any failure exits non-zero before the final line:
      tile's fp32 form (x split into three bf16 terms) on MLA's
      head-batched expand of a prefill chunk; ``gram`` bitwise symmetric;
      ``attn_colsum`` at llama3-8b's and the MLA path's heads, two calls
-     bitwise equal; ``quant_matmul_t``'s two
+     bitwise equal; the MoE slice's two (``check_moe_kernels``): ``gram``
+     batched over deepseek-v2's expert buffers (E 160, n 96, d 5120 and
+     1536; one launch a stack) and the expert-stack ``quant_matmul`` (E
+     160, m 8 and 96, 5120 -> 1536 and 1536 -> 5120); ``quant_matmul_t``'s two
      (MLA's absorb: m 4 and a prefill chunk of ENGINE_CHUNK); the MLA
      latent decode at B 4, S 8192 and at the engine's 4 slots at
      positions 512-575, paged bitwise equal to flat; ``fwht``
@@ -74,24 +77,35 @@ Phases, in order; any failure exits non-zero before the final line:
      was not shed gets the tokens of its mode's run at full pool, bit for
      bit (through a retried burst too);
   4. the MLA path: the same flow on deepseek-v3-671b at full width, its
-     first 2 (dense) layers: quantize -> artifact -> keep-packed serve
+     first (dense) layer: quantize -> artifact -> keep-packed serve
      (absorb and expand on the packed wkv_b through ``quant_matmul_t`` and
      the head-batched ``quant_matmul``) vs the dequantized serve, layer
      0's ``mixer/wkv_b`` solve redone on the host CPU, and the kv8 / kv2
      path (``mla_flash_decode``, ``paged_mla_flash_decode``,
      ``paged_mla_flash_extend``) with the same checks, its launches
      counted from zero;
-  5. the strategy sweep: the quantize CLI on llama3-8b's layer 0 at full
+  5. the MoE path (``moe_path``): deepseek-v2-236b at full width, 2 layers
+     (layer 0 dense, layer 1 with 160 routed experts, top-6, 2 shared),
+     bf16: quantize -> artifact (the MoE layer's seconds and the peak
+     device memory logged) -> keep-packed serve in the graph and the
+     Python loop vs the dequantized serve; kv8 ``generate`` and the
+     engine in whole-prompt and chunked-paged admission; layer 1's
+     ``experts/wd`` solves of 8 experts redone on the host CPU
+     (``check_expert_solves``), its launches counted from zero;
+  6. the strategy sweep: the quantize CLI on llama3-8b's layer 0 at full
      width, once with each of the paper's eight token-importance strategies
      and once with AttnCon on the calibration set expanded twofold: each
      run's seconds, proxy losses and ``ppl_ratio``; fails on a loss that is
      not finite.
 Each path fails if a kernel it runs was never launched.  The last two
-lines are the ``kernels`` JSON object (twelve kernels, ``solve_block``'s
-with its launches on both paths; ``quant_matmul``'s
+lines are the ``kernels`` JSON object (twelve kernels, each with its
+launches on every path in ``path_launches``, ``gram``'s with its expert
+stack rows in ``experts``, ``solve_block``'s with its launches on each
+path; ``quant_matmul``'s
 entry is its decode row with ``prefill`` and ``prefill_fp32`` rows beside
 it, each with its kernel's launches on both paths, ``quant_matmul_t``'s its
-decode row with a ``prefill`` row, each with its kernel's MLA launches) and
+decode row with a ``prefill`` row, each with its kernel's MLA launches;
+``quant_matmul``'s expert-stack rows in ``experts``) and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 reference package.
 
@@ -186,11 +200,25 @@ FE_L, FE_PAST = 256, 16
 # drawn)
 AUDIT_FIRST, AUDIT_EVERY = 8, 7
 
-# MLA path: deepseek-v3-671b at full width, its first 2 layers (both dense:
-# MLA + SwiGLU; the routed-expert layers are a later slice); the same
-# calibration, serving and engine settings as above
-MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 2
+# MLA path: deepseek-v3-671b at full width, its first layer (dense: MLA +
+# SwiGLU; cut from 2 for the script's time now that the MoE path below
+# runs MLA at layer 1 too); the same calibration, serving and engine
+# settings as above
+MLA_ARCH, MLA_LAYERS = "deepseek-v3-671b", 1
 MLA_SOLVE_CHECK = ("mixer/wkv_b",)  # d_in 512: ragged 3-bit words
+# MoE path: deepseek-v2-236b at full width, 2 layers (layer 0 MLA + dense
+# SwiGLU, layer 1 MLA + 160 routed experts, top-6, and 2 shared), in bf16
+# (10.7 GB of weights; fp32 would not leave room for the experts' 18.3 GB
+# of Hessians); the same calibration and serving settings as above, kv8
+# serving in two admission modes
+MOE_ARCH, MOE_LAYERS, MOE_DTYPE = "deepseek-v2-236b", 2, "bfloat16"
+MOE_E, MOE_D, MOE_F = 160, 5120, 1536
+# an expert's capacity in a calibration batch (4 x 512 tokens x top-6 /
+# 160 x 1.25, rounded up to 8) and at a decode step of the serve batch
+MOE_CAP_CALIB, MOE_CAP_DECODE = 96, 8
+MOE_SOLVE_EXPERTS = 8  # layer 1's experts/wd solves redone on the CPU
+MOE_ENGINE_MODES = tuple(m for m in ENGINE_MODES
+                         if m[0] in ("whole", "chunked-paged"))
 # the strategy sweep: llama3-8b's layer 0 at full width calibrated once with
 # each of the paper's eight token-importance strategies, and once more with
 # AttnCon on the calibration set expanded by SWEEP_EXPANSION circular shifts
@@ -349,7 +377,11 @@ class Checks:
 
     def record(self, name, shape, got, want, tol, ms, plain_ms, library_ms,
                nbytes, flops, dtype, representative, **extra):
-        abs_err, rel_err = errors(got, want)
+        """``got`` may be (max_abs_err, rel_err) computed by the caller
+        (piecewise, where the whole difference does not fit), ``want``
+        then None."""
+        abs_err, rel_err = (got if isinstance(got, tuple)
+                            else errors(got, want))
         b_ms, b_by = bound(nbytes, flops, dtype)
         row = {"name": name, "shape": shape, "max_abs_err": abs_err,
                "rel_err": rel_err, "tol": tol, "ms": ms, "plain_ms": plain_ms,
@@ -579,6 +611,105 @@ def check_fp32_long_rows(torch, checks: Checks, g) -> None:
             checks.bad.append(f"quant_matmul {shape}: rel err {rel:.3g} > "
                               f"{TOL_FP32}")
         del pw, qc, sc, zr, want
+
+
+def check_moe_kernels(torch, checks: Checks) -> None:
+    """Phase 2, the MoE slice, at deepseek-v2-236b's widths: the batched
+    ``gram`` over a calibration batch's expert buffers (E 160 experts of
+    MOE_CAP_CALIB slots, bf16 as the bf16 path captures them, d 5120 for
+    the wi / wu stack and 1536 for wd), one launch for the stack, each
+    matrix against its plain version (compared 16 experts at a time: the
+    160 x 5120² fp32 stack is 16.8 GB); and the expert-stack
+    ``quant_matmul`` (E 160, 3-bit, group 128, bf16 x; wi / wu 5120 ->
+    1536 and wd 1536 -> 5120) at the decode capacity (m 8) and the
+    calibration's (m 96), one launch for all experts."""
+    from repro_torch.core.quantizer import QuantSpec, quantize_weight_rtn
+    from repro_torch.kernels.gram.ops import weighted_gram
+    from repro_torch.kernels.gram.ref import weighted_gram_ref
+    from repro_torch.kernels.quant_matmul.ops import (pack_weight,
+                                                      quant_matmul)
+    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    timer, e, n = checks.timer, MOE_E, MOE_CAP_CALIB
+    for d in (MOE_D, MOE_F):
+        x = torch.randn((e, n, d), generator=g, device=dev).to(torch.bfloat16)
+        r = torch.rand((e, n), generator=g, device=dev)
+        before = weighted_gram.launches
+        got = weighted_gram(x, r)
+        torch.cuda.synchronize()
+        if weighted_gram.launches != before + 1:
+            checks.bad.append(f"batched gram (E {e}, d {d}) took "
+                              f"{weighted_gram.launches - before} launches")
+        diff = peak = 0.0
+        for c in range(0, e, 16):
+            want = weighted_gram_ref(x[c:c + 16], r[c:c + 16])
+            diff = max(diff, float((got[c:c + 16] - want).abs().max()))
+            peak = max(peak, float(want.abs().max()))
+            if not torch.equal(got[c:c + 16], got[c:c + 16].transpose(1, 2)):
+                checks.bad.append(f"batched gram (E {e}, d {d}) is not "
+                                  f"bitwise symmetric")
+            del want
+        # x and r read once, the (E, d, d) accumulators read and written
+        nbytes = e * (n * d * 2 + n * 4 + 2 * d * d * 4)
+        ms = timer.ms([lambda: weighted_gram(x, r, out=got, alpha=2.0)],
+                      iters=10)
+        plain_ms = timer.ms([lambda: weighted_gram_ref(x, r)], iters=4)
+        xr = x.float() * r[..., None]
+        library_ms = timer.ms([lambda: torch.bmm(xr.transpose(1, 2), xr)],
+                              iters=4)
+        del xr, got
+        torch.cuda.empty_cache()
+        # the six bf16 term products of each triangle, as the 2-D row
+        checks.record("gram", {"E": e, "n": n, "d": d, "x": "bfloat16"},
+                      (diff, diff / max(peak, 1e-30)), None, TOL_FP32, ms,
+                      plain_ms, library_ms, nbytes,
+                      6.0 * e * n * d * (d + 1), "bfloat16",
+                      f"gram_experts_d{d}")
+        del x, r
+    spec = QuantSpec(bits=BITS, group_size=GROUP)
+    for wname, (kk, nn) in (("wi/wu", (MOE_D, MOE_F)),
+                            ("wd", (MOE_F, MOE_D))):
+        parts, deq = [], []
+        for _ in range(e):  # an RTN stack, packed expert by expert
+            w = torch.randn((kk, nn), generator=g, device=dev) * kk ** -0.5
+            wq, qc, sc, zr = quantize_weight_rtn(w, spec)
+            parts.append(pack_weight(qc, sc, zr, spec))
+            deq.append(wq.to(torch.bfloat16))
+        pw = dataclasses.replace(
+            parts[0], w_packed=torch.stack([p.w_packed for p in parts]),
+            scale=torch.stack([p.scale for p in parts]),
+            zero=torch.stack([p.zero for p in parts]))
+        w_bf16 = torch.stack(deq)
+        del parts, deq
+        for m in (MOE_CAP_DECODE, MOE_CAP_CALIB):
+            x = torch.randn((e, m, kk), generator=g, device=dev).to(
+                torch.bfloat16)
+            want = quant_matmul_ref(x.float(), pw.w_packed, pw.scale,
+                                    pw.zero, bits=BITS, group_size=GROUP,
+                                    d_in=kk)
+            before = quant_matmul.launches
+            got = quant_matmul(x, pw)
+            torch.cuda.synchronize()
+            if quant_matmul.launches != before + 1:
+                checks.bad.append(f"expert-stack quant_matmul ({wname}, m "
+                                  f"{m}) took more than one launch")
+            ms = timer.ms([lambda: quant_matmul(x, pw)])
+            plain_ms = timer.ms([lambda: quant_matmul_ref(
+                x, pw.w_packed, pw.scale, pw.zero, bits=BITS,
+                group_size=GROUP, d_in=kk)], iters=4)
+            library_ms = timer.ms([lambda: torch.bmm(x, w_bf16)])
+            nbytes = (x.numel() + e * m * nn) * 2 + pw.nbytes
+            checks.record("quant_matmul",
+                          {"arch": MOE_ARCH, "weight": f"experts/{wname}",
+                           "E": e, "m": m, "k": kk, "n": nn, "bits": BITS},
+                          got, want, TOL_BF16, ms, plain_ms, library_ms,
+                          nbytes, 2.0 * e * m * nn * kk, "bfloat16",
+                          f"quant_matmul_experts_{wname}_m{m}")
+            del x, want, got
+        del pw, w_bf16
+        torch.cuda.empty_cache()
 
 
 def check_hadamard(torch, checks: Checks) -> None:
@@ -1871,14 +2002,16 @@ class FinalChunks:
 
 
 def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
-            lossy_paged_bits=(2,)) -> None:
+            lossy_paged_bits=(2,), kv_bits=KV_BITS, modes=ENGINE_MODES,
+            overload: bool = True, traced_modes=TRACED_MODES) -> None:
     """The quantized-KV serving path of one artifact (loaded once,
-    keep-packed), for each of kv8 and kv2: ``launch.serve.generate``
-    through the flat quantized cache (batch 4, prompt 1024, 32 new tokens,
-    after a 2-token warm-up), then the ``Engine`` on a Poisson trace of 8
-    requests (prompt 512, budgets 16-64, the last one sampled) in each
-    admission mode.  The fp materializers of the cache count their calls
-    throughout, and ``KvAudit`` holds sampled calls of ``audit_names``
+    keep-packed), for each of ``kv_bits`` (kv8 and kv2):
+    ``launch.serve.generate`` through the flat quantized cache (batch 4,
+    prompt 1024, 32 new tokens, after a 2-token warm-up), then the
+    ``Engine`` on a Poisson trace of 8 requests (prompt 512, budgets 16-64,
+    the last one sampled) in each admission mode of ``modes``.  The fp
+    materializers of the cache count their calls throughout, and
+    ``KvAudit`` holds sampled calls of ``audit_names``
     (``KvAudit.GQA`` or ``KvAudit.MLA``) of every run to their plain
     versions.  The paged chunked prefill reads earlier chunks back from
     their codes; at ``lossy_paged_bits`` its first tokens are not held to
@@ -1889,9 +2022,10 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
     than that, the lossy read may flip them; farther, it cannot).  Each
     mode's requests run again under overload (``<mode>_overload``), and the
     whole mode with a burst fault (``whole_fault``) and a shedding queue
-    (``whole_shed``); see ``overload_runs``.  kv8's engine runs again under
-    the profiler in ``TRACED_MODES`` (``<mode>_profile``).  The caller
-    counts the launches.
+    (``whole_shed``); see ``overload_runs`` (unless ``overload`` is
+    False).  The first bit width's engine runs again under the profiler in
+    ``traced_modes`` (``<mode>_profile``).  The caller counts the
+    launches.
 
     Decode runs in the captured loops (``loop="graph"``): ``generate``'s
     graphs are held to one capture per key, each engine to its two
@@ -1931,7 +2065,7 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
         audit.install()
         params, _ = load_packed_forward_params(art, device=dev,
                                                dtype=torch.bfloat16)
-        for bits in KV_BITS:
+        for bits in kv_bits:
             t0 = time.perf_counter()
             cfg = dataclasses.replace(model_config(arch, n_layers,
                                                    "bfloat16"), kv_bits=bits)
@@ -2038,7 +2172,7 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                           **serve.graph_stats(engine.graphs.values()))
                 return st
 
-            for mode, chunk, attn in ENGINE_MODES:
+            for mode, chunk, attn in modes:
                 t1 = time.perf_counter()
                 # the paged prefill reads earlier chunks back from their
                 # codes: at lossy_paged_bits its first token need not be
@@ -2047,7 +2181,7 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                 finals = FinalChunks(model) if lossy else None
                 audit.label = f"kv{bits} {mode}"
                 python = None
-                if mode == "whole" and bits == KV_BITS[0]:
+                if mode == "whole" and bits == kv_bits[0]:
                     # and the debug loop on the same trace: the same streams
                     st, python, _ = loop_pair(
                         torch, lambda loop: engine_run(chunk, attn,
@@ -2131,14 +2265,15 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                                    f"{TOL_CHUNK_LOGITS}")
                 row[mode]["seconds"] = time.perf_counter() - t1
                 audit.label = None  # the normal run's tokens are the check
-                row.update(overload_runs(
-                    mode, engine_run, chunk, attn, sps,
-                    [o.tokens if o is not None else None for o in outs],
-                    need, bad, f"kv{bits}"))
-            if bits == KV_BITS[0]:  # traced runs: ~15 s of profiler each
+                if overload:
+                    row.update(overload_runs(
+                        mode, engine_run, chunk, attn, sps,
+                        [o.tokens if o is not None else None for o in outs],
+                        need, bad, f"kv{bits}"))
+            if bits == kv_bits[0]:  # traced runs: ~15 s of profiler each
                 audit.label = None
-                for mode, chunk, attn in ENGINE_MODES:
-                    if mode not in TRACED_MODES:
+                for mode, chunk, attn in modes:
+                    if mode not in traced_modes:
                         continue
                     traced = engine_run(chunk, attn, traced=True)["profile"]
                     traced["untraced_wall_ms"] = row[mode]["wall_s"] * 1e3
@@ -2158,7 +2293,9 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
         audit.restore()
         for name, fn in real.items():
             setattr(att, name, fn)
-    log({"kv_path": {"arch": arch, "fp_cache_calls": len(fp_calls),
+    log({"kv_path": {"arch": arch, "kv_bits": list(kv_bits),
+                     "modes": [m[0] for m in modes],
+                     "fp_cache_calls": len(fp_calls),
                      "kernel_vs_plain": audit.report(),
                      "engine": {"requests": n, "prompt": ENGINE_PROMPT,
                                 "budgets": list(ENGINE_BUDGETS),
@@ -2167,7 +2304,7 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
                                 "burst": ENGINE_BURST,
                                 "prefill_chunk": ENGINE_CHUNK,
                                 "arrival_rate": ENGINE_RATE},
-                     "overload": {"pages": "2 x one request's",
+                     "overload": overload and {"pages": "2 x one request's",
                                   "arrival_rate": OVER_RATE,
                                   "priority_1": list(OVER_PRIORITY),
                                   "fault": [FAULT_ROUND, "burst"],
@@ -2424,7 +2561,7 @@ def main_path(torch) -> tuple[dict, dict]:
 
 def mla_path(torch) -> dict:
     """Phase 4, the MLA slice: RSQ quantize of deepseek-v3-671b at full
-    width, its first 2 (dense) layers -> packed artifact -> keep-packed bf16
+    width, its first (dense) layer -> packed artifact -> keep-packed bf16
     greedy serve (absorb and expand on the packed wkv_b: rows 3 and 4),
     compared with the same artifact dequantized at load; layer 0's
     mixer/wkv_b solve redone on the host CPU; then the kv8 and kv2 serving
@@ -2537,6 +2674,306 @@ def mla_path(torch) -> dict:
         fail(f"MLA path never launched: {missing}")
     check_solves(torch, entries, proxy0, arch=MLA_ARCH, n_layers=MLA_LAYERS,
                  paths=MLA_SOLVE_CHECK)
+    return launches
+
+
+def check_expert_solves(torch, art: Path, proxy_mean: float) -> dict:
+    """Layer 1's ``ffn/experts/wd`` solve of MOE_SOLVE_EXPERTS experts
+    against the same solves on the host CPU, by ``check_solves``' rule.
+
+    The card rebuilds the pipeline's inputs of layer 1: the quantize CLI's
+    weights from the same seed, rotated, layer 0 replaced by the
+    artifact's codes dequantized (what the pipeline propagated through),
+    then layer 1's capture (``capture_block``: the attention half, the
+    AttnCon scores, the FFN input and the routing) and r.  The host CPU
+    takes the FFN input and r, routes with the plain versions, builds the
+    chosen experts' buffers, their bf16 hidden (wd's input), the Hessians
+    (the ``gram`` plain version) and solves.  The chosen experts are the
+    first ones whose slot tables on the CPU equal the card's in both
+    batches (a routing weight of the fp32 router product can fall on the
+    other side of a top-k tie; how many did is logged).  The card's codes
+    are the artifact's; its proxy losses come from the same solves redone
+    on the card from the card's capture (gram kernel and GPTQ on the
+    card), and their mean over the checked experts is logged beside the
+    pipeline's mean over all 160."""
+    from repro_torch.checkpoint.packed import load_packed_artifact
+    from repro_torch.core import hessian as hess
+    from repro_torch.core.gptq import gptq_quantize_batched
+    from repro_torch.core.importance import ImportanceInputs, attn_con
+    from repro_torch.core.pipeline import RSQConfig, _solve_spec
+    from repro_torch.core.quantizer import (dequantize_packed,
+                                            quantize_weight_rtn,
+                                            unpack_codes, words_from_numpy)
+    from repro_torch.core.rotation import rotate_model
+    from repro_torch.data.calibration import calibration_set
+    from repro_torch.device import generator
+    from repro_torch.launch.quantize import model_config
+    from repro_torch.models import moe
+    from repro_torch.models.lm import Model, apply_block, capture_block
+
+    t0 = time.perf_counter()
+    rsq = RSQConfig(bits=BITS, group_size=GROUP, seed=SEED)
+    cfg = model_config(MOE_ARCH, MOE_LAYERS, MOE_DTYPE)
+    dev = torch.device("cuda")
+    model = Model(cfg, dev)  # the quantize CLI's draws, in its order
+    params = model.init(generator(SEED, dev))
+    params, _ = rotate_model(params, cfg, gen=generator(rsq.seed, dev))
+    entries, meta = load_packed_artifact(art)
+    blk0 = {k: (dict(v) if isinstance(v, dict) else v)
+            for k, v in params["layers"][0].items()}
+    for name, em in meta["entries"].items():
+        if em["loc"] != ["prefix", 0]:
+            continue
+        e = entries[name]
+        sub, leaf = em["path"].split("/")
+        blk0[sub][leaf] = dequantize_packed(
+            words_from_numpy(e["codes"]).to(dev),
+            torch.from_numpy(e["scale"]).to(dev),
+            torch.from_numpy(e["zero"]).to(dev), bits=BITS,
+            d_in=em["d_in"]).to(blk0[sub][leaf].dtype)
+    wd_entry = entries["layer1/ffn/experts/wd"]
+    del entries
+    blk1 = params["layers"][1]
+    calib = calibration_set(cfg.vocab_size, N_CALIB, CALIB_SEQ, seed=SEED)
+    batches = []  # per batch: (FFN input, r, slot table, wd's input) on card
+    for i in range(0, N_CALIB, CALIB_BATCH):
+        x1 = apply_block(blk0, cfg, model.embed(
+            params, calib[i:i + CALIB_BATCH].to(dev)))[0]
+        _, caps, _, colsum = capture_block(blk1, cfg, x1)
+        r = attn_con(ImportanceInputs(z_in=x1, attn_colsum=colsum),
+                     r_min=rsq.r_min, r_max=rsq.r_max).reshape(-1)
+        batches.append((caps["ffn/shared/wi"], r,
+                        caps["ffn/__moe_slot_token"], caps["ffn/experts/wd"]))
+        del caps, x1
+    e_all, cap = cfg.n_routed_experts, MOE_CAP_CALIB
+    router = blk1["ffn"]["router"].cpu()
+    cpu_tables = []
+    for hf, r, st_card, _ in batches:
+        idx, w, _ = moe.route(router, hf.cpu(), cfg.moe_top_k)
+        buf, st, _, _ = moe._expert_buffers(hf.cpu(), idx, w, e_all, cap)
+        cpu_tables.append((buf, st, r.cpu()))
+    same = [all(torch.equal(tb[1].reshape(e_all, cap)[ex],
+                            b[2].cpu().reshape(e_all, cap)[ex])
+                for tb, b in zip(cpu_tables, batches))
+            for ex in range(e_all)]
+    chosen = [ex for ex in range(e_all) if same[ex]][:MOE_SOLVE_EXPERTS]
+    if len(chosen) < MOE_SOLVE_EXPERTS:
+        fail(f"MoE: only {len(chosen)} experts route alike on the card and "
+             f"the CPU")
+    sel = torch.tensor(chosen)
+    ex = blk1["ffn"]["experts"]
+    wi, wu = ex["wi"][sel.to(dev)].cpu(), ex["wu"][sel.to(dev)].cpu()
+    wd = ex["wd"][sel.to(dev)]
+    h_cpu = h_card = None
+    for (buf, st, r), (_, r_card, st_card, hid_card) in zip(cpu_tables,
+                                                            batches):
+        b = buf[sel]  # bf16, as the card's
+        hid = torch.nn.functional.silu(b @ wi) * (b @ wu)
+        r_slots = torch.cat([r, r.new_zeros((1,))])[st]
+        h_cpu = hess.accumulate(h_cpu, hid,
+                                r_slots.reshape(e_all, cap)[sel])
+        rc = torch.cat([r_card, r_card.new_zeros((1,))])[st_card]
+        h_card = hess.accumulate(h_card, hid_card[sel.to(dev)],
+                                 rc.reshape(e_all, cap)[sel.to(dev)])
+    del batches, cpu_tables
+    f = cfg.moe_d_ff
+    spec, block = _solve_spec(rsq, f)  # the pipeline's own
+    card = gptq_quantize_batched(wd, h_card, spec, damp=rsq.damp,
+                                 block=block)
+    wd_cpu = wd.cpu()
+    host = gptq_quantize_batched(wd_cpu, h_cpu, spec, damp=rsq.damp,
+                                 block=block)
+    noise = torch.randn(h_cpu.shape, generator=torch.Generator()
+                        .manual_seed(SEED))
+    rel = 2.0 ** -24 * math.sqrt(N_CALIB * CALIB_SEQ)
+    noisy = gptq_quantize_batched(
+        wd_cpu, h_cpu * (1 + rel * 0.5 * (noise + noise.transpose(1, 2))),
+        spec, damp=rsq.damp, block=block)
+    del noise
+    words = words_from_numpy(wd_entry["codes"])[sel]
+    art_q = unpack_codes(words, BITS, f)
+    w_art = dequantize_packed(words, torch.from_numpy(wd_entry["scale"])[sel],
+                              torch.from_numpy(wd_entry["zero"])[sel],
+                              bits=BITS, d_in=f)
+    rows, bad = {}, []
+    for j, e in enumerate(chosen):
+        w = wd_cpu[j].float()
+        h_dev, w_dev = h_cpu[j].to(dev), w.to(dev)
+
+        def out_err(wq) -> float:  # tr(ΔᵀHΔ), on the card for speed
+            delta = w_dev - wq.float().to(dev)
+            return float((delta * (h_dev @ delta)).sum())
+
+        p_card, p_host = float(card["err"][j]), float(host["err"][j])
+        row = {"code_match": float((art_q[j] == host["q"][j]).float()
+                                   .mean()),
+               "code_match_fp32_noise": float(
+                   (noisy["q"][j] == host["q"][j]).float().mean()),
+               "code_match_card_resolve": float(
+                   (card["q"][j].cpu() == art_q[j]).float().mean()),
+               "proxy_card": p_card, "proxy_cpu": p_host,
+               "proxy_rel_diff": abs(p_card - p_host) / p_host,
+               "out_err_card": out_err(w_art[j]),
+               "out_err_cpu": out_err(host["w_deq"][j]),
+               "out_err_rtn": out_err(quantize_weight_rtn(w, spec)[0])}
+        row["out_err_rel_diff"] = (abs(row["out_err_card"]
+                                       - row["out_err_cpu"])
+                                   / row["out_err_cpu"])
+        rows[e] = row
+        tag = f"experts/wd[{e}]"
+        if not row["code_match"] >= MIN_CODE_MATCH:
+            bad.append(f"{tag}: {row['code_match']:.4f} of codes equal "
+                       f"< {MIN_CODE_MATCH}")
+        if not row["proxy_rel_diff"] <= TOL_PROXY:
+            bad.append(f"{tag}: proxy loss {p_card} (card) vs {p_host} (cpu)"
+                       f" > {TOL_PROXY} relative")
+        if not row["out_err_rel_diff"] <= TOL_PROXY:
+            bad.append(f"{tag}: output error {row['out_err_card']} (card "
+                       f"codes) vs {row['out_err_cpu']} (cpu) > {TOL_PROXY} "
+                       f"relative")
+        if not row["out_err_card"] < row["out_err_rtn"]:
+            bad.append(f"{tag}: GPTQ output error {row['out_err_card']} not "
+                       f"below RTN's {row['out_err_rtn']}")
+        del h_dev, w_dev
+    del params, blk0, blk1, card, wd
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"expert_solve_check": {
+        "arch": MOE_ARCH, "layer": 1, "weight": "ffn/experts/wd",
+        "experts": rows, "experts_routed_otherwise": e_all - sum(same),
+        "proxy_card_mean_checked": sum(
+            r["proxy_card"] for r in rows.values()) / len(rows),
+        "proxy_pipeline_mean_all": proxy_mean,
+        "seconds": time.perf_counter() - t0,
+        "min_code_match": MIN_CODE_MATCH, "tol_proxy": TOL_PROXY}})
+    if bad:
+        fail("MoE: GPTQ on the card disagrees with the CPU: "
+             + "; ".join(bad))
+    return rows
+
+
+def moe_path(torch) -> dict:
+    """Phase 5, the MoE slice: RSQ quantize of deepseek-v2-236b at full
+    width, 2 layers (layer 0 dense, layer 1 with 160 routed experts, top-6,
+    and 2 shared), bf16 weights -> packed artifact -> keep-packed bf16
+    greedy serve (every expert stack one ``quant_matmul`` launch for all
+    160) in the graph and the Python loop, compared with the same artifact
+    dequantized at load; layer 1's experts/wd solves of MOE_SOLVE_EXPERTS
+    experts redone on the host CPU; then kv8 serving (``kv_path``:
+    ``generate`` at batch 4, prompt 1024, and the engine in whole-prompt and
+    chunked-paged admission on the MLA path's trace).  The MoE layer's
+    calibration seconds and the quantize run's peak device memory are
+    logged.  Every kernel's launches are counted from zero over the whole
+    path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attn_colsum.ops import attn_colsum
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.gptq_block.ops import solve_block
+    from repro_torch.kernels.gram.ops import weighted_gram
+    from repro_torch.kernels.hadamard.ops import fwht
+    from repro_torch.kernels.quant_matmul.ops import (quant_matmul,
+                                                      quant_matmul_t)
+    from repro_torch.launch import quantize, serve
+
+    counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
+               "quant_matmul": quant_matmul,
+               "quant_matmul_t": quant_matmul_t, "fwht": fwht,
+               "solve_block": solve_block}
+    counted.update({name: getattr(fd_ops, name) for name in KvAudit.MLA
+                    if name != "quant_matmul_t"})
+    art = ROOT / "build" / "chip_smoke_moe_artifact"
+    shutil.rmtree(art, ignore_errors=True)
+    common = ["--arch", MOE_ARCH, "--n-layers", str(MOE_LAYERS), "--device",
+              "cuda"]
+    serve_args = common + ["--packed", str(art), "--dtype", "bfloat16",
+                           "--batch", str(SERVE_BATCH), "--prompt-len",
+                           str(PROMPT_LEN), "--gen", str(N_GEN)]
+    try:
+        reset_counts(counted)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        q = quantize.main(common + [
+            "--bits", str(BITS), "--group-size", str(GROUP),
+            "--n-calib", str(N_CALIB), "--calib-seq", str(CALIB_SEQ),
+            "--batch", str(CALIB_BATCH), "--dtype", MOE_DTYPE,
+            "--seed", str(SEED), "--pack-out", str(art)])
+        quantize_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        summary = q["summary"]
+        layer1 = q["report"]["layers"]["layer1"]
+        log({"moe_layer_calibration": {
+            "arch": MOE_ARCH, "layer": 1,
+            "seconds": layer1["seconds"], "capture_s": layer1["capture_s"],
+            "solve_s": layer1["solve_s"], "apply_s": layer1["apply_s"],
+            "quantize_max_memory_allocated": peak,
+            "weights": layer1["weights"]}})
+        del q
+        gc.collect()
+        torch.cuda.empty_cache()
+        packed, loops = serve_loops(torch, serve, serve_args, "MoE fp cache")
+        dequant = serve.main(serve_args + ["--no-keep-packed"])
+        traced = serve.main(serve_args + ["--profile"])["profile"]
+        t1 = time.perf_counter()
+        kv_path(torch, art, arch=MOE_ARCH, n_layers=MOE_LAYERS,
+                audit_names=KvAudit.MLA, lossy_paged_bits=KV_BITS,
+                kv_bits=(8,), modes=MOE_ENGINE_MODES, overload=False,
+                traced_modes=())
+        launches = read_counts(counted)
+        log({"phase_seconds": {"moe_kv_path": time.perf_counter() - t1}})
+        check_expert_solves(torch, art,
+                            layer1["weights"]["ffn/experts/wd"])
+    finally:
+        shutil.rmtree(art, ignore_errors=True)
+
+    cfg = get_config(MOE_ARCH)
+    log({"moe_path": {
+        "arch": MOE_ARCH,
+        "widths": {k: getattr(cfg, k) for k in (
+            "d_model", "n_heads", "q_lora_rank", "kv_lora_rank",
+            "qk_nope_dim", "qk_rope_dim", "v_head_dim", "d_ff",
+            "n_routed_experts", "n_shared_experts", "moe_top_k",
+            "moe_d_ff", "vocab_size")},
+        "reduced": {"n_layers": f"{MOE_LAYERS} of {cfg.n_layers} (layer 0 "
+                    f"dense, layer 1 routed experts)"},
+        "dtype": MOE_DTYPE, "n_calib": N_CALIB, "calib_seq": CALIB_SEQ,
+        "quantize_s": quantize_s, "quantize_max_memory_allocated": peak,
+        "layer_seconds": summary["layer_seconds"],
+        "ppl_fp": summary["ppl_fp"], "ppl_quant": summary["ppl_quant"],
+        "ppl_ratio": summary["ppl_ratio"],
+        "prefill_tok_s": packed["prefill_tok_s"],
+        "decode_tok_s": packed["decode_tok_s"],
+        "dequantized_prefill_tok_s": dequant["prefill_tok_s"],
+        "dequantized_decode_tok_s": dequant["decode_tok_s"],
+        "resident_packed_bytes": packed["resident_packed_bytes"],
+        "resident_fp_bytes": packed["resident_fp_bytes"],
+        "loops": loops, "launches": launches}})
+    log({"moe_decode_profile": traced})
+
+    tokens = torch.tensor(packed["tokens"])
+    same = float((tokens == torch.tensor(dequant["tokens"])).float().mean())
+    abs_err, rel_err = errors(packed["first_logits"], dequant["first_logits"])
+    log({"moe_serve_agreement": {"token_match": same,
+                                 "first_logits_max_abs_diff": abs_err,
+                                 "first_logits_rel_diff": rel_err,
+                                 "tol": TOL_SERVE_LOGITS}})
+    if tokens.shape != (SERVE_BATCH, N_GEN) or not bool(
+            ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+        fail(f"MoE: bad generated tokens {tuple(tokens.shape)}")
+    if not bool(torch.isfinite(packed["first_logits"]).all()):
+        fail("MoE: non-finite logits from the keep-packed serve")
+    if not (rel_err <= TOL_SERVE_LOGITS):
+        fail(f"MoE: keep-packed vs dequantized first-step logits differ by "
+             f"{rel_err:.3g} > {TOL_SERVE_LOGITS}")
+    ratio = summary["ppl_ratio"]
+    if not (math.isfinite(ratio) and ratio < 1.5):
+        fail(f"MoE: quantized/fp perplexity ratio {ratio} (expected finite, "
+             f"< 1.5)")
+    missing = [name for name, c in launches.items()
+               if c <= 0 and name not in NO_PATH]
+    if missing:
+        fail(f"MoE path never launched: {missing}")
     return launches
 
 
@@ -2879,8 +3316,8 @@ def main() -> None:
                                k["spill_store_bytes"] or 0 for k in found)}})
 
     checks = Checks(Timer(torch))
-    for phase in (check_kernels, check_hadamard, check_kv_kernels,
-                  check_mla_kernels, check_gptq_block):
+    for phase in (check_kernels, check_moe_kernels, check_hadamard,
+                  check_kv_kernels, check_mla_kernels, check_gptq_block):
         t0 = time.perf_counter()
         phase(torch, checks)
         log({"phase_seconds": {phase.__name__: time.perf_counter() - t0}})
@@ -2895,10 +3332,16 @@ def main() -> None:
     mla_launches = mla_path(torch)
     log({"phase_seconds": {"mla_path": time.perf_counter() - t0}})
     t0 = time.perf_counter()
+    moe_launches = moe_path(torch)
+    log({"phase_seconds": {"moe_path": time.perf_counter() - t0}})
+    t0 = time.perf_counter()
     strategy_sweep(torch)
     log({"phase_seconds": {"strategy_sweep": time.perf_counter() - t0}})
+    main_launches = dict(launches)
     launches.update({name: mla_launches[name] for name in KvAudit.MLA})
-    launches["fwht"] += mla_launches["fwht"]
+    launches["fwht"] += mla_launches["fwht"] + moe_launches["fwht"]
+    by_path = {"main_path": main_launches, "mla_path": mla_launches,
+               "moe_path": moe_launches}
     # quant_matmul's three kernels, each with its launches on both paths;
     # quant_matmul_t's two on the MLA path
     qmm_rows = {"qmm_decode": rows["quant_matmul"],
@@ -2950,19 +3393,33 @@ def main() -> None:
                 subs[sub] = {key: qmm_rows[kern][key] for key in keys}
                 subs[sub].update(kernel=kern, kernel_launches={
                     "main_path": launches[kern],
-                    "mla_path": mla_launches[kern]})
+                    "mla_path": mla_launches[kern],
+                    "moe_path": moe_launches[kern]})
             entry.update(subs.pop(""), **subs)
+            # the expert stacks (E 160): the tensor-core tile at m 8 and 96
+            entry["experts"] = {
+                f"{w}_m{m}": {key: rows[f"quant_matmul_experts_{w}_m{m}"][
+                    key] for key in keys}
+                for w in ("wi/wu", "wd")
+                for m in (MOE_CAP_DECODE, MOE_CAP_CALIB)}
         if name == "quant_matmul_t":  # decode row; the prefill row beside
             entry["kernel"] = "qmm_t_decode"
-            entry["kernel_launches"] = {"mla_path":
-                                        mla_launches["qmm_t_decode"]}
+            entry["kernel_launches"] = {
+                "mla_path": mla_launches["qmm_t_decode"],
+                "moe_path": moe_launches["qmm_t_decode"]}
             entry["prefill"] = {key: qmm_t_rows["qmm_t_tile"][key]
                                 for key in keys}
             entry["prefill"].update(kernel="qmm_t_tile", kernel_launches={
-                "mla_path": mla_launches["qmm_t_tile"]})
-        if name == "solve_block":  # both paths calibrate through it
+                "mla_path": mla_launches["qmm_t_tile"],
+                "moe_path": moe_launches["qmm_t_tile"]})
+        if name == "gram":  # the expert stacks: one launch for all 160
+            entry["experts"] = {f"d{d}": {key: rows[f"gram_experts_d{d}"][key]
+                                          for key in keys}
+                                for d in (MOE_D, MOE_F)}
+        if name == "solve_block":  # every path calibrates through it
             entry["kernel_launches"] = {"main_path": launches[name],
-                                        "mla_path": mla_launches[name]}
+                                        "mla_path": mla_launches[name],
+                                        "moe_path": moe_launches[name]}
             entry.update({key: row[key] for key in (
                 "instance", "registers", "spill_store_bytes")})
             entry["pallas"] = ("none: the reference's XLA compiles this "
@@ -2970,6 +3427,9 @@ def main() -> None:
                                "vmapped by gptq_quantize_batched)")
         if name in NO_PATH:
             entry["path"] = NO_PATH[name]
+        entry["path_launches"] = {path: counts[name]
+                                  for path, counts in by_path.items()
+                                  if name in counts}
         kernels.append(entry)
     log(f"total seconds: {time.perf_counter() - t_start:.1f}")
     log({"kernels": kernels})

@@ -96,9 +96,12 @@ def _verify_file(d: Path, meta: dict, fname: str) -> None:
 
 
 def _to_numpy(x) -> np.ndarray:
+    """numpy has no bf16: a bf16 tensor (the residual of a model quantized
+    in bf16) is stored widened to fp32, which is exact; the loaders'
+    ``dtype`` casts it back."""
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
-            raise TypeError("the artifact stores float32 tensors, not bf16")
+            x = x.float()
         return x.detach().cpu().numpy()
     return np.asarray(x)
 
@@ -159,20 +162,33 @@ def _quantized_paths(meta_entries: dict) -> set[str]:
             for em in meta_entries.values()}
 
 
-# norms a block keeps in the residual, by a quantized weight that marks the
-# block's kind (MLA's internal norms sit beside wq_b and wkv_b)
-_BLOCK_NORMS = {"mixer/wq_b": "mixer/q_norm", "mixer/wkv_b": "mixer/kv_norm"}
+# fp leaves a block keeps in the residual, by a quantized weight that marks
+# the block's kind (MLA's internal norms sit beside wq_b and wkv_b; a
+# routed-expert FFN's fp32 router beside its expert stacks)
+_BLOCK_RESIDUAL = {"mixer/wq_b": "mixer/q_norm",
+                   "mixer/wkv_b": "mixer/kv_norm",
+                   "ffn/experts/wi": "ffn/router"}
 
 
-def _reference_residual_paths(n_prefix: int, block_paths: list[str]
-                              ) -> list[str]:
+def _block_paths(quantized: set[str]) -> list[str]:
+    """Every leaf path of a block whose quantized weights are
+    ``quantized``."""
+    return sorted(quantized | {"mixer_norm", "ffn_norm"}
+                  | {leaf for w, leaf in _BLOCK_RESIDUAL.items()
+                     if w in quantized})
+
+
+def _reference_residual_paths(n_prefix: int, prefix_paths: list[str],
+                              group_paths: list[str]) -> list[str]:
     """Leaf order of a reference-written residual tree: the reference's
     {"embed", "final_norm", "groups": {"b0": block}, "head", "prefix":
     [block, ...]} with stacked group leaves and ``n_prefix`` unstacked
-    prefix blocks, flattened in sorted-key order."""
-    def block() -> dict:
+    prefix blocks, flattened in sorted-key order.  The prefix blocks and
+    the group block each have their own leaves (deepseek's dense prefix
+    and its routed-expert groups)."""
+    def block(paths) -> dict:
         node_root: dict = {}
-        for p in block_paths:
+        for p in paths:
             node = node_root
             parts = p.split("/")
             for part in parts[:-1]:
@@ -181,9 +197,9 @@ def _reference_residual_paths(n_prefix: int, block_paths: list[str]
         return node_root
 
     skel: dict = {"embed": 0, "final_norm": 0, "head": 0,
-                  "groups": {"b0": block()}}
+                  "groups": {"b0": block(group_paths)}}
     if n_prefix:
-        skel["prefix"] = [block() for _ in range(n_prefix)]
+        skel["prefix"] = [block(prefix_paths) for _ in range(n_prefix)]
     return list(_flatten(skel))
 
 
@@ -262,12 +278,13 @@ def _load_residual(d: Path, meta: dict, verify: bool) -> dict[str, np.ndarray]:
         return dict(zip(meta["residual_paths"], leaves))
     # written by the reference: prefix blocks as they are, stacked group
     # leaves in sorted-key order; quantized leaves are empty markers
-    quantized = {em["path"] for em in meta["entries"].values()}
-    block = sorted(quantized | {"mixer_norm", "ffn_norm"}
-                   | {norm for w, norm in _BLOCK_NORMS.items()
-                      if w in quantized})
+    quantized: dict[str, set] = {"prefix": set(), "groups": set()}
+    for em in meta["entries"].values():
+        quantized[em["loc"][0]].add(em["path"])
     n_prefix = _n_prefix(meta["entries"])
-    paths = _reference_residual_paths(n_prefix, block)
+    paths = _reference_residual_paths(n_prefix,
+                                      _block_paths(quantized["prefix"]),
+                                      _block_paths(quantized["groups"]))
     if len(paths) != len(leaves):
         raise NotImplementedError(
             f"{d}: {len(leaves)} residual leaves, expected {len(paths)} for "

@@ -9,6 +9,7 @@ from repro_torch.configs.base import ModelConfig  # noqa: F401
 _MODULES = {
     "llama3-8b": "rsq_llama3_8b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
 
 

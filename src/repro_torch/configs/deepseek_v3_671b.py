@@ -2,9 +2,10 @@
 vocab=129280, MoE 256e top-8 — MLA, 1 shared + 256 routed, MTP.
 [arXiv:2412.19437; hf]
 
-The port runs its first ``first_dense_layers`` layers (MLA attention with a
-dense SwiGLU FFN); the routed-expert layers are a later slice, so ``Model``
-takes this config only with its depth cut into the dense prefix."""
+Its first ``first_dense_layers`` layers are MLA attention with a dense
+SwiGLU FFN; every later layer is MLA attention with the routed-expert FFN
+(``models.moe``).  Multi-token prediction is a training head the port does
+not carry."""
 from repro_torch.configs.base import ModelConfig
 
 CONFIG = ModelConfig(

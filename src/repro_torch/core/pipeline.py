@@ -13,10 +13,14 @@
 Baselines are config points: GPTQ = no rotation + uniform; QuaRot =
 rotation + uniform; RSQ = rotation + a token-importance strategy.  This is
 the reference's sequential schedule.  The solves of a layer are grouped by
-shape, as the reference's: weights sharing (d_in, d_out) stack into one
-``gptq_quantize_batched`` call (one ``solve_block`` launch a block for the
-whole group), and the proxy losses stay on the device until the layer's
-one read-back (``finalize_layer_report``).  With ``pack_output`` every
+shape, as the reference's: weights sharing (d_in, d_out), every matrix of
+an expert stack among them, stack into ``gptq_quantize_batched`` calls
+(one ``solve_block`` launch a block for all of a call's matrices; a group
+whose solve workspace exceeds ``SOLVE_CHUNK_BYTES`` is solved a chunk at a
+time), and the proxy losses stay on the device until the layer's one
+read-back (``finalize_layer_report``).  A routed-expert layer's stacks
+take (E, d_in, d_in) Hessians from their capacity buffers, with each
+slot's token importance.  With ``pack_output`` every
 solve's (q, scale, zero) is also packed into the serving artifact
 (``RSQPipeline.artifact``, saved by
 ``checkpoint.packed.save_packed_artifact``).
@@ -83,8 +87,49 @@ def _chunk_mask(r: torch.Tensor, rsq: RSQConfig) -> torch.Tensor:
     return r * mask.to(r.dtype)
 
 
+# a shape group's matrices are solved a chunk at a time, each chunk's
+# solve workspace (``_solve_bytes``) at most this many bytes: deepseek-v2's
+# wi + wu stack (320 matrices of 5120 x 1536, 33.6 GB of Hessians) in
+# chunks of 10, its wd stack (160 of 1536 x 5120) in chunks of 20, and
+# deepseek-v3's dense wi and wu (7168 x 18432, 3.6 GB each) one at a time.
+# The solves are independent, so the chunks give the bits of one call
+SOLVE_CHUNK_BYTES = 4 << 30
+
+
+def _solve_bytes(d_in: int, d_out: int) -> int:
+    """fp32 bytes ``gptq_quantize_batched`` holds for one matrix: its
+    Hessian and U factor (d_in²) and about six (d_in, d_out) arrays (the
+    weight's working copy, the codes and dequantized rows of each block,
+    their concatenations, the result)."""
+    return 4 * d_in * (2 * d_in + 6 * d_out)
+
+
 def _is_quantizable(w: torch.Tensor) -> bool:
     return w.ndim >= 2 and min(w.shape[-2:]) >= 16
+
+
+def _copy_dicts(tree):
+    """The param tree with every dict copied (leaves shared)."""
+    if isinstance(tree, dict):
+        return {k: _copy_dicts(v) for k, v in tree.items()}
+    return tree
+
+
+def _leaf(tree: dict, path: str) -> tuple[dict, str]:
+    """(parent dict, key) of a weight path such as "ffn/experts/wi"."""
+    parts = path.split("/")
+    for key in parts[:-1]:
+        tree = tree[key]
+    return tree, parts[-1]
+
+
+def _pack_stack(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """``pack_codes`` eight matrices of a stack at a time (its int64
+    intermediates of a whole expert stack would be several times the
+    codes): the same words."""
+    flat = q.reshape((-1,) + tuple(q.shape[-2:]))
+    words = torch.cat([pack_codes(c, bits) for c in flat.split(8)])
+    return words.reshape(tuple(q.shape[:-2]) + tuple(words.shape[-2:]))
 
 
 def _solve_spec(rsq: RSQConfig, d_in: int) -> tuple[QuantSpec, int]:
@@ -113,44 +158,92 @@ def quantize_layer_weights(p_block: dict, hessians: dict[str, torch.Tensor],
     """GPTQ-solve every captured weight of one block, grouped by shape.
 
     Weights sharing (d_in, d_out) (q/o, k/v, gate/up, every matrix of a
-    stacked (E, d_in, d_out) tensor with its (E, d_in, d_in) Hessians)
-    stack into one ``gptq_quantize_batched`` call; a lone 2-D weight is its
-    one-matrix case, which is ``gptq_quantize``.  Returns (new block params
-    with dequantized weights, {path: proxy loss}): a stacked weight reports
-    the mean of its matrices' losses, and the losses stay on the device
-    until one read-back for the layer (:func:`finalize_layer_report`).
-    ``collect`` receives {path: {"q", "scale", "zero", "dtype"}}."""
-    new_p = {k: (dict(v) if isinstance(v, dict) else v)
-             for k, v in p_block.items()}
+    stacked (E, d_in, d_out) expert tensor with its (E, d_in, d_in)
+    Hessians) are solved together by ``gptq_quantize_batched``, a chunk of
+    at most ``SOLVE_CHUNK_BYTES`` of solve workspace a call; a lone 2-D
+    weight is its one-matrix case, which is ``gptq_quantize``.  Weight
+    paths name nested dicts ("mixer/wq", "ffn/experts/wi").  Returns (new
+    block params with dequantized weights, {path: proxy loss}): a stacked
+    weight reports the mean of its matrices' losses, and the losses stay
+    on the device until one read-back for the layer
+    (:func:`finalize_layer_report`).
+    ``collect`` receives {path: {"q", "scale", "zero", "dtype"}}, a stack's
+    with its leading (E,) axis; the codes ``q`` as uint8 (an expert stack's
+    int32 codes would be 5 GB at deepseek-v2's widths)."""
+    new_p = _copy_dicts(p_block)
     groups: dict[tuple, list] = {}
     for path, h in hessians.items():
-        sub, name = path.split("/")
-        w = new_p[sub][name]
+        node, name = _leaf(new_p, path)
+        w = node[name]
         if _is_quantizable(w):
             groups.setdefault(tuple(w.shape[-2:]), []).append(
-                (path, sub, name, w, h))
+                (path, node, name, w, h))
     report = {}
-    for (d_in, _), items in groups.items():
+    for (d_in, d_out), items in groups.items():
         spec, block = _solve_spec(rsq, d_in)
-        # a 2-D weight is a stack of one
-        ws = torch.cat([w if w.ndim == 3 else w[None]
-                        for _, _, _, w, _ in items])
-        hs = torch.cat([h if h.ndim == 3 else h[None]
-                        for _, _, _, _, h in items])
-        out = gptq_quantize_batched(ws, hs, spec, damp=rsq.damp, block=block)
-        o = 0
-        for path, sub, name, w, _ in items:
-            k = w.shape[0] if w.ndim == 3 else 1
-            sol = {key: v[o] if w.ndim == 2 else v[o:o + k]
-                   for key, v in out.items()}
-            o += k
-            new_p[sub][name] = sol["w_deq"].to(w.dtype)
+        # every matrix of the group: (item, its index in a stack or None)
+        mats = [(it, i) for it in items
+                for i in (range(it[3].shape[0]) if it[3].ndim == 3
+                          else (None,))]
+        per = max(1, SOLVE_CHUNK_BYTES // _solve_bytes(d_in, d_out))
+        sols: dict[str, dict] = {}
+        for c0 in range(0, len(mats), per):
+            chunk = mats[c0:c0 + per]
+            ws = torch.stack([it[3] if i is None else it[3][i]
+                              for it, i in chunk])
+            hs = torch.stack([it[4] if i is None else it[4][i]
+                              for it, i in chunk])
+            out = gptq_quantize_batched(ws, hs, spec, damp=rsq.damp,
+                                        block=block)
+            del ws, hs
+            out["q"] = out["q"].to(torch.uint8)  # bits <= 8
+            for j, ((path, _, _, w, _), i) in enumerate(chunk):
+                if i is None:
+                    sols[path] = {key: v[j] for key, v in out.items()}
+                    continue
+                if path not in sols:  # the stack's outputs, filled in turn
+                    sols[path] = {key: v.new_empty((w.shape[0],)
+                                                   + tuple(v.shape[1:]))
+                                  for key, v in out.items()}
+                for key, v in out.items():
+                    sols[path][key][i] = v[j]
+            del out
+        for path, node, name, w, _ in items:
+            sol = sols.pop(path)
+            node[name] = sol["w_deq"].to(w.dtype)
             report[path] = sol["err"].mean()
             if collect is not None:
                 collect[path] = {"q": sol["q"], "scale": sol["scale"],
                                  "zero": sol["zero"],
                                  "dtype": str(w.dtype).removeprefix("torch.")}
     return new_p, finalize_layer_report(report)
+
+
+def _accumulate(hessians: dict, caps: dict, dom: dict,
+                r: torch.Tensor) -> None:
+    """Add one calibration batch to every weight's Hessian (in place).
+
+    Token-aligned inputs ("stream", "hidden") flatten to (B·T, d_in) and
+    take r (B·T,); an expert stack's (E, C, d_in) buffers take r scattered
+    into their slots through ``ffn/__moe_slot_token`` (0 on an empty slot)
+    and accumulate (E, d_in, d_in) Hessians.  Expert weights that read one
+    buffer (wi and wu) share one accumulator: their Hessians are equal bit
+    for bit (deepseek-v2: 16.8 GB once instead of twice)."""
+    slot_token = caps.get("ffn/__moe_slot_token")
+    by_buffer: dict[int, str] = {}
+    for path, x_c in caps.items():
+        if path.endswith("__moe_slot_token"):
+            continue
+        if dom[path] == "expert":
+            first = by_buffer.setdefault(id(x_c), path)
+            if first != path:
+                hessians[path] = hessians[first]
+                continue
+            r_rows = torch.cat([r, r.new_zeros((1,))])[slot_token]
+            r_rows = r_rows.reshape(x_c.shape[:2])
+        else:
+            x_c, r_rows = x_c.reshape(-1, x_c.shape[-1]), r
+        hessians[path] = hess.accumulate(hessians.get(path), x_c, r_rows)
 
 
 class RSQPipeline:
@@ -204,11 +297,9 @@ class RSQPipeline:
             t0 = clock()
             hessians: dict[str, torch.Tensor] = {}
             for x_b, tok in zip(acts, toks):
-                y, caps, _, colsum = capture_block(p_blk, cfg, x_b)
+                y, caps, dom, colsum = capture_block(p_blk, cfg, x_b)
                 r = self._importance(x_b, y, tok, colsum, counts).reshape(-1)
-                for path, x_c in caps.items():
-                    hessians[path] = hess.accumulate(
-                        hessians.get(path), x_c.reshape(-1, x_c.shape[-1]), r)
+                _accumulate(hessians, caps, dom, r)
                 del caps, y
             t1 = clock()
             collect = {} if rsq.pack_output else None
@@ -219,7 +310,7 @@ class RSQPipeline:
             tag = f"layer{li}"
             for path, sol in (collect or {}).items():
                 name = f"{tag}/{path}"
-                entries[name] = {"codes": pack_codes(sol["q"], rsq.bits),
+                entries[name] = {"codes": _pack_stack(sol["q"], rsq.bits),
                                  "scale": sol["scale"], "zero": sol["zero"]}
                 d_in = int(sol["q"].shape[-2])
                 meta[name] = {"path": path, "tag": tag, "d_in": d_in,

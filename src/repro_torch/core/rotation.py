@@ -70,10 +70,27 @@ def _scale_in(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return (w.float() * g.float()[:, None]).to(w.dtype)
 
 
+def _scale_stack_in(w: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """diag(g) @ W_e for every expert e of an (E, d_in, d_out) stack."""
+    return (w.float() * g.float()[None, :, None]).to(w.dtype)
+
+
+def _each_expert(fn, w: torch.Tensor) -> torch.Tensor:
+    """``fn`` on every matrix of an (E, ·, ·) stack, one at a time: the
+    2-D product's rounding, and no fp32 copy of the whole stack."""
+    out = torch.empty_like(w)
+    for e in range(w.shape[0]):
+        out[e] = fn(w[e])
+    return out
+
+
 def fuse_norms_block(p: dict, cfg: ModelConfig) -> dict:
     """Fold the block's RMSNorm γ into its consuming weights (new dict);
-    MLA's q_norm and kv_norm fold into wq_b and wkv_b."""
+    MLA's q_norm and kv_norm fold into wq_b and wkv_b.  A routed-expert
+    FFN folds the FFN norm into its router, each expert's wi / wu and its
+    shared FFN's wi / wu."""
     mixer, ffn = dict(p["mixer"]), dict(p["ffn"])
+    gf = p["ffn_norm"]
     for name in _MIXER_IN:
         if name in mixer:
             mixer[name] = _scale_in(mixer[name], p["mixer_norm"])
@@ -82,14 +99,35 @@ def fuse_norms_block(p: dict, cfg: ModelConfig) -> dict:
             mixer[name] = _scale_in(mixer[name], mixer[norm])
             mixer[norm] = torch.ones_like(mixer[norm])
     for name in _FFN_IN:
-        ffn[name] = _scale_in(ffn[name], p["ffn_norm"])
+        if name in ffn:
+            ffn[name] = _scale_in(ffn[name], gf)
+    if "router" in ffn:
+        ffn["router"] = _scale_in(ffn["router"], gf)
+        ffn["experts"] = dict(ffn["experts"])
+        for name in _FFN_IN:
+            ffn["experts"][name] = _scale_stack_in(ffn["experts"][name], gf)
+        if "shared" in ffn:
+            ffn["shared"] = {k: (_scale_in(v, gf) if k in _FFN_IN else v)
+                             for k, v in ffn["shared"].items()}
     return {**p, "mixer": mixer, "ffn": ffn,
             "mixer_norm": torch.ones_like(p["mixer_norm"]),
             "ffn_norm": torch.ones_like(p["ffn_norm"])}
 
 
+def _rotate_ffn(ffn: dict, rot_in, rot_out) -> dict:
+    """A dense FFN's wi / wu become Qᵀ W and its wd W Q."""
+    ffn = dict(ffn)
+    for name in _FFN_IN:
+        ffn[name] = rot_in(ffn[name])
+    for name in _FFN_OUT:
+        ffn[name] = rot_out(ffn[name])
+    return ffn
+
+
 def rotate_block(p: dict, cfg: ModelConfig, q: torch.Tensor) -> dict:
-    """Apply the stream rotation to one block (norms must be fused first)."""
+    """Apply the stream rotation to one block (norms must be fused first).
+    A routed-expert FFN: the router is Qᵀ W, every expert's wi / wu Qᵀ W_e
+    and its wd W_e Q, the shared FFN as a dense one."""
     qf = q.float()
 
     def rot_in(w):  # (d_model, d_out) -> Qᵀ W
@@ -98,16 +136,22 @@ def rotate_block(p: dict, cfg: ModelConfig, q: torch.Tensor) -> dict:
     def rot_out(w):  # (d_in, d_model) -> W Q
         return (w.float() @ qf).to(w.dtype)
 
-    mixer, ffn = dict(p["mixer"]), dict(p["ffn"])
+    mixer = dict(p["mixer"])
     for name in _MIXER_IN:
         if name in mixer:
             mixer[name] = rot_in(mixer[name])
     for name in _MIXER_OUT:
         mixer[name] = rot_out(mixer[name])
-    for name in _FFN_IN:
-        ffn[name] = rot_in(ffn[name])
-    for name in _FFN_OUT:
-        ffn[name] = rot_out(ffn[name])
+    ffn = p["ffn"]
+    if "router" not in ffn:
+        return {**p, "mixer": mixer, "ffn": _rotate_ffn(ffn, rot_in, rot_out)}
+    ex = ffn["experts"]
+    ffn = dict(ffn, router=rot_in(ffn["router"]), experts={
+        "wi": _each_expert(rot_in, ex["wi"]),
+        "wu": _each_expert(rot_in, ex["wu"]),
+        "wd": _each_expert(rot_out, ex["wd"])})
+    if "shared" in ffn:
+        ffn["shared"] = _rotate_ffn(ffn["shared"], rot_in, rot_out)
     return {**p, "mixer": mixer, "ffn": ffn}
 
 

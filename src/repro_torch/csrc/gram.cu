@@ -13,6 +13,13 @@
 // for the triangle at the fp32 pipes' 67 TFLOP/s.  The bytes (x once, the
 // (d, d) accumulator read and written) are ~0.5 ms.
 //
+// Batches: the reference vmaps its Pallas kernel over a leading axis of E
+// independent grams (the stacked experts' capacity buffers, (E, n, d) ->
+// (E, d, d)).  Here that axis is the grid's second: block (b, e) computes
+// tile b of matrix e, whose x, r and out start e times their batch strides
+// in; every matrix keeps the tiling, terms and sums below, so a batch of
+// one is the 2-D call bit for bit.
+//
 // Design: one block per 128 x 128 output tile (I, J) with I <= J only;
 // the block adds its tile to (I, J) and its transpose to (J, I).  Blocks
 // walk the triangle in bands of G_BAND tile rows, column by column inside
@@ -167,8 +174,13 @@ __device__ constexpr int term_b(int q) {
 template <typename T>
 __global__ void __launch_bounds__(G_THREADS, 1)
 gram_tc(const T* __restrict__ x, const float* __restrict__ r,
-        float* __restrict__ out, int n, int d, float alpha) {
+        float* __restrict__ out, int n, int d, float alpha,
+        long long x_bs, long long r_bs, long long out_bs) {
   extern __shared__ __align__(128) uint8_t smem_raw[];
+  // matrix blockIdx.y of the batch
+  x += blockIdx.y * x_bs;
+  if (r != nullptr) r += blockIdx.y * r_bs;
+  out += blockIdx.y * out_bs;
   uint8_t* const ring =
       smem_raw + ((1024 - smem_u32(smem_raw) % 1024) % 1024);
   const int tiles = (d + G_TILE - 1) / G_TILE;
@@ -312,14 +324,18 @@ gram_tc(const T* __restrict__ x, const float* __restrict__ r,
 
 }  // namespace
 
-// x: (n, d) fp32 (x_bf16 == 0) or bf16 (x_bf16 == 1), row-major;
-// r: (n,) fp32 or null (all ones); out: (d, d) fp32, accumulated into.
+// x: batch matrices (n, d) fp32 (x_bf16 == 0) or bf16 (x_bf16 == 1),
+// row-major, x_bs elements apart; r: batch vectors (n,) fp32, r_bs apart,
+// or null (all ones); out: batch (d, d) fp32, out_bs apart, accumulated
+// into.  One launch for the whole batch.
 extern "C" int gram_launch(const void* x, int x_bf16, const float* r,
-                           float* out, int n, int d, float alpha,
+                           float* out, int n, int d, float alpha, int batch,
+                           long long x_bs, long long r_bs, long long out_bs,
                            void* stream) {
-  if (n <= 0 || d <= 0) return 0;  // nothing to add
+  if (n <= 0 || d <= 0 || batch <= 0) return 0;  // nothing to add
+  if (batch > 65535) return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (d + G_TILE - 1) / G_TILE;
-  const int blocks = tiles * (tiles + 1) / 2;
+  const dim3 blocks(tiles * (tiles + 1) / 2, batch);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int err = allow_smem(
       x_bf16 ? reinterpret_cast<const void*>(gram_tc<__nv_bfloat16>)
@@ -328,10 +344,12 @@ extern "C" int gram_launch(const void* x, int x_bf16, const float* r,
   if (err != 0) return err;
   if (x_bf16) {
     gram_tc<__nv_bfloat16><<<blocks, G_THREADS, G_SMEM, s>>>(
-        static_cast<const __nv_bfloat16*>(x), r, out, n, d, alpha);
+        static_cast<const __nv_bfloat16*>(x), r, out, n, d, alpha, x_bs,
+        r_bs, out_bs);
   } else {
     gram_tc<float><<<blocks, G_THREADS, G_SMEM, s>>>(
-        static_cast<const float*>(x), r, out, n, d, alpha);
+        static_cast<const float*>(x), r, out, n, d, alpha, x_bs, r_bs,
+        out_bs);
   }
   return static_cast<int>(cudaGetLastError());
 }

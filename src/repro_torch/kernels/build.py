@@ -112,4 +112,5 @@ def check(err: int, what: str) -> None:
 
 P = ctypes.c_void_p
 I = ctypes.c_int
+L = ctypes.c_longlong
 F = ctypes.c_float

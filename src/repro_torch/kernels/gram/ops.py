@@ -17,16 +17,20 @@ def weighted_gram(x: torch.Tensor, r: torch.Tensor | None = None, *,
 
     x: (n, d) fp32 or bf16; r: (n,) or None (all ones); out: (d, d) fp32
     accumulator, updated in place and returned (a fresh zero matrix when
-    None)."""
-    if x.ndim != 2:
-        raise ValueError(f"x must be (n, d), got {tuple(x.shape)}")
-    n, d = x.shape
+    None).  A batch of E independent grams (the reference's vmap over
+    stacked experts' capacity buffers): x (E, n, d), r (E, n), out (E, d,
+    d), one kernel launch for all E."""
+    if x.ndim not in (2, 3):
+        raise ValueError(f"x must be (n, d) or (E, n, d), got "
+                         f"{tuple(x.shape)}")
+    lead, (n, d) = tuple(x.shape[:-2]), x.shape[-2:]
     if out is None:
-        out = torch.zeros((d, d), dtype=torch.float32, device=x.device)
-    if out.shape != (d, d) or out.dtype != torch.float32:
-        raise ValueError(f"out must be ({d}, {d}) float32")
-    if r is not None and r.shape != (n,):
-        raise ValueError(f"r must be ({n},), got {tuple(r.shape)}")
+        out = torch.zeros(lead + (d, d), dtype=torch.float32, device=x.device)
+    if out.shape != lead + (d, d) or out.dtype != torch.float32:
+        raise ValueError(f"out must be {lead + (d, d)} float32, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    if r is not None and r.shape != lead + (n,):
+        raise ValueError(f"r must be {lead + (n,)}, got {tuple(r.shape)}")
     if x.device.type == "cpu":
         return out.add_(weighted_gram_ref(x, r), alpha=alpha)
     if x.device.type != "cuda":

@@ -8,8 +8,11 @@ the fp model and optionally writes the packed serving artifact.
       --n-layers 2 --n-calib 8 --calib-seq 512 --pack-out /tmp/rsq_art
 
 Runs on ``cuda`` unless ``--device cpu`` is given.  ``--n-layers`` cuts the
-depth of the chosen architecture and keeps its widths; ``--arch
-deepseek-v3-671b --n-layers 2`` quantizes two of its dense MLA layers.  ``--importance``
+depth of the chosen architecture and keeps its widths: ``--arch
+deepseek-v2-236b --n-layers 2`` quantizes its dense MLA layer 0 and its
+first routed-expert layer (160 experts, top-6, 2 shared; ``--dtype
+bfloat16`` keeps its weights at 10.7 GB); ``--arch deepseek-v3-671b
+--n-layers 2`` two of its three dense MLA layers.  ``--importance``
 picks any of the paper's eight token-importance strategies and
 ``--expansion M`` adds M - 1 circular shifts of every calibration sample.
 """
@@ -57,7 +60,9 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="llama3-8b-smoke")
     ap.add_argument("--n-layers", type=int, default=0,
                     help="cut the depth to this many layers (0: the "
-                    "architecture's own); widths are kept")
+                    "architecture's own); widths are kept, and each kept "
+                    "layer is of the architecture's own kind (deepseek's "
+                    "dense prefix, then its routed-expert layers)")
     ap.add_argument("--bits", type=int, default=3)
     ap.add_argument("--group-size", type=int, default=128)
     ap.add_argument("--importance", default="attn_con",

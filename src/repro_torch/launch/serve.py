@@ -13,7 +13,10 @@ tokens/s exclude the capture, which the JSON line reports apart
       --n-layers 2 --packed /tmp/rsq_art --dtype bfloat16 --kv-bits 8
 
 ``--arch deepseek-v3-671b --n-layers 2`` serves MLA layers (absorbed
-latent attention on a latent cache) the same way.
+latent attention on a latent cache) the same way, and ``--arch
+deepseek-v2-236b --n-layers 2`` its dense layer 0 and a routed-expert
+layer (every expert stack one ``quant_matmul`` launch for all 160
+experts).
 
 ``--packed DIR`` serves a packed RSQ artifact (from launch.quantize
 --pack-out).  The default keeps the codes packed on the device
@@ -278,7 +281,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--arch", default="llama3-8b-smoke")
     ap.add_argument("--n-layers", type=int, default=0,
                     help="cut the depth to this many layers (0: the "
-                    "architecture's own); must match the artifact")
+                    "architecture's own; deepseek's dense prefix, then its "
+                    "routed-expert layers); must match the artifact")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)

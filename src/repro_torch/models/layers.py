@@ -21,11 +21,18 @@ def linear(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` for an fp weight; ``quant_matmul`` for a ``PackedWeight``
     ((B, T, D) activations flatten to 2-D around the kernel).  An fp32
     weight under lower-precision activations (weights dequantized at load
-    time) multiplies in fp32 and returns x's dtype, as the kernel does."""
+    time) multiplies in fp32 and returns x's dtype, as the kernel does.
+
+    An expert stack (E, d_in, d_out) takes x as (E, C, d_in) capacity
+    buffers and keeps the expert axis (the reference's
+    ``einsum('ecd,edf->ecf')``): a batched product for an fp stack, one
+    head-batched ``quant_matmul`` launch for all E of a packed one."""
     if not is_packed(w):
         if w.dtype != x.dtype:
             return matmul(x.to(w.dtype), w).to(x.dtype)
         return matmul(x, w)
+    if w.w_packed.ndim == 3:
+        return quant_matmul(x, w)
     lead = x.shape[:-1]
     y = quant_matmul(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*lead, y.shape[-1])

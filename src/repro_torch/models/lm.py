@@ -12,13 +12,17 @@ for ``lax.scan``, after a list of ``first_dense_layers`` unstacked
                  "ffn": {"wi", "wu", "wd"}}, ...]}
 
 with mixer ``{"wq", "wk", "wv", "wo"}`` (GQA) or ``{"wq_a", "q_norm",
-"wq_b", "wkv_a", "kv_norm", "wkv_b", "wo"}`` (MLA).  Any projection weight
-may be a ``PackedWeight`` (keep-packed serving); the forward is the same
-code either way (``layers.linear``).  The KV cache is a list of per-layer
-dicts, updated in place by ``decode_step``.  GQA: ``{"k", "v"}`` of shape
-(B, S, KV, Dh) in the activation dtype (``kv_bits = 0``), or codes and
-scales ``{"k", "ks", "v", "vs"}`` as the layer's codec lays them out
-(``kv_bits`` 8 or 2; S rounded up to a ``kv_chunk`` multiple).  MLA: the
+"wq_b", "wkv_a", "kv_norm", "wkv_b", "wo"}`` (MLA).  A routed-expert layer
+(``cfg.ffn_kinds()`` "moe": deepseek's layers after its dense prefix) has
+the FFN ``{"router", "experts": {"wi", "wu", "wd"}, "shared": {"wi", "wu",
+"wd"}}`` of ``models.moe``, expert weights stacked (E, d_in, d_out).  Any
+projection weight may be a ``PackedWeight`` (keep-packed serving); the
+forward is the same code either way (``layers.linear``).  The KV cache is
+a list of per-layer dicts, updated in place by ``decode_step``.  GQA:
+``{"k", "v"}`` of shape (B, S, KV, Dh) in the activation dtype
+(``kv_bits = 0``), or codes and scales ``{"k", "ks", "v", "vs"}`` as the
+layer's codec lays them out (``kv_bits`` 8 or 2; S rounded up to a
+``kv_chunk`` multiple).  MLA: the
 latent rows ``{"c", "r"}`` (B, S, kvr|dr), or ``{"c", "cs", "r", "rs"}``
 with codes (B, S, w) and scales (B, S / chunk), no head axis.  The paged
 pools of the serving engine (``serving.paged``) hold the same per-layer
@@ -34,6 +38,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels.attn_colsum.ops import attn_colsum
 from repro_torch.models import attention as att
+from repro_torch.models import moe
 from repro_torch.models.layers import (apply_dense_ffn, capture_dense_ffn,
                                        cross_entropy_chunked, dense_init,
                                        embed_lookup, init_dense_ffn,
@@ -59,15 +64,23 @@ def layer_loc(cfg: ModelConfig, li: int) -> list:
     return ["groups", li - cfg.first_dense_layers, 0]
 
 
-def init_block(gen, cfg: ModelConfig, dtype, device) -> dict:
+def init_block(gen, cfg: ModelConfig, dtype, device, ffn: str = "dense"
+               ) -> dict:
+    """One block's params; ``ffn`` is the layer's ``cfg.ffn_kinds()``
+    entry, "dense" or "moe"."""
     d = cfg.d_model
     init_mixer = att.init_mla if _is_mla(cfg) else att.init_gqa
     return {
         "mixer_norm": torch.ones((d,), dtype=dtype, device=device),
         "mixer": init_mixer(gen, cfg, dtype, device),
         "ffn_norm": torch.ones((d,), dtype=dtype, device=device),
-        "ffn": init_dense_ffn(gen, d, cfg.d_ff, dtype, device),
+        "ffn": (moe.init_moe(gen, cfg, dtype, device) if ffn == "moe" else
+                init_dense_ffn(gen, d, cfg.d_ff, dtype, device)),
     }
+
+
+def _is_moe(p: dict) -> bool:
+    return "experts" in p["ffn"]
 
 
 def _qkv(p: dict, cfg: ModelConfig, h: torch.Tensor, positions):
@@ -96,9 +109,12 @@ def apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 def _ffn_out(p: dict, cfg: ModelConfig, x: torch.Tensor,
              mix: torch.Tensor) -> torch.Tensor:
-    """Residual of the mixer's output and the FFN half of a block."""
+    """Residual of the mixer's output and the FFN half of a block (dense
+    or routed experts)."""
     x = x + mix
     hf = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
+    if _is_moe(p):
+        return x + moe.apply_moe(p["ffn"], cfg, hf)[0]
     return x + apply_dense_ffn(p["ffn"], hf)
 
 
@@ -263,7 +279,11 @@ def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     """Calibration forward of one block for the RSQ pipeline.
 
     Returns (y, caps, domains, colsum): ``caps`` maps each weight path to
-    its input (B, T, d_in), ``domains`` to "stream" or "hidden", and
+    its input (B, T, d_in), or (E, C, d_in) capacity buffers for a routed
+    expert stack (domain "expert", with the slot -> token map (E·C,) in
+    ``caps["ffn/__moe_slot_token"]``, T for an empty slot; a MoE layer's
+    shared FFN sees (B·T, d_in)), ``domains`` to "stream", "hidden" or
+    "expert", and
     ``colsum`` is the (B, T) AttnCon score from the ``attn_colsum`` kernel
     (the reference takes it from ``flash_attention(colsum=True)``; MLA's
     from the expanded per-head q and k, H = KV heads of dn + dr)."""
@@ -286,30 +306,38 @@ def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     caps["mixer/wo"] = attn_out
     dom = {path: "stream" for path in caps}
     hf = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
-    y, f_caps = capture_dense_ffn(p["ffn"], hf)
-    for name, inp in f_caps.items():
+    if not _is_moe(p):
+        y, f_caps = capture_dense_ffn(p["ffn"], hf)
+        for name, inp in f_caps.items():
+            caps[f"ffn/{name}"] = inp
+            dom[f"ffn/{name}"] = "hidden" if name == "wd" else "stream"
+        return x + y, caps, dom, colsum
+    y, _, m_caps = moe.capture_moe(p["ffn"], cfg, hf)
+    for name, inp in m_caps.items():
+        if name == "__slot_token":
+            caps["ffn/__moe_slot_token"] = inp
+            continue
         caps[f"ffn/{name}"] = inp
-        dom[f"ffn/{name}"] = "hidden" if name == "wd" else "stream"
+        dom[f"ffn/{name}"] = ("expert" if name.startswith("experts/") else
+                              "hidden" if name.endswith("wd") else "stream")
     return x + y, caps, dom, colsum
 
 
 class Model:
-    """Decoder of GQA or MLA blocks with dense FFNs for one ``ModelConfig``
-    on one device."""
+    """Decoder of GQA blocks with dense FFNs, or of MLA blocks with dense or
+    routed-expert FFNs, for one ``ModelConfig`` on one device."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         if cfg.attn_kind == "mla":
-            if set(cfg.ffn_kinds()) != {"dense"} or \
+            if not set(cfg.ffn_kinds()) <= {"dense", "moe"} or \
                     set(cfg.layer_kinds()) != {"attn"}:
                 raise NotImplementedError(
-                    f"{cfg.name}: the port serves MLA layers with a dense "
-                    f"FFN; the routed-expert (MoE) layers are a later slice "
-                    f"(cut the depth to the first {cfg.first_dense_layers} "
-                    f"layers, --n-layers {cfg.first_dense_layers})")
+                    f"{cfg.name}: the port serves MLA decoders whose layers "
+                    f"are attention with a dense or routed-expert FFN")
         elif cfg.family != "dense" or cfg.attn_kind != "gqa" or cfg.qkv_bias:
             raise NotImplementedError(
                 f"{cfg.name}: the port serves dense GQA decoders without qkv "
-                f"bias and MLA layers with a dense FFN")
+                f"bias and MLA decoders with dense or routed-expert FFNs")
         if cfg.tie_embeddings:
             raise NotImplementedError(
                 f"{cfg.name}: tied embeddings (the LM head is the embedding "
@@ -335,8 +363,8 @@ class Model:
             "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt, dev),
             "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
             "head": dense_init(gen, cfg.d_model, cfg.vocab_size, dt, dev),
-            "layers": [init_block(gen, cfg, dt, dev)
-                       for _ in range(cfg.n_layers)],
+            "layers": [init_block(gen, cfg, dt, dev, ffn)
+                       for ffn in cfg.ffn_kinds()],
         }
 
     # --------------------------------------------------------------- forward

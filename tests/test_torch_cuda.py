@@ -29,6 +29,10 @@ Tolerances are relative to the largest reference magnitude:
     replays the launches of the Python loop on the same shapes, so
     ``generate`` and the engine give the same tokens and launch counts
     with ``loop="graph"`` and ``loop="python"``;
+  * the batched gram (an (E, n, d) stack of expert buffers, one launch):
+    1e-5 per matrix against its plain version, and each matrix bitwise
+    the 2-D call on its rows; the expert-stack quant_matmul (E 160): one
+    bf16 rounding (8e-3) per expert against its plain version;
   * MLA: the head-batched quant_matmul (expand) and quant_matmul_t
     (absorb) 1e-5 against each head's plain version (fp32 sums in another
     order), quant_matmul_t's rows compared bitwise across m; the latent
@@ -178,6 +182,59 @@ def test_gram_kernel_non_finite_entries_as_plain(cuda):
     finite = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), finite)
     assert _rel(got[finite], want[finite]) < 1e-5
+
+
+@pytest.mark.parametrize("with_r", [True, False], ids=["r", "no_r"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [48, 1536, 5120])
+@pytest.mark.parametrize("n", [0, 1, 17, 96])
+@pytest.mark.parametrize("e", [1, 3, 160])
+def test_gram_kernel_batched_vs_plain(cuda, e, n, d, dtype, with_r):
+    """A stack of E grams (the experts' capacity buffers: deepseek-v2's E
+    160, n 96 at d 5120 and 1536) in one launch, each matrix within 1e-5 of
+    its plain version, added with alpha 2 into a random accumulator (the
+    160 x 5120² stack, 16.8 GB, from zero: no room for two copies)."""
+    g = torch.Generator(device=cuda).manual_seed(e + n + d)
+    x = torch.randn((e, n, d), generator=g, device=cuda).to(dtype)
+    r = torch.rand((e, n), generator=g, device=cuda) if with_r else None
+    big = e * d * d > 2 ** 30
+    acc = None if big else torch.randn((e, d, d), generator=g, device=cuda)
+    before = weighted_gram.launches
+    got = weighted_gram(x, r, out=None if big else acc.clone(), alpha=2.0)
+    torch.cuda.synchronize()
+    assert weighted_gram.launches == before + 1
+    assert got.shape == (e, d, d)
+    for c in range(0, e, 16):
+        want = 2.0 * weighted_gram_ref(x[c:c + 16],
+                                       None if r is None else r[c:c + 16])
+        if acc is not None:
+            want += acc[c:c + 16]
+        assert _rel(got[c:c + 16], want) < 1e-5, c
+    del got, acc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("n,d", [(96, 1536), (300, 200), (17, 48)])
+def test_gram_kernel_batch_member_bitwise_the_2d_call(cuda, n, d, dtype):
+    """Each matrix of a batched call is bitwise the 2-D call on its own
+    rows (the batch is the grid's second axis and nothing else), and a
+    batch of one is the 2-D call."""
+    g = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn((3, n, d), generator=g, device=cuda).to(dtype)
+    r = torch.rand((3, n), generator=g, device=cuda)
+    acc = torch.randn((3, d, d), generator=g, device=cuda)
+    got = weighted_gram(x, r, out=acc.clone(), alpha=2.0)
+    one = weighted_gram(x[:1], r[:1], out=acc[:1].clone(), alpha=2.0)
+    for i in range(3):
+        two_d = weighted_gram(x[i], r[i], out=acc[i].clone(), alpha=2.0)
+        assert torch.equal(got[i], two_d), i
+        if i == 0:
+            assert torch.equal(one[0], two_d)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.parametrize("b,t,h,kv,dh,dtype", [
@@ -349,6 +406,42 @@ def test_quant_matmul_fp32_prefill_rows_do_not_depend_on_m(cuda, bits, k, n,
     torch.cuda.synchronize()
     assert torch.equal(full[:64], part)
     assert torch.equal(full[:65], odd)
+
+
+def _packed_stack(w: torch.Tensor, spec: QuantSpec):
+    """An (E, k, n) expert stack RTN-packed expert by expert into one
+    (E, ·, n) ``PackedWeight``."""
+    parts = []
+    for e in range(w.shape[0]):
+        _, q, sc, zr = quantize_weight_rtn(w[e].float(), spec)
+        parts.append(pack_weight(q, sc, zr, spec))
+    return dataclasses.replace(
+        parts[0], w_packed=torch.stack([p.w_packed for p in parts]),
+        scale=torch.stack([p.scale for p in parts]),
+        zero=torch.stack([p.zero for p in parts]))
+
+
+@pytest.mark.parametrize("m", [8, 96])
+@pytest.mark.parametrize("k,n", [(5120, 1536), (1536, 5120)])
+def test_quant_matmul_expert_stack_vs_plain(cuda, m, k, n):
+    """deepseek-v2's expert stacks (E 160, 3-bit, group 128: wi / wu 5120
+    -> 1536, wd 1536 -> 5120) at the decode capacity (m 8) and the
+    calibration's (m 96): one launch for all 160 experts, each expert's
+    bf16 output within one bf16 rounding of its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(24)
+    w = torch.randn((160, k, n), generator=g, device=cuda) * k ** -0.5
+    pw = _packed_stack(w, QuantSpec(3, 128))
+    del w
+    x = torch.randn((160, m, k), generator=g, device=cuda).to(torch.bfloat16)
+    before = quant_matmul.launches
+    got = quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    assert got.shape == (160, m, n) and got.dtype == torch.bfloat16
+    for e in range(160):
+        want = quant_matmul_ref(x[e].float(), pw.w_packed[e], pw.scale[e],
+                                pw.zero[e], bits=3, group_size=128, d_in=k)
+        assert _rel(got[e], want) < 8e-3, e
 
 
 @pytest.mark.parametrize("bits", [2, 3, 4, 8])
@@ -1423,24 +1516,36 @@ EXPERT_FREE = dict(n_routed_experts=0, n_shared_experts=0, moe_top_k=0,
 
 
 def _graph_model(cuda, kind, kv_bits):
-    """A 2-layer bf16 model on the card (llama3-8b's reduced GQA, or
-    deepseek-v3's reduced, expert-free MLA) with every block projection
+    """A 2-layer bf16 model on the card (llama3-8b's reduced GQA,
+    deepseek-v3's reduced, expert-free MLA, or deepseek-v2's reduced MLA
+    with its routed-expert layer 1, "moe") with every block projection
     RTN-packed at 3 bits, so that its decode runs ``qmm_decode`` (and MLA's
-    absorb ``qmm_t_decode``) besides the attention kernels and the LM
-    head's cuBLAS product."""
-    arch = "llama3-8b" if kind == "gqa" else "deepseek-v3-671b"
-    extra = {} if kind == "gqa" else EXPERT_FREE
+    absorb ``qmm_t_decode``; the expert stacks ``qmm_tc``, m 8) besides the
+    attention kernels and the LM head's cuBLAS product."""
+    arch = {"gqa": "llama3-8b", "mla": "deepseek-v3-671b",
+            "moe": "deepseek-v2-236b"}[kind]
+    extra = EXPERT_FREE if kind == "mla" else {}
     cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16",
                               kv_bits=kv_bits, **extra)
     model = Model(cfg, cuda)
     params = model.init(torch.Generator(device=cuda).manual_seed(0))
     spec = QuantSpec(bits=3, group_size=32)
+
+    def pack(node):
+        for name, w in node.items():
+            if isinstance(w, dict):
+                pack(w)
+            elif name == "router":
+                continue
+            elif w.ndim == 3:
+                node[name] = _packed_stack(w, spec)
+            elif w.ndim == 2:
+                _, q, sc, zr = quantize_weight_rtn(w.float(), spec)
+                node[name] = pack_weight(q, sc, zr, spec)
+
     for layer in params["layers"]:
-        for part in ("mixer", "ffn"):
-            for name, w in layer[part].items():
-                if w.ndim == 2:
-                    _, q, sc, zr = quantize_weight_rtn(w.float(), spec)
-                    layer[part][name] = pack_weight(q, sc, zr, spec)
+        pack(layer["mixer"])
+        pack(layer["ffn"])
     return model, params
 
 
@@ -1463,7 +1568,7 @@ def _loops(run):
                                                              c1)
 
 
-@pytest.mark.parametrize("kind", ["gqa", "mla"])
+@pytest.mark.parametrize("kind", ["gqa", "mla", "moe"])
 @pytest.mark.parametrize("kv_bits", [0, 8, 2])
 def test_generate_graph_equals_python_loop(cuda, kind, kv_bits):
     """``generate`` through a captured CUDA graph gives the Python loop's
@@ -1483,7 +1588,7 @@ def test_generate_graph_equals_python_loop(cuda, kind, kv_bits):
         assert torch.equal(graph, python), (graph.tolist(), python.tolist())
         assert n_graph == n_python
     assert n_python["quant_matmul"][1]["qmm_decode"] > 0
-    attention = ("mla_flash_decode" if kind == "mla" else "flash_decode")
+    attention = ("flash_decode" if kind == "gqa" else "mla_flash_decode")
     assert (n_python[attention][0] > 0) == bool(kv_bits)
     assert all(r.captured for r, _ in model.graphs.values())
 
@@ -1573,7 +1678,8 @@ def test_capture_survives_garbage_that_holds_a_graph(cuda):
 @pytest.mark.parametrize("kind,kv_bits,chunk,attn", [
     ("gqa", 8, None, "exact"), ("gqa", 2, 64, "exact"),
     ("gqa", 8, 64, "paged"), ("mla", 8, None, "exact"),
-    ("mla", 2, 64, "paged")])
+    ("mla", 2, 64, "paged"), ("moe", 8, None, "exact"),
+    ("moe", 2, 64, "paged")])
 def test_engine_graph_equals_python_loop(cuda, kind, kv_bits, chunk, attn):
     """The engine's bursts through its two graphs (greedy, sampled; both
     captured when it is built) give the Python loop's streams bit for bit

@@ -110,14 +110,30 @@ def _models(cfg, pcfg, kv_bits):
             Model(dataclasses.replace(pcfg, kv_bits=kv_bits), "cpu"))
 
 
-def test_model_takes_dense_mla_layers_only():
-    full = get_config("deepseek-v3-671b")
-    assert Model(dataclasses.replace(full, n_layers=3), "cpu").cfg.d_model \
-        == 7168
-    for cfg in (full, get_config("deepseek-v3-671b-smoke")):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            Model(cfg, "cpu")
-    assert get_config("deepseek-v3-671b-smoke") == full.reduced()
+@pytest.mark.parametrize("arch", ["deepseek-v3-671b",
+                                  "deepseek-v3-671b-smoke",
+                                  "deepseek-v2-236b",
+                                  "deepseek-v2-236b-smoke"])
+def test_model_builds_deepseek_with_its_moe_layers(arch):
+    """Both DeepSeek configs, full and smoke, build with their routed-expert
+    layers after the dense prefix (no weights are drawn here)."""
+    cfg = get_config(arch)
+    kinds = cfg.ffn_kinds()
+    assert Model(cfg, "cpu").cfg is cfg
+    assert kinds[:cfg.first_dense_layers] == \
+        ("dense",) * cfg.first_dense_layers
+    assert set(kinds[cfg.first_dense_layers:]) == {"moe"}
+    if arch.endswith("-smoke"):
+        assert cfg == get_config(arch.removesuffix("-smoke")).reduced()
+
+
+@pytest.mark.parametrize("arch,match", [
+    ("mamba2-780m", "dense GQA"), ("jamba-v0.1-52b", "dense GQA"),
+    ("qwen1.5-4b", "qkv"), ("command-r-35b", "tied embeddings")])
+def test_model_refuses_ssm_hybrid_qkv_bias_and_tied_embeddings(arch, match):
+    cfg = ModelConfig(**dataclasses.asdict(ref_get_config(arch)))
+    with pytest.raises(NotImplementedError, match=match):
+        Model(cfg, "cpu")
 
 
 @pytest.mark.parametrize("n", [24, 7 * 64])
