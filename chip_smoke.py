@@ -39,7 +39,13 @@ Phases, in order; any failure exits non-zero before the final line:
      from 64 rows to 128) and a chain bound estimated from the SASS of the
      instance each shape runs (``loop_chain_cycles``: one row's dependent
      path with assumed latencies x the block's rows), and each instance's
-     registers and spills from ``ptxas``;
+     registers and spills from ``ptxas``; and this slice's shapes
+     (``check_variant_kernels``): ``quant_matmul`` at mamba2-780m's four
+     projections (``wdt``'s 48 columns, less than one column tile),
+     qwen1.5-4b's FFN input and command-r-35b's 22528-row FFN output,
+     ``gram`` at d 3072 and 22528, the three GQA attention kernels at one
+     (qwen1.5) and three (minitron) query heads a KV head, and
+     ``attn_colsum`` at qwen1.5's and command-r's heads;
   3. the main path: RSQ quantize of llama3-8b at full width and 1 layer
      (random weights from a seed; GPTQ's solves grouped by shape, each
      block of rows one ``solve_block`` launch a group; the layer's
@@ -92,7 +98,21 @@ Phases, in order; any failure exits non-zero before the final line:
      engine in whole-prompt and chunked-paged admission; layer 1's
      ``experts/wd`` solves of 8 experts redone on the host CPU
      (``check_expert_solves``), its launches counted from zero;
-  6. the strategy sweep: the quantize CLI on llama3-8b's layer 0 at full
+  6. the variants path (``variants_path``): qwen1.5-4b (qkv bias, G 1)
+     and command-r-35b (tied embeddings) at full width, 1 layer each:
+     quantize (peak device memory logged) -> artifact -> keep-packed serve
+     in both loops; qwen's kv8 ``generate`` and engine (whole-prompt and
+     chunked-paged); command-r's dequantized serve, kv8 ``generate`` and
+     a ``--no-rotate`` quantize served (no ``head``: the tied table is the
+     LM head); layer 0's qwen ``mixer/wq`` and command-r ``mixer/wk``
+     solves against the host CPU;
+  7. the SSM path (``ssm_path``): mamba2-780m whole (48 layers): quantize
+     (seconds and ``solve_s`` per layer, ``ppl_ratio`` over the whole
+     model) -> keep-packed bf16 serve at prompt 64 / 16 tokens and 1024 /
+     32, each in both loops (the Mamba state in the graph's static cache)
+     and against the dequantized serve; layer 0's ``wzx``, ``wdt`` and
+     ``out_proj`` solves against the host CPU;
+  8. the strategy sweep: the quantize CLI on llama3-8b's layer 0 at full
      width, once with each of the paper's eight token-importance strategies
      and once with AttnCon on the calibration set expanded twofold: each
      run's seconds, proxy losses and ``ppl_ratio``; fails on a loss that is
@@ -219,6 +239,45 @@ MOE_CAP_CALIB, MOE_CAP_DECODE = 96, 8
 MOE_SOLVE_EXPERTS = 8  # layer 1's experts/wd solves redone on the CPU
 MOE_ENGINE_MODES = tuple(m for m in ENGINE_MODES
                          if m[0] in ("whole", "chunked-paged"))
+# the variants path: qwen1.5-4b (qkv bias; 20 query heads on 20 KV heads,
+# G 1) and command-r-35b (tied embeddings, 64 / 8 heads, d_ff 22528,
+# vocab 256000) at full width, VARIANT_LAYERS layer each, the main path's
+# calibration and serving settings; qwen's kv8 engine in two admission
+# modes, command-r's kv8 generate, its artifact dequantized at load, and
+# command-r quantized again with --no-rotate (its tied table is the head)
+QWEN_ARCH, CMDR_ARCH, VARIANT_LAYERS = "qwen1.5-4b", "command-r-35b", 1
+# layer 0's solves redone on the host CPU: qwen's biased wq; command-r's wk
+# (its wd, d_in 22528, is estimated at about two minutes of host time, not
+# measured: two 22528 x 8192 GPTQ solves and the capture of its 22528-wide
+# FFN, where the script has ~300 s left of its limit)
+VARIANT_SOLVE_CHECK = {QWEN_ARCH: ("mixer/wq",), CMDR_ARCH: ("mixer/wk",)}
+# the SSM path: mamba2-780m whole (48 Mamba-2 layers, d_model 1536, d_inner
+# 3072, 48 SSD heads of 64, state 128, tied embeddings), quantized in fp32,
+# served keep-packed in bf16 at (prompt, new tokens) SSM_SERVES, each in
+# both decode loops and against the dequantized serve; layer 0's wzx, wdt
+# (1536 x 48: quantized at full width) and out_proj re-solved on the CPU
+SSM_ARCH, SSM_LAYERS = "mamba2-780m", 48
+SSM_SERVES = ((PROMPT_LEN, N_GEN), (KV_PROMPT, KV_GEN))
+SSM_SOLVE_CHECK = ("mixer/wzx", "mixer/wdt", "mixer/out_proj")
+# kernels a path does not run, with the reason
+SSM_PATH_WITHOUT = {"attn_colsum": "attention-free: AttnCon falls back to "
+                                   "ActNorm"}
+# phase 2 shapes of this slice's projections (3-bit, the main path's m):
+# mamba2-780m's four (wdt's 48 columns are less than one column tile),
+# qwen1.5-4b's FFN input and command-r-35b's FFN output; gram at the
+# widest Hessians of mamba2 (out_proj) and command-r (wd: a 2.0 GB
+# accumulator)
+VARIANT_QMM = (("mamba2-780m", "wzx", 1536, 6144),
+               ("mamba2-780m", "wbc", 1536, 256),
+               ("mamba2-780m", "wdt", 1536, 48),
+               ("mamba2-780m", "out_proj", 3072, 1536),
+               ("qwen1.5-4b", "wi/wu", 2560, 6912),
+               ("command-r-35b", "wd", 22528, 8192))
+VARIANT_GRAM = (("mamba2-780m", 3072), ("command-r-35b", 22528))
+# and the GQA attention kernels at qwen1.5's G 1 (20 / 20 heads) and
+# minitron's G 3 (24 / 8), attn_colsum at qwen's and command-r's heads
+VARIANT_KV = (("qwen1.5-4b", 20, 1), ("minitron-4b", 8, 3))
+VARIANT_COLSUM = ((20, 20), (64, 8))
 # the strategy sweep: llama3-8b's layer 0 at full width calibrated once with
 # each of the paper's eight token-importance strategies, and once more with
 # AttnCon on the calibration set expanded by SWEEP_EXPANSION circular shifts
@@ -281,6 +340,16 @@ TOL_CHUNK_LOGITS = 2.0 ** -6
 # dequantized to fp32 at load (cuBLAS fp32, bf16 out): every projection's
 # bf16 rounding may land one ulp (2^-8) apart, compounding over 2 layers
 TOL_SERVE_LOGITS = 2e-2
+# over mamba2-780m's 48 layers that compounding is no bound at all (bf16
+# keep-packed and dequantized first-step logits 0.4% apart at 2 layers,
+# 1.6% at 8, 4.7% at 48, each bf16 serve 6% from the fp32 serve, on
+# NVIDIA H100 80GB HBM3 at 700 W): the SSM path holds keep-packed to
+# dequantized with fp32 activations instead, where the two were 1.3e-6
+# apart at 2 layers and 7.9e-6 at 48 (same tokens), to TOL_FP32 times
+# that growth, rounded up; and each bf16 keep-packed serve to the fp32
+# serve no farther than SSM_BF16_FACTOR times the bf16 dequantized one
+TOL_SSM_FP32_SERVE = 1e-4
+SSM_BF16_FACTOR = 2.0
 # GPTQ on the card vs on the CPU: Hessians and Cholesky factors in fp32
 # summed in another order.  A code on a rounding boundary may flip, and its
 # error feedback moves every later row of that column, so over 4096 rows
@@ -436,46 +505,13 @@ def check_kernels(torch, checks: Checks) -> None:
     """Phase 2, first slice: gram, attn_colsum (also at the MLA path's
     shape) and quant_matmul vs their plain versions at the main path's
     shapes."""
-    from repro_torch.kernels.gram.ops import weighted_gram
-    from repro_torch.kernels.gram.ref import weighted_gram_ref
-    from repro_torch.kernels.quant_matmul.ops import quant_matmul
-    from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
-
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
-    timer, record, clones = checks.timer, checks.record, checks.clones
 
     # gram: one calibration batch (B*T tokens) of the 4096- and 14336-wide
     # weight inputs, fp32, accumulated into the weight's Hessian
-    n = CALIB_BATCH * CALIB_SEQ
     for d in (4096, 14336):
-        x = torch.randn((n, d), generator=g, device=dev)
-        r = torch.rand((n,), generator=g, device=dev)
-        want = weighted_gram_ref(x, r)
-        got = weighted_gram(x, r)
-        # from a zero accumulator the kernel's result is bitwise symmetric
-        if not torch.equal(got, got.T):
-            checks.bad.append(f"gram (n {n}, d {d}) is not bitwise "
-                              f"symmetric")
-        # read x and r once, read and write the (d, d) accumulator
-        nbytes = n * d * 4 + n * 4 + 2 * d * d * 4
-        sets = clones((x, r, torch.zeros_like(want)), nbytes)
-        ms = timer.ms(lambda a=a: weighted_gram(a[0], a[1], out=a[2],
-                                                alpha=2.0) for a in sets)
-        plain_ms = timer.ms(lambda a=a: weighted_gram_ref(a[0], a[1])
-                            for a in sets)
-        xrs = [(a[0] * a[1][:, None],) for a in sets]
-        library_ms = timer.ms(lambda a=a: torch.mm(a[0].T, a[0]) for a in xrs)
-        # the least work: the product is symmetric, d(d+1)/2 distinct
-        # entries of n multiply-adds each, at the cheapest fp32-accurate
-        # tensor-core rate, as the other fp32 rows: both operands fp32, so
-        # three bf16 terms each and the six term products i + j < 3 at
-        # 989 TFLOP/s (cheaper than three TF32 products at 495, and than
-        # the fp32 pipes' 67)
-        record("gram", {"n": n, "d": d}, got, want, TOL_FP32, ms, plain_ms,
-               library_ms, nbytes, 6.0 * n * d * (d + 1), "bfloat16",
-               d == 14336)
-        del x, r, want, got, sets, xrs
+        check_gram(torch, checks, g, d, d == 14336)
 
     # attn_colsum: the calibration batch's q and k, llama3-8b's (32 query
     # heads on 8 KV heads, Dh 128) and the MLA path's (H = KV = 128 heads
@@ -499,6 +535,45 @@ def check_kernels(torch, checks: Checks) -> None:
                                    SERVE_BATCH * PROMPT_LEN:
                                    "quant_matmul_prefill"})
     check_fp32_long_rows(torch, checks, g)
+    torch.cuda.empty_cache()
+
+
+def check_gram(torch, checks: Checks, g, d: int, representative,
+               arch: str = ARCH) -> None:
+    """``gram`` on one fp32 calibration batch (B*T tokens) of a d-wide
+    weight input drawn from ``g`` against its plain version (TOL_FP32),
+    bitwise symmetric from a zero accumulator; timed into an accumulator
+    with the plain version and ``xrᵀ xr`` beside it."""
+    from repro_torch.kernels.gram.ops import weighted_gram
+    from repro_torch.kernels.gram.ref import weighted_gram_ref
+
+    timer, dev = checks.timer, torch.device("cuda")
+    n = CALIB_BATCH * CALIB_SEQ
+    x = torch.randn((n, d), generator=g, device=dev)
+    r = torch.rand((n,), generator=g, device=dev)
+    want = weighted_gram_ref(x, r)
+    got = weighted_gram(x, r)
+    # from a zero accumulator the kernel's result is bitwise symmetric
+    if not torch.equal(got, got.T):
+        checks.bad.append(f"gram (n {n}, d {d}) is not bitwise symmetric")
+    # read x and r once, read and write the (d, d) accumulator
+    nbytes = n * d * 4 + n * 4 + 2 * d * d * 4
+    sets = checks.clones((x, r, torch.zeros_like(want)), nbytes)
+    ms = timer.ms(lambda a=a: weighted_gram(a[0], a[1], out=a[2], alpha=2.0)
+                  for a in sets)
+    plain_ms = timer.ms(lambda a=a: weighted_gram_ref(a[0], a[1])
+                        for a in sets)
+    xrs = [(a[0] * a[1][:, None],) for a in sets]
+    library_ms = timer.ms(lambda a=a: torch.mm(a[0].T, a[0]) for a in xrs)
+    # the least work: the product is symmetric, d(d+1)/2 distinct entries
+    # of n multiply-adds each, at the cheapest fp32-accurate tensor-core
+    # rate, as the other fp32 rows: both operands fp32, so three bf16 terms
+    # each and the six term products i + j < 3 at 989 TFLOP/s (cheaper
+    # than three TF32 products at 495, and than the fp32 pipes' 67)
+    checks.record("gram", {"arch": arch, "n": n, "d": d}, got, want,
+                  TOL_FP32, ms, plain_ms, library_ms, nbytes,
+                  6.0 * n * d * (d + 1), "bfloat16", representative)
+    del x, r, want, got, sets, xrs
     torch.cuda.empty_cache()
 
 
@@ -709,6 +784,27 @@ def check_moe_kernels(torch, checks: Checks) -> None:
                           f"quant_matmul_experts_{wname}_m{m}")
             del x, want, got
         del pw, w_bf16
+        torch.cuda.empty_cache()
+
+
+def check_variant_kernels(torch, checks: Checks) -> None:
+    """Phase 2, this slice's shapes against the plain versions:
+    ``quant_matmul`` at VARIANT_QMM (decode m 4 and prefill m 256), ``gram``
+    at VARIANT_GRAM, the three GQA attention kernels at VARIANT_KV's heads
+    (kv8 and kv2, the paged decode bitwise the flat one) and
+    ``attn_colsum`` at VARIANT_COLSUM's."""
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(7)
+    for arch, wname, kk, nn in VARIANT_QMM:
+        check_packed(torch, checks, g, wname, kk, nn, BITS,
+                     (SERVE_BATCH, SERVE_BATCH * PROMPT_LEN), arch=arch)
+    torch.cuda.empty_cache()
+    for arch, d in VARIANT_GRAM:
+        check_gram(torch, checks, g, d, False, arch=arch)
+    for arch, kv, grp in VARIANT_KV:
+        check_kv_kernels(torch, checks, kv, grp, arch)
+    for h, kv in VARIANT_COLSUM:
+        check_colsum(torch, checks, g, CALIB_BATCH, CALIB_SEQ, h, kv, 128,
+                     False)
         torch.cuda.empty_cache()
 
 
@@ -1092,15 +1188,17 @@ def check_gptq_block(torch, checks: Checks) -> None:
     torch.cuda.empty_cache()
 
 
-def gqa_decode_inputs(torch, g, bits: int) -> dict:
-    """Phase 2's decode inputs at llama3-8b's heads: a flat kv``bits`` cache
-    (B 4, S 8192, KV 8, Dh 128) of random keys and values drawn from ``g``,
-    a scaled query group (G 4) and pos = S - 37, plus the same codes in
-    paged pools through a shuffled table with one trash column (page 0)."""
+def gqa_decode_inputs(torch, g, bits: int, kv: int = FD_KV,
+                      grp: int = FD_G) -> dict:
+    """Phase 2's decode inputs at llama3-8b's heads (or ``kv`` KV heads of
+    ``grp`` query heads each): a flat kv``bits`` cache (B 4, S 8192, KV 8,
+    Dh 128) of random keys and values drawn from ``g``, a scaled query
+    group (G 4) and pos = S - 37, plus the same codes in paged pools
+    through a shuffled table with one trash column (page 0)."""
     from repro_torch.models.attention import kv_codec
 
     dev = torch.device("cuda")
-    b, s, kv, grp, dh, page = FD_B, FD_S, FD_KV, FD_G, FD_DH, 64
+    b, s, dh, page = FD_B, FD_S, FD_DH, 64
     n_tiles = s // page
     codec = kv_codec(bits, page)
     kq, ks = codec.encode(torch.randn((b, s, kv, dh), generator=g,
@@ -1127,14 +1225,15 @@ def gqa_decode_inputs(torch, g, bits: int) -> dict:
             "flat": (kq, ks, vq, vs), "tbl": tbl, "pools": pools}
 
 
-def gqa_extend_inputs(torch, g, bits: int) -> dict:
+def gqa_extend_inputs(torch, g, bits: int, kv: int = FD_KV,
+                      grp: int = FD_G) -> dict:
     """Phase 2's extend inputs: an L 256 chunk of bf16 q / k_new / v_new
-    (H 32 / KV 8, Dh 128, as the model passes them) over 16 full past
-    pages in shuffled order."""
+    (H 32 / KV 8, or ``kv`` x ``grp`` / ``kv``; Dh 128, as the model passes
+    them) over 16 full past pages in shuffled order."""
     from repro_torch.models.attention import kv_codec
 
     dev = torch.device("cuda")
-    kv, dh, page, h = FD_KV, FD_DH, 64, FD_KV * FD_G
+    dh, page, h = FD_DH, 64, kv * grp
     L, n_past = FE_L, FE_PAST
     n_pages = n_past + 1
     codec = kv_codec(bits, page)
@@ -1157,13 +1256,16 @@ def gqa_extend_inputs(torch, g, bits: int) -> dict:
                         page=page)}
 
 
-def check_kv_kernels(torch, checks: Checks) -> None:
+def check_kv_kernels(torch, checks: Checks, kv: int = FD_KV,
+                     grp: int = FD_G, arch: str = ARCH) -> None:
     """Phase 2, quantized-KV slice: flat and paged flash decode (kv8, kv2)
-    at B 4, S 8192, KV 8, G 4, Dh 128, pos = S - 37, the paged call through
-    a shuffled page table with a trash entry and held bitwise to the flat
-    call; then the chunked-prefill extend at L 256 over 16 past pages.
-    The yardstick is ``scaled_dot_product_attention`` (GQA) on the cache
-    already dequantized to bf16; the dequantization is not timed."""
+    at B 4, S 8192, KV 8, G 4, Dh 128 (or ``arch``'s ``kv`` x ``grp``
+    heads; only llama3-8b's rows represent the kernels), pos = S - 37, the
+    paged call through a shuffled page table with a trash entry and held
+    bitwise to the flat call; then the chunked-prefill extend at L 256 over
+    16 past pages.  The yardstick is ``scaled_dot_product_attention`` (GQA)
+    on the cache already dequantized to bf16; the dequantization is not
+    timed."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode.ops import (flash_decode,
@@ -1175,10 +1277,11 @@ def check_kv_kernels(torch, checks: Checks) -> None:
                                                       paged_flash_extend_ref)
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(1)
+    main = arch == ARCH
+    g = torch.Generator(device=dev).manual_seed(1 if main else kv + grp)
     timer, record, clones = checks.timer, checks.record, checks.clones
-    b, s, kv, grp, dh = FD_B, FD_S, FD_KV, FD_G, FD_DH
-    h = FD_KV * FD_G
+    b, s, dh = FD_B, FD_S, FD_DH
+    h = kv * grp
     pos_v = s - FD_TAIL
 
     def finalized(acc, l):
@@ -1192,7 +1295,7 @@ def check_kv_kernels(torch, checks: Checks) -> None:
         return x[:, :, :rows].to(torch.bfloat16).contiguous()
 
     for bits in KV_BITS:
-        di = gqa_decode_inputs(torch, g, bits)
+        di = gqa_decode_inputs(torch, g, bits, kv, grp)
         codec, page, q, pos = di["codec"], di["page"], di["q"], di["pos"]
         kq, ks, vq, vs = di["flat"]
         kw = dict(kv_bits=bits, chunk=codec.chunk, dv=dh)
@@ -1203,8 +1306,8 @@ def check_kv_kernels(torch, checks: Checks) -> None:
                   + 2 * q.numel() * 4)
         flops = 4.0 * b * h * rows * dh
         cache_b = 2 * (kq.numel() * kq.element_size() + ks.numel() * 2)
-        shape = {"kv_bits": bits, "B": b, "S": s, "KV": kv, "G": grp,
-                 "Dh": dh, "pos": pos_v}
+        shape = {"arch": arch, "kv_bits": bits, "B": b, "S": s, "KV": kv,
+                 "G": grp, "Dh": dh, "pos": pos_v}
 
         # flat
         rkw = dict(kv_bits=bits, chunk=codec.chunk, dh=dh, dv=dh)
@@ -1223,7 +1326,7 @@ def check_kv_kernels(torch, checks: Checks) -> None:
             *a, enable_gqa=True) for a in sdpa)
         del sdpa
         record("flash_decode", shape, flat, want, TOL_KV, ms, plain_ms,
-               library_ms, nbytes, flops, "float32", bits == 8)
+               library_ms, nbytes, flops, "float32", main and bits == 8)
 
         # paged: the same codes through a shuffled table + a trash entry
         tbl, pools = di["tbl"], di["pools"]
@@ -1232,9 +1335,10 @@ def check_kv_kernels(torch, checks: Checks) -> None:
         got = paged_flash_decode(tbl, pos, q, *pools, page=page, **kw)
         torch.cuda.synchronize()
         if not torch.equal(got, flat):
-            checks.bad.append(f"paged_flash_decode kv{bits}: not bitwise "
-                              f"equal to flash_decode at tile = page")
-        log({"paged_equals_flat": {"kv_bits": bits,
+            checks.bad.append(f"paged_flash_decode kv{bits} ({arch}): not "
+                              f"bitwise equal to flash_decode at tile = "
+                              f"page")
+        log({"paged_equals_flat": {"arch": arch, "kv_bits": bits,
                                    "bitwise": bool(torch.equal(got, flat))}})
         sets = clones((tbl, pos, q) + tuple(pools), cache_b)
         ms = timer.ms(lambda a=a: paged_flash_decode(*a, page=page, **kw)
@@ -1243,12 +1347,12 @@ def check_kv_kernels(torch, checks: Checks) -> None:
             *a, page=page, **rkw) for a in sets), iters=len(sets))
         record("paged_flash_decode", dict(shape, table="shuffled + trash"),
                got, want, TOL_KV, ms, plain_ms, library_ms, nbytes, flops,
-               "float32", bits == 8)
+               "float32", main and bits == 8)
         del kq, ks, vq, vs, pools, sets, flat, got, want, di
         torch.cuda.empty_cache()
 
         # extend: an L-token chunk over FE_PAST past pages, bf16 inputs
-        xi = gqa_extend_inputs(torch, g, bits)
+        xi = gqa_extend_inputs(torch, g, bits, kv, grp)
         L, n_past = FE_L, FE_PAST
         tbl, q, k_new, v_new = xi["tbl"], xi["q"], xi["k_new"], xi["v_new"]
         pools, ekw = xi["pools"], xi["ekw"]
@@ -1287,9 +1391,9 @@ def check_kv_kernels(torch, checks: Checks) -> None:
         library_ms = timer.ms(lambda a=a: F.scaled_dot_product_attention(
             *a, attn_mask=mask, enable_gqa=True) for a in sdpa)
         record("paged_flash_extend",
-               {"kv_bits": bits, "L": L, "n_past": n_past, "H": h, "KV": kv,
-                "Dh": dh}, got, want, TOL_KV, ms, plain_ms, library_ms,
-               nbytes, flops, "bfloat16", bits == 8)
+               {"arch": arch, "kv_bits": bits, "L": L, "n_past": n_past,
+                "H": h, "KV": kv, "Dh": dh}, got, want, TOL_KV, ms, plain_ms,
+               library_ms, nbytes, flops, "bfloat16", main and bits == 8)
         del pools, sets, sdpa, got, want, xi
         torch.cuda.empty_cache()
 
@@ -1649,10 +1753,12 @@ def check_solves(torch, entries: dict, proxy_card: dict, *, arch=ARCH,
     same seed and solves with the plain versions.  Each weight must keep
     MIN_CODE_MATCH of its codes, its proxy loss and its Hessian-weighted
     output error tr(ΔᵀHΔ) within TOL_PROXY of the CPU's, and that output
-    error must be smaller than round-to-nearest's.  For MLA's wkv_b the CPU
-    runs only the attention half of ``capture_block`` (wkv_b's input c_kv
-    and the AttnCon scores of the expanded q and k): the FFN half feeds no
-    checked weight."""
+    error must be smaller than round-to-nearest's.  For MLA's wkv_b, and
+    for GQA weights of the mixer alone, the CPU runs only the attention
+    half of ``capture_block`` (the checked weights' inputs and the AttnCon
+    scores of q and k): the FFN half feeds no checked weight.  A Mamba
+    block's capture has no scores: AttnCon falls back to ActNorm, as in the
+    pipeline."""
     from repro_torch.core import hessian as hess
     from repro_torch.core.gptq import gptq_quantize
     from repro_torch.core.importance import ImportanceInputs, attn_con
@@ -1670,6 +1776,13 @@ def check_solves(torch, entries: dict, proxy_card: dict, *, arch=ARCH,
     from repro_torch.models.lm import Model, capture_block
 
     def cpu_caps(blk, cfg, x_b):
+        mixer_only = all(p.startswith("mixer/") for p in paths)
+        if cfg.attn_kind == "gqa" and mixer_only:
+            h = rms_norm(x_b, blk["mixer_norm"], cfg.norm_eps)
+            q, k, _ = att.gqa_qkv(blk["mixer"], cfg, h,
+                                  torch.arange(x_b.shape[1]))
+            return {f"mixer/{w}": h for w in ("wq", "wk", "wv")}, \
+                attn_colsum(q, k)
         if cfg.attn_kind != "mla":
             _, caps, _, colsum = capture_block(blk, cfg, x_b)
             return caps, colsum
@@ -2977,6 +3090,428 @@ def moe_path(torch) -> dict:
     return launches
 
 
+def quantize_run(torch, quantize, args: list) -> tuple[dict, float, int]:
+    """``quantize.main(args)`` from a clean allocator: (its result, wall
+    seconds, the run's peak device memory)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    q = quantize.main(args)
+    seconds = time.perf_counter() - t0
+    return q, seconds, torch.cuda.max_memory_allocated()
+
+
+def layer0_entries(art: Path, paths) -> dict:
+    """Layer 0's artifact entries of ``paths`` (for ``check_solves``)."""
+    from repro_torch.checkpoint.packed import load_packed_artifact
+
+    return {name: e for name, e in load_packed_artifact(art)[0].items()
+            if name.removeprefix("layer0/") in paths}
+
+
+def agreement(torch, a: dict, b: dict) -> dict:
+    """Two serves of one prompt batch: the share of equal greedy tokens,
+    whether all are, and the first step's logits' largest difference
+    (absolute, and relative to b's largest logit)."""
+    ta, tb = torch.tensor(a["tokens"]), torch.tensor(b["tokens"])
+    abs_err, rel_err = errors(a["first_logits"], b["first_logits"])
+    return {"token_match": float((ta == tb).float().mean()),
+            "tokens_equal": bool(torch.equal(ta, tb)),
+            "first_logits_max_abs_diff": abs_err,
+            "first_logits_rel_diff": rel_err}
+
+
+def serve_agreement(torch, packed: dict, dequant: dict, vocab: int,
+                    tag: str, tol: float = TOL_SERVE_LOGITS) -> dict:
+    """Keep-packed against dequantized serving of one artifact: the first
+    step's logits within ``tol`` and the greedy tokens, which must be in
+    range; returns the logged row (``tokens_equal`` says whether every
+    token agreed)."""
+    tokens = torch.tensor(packed["tokens"])
+    row = dict(agreement(torch, packed, dequant), tol=tol)
+    if not bool(((tokens >= 0) & (tokens < vocab)).all()):
+        fail(f"{tag}: generated tokens out of range")
+    if not bool(torch.isfinite(packed["first_logits"]).all()):
+        fail(f"{tag}: non-finite logits from the keep-packed serve")
+    if not row["first_logits_rel_diff"] <= tol:
+        fail(f"{tag}: keep-packed vs dequantized first-step logits differ "
+             f"by {row['first_logits_rel_diff']:.3g} > {tol}")
+    return row
+
+
+def check_ratio(summary: dict, tag: str) -> None:
+    ratio = summary["ppl_ratio"]
+    if not (math.isfinite(ratio) and ratio < 1.5):
+        fail(f"{tag}: quantized/fp perplexity ratio {ratio} (expected "
+             f"finite, < 1.5)")
+
+
+def generate_loops(torch, model, params, prompts, n_gen: int,
+                   tag: str) -> tuple[dict, dict]:
+    """``launch.serve.generate`` on loaded params: a 2-token warm-up, then
+    the graph loop and the Python loop (``loop_pair``): the same tokens
+    bit for bit and the same launches, one capture a key, or the run
+    fails.  Returns the graph run (tokens, first-step logits, tok/s) and
+    the comparison row."""
+    from repro_torch.launch import serve
+
+    b, t = prompts.shape
+    serve.generate(model, params, prompts, 2)  # warm-up
+    stats = {"graph": {}, "python": {}}
+    bad: list = []
+    graph, python, n_graph = loop_pair(
+        torch, lambda loop: serve.generate(model, params, prompts, n_gen,
+                                          stats=stats[loop], loop=loop),
+        tag, bad)
+    if not torch.equal(graph, python):
+        bad.append(f"{tag}: the graph loop's tokens differ from the Python "
+                   f"loop's")
+    captured = [r.captured for r, _ in model.graphs.values()]
+    if len(captured) != 2 or not all(captured):
+        bad.append(f"{tag}: graphs {sorted(k[1:] for k in model.graphs)} "
+                   f"(captured {captured}), not one for each of 2 keys")
+    if bad:
+        fail("; ".join(bad))
+    st, py = stats["graph"], stats["python"]
+    decode = b * (n_gen - 1)
+    run = {"tokens": graph.cpu().tolist(),
+           "first_logits": st["first_logits"],
+           "prefill_tok_s": b * t / st["prefill_s"],
+           "decode_tok_s": decode / st["decode_s"]}
+    return run, {"tokens_equal": True, "launches_equal": True,
+                 "launches": n_graph, "graph_decode_tok_s":
+                 run["decode_tok_s"],
+                 "python_decode_tok_s": decode / py["decode_s"],
+                 "captures": sum(captured), "capture_s": st["capture_s"]}
+
+
+def variant_run(torch, arch: str) -> tuple[dict, dict, dict]:
+    """One config of the variants path at full width, VARIANT_LAYERS
+    layer, random weights from SEED: quantize (fp32; the peak device
+    memory logged) -> artifact, loaded once keep-packed in bf16 ->
+    ``generate`` (batch 4, prompt 64, 16 tokens, fp cache) in the graph
+    and the Python loop.  qwen1.5-4b: kv8 serving (``kv_path``:
+    ``generate`` at prompt 1024 and the engine in whole-prompt and
+    chunked-paged admission, no overload runs).  command-r-35b: kv8
+    ``generate`` (prompt 1024, 32 tokens) on the same params, the same
+    params with every packed weight dequantized as ``--no-keep-packed``
+    loads them (the same greedy tokens, first-step logits within
+    TOL_SERVE_LOGITS), and the model quantized again with ``--no-rotate``
+    and served from the quantize run's own params, so that the tied table
+    (no ``head`` leaf) is the LM head on the card.  The artifact is
+    written and read once: command-r's fp32 residual (table and untied
+    head) is 16.8 GB, about a minute of host time each way.  Returns (the
+    logged row, layer 0's entries of VARIANT_SOLVE_CHECK, their proxy
+    losses)."""
+    from repro_torch.checkpoint.packed import (FP32_LEAVES,
+                                               load_packed_forward_params,
+                                               resident_weight_bytes)
+    from repro_torch.core.quantizer import dequantize_packed
+    from repro_torch.data.calibration import SyntheticCorpus
+    from repro_torch.device import generator
+    from repro_torch.launch import quantize, serve
+    from repro_torch.kernels.quant_matmul.ops import is_packed
+    from repro_torch.launch.quantize import model_config
+    from repro_torch.models.lm import Model
+
+    def mapped(tree, fn, name=""):
+        if isinstance(tree, dict):
+            return {k: mapped(v, fn, k) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [mapped(v, fn, name) for v in tree]
+        return fn(tree, name)
+
+    def dequantized(w, name):  # as ``load_packed_params`` (fp32 entries)
+        if not is_packed(w):
+            return w
+        return dequantize_packed(w.w_packed, w.scale, w.zero, bits=w.bits,
+                                 d_in=w.d_in).float()
+
+    def bf16(w, name):  # as the loaders' ``dtype``
+        return w if name in FP32_LEAVES else w.to(torch.bfloat16)
+
+    dev = torch.device("cuda")
+    cfg = model_config(arch, VARIANT_LAYERS, "bfloat16")
+    art = ROOT / "build" / f"chip_smoke_{arch}_artifact"
+    common = ["--arch", arch, "--n-layers", str(VARIANT_LAYERS), "--device",
+              "cuda", "--bits", str(BITS), "--group-size", str(GROUP),
+              "--n-calib", str(N_CALIB), "--calib-seq", str(CALIB_SEQ),
+              "--batch", str(CALIB_BATCH), "--dtype", "float32",
+              "--seed", str(SEED)]
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seed=SEED)
+    prompts = corpus.sample(generator(SEED + 1), SERVE_BATCH,
+                            PROMPT_LEN).to(dev)
+    row: dict = {"arch": arch}
+    try:
+        shutil.rmtree(art, ignore_errors=True)
+        q, row["quantize_s"], row["quantize_max_memory_allocated"] = \
+            quantize_run(torch, quantize, common + ["--pack-out", str(art)])
+        summary = q["summary"]
+        proxy0 = q["report"]["layers"]["layer0"]["weights"]
+        del q
+        check_ratio(summary, arch)
+        row.update({k: summary[k] for k in ("layer_seconds", "ppl_fp",
+                                            "ppl_quant", "ppl_ratio")})
+        entries = layer0_entries(art, VARIANT_SOLVE_CHECK[arch])
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params, _ = load_packed_forward_params(art, device=dev,
+                                               dtype=torch.bfloat16)
+        row["load_s"] = time.perf_counter() - t0
+        row["resident_packed_bytes"], row["resident_fp_bytes"] = \
+            resident_weight_bytes(params)
+        packed, row["loops"] = generate_loops(
+            torch, Model(cfg, dev), params, prompts, N_GEN,
+            f"{arch} fp cache")
+        row.update({k: packed[k] for k in ("prefill_tok_s",
+                                           "decode_tok_s")})
+        if arch == QWEN_ARCH:
+            del params
+            t0 = time.perf_counter()
+            # random weights give nearly flat logits: the kv8 paged
+            # prefill's read-back may flip a near-tied first token, so
+            # both bit widths take the lossy rule, as on the MLA path
+            kv_path(torch, art, arch=arch, n_layers=VARIANT_LAYERS,
+                    audit_names=KvAudit.GQA, lossy_paged_bits=KV_BITS,
+                    kv_bits=(8,), modes=MOE_ENGINE_MODES, overload=False,
+                    traced_modes=())
+            row["kv_path_s"] = time.perf_counter() - t0
+        else:
+            kv_model = Model(dataclasses.replace(cfg, kv_bits=8), dev)
+            long = corpus.sample(generator(SEED + 2), SERVE_BATCH,
+                                 KV_PROMPT).to(dev)
+            st: dict = {}
+            toks = serve.generate(kv_model, params, long, KV_GEN, stats=st)
+            if toks.shape != (SERVE_BATCH, KV_GEN) or not bool(
+                    torch.isfinite(st["first_logits"]).all()):
+                fail(f"{arch} kv8 generate: tokens {tuple(toks.shape)} or "
+                     f"non-finite logits")
+            cache_b, fp_b = serve.kv_cache_bytes(kv_model, SERVE_BATCH,
+                                                 KV_PROMPT + KV_GEN)
+            row["kv8_generate"] = {
+                "prefill_tok_s": SERVE_BATCH * KV_PROMPT / st["prefill_s"],
+                "decode_tok_s": SERVE_BATCH * (KV_GEN - 1) / st["decode_s"],
+                "capture_s": st["capture_s"], "kv_cache_bytes": cache_b,
+                "kv_cache_fp_bytes": fp_b}
+            del kv_model
+            deq_params = mapped(params, dequantized)
+            del params
+            gc.collect()
+            torch.cuda.empty_cache()
+            st = {}
+            deq = serve.generate(Model(cfg, dev), deq_params, prompts, N_GEN,
+                                 stats=st)
+            del deq_params
+            dequant = {"tokens": deq.cpu().tolist(),
+                       "first_logits": st["first_logits"]}
+            row["dequantized_decode_tok_s"] = (SERVE_BATCH * (N_GEN - 1)
+                                               / st["decode_s"])
+            row["serve_agreement"] = serve_agreement(
+                torch, packed, dequant, cfg.vocab_size, arch)
+            if not row["serve_agreement"]["tokens_equal"]:
+                fail(f"{arch}: keep-packed and dequantized greedy tokens "
+                     f"differ: {row['serve_agreement']}")
+            del packed, dequant
+            gc.collect()
+            torch.cuda.empty_cache()
+            q, nr_s, nr_peak = quantize_run(torch, quantize,
+                                            common + ["--no-rotate"])
+            nr_ratio = q["summary"]["ppl_ratio"]
+            params = mapped(q["params"], bf16)
+            del q
+            check_ratio({"ppl_ratio": nr_ratio}, f"{arch} --no-rotate")
+            st = {}
+            nr = serve.generate(Model(cfg, dev), params, prompts, N_GEN,
+                                stats=st)
+            if "head" in params or \
+                    not bool(torch.isfinite(st["first_logits"]).all()):
+                fail(f"{arch} --no-rotate: a head leaf (a tied model keeps "
+                     f"none) or non-finite logits")
+            row["no_rotate"] = {
+                "quantize_s": nr_s, "quantize_max_memory_allocated": nr_peak,
+                "ppl_ratio": nr_ratio, "head": False,
+                "tokens_in_range": bool(((nr >= 0) & (nr < cfg.vocab_size))
+                                        .all()),
+                "decode_tok_s": SERVE_BATCH * (N_GEN - 1) / st["decode_s"]}
+            del params, nr
+    finally:
+        shutil.rmtree(art, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    row["widths"] = {k: getattr(cfg, k) for k in (
+        "d_model", "n_heads", "n_kv_heads", "d_ff", "vocab_size",
+        "qkv_bias", "tie_embeddings")}
+    row["reduced"] = {"n_layers": f"{VARIANT_LAYERS} of "
+                      f"{model_config(arch, 0, 'bfloat16').n_layers}"}
+    log({"variant_run": row})
+    return row, entries, proxy0
+
+
+def variants_path(torch) -> dict:
+    """Phase 6, the dense variants: ``variant_run`` on qwen1.5-4b (qkv
+    bias, G 1) and command-r-35b (tied embeddings), then layer 0's
+    VARIANT_SOLVE_CHECK solves of each against the host CPU.  Every
+    kernel's launches are counted from zero over both runs; the path
+    fails if one it runs never launched."""
+    from repro_torch.kernels.attn_colsum.ops import attn_colsum
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.gptq_block.ops import solve_block
+    from repro_torch.kernels.gram.ops import weighted_gram
+    from repro_torch.kernels.hadamard.ops import fwht
+    from repro_torch.kernels.quant_matmul.ops import quant_matmul
+
+    counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
+               "quant_matmul": quant_matmul, "fwht": fwht,
+               "solve_block": solve_block}
+    counted.update({name: getattr(fd_ops, name) for name in KvAudit.GQA})
+    reset_counts(counted)
+    runs = {arch: variant_run(torch, arch) for arch in (QWEN_ARCH, CMDR_ARCH)}
+    launches = read_counts(counted)
+    log({"variants_path": {"archs": list(runs), "launches": launches}})
+    missing = [name for name, c in launches.items()
+               if c <= 0 and name not in NO_PATH
+               and name not in MAIN_PATH_WITHOUT]
+    if missing:
+        fail(f"variants path never launched: {missing}")
+    for arch, (_, entries, proxy0) in runs.items():
+        check_solves(torch, entries, proxy0, arch=arch,
+                     n_layers=VARIANT_LAYERS, paths=VARIANT_SOLVE_CHECK[arch])
+    return launches
+
+
+def ssm_path(torch) -> dict:
+    """Phase 7, the Mamba-2 slice: RSQ quantize of mamba2-780m whole (48
+    layers, full width, fp32; AttnCon falls back to ActNorm on these
+    attention-free layers) -> artifact -> keep-packed bf16 serve at each of
+    SSM_SERVES in the graph and the Python loop (the conv and SSM state in
+    the graph's static cache: bitwise equal tokens and launches, one
+    capture a key); the same artifact served keep-packed in fp32 and
+    dequantized at load in bf16 and fp32: fp32 keep-packed must give the
+    fp32 dequantized serve's tokens and first-step logits within
+    TOL_SSM_FP32_SERVE, and bf16 keep-packed lie no farther from the fp32
+    serve than SSM_BF16_FACTOR times the bf16 dequantized serve (48 bf16
+    layers compound their roundings past any fixed bound, see
+    TOL_SSM_FP32_SERVE); one traced bf16 decode; layer 0's SSM_SOLVE_CHECK
+    solves against the host CPU.  Logs
+    the quantize seconds, each layer's seconds and ``solve_s``, the peak
+    device memory and ``ppl_ratio`` over the whole model; launches counted
+    from zero over the path."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.attn_colsum.ops import attn_colsum
+    from repro_torch.kernels.gptq_block.ops import solve_block
+    from repro_torch.kernels.gram.ops import weighted_gram
+    from repro_torch.kernels.hadamard.ops import fwht
+    from repro_torch.kernels.quant_matmul.ops import quant_matmul
+    from repro_torch.launch import quantize, serve
+
+    counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
+               "quant_matmul": quant_matmul, "fwht": fwht,
+               "solve_block": solve_block}
+    cfg = get_config(SSM_ARCH)
+    art = ROOT / "build" / "chip_smoke_ssm_artifact"
+    common = ["--arch", SSM_ARCH, "--n-layers", str(SSM_LAYERS), "--device",
+              "cuda"]
+    serve_args = common + ["--packed", str(art), "--batch", str(SERVE_BATCH)]
+    serves = {}
+    try:
+        shutil.rmtree(art, ignore_errors=True)
+        reset_counts(counted)
+        q, quantize_s, peak = quantize_run(torch, quantize, common + [
+            "--bits", str(BITS), "--group-size", str(GROUP),
+            "--n-calib", str(N_CALIB), "--calib-seq", str(CALIB_SEQ),
+            "--batch", str(CALIB_BATCH), "--dtype", "float32",
+            "--seed", str(SEED), "--pack-out", str(art)])
+        summary = q["summary"]
+        proxy0 = q["report"]["layers"]["layer0"]["weights"]
+        n_weights = summary["n_weights"]
+        del q
+        check_ratio(summary, SSM_ARCH)
+        entries = layer0_entries(art, SSM_SOLVE_CHECK)
+        gc.collect()
+        torch.cuda.empty_cache()
+        for prompt, n_gen in SSM_SERVES:
+            args = serve_args + ["--prompt-len", str(prompt), "--gen",
+                                 str(n_gen)]
+            tag = f"{SSM_ARCH} prompt {prompt}"
+            packed, loops = serve_loops(torch, serve, args + ["--dtype",
+                                                              "bfloat16"],
+                                        tag)
+            if packed["captures"] != 2:  # the warm-up's key and the run's
+                fail(f"{tag}: {packed['captures']} decode graphs captured, "
+                     f"not one for each of 2 keys")
+            # the artifact was verified by the first load
+            runs = {(dt, mode): serve.main(args + [
+                "--dtype", dt, f"--{mode}", "--no-verify"])
+                for dt in ("bfloat16", "float32")
+                for mode in ("no-keep-packed", "keep-packed")
+                if (dt, mode) != ("bfloat16", "keep-packed")}
+            fp32 = runs["float32", "no-keep-packed"]
+            row = {"prefill_tok_s": packed["prefill_tok_s"],
+                   "decode_tok_s": packed["decode_tok_s"],
+                   "dequantized_decode_tok_s":
+                       runs["bfloat16", "no-keep-packed"]["decode_tok_s"],
+                   "fp32_decode_tok_s":
+                       runs["float32", "keep-packed"]["decode_tok_s"],
+                   "state_bytes": packed["kv_cache_bytes"], "loops": loops,
+                   "bf16_vs_dequantized_bf16": agreement(
+                       torch, packed, runs["bfloat16", "no-keep-packed"]),
+                   "bf16_vs_fp32": agreement(torch, packed, fp32),
+                   "dequantized_bf16_vs_fp32": agreement(
+                       torch, runs["bfloat16", "no-keep-packed"], fp32),
+                   "fp32_vs_dequantized_fp32": serve_agreement(
+                       torch, runs["float32", "keep-packed"], fp32,
+                       cfg.vocab_size, f"{tag} fp32", TOL_SSM_FP32_SERVE)}
+            serves[f"prompt{prompt}_gen{n_gen}"] = row
+            far = row["bf16_vs_fp32"]["first_logits_rel_diff"]
+            deq_far = row["dequantized_bf16_vs_fp32"]["first_logits_rel_diff"]
+            if not row["fp32_vs_dequantized_fp32"]["tokens_equal"]:
+                fail(f"{tag}: fp32 keep-packed and dequantized greedy tokens "
+                     f"differ")
+            if not bool(torch.isfinite(packed["first_logits"]).all()) or \
+                    not far <= SSM_BF16_FACTOR * deq_far:
+                fail(f"{tag}: bf16 keep-packed logits {far:.3g} from the "
+                     f"fp32 serve's, more than {SSM_BF16_FACTOR} x the bf16 "
+                     f"dequantized serve's {deq_far:.3g}")
+            resident = {k: packed[k] for k in ("resident_packed_bytes",
+                                               "resident_fp_bytes")}
+            del packed, runs, fp32
+        traced = serve.main(serve_args + ["--dtype", "bfloat16",
+                                          "--prompt-len", str(PROMPT_LEN),
+                                          "--gen", str(N_GEN), "--no-verify",
+                                          "--profile"])["profile"]
+        launches = read_counts(counted)
+    finally:
+        shutil.rmtree(art, ignore_errors=True)
+    layers = summary["layer_seconds"]
+    log({"ssm_path": {
+        "arch": SSM_ARCH,
+        "widths": {k: getattr(cfg, k) for k in (
+            "d_model", "d_inner", "ssm_n_heads", "ssm_head_dim",
+            "ssm_d_state", "ssm_conv_width", "ssm_chunk", "vocab_size",
+            "tie_embeddings")},
+        "reduced": {"n_layers": f"{SSM_LAYERS} of {cfg.n_layers}"},
+        "n_calib": N_CALIB, "calib_seq": CALIB_SEQ,
+        "quantize_s": quantize_s, "quantize_max_memory_allocated": peak,
+        "n_weights": n_weights,
+        "layer_seconds_sum": sum(r["seconds"] for r in layers.values()),
+        "solve_s_sum": sum(r["solve_s"] for r in layers.values()),
+        "layer_seconds": layers,
+        "ppl_fp": summary["ppl_fp"], "ppl_quant": summary["ppl_quant"],
+        "ppl_ratio": summary["ppl_ratio"], **resident,
+        "serves": serves, "launches": launches}})
+    log({"ssm_decode_profile": traced})
+    missing = [name for name, c in launches.items()
+               if c <= 0 and name not in NO_PATH
+               and name not in SSM_PATH_WITHOUT]
+    if missing:
+        fail(f"SSM path never launched: {missing}")
+    check_solves(torch, entries, proxy0, arch=SSM_ARCH, n_layers=SSM_LAYERS,
+                 paths=SSM_SOLVE_CHECK)
+    return launches
+
+
 def strategy_sweep(torch) -> list:
     """The paper's strategy comparison at full width: the quantize CLI on
     llama3-8b, 1 layer, N_CALIB x CALIB_SEQ tokens, once per strategy of
@@ -3317,7 +3852,8 @@ def main() -> None:
 
     checks = Checks(Timer(torch))
     for phase in (check_kernels, check_moe_kernels, check_hadamard,
-                  check_kv_kernels, check_mla_kernels, check_gptq_block):
+                  check_kv_kernels, check_mla_kernels, check_gptq_block,
+                  check_variant_kernels):
         t0 = time.perf_counter()
         phase(torch, checks)
         log({"phase_seconds": {phase.__name__: time.perf_counter() - t0}})
@@ -3335,13 +3871,21 @@ def main() -> None:
     moe_launches = moe_path(torch)
     log({"phase_seconds": {"moe_path": time.perf_counter() - t0}})
     t0 = time.perf_counter()
+    variant_launches = variants_path(torch)
+    log({"phase_seconds": {"variants_path": time.perf_counter() - t0}})
+    t0 = time.perf_counter()
+    ssm_launches = ssm_path(torch)
+    log({"phase_seconds": {"ssm_path": time.perf_counter() - t0}})
+    t0 = time.perf_counter()
     strategy_sweep(torch)
     log({"phase_seconds": {"strategy_sweep": time.perf_counter() - t0}})
     main_launches = dict(launches)
     launches.update({name: mla_launches[name] for name in KvAudit.MLA})
-    launches["fwht"] += mla_launches["fwht"] + moe_launches["fwht"]
+    launches["fwht"] += (mla_launches["fwht"] + moe_launches["fwht"]
+                         + variant_launches["fwht"] + ssm_launches["fwht"])
     by_path = {"main_path": main_launches, "mla_path": mla_launches,
-               "moe_path": moe_launches}
+               "moe_path": moe_launches, "variants_path": variant_launches,
+               "ssm_path": ssm_launches}
     # quant_matmul's three kernels, each with its launches on both paths;
     # quant_matmul_t's two on the MLA path
     qmm_rows = {"qmm_decode": rows["quant_matmul"],
@@ -3392,9 +3936,7 @@ def main() -> None:
                               ("prefill_fp32", "qmm_tc_f32")):
                 subs[sub] = {key: qmm_rows[kern][key] for key in keys}
                 subs[sub].update(kernel=kern, kernel_launches={
-                    "main_path": launches[kern],
-                    "mla_path": mla_launches[kern],
-                    "moe_path": moe_launches[kern]})
+                    path: counts[kern] for path, counts in by_path.items()})
             entry.update(subs.pop(""), **subs)
             # the expert stacks (E 160): the tensor-core tile at m 8 and 96
             entry["experts"] = {
@@ -3417,9 +3959,8 @@ def main() -> None:
                                           for key in keys}
                                 for d in (MOE_D, MOE_F)}
         if name == "solve_block":  # every path calibrates through it
-            entry["kernel_launches"] = {"main_path": launches[name],
-                                        "mla_path": mla_launches[name],
-                                        "moe_path": moe_launches[name]}
+            entry["kernel_launches"] = {path: counts[name]
+                                        for path, counts in by_path.items()}
             entry.update({key: row[key] for key in (
                 "instance", "registers", "spill_store_bytes")})
             entry["pallas"] = ("none: the reference's XLA compiles this "

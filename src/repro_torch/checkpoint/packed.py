@@ -18,8 +18,10 @@ The reference names its residual leaves by a pickled JAX treedef, which the
 port cannot read without JAX.  The port never unpickles: it writes the
 parameter path of each residual leaf (``residual_paths``) and, reading a
 reference-written artifact, rebuilds the reference's leaf order from the
-parameter names (JAX flattens dicts in sorted-key order).  The packed
-entries of either writer load bit for bit.
+parameter names (JAX flattens dicts in sorted-key order).  Which optional
+leaves exist (a ``head``, qkv biases) it reads from the dict keys that the
+pickle's opcodes list (``pickletools.genops`` parses them without running
+anything).  The packed entries of either writer load bit for bit.
 
 Entry locations are the reference's: ``["prefix", i]`` for the first
 ``first_dense_layers`` layers (unstacked in the reference's tree, a list of
@@ -33,6 +35,7 @@ import hashlib
 import io
 import json
 import os
+import pickletools
 import zipfile
 from pathlib import Path
 from typing import Any
@@ -70,13 +73,24 @@ def _savez_atomic(path: Path, arrays: dict) -> str:
     with zipfile.ZipFile(tmp, "w", zipfile.ZIP_STORED,
                          allowZip64=True) as zf:
         for name, arr in arrays.items():
-            buf = io.BytesIO()
-            npformat.write_array(buf, np.asarray(arr), allow_pickle=False)
+            arr = np.require(arr, requirements="C")  # 0-d stays 0-d
+            if arr.dtype.hasobject:
+                raise ValueError(f"{name}: object arrays are not stored")
+            header = io.BytesIO()
+            npformat.write_array_header_1_0(
+                header, npformat.header_data_from_array_1_0(arr))
             zi = zipfile.ZipInfo(name + ".npy",
                                  date_time=(1980, 1, 1, 0, 0, 0))
             zi.compress_type = zipfile.ZIP_STORED
             zi.external_attr = 0o600 << 16
-            zf.writestr(zi, buf.getvalue())
+            # the member's size up front, as ``writestr`` sets it (it
+            # decides zip64): the same bytes, with the array written
+            # straight from its buffer, not through an in-memory copy of
+            # the whole .npy (a 256000 x 8192 fp32 table is 8.4 GB)
+            zi.file_size = len(header.getvalue()) + arr.nbytes
+            with zf.open(zi, "w") as dest:
+                dest.write(header.getvalue())
+                dest.write(memoryview(arr.reshape(-1)).cast("B"))
     sha = _sha256_file(tmp)
     os.replace(tmp, path)
     return sha
@@ -114,7 +128,12 @@ def _save_field(arrays: dict, key: str, x: np.ndarray) -> dict:
 
 
 def _assemble_field(z, key: str, fm: dict) -> np.ndarray:
-    out = np.empty(tuple(fm["shape"]), np.dtype(fm["dtype"]))
+    shape, dtype = tuple(fm["shape"]), np.dtype(fm["dtype"])
+    if fm["shards"] == [[[0, n] for n in shape]]:  # one whole shard: as read
+        a = z[f"{key}@0"]
+        if a.shape == shape and a.dtype == dtype:
+            return a
+    out = np.empty(shape, dtype)
     for k, idx in enumerate(fm["shards"]):
         out[tuple(slice(lo, hi) for lo, hi in idx)] = z[f"{key}@{k}"]
     return out
@@ -168,24 +187,52 @@ def _quantized_paths(meta_entries: dict) -> set[str]:
 _BLOCK_RESIDUAL = {"mixer/wq_b": "mixer/q_norm",
                    "mixer/wkv_b": "mixer/kv_norm",
                    "ffn/experts/wi": "ffn/router"}
+# a Mamba block's mixer leaves (models.ssm.init_mamba; wdt is fp where it
+# is too narrow to quantize) and GQA's optional qkv biases
+_MAMBA_LEAVES = ("wzx", "wbc", "wdt", "conv_x", "conv_bc", "conv_b", "A_log",
+                 "D", "dt_bias", "norm", "out_proj")
+_QKV_BIAS = ("bq", "bk", "bv")
+# leaves a model holds in fp32 whatever its dtype (the MoE router, Mamba's
+# A_log, D and dt_bias): the loaders' ``dtype`` leaves them fp32, as the
+# reference's serve does
+FP32_LEAVES = ("router", "A_log", "D", "dt_bias")
 
 
-def _block_paths(quantized: set[str]) -> list[str]:
+def _block_paths(quantized: set[str], keys: set[str]) -> list[str]:
     """Every leaf path of a block whose quantized weights are
-    ``quantized``."""
-    return sorted(quantized | {"mixer_norm", "ffn_norm"}
-                  | {leaf for w, leaf in _BLOCK_RESIDUAL.items()
-                     if w in quantized})
+    ``quantized``, in a tree whose dicts have the keys ``keys``.  A Mamba
+    block has no FFN norm."""
+    if {"mixer/wzx", "mixer/out_proj"} & quantized:
+        return sorted(quantized | {"mixer_norm"}
+                      | {f"mixer/{n}" for n in _MAMBA_LEAVES})
+    paths = quantized | {"mixer_norm", "ffn_norm"} | {
+        leaf for w, leaf in _BLOCK_RESIDUAL.items() if w in quantized}
+    if "mixer/wq" in quantized and set(_QKV_BIAS) <= keys:
+        paths |= {f"mixer/{n}" for n in _QKV_BIAS}
+    return sorted(paths)
+
+
+def _treedef_keys(meta: dict) -> set[str]:
+    """The strings of a reference artifact's pickled treedef (its dict
+    keys among them), read by ``pickletools.genops``, which parses the
+    opcodes and runs nothing; without a treedef, the keys of an untied
+    decoder."""
+    hexed = meta.get("residual_treedef")
+    if hexed is None:
+        return {"head"}
+    return {arg for _, arg, _ in pickletools.genops(bytes.fromhex(hexed))
+            if isinstance(arg, str)}
 
 
 def _reference_residual_paths(n_prefix: int, prefix_paths: list[str],
-                              group_paths: list[str]) -> list[str]:
+                              group_paths: list[str],
+                              head: bool = True) -> list[str]:
     """Leaf order of a reference-written residual tree: the reference's
     {"embed", "final_norm", "groups": {"b0": block}, "head", "prefix":
     [block, ...]} with stacked group leaves and ``n_prefix`` unstacked
     prefix blocks, flattened in sorted-key order.  The prefix blocks and
     the group block each have their own leaves (deepseek's dense prefix
-    and its routed-expert groups)."""
+    and its routed-expert groups); a tied model has no ``head``."""
     def block(paths) -> dict:
         node_root: dict = {}
         for p in paths:
@@ -196,8 +243,10 @@ def _reference_residual_paths(n_prefix: int, prefix_paths: list[str],
             node[parts[-1]] = 0
         return node_root
 
-    skel: dict = {"embed": 0, "final_norm": 0, "head": 0,
+    skel: dict = {"embed": 0, "final_norm": 0,
                   "groups": {"b0": block(group_paths)}}
+    if head:
+        skel["head"] = 0
     if n_prefix:
         skel["prefix"] = [block(prefix_paths) for _ in range(n_prefix)]
     return list(_flatten(skel))
@@ -282,9 +331,10 @@ def _load_residual(d: Path, meta: dict, verify: bool) -> dict[str, np.ndarray]:
     for em in meta["entries"].values():
         quantized[em["loc"][0]].add(em["path"])
     n_prefix = _n_prefix(meta["entries"])
-    paths = _reference_residual_paths(n_prefix,
-                                      _block_paths(quantized["prefix"]),
-                                      _block_paths(quantized["groups"]))
+    keys = _treedef_keys(meta)
+    paths = _reference_residual_paths(
+        n_prefix, _block_paths(quantized["prefix"], keys),
+        _block_paths(quantized["groups"], keys), head="head" in keys)
     if len(paths) != len(leaves):
         raise NotImplementedError(
             f"{d}: {len(leaves)} residual leaves, expected {len(paths)} for "
@@ -324,8 +374,12 @@ def _load(directory, device, dtype, verify: bool, keep_packed: bool):
     entries, meta = load_packed_artifact(d, verify=verify)
     flat: dict[str, Any] = {}
     for path, a in _load_residual(d, meta, verify).items():
-        t = torch.from_numpy(np.array(a)).to(device)
-        flat[path] = t.to(dtype) if dtype is not None else t
+        # the arrays np.load returns are fresh and writable: no copy here
+        # (a 256000 x 8192 fp32 table is 8.4 GB)
+        t = torch.from_numpy(np.require(a, requirements=["C", "W"])
+                             ).to(device)
+        keep = dtype is None or path.rsplit("/", 1)[-1] in FP32_LEAVES
+        flat[path] = t if keep else t.to(dtype)
     spec = meta["spec"]
     n_prefix = _n_prefix(meta["entries"])
     for name, em in meta["entries"].items():
@@ -345,7 +399,8 @@ def load_packed_forward_params(directory, *, device="cuda", dtype=None,
     """-> (params, meta) with every quantized matrix a ``PackedWeight`` on
     ``device``: the codes stay packed on the device and every projection
     runs through ``quant_matmul``.  ``dtype`` casts the fp residual
-    (embedding, head, norms); scales and zeros stay fp32."""
+    (embedding, head, norms, biases) but ``FP32_LEAVES``; scales and zeros
+    stay fp32."""
     return _load(directory, device, dtype, verify, keep_packed=True)
 
 

@@ -10,6 +10,11 @@ _MODULES = {
     "llama3-8b": "rsq_llama3_8b",
     "deepseek-v3-671b": "deepseek_v3_671b",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "minitron-4b": "minitron_4b",
+    "qwen1.5-4b": "qwen15_4b",
+    "command-r-35b": "command_r_35b",
+    "command-r-plus-104b": "command_r_plus_104b",
+    "mamba2-780m": "mamba2_780m",
 }
 
 

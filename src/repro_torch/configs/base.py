@@ -3,8 +3,9 @@
 One frozen dataclass describes dense / MoE / SSM / hybrid / enc-dec / VLM
 transformers; ``reduced()`` derives a smoke-test-sized config of the same
 family (same layer pattern, tiny dims).  The port serves dense GQA
-decoders and MLA layers with a dense FFN; the other fields are kept so
-configs stay interchangeable with the reference.
+decoders (with qkv bias and tied embeddings), MLA decoders with dense or
+routed-expert FFNs, and Mamba-2 (SSD) decoders; the hybrid, enc-dec and
+VLM fields are kept so configs stay interchangeable with the reference.
 """
 from __future__ import annotations
 

@@ -1,0 +1,21 @@
+"""mamba2-780m [ssm] — 48L d_model=1536 (attn-free) vocab=50280,
+ssm_state=128 — SSD (state-space duality). [arXiv:2405.21060; unverified]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-780m",
+    family="ssm",
+    n_layers=48,
+    d_model=1536,
+    n_heads=1,  # no attention heads; SSD heads derive from d_inner
+    n_kv_heads=1,
+    d_ff=0,
+    vocab_size=50280,
+    attn_kind="none",
+    tie_embeddings=True,
+    ssm_d_state=128,
+    ssm_head_dim=64,
+    ssm_expand=2,
+    ssm_conv_width=4,
+    ssm_chunk=256,
+)

@@ -4,7 +4,7 @@ The reference keeps its first ``first_dense_layers`` decoder layers as a
 list (``params["prefix"]``) and stacks the rest on a leading axis
 (``params["groups"]["b0"][...]``, from ``jax.vmap(init_group)``); the port
 keeps them all as one list, prefix layers first.  ``embed``, ``head`` and
-``final_norm`` carry over as they are.  The tests use this to run both
+``final_norm`` carry over as they are (a tied model has no ``head``).  The tests use this to run both
 packages on the same weights; the port's own entry points draw their
 weights from a ``torch.Generator``.
 """
@@ -39,13 +39,10 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, *,
                              np.asarray(v)[i], device)
                 for k, v in tree.items()}
 
-    head = np_params.get("head")
-    if head is None:  # tied embeddings: the head is the table's transpose
-        head = np.asarray(np_params["embed"]).T
-    return {
-        "embed": _tensor(np_params["embed"], device),
-        "final_norm": _tensor(np_params["final_norm"], device),
-        "head": _tensor(head, device),
-        "layers": ([layer(None, blk) for blk in np_params.get("prefix", [])]
-                   + [layer(i, stacked) for i in range(n_groups)]),
-    }
+    out = {"embed": _tensor(np_params["embed"], device),
+           "final_norm": _tensor(np_params["final_norm"], device)}
+    if "head" in np_params:  # a tied model has none, in both packages
+        out["head"] = _tensor(np_params["head"], device)
+    out["layers"] = ([layer(None, blk) for blk in np_params.get("prefix", [])]
+                     + [layer(i, stacked) for i in range(n_groups)])
+    return out

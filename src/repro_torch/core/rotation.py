@@ -20,9 +20,10 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 
-# stream-consuming and stream-producing mixer weights (GQA and MLA)
-_MIXER_IN = ("wq", "wk", "wv", "wq_a", "wkv_a")
-_MIXER_OUT = ("wo",)
+# stream-consuming and stream-producing mixer weights (GQA, MLA, Mamba;
+# qkv biases and Mamba's gated ``norm`` act after the stream side and stay)
+_MIXER_IN = ("wq", "wk", "wv", "wq_a", "wkv_a", "wzx", "wbc", "wdt")
+_MIXER_OUT = ("wo", "out_proj")
 # MLA's internal norms and the up-projections that consume them
 _MLA_NORMS = (("q_norm", "wq_b"), ("kv_norm", "wkv_b"))
 _FFN_IN = ("wi", "wu")
@@ -88,9 +89,9 @@ def fuse_norms_block(p: dict, cfg: ModelConfig) -> dict:
     """Fold the block's RMSNorm γ into its consuming weights (new dict);
     MLA's q_norm and kv_norm fold into wq_b and wkv_b.  A routed-expert
     FFN folds the FFN norm into its router, each expert's wi / wu and its
-    shared FFN's wi / wu."""
-    mixer, ffn = dict(p["mixer"]), dict(p["ffn"])
-    gf = p["ffn_norm"]
+    shared FFN's wi / wu.  A Mamba block (no FFN) folds its mixer norm
+    into wzx, wbc and wdt."""
+    mixer = dict(p["mixer"])
     for name in _MIXER_IN:
         if name in mixer:
             mixer[name] = _scale_in(mixer[name], p["mixer_norm"])
@@ -98,6 +99,11 @@ def fuse_norms_block(p: dict, cfg: ModelConfig) -> dict:
         if norm in mixer:
             mixer[name] = _scale_in(mixer[name], mixer[norm])
             mixer[norm] = torch.ones_like(mixer[norm])
+    out = {**p, "mixer": mixer,
+           "mixer_norm": torch.ones_like(p["mixer_norm"])}
+    if "ffn" not in p:
+        return out
+    ffn, gf = dict(p["ffn"]), p["ffn_norm"]
     for name in _FFN_IN:
         if name in ffn:
             ffn[name] = _scale_in(ffn[name], gf)
@@ -109,9 +115,7 @@ def fuse_norms_block(p: dict, cfg: ModelConfig) -> dict:
         if "shared" in ffn:
             ffn["shared"] = {k: (_scale_in(v, gf) if k in _FFN_IN else v)
                              for k, v in ffn["shared"].items()}
-    return {**p, "mixer": mixer, "ffn": ffn,
-            "mixer_norm": torch.ones_like(p["mixer_norm"]),
-            "ffn_norm": torch.ones_like(p["ffn_norm"])}
+    return {**out, "ffn": ffn, "ffn_norm": torch.ones_like(p["ffn_norm"])}
 
 
 def _rotate_ffn(ffn: dict, rot_in, rot_out) -> dict:
@@ -141,7 +145,10 @@ def rotate_block(p: dict, cfg: ModelConfig, q: torch.Tensor) -> dict:
         if name in mixer:
             mixer[name] = rot_in(mixer[name])
     for name in _MIXER_OUT:
-        mixer[name] = rot_out(mixer[name])
+        if name in mixer:
+            mixer[name] = rot_out(mixer[name])
+    if "ffn" not in p:
+        return {**p, "mixer": mixer}
     ffn = p["ffn"]
     if "router" not in ffn:
         return {**p, "mixer": mixer, "ffn": _rotate_ffn(ffn, rot_in, rot_out)}
@@ -160,7 +167,10 @@ def rotate_model(params: dict, cfg: ModelConfig, q: torch.Tensor | None = None,
     """Fuse norms then rotate the whole model. Returns (params, {"q": Q}).
 
     ``q``: the (d_model, d_model) rotation; when None it is drawn with
-    ``random_hadamard(gen, d_model)``."""
+    ``random_hadamard(gen, d_model)``.  A tied model comes out untied, as
+    the reference's: the head Qᵀ·diag(γ)·Eᵀ beside the table E·Q (the
+    final norm's γ cannot fold into the table, which also feeds the
+    stream)."""
     if q is None:
         if gen is None:
             raise ValueError("rotate_model needs a rotation q or a generator")
@@ -168,7 +178,8 @@ def rotate_model(params: dict, cfg: ModelConfig, q: torch.Tensor | None = None,
     q = q.to(device=params["embed"].device, dtype=torch.float32)
     layers = [rotate_block(fuse_norms_block(b, cfg), cfg, q)
               for b in params["layers"]]
-    head = _scale_in(params["head"], params["final_norm"])
+    head = params["head"] if "head" in params else params["embed"].T
+    head = _scale_in(head, params["final_norm"])
     out = dict(params)
     out.update(
         layers=layers,

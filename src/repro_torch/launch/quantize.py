@@ -12,7 +12,11 @@ depth of the chosen architecture and keeps its widths: ``--arch
 deepseek-v2-236b --n-layers 2`` quantizes its dense MLA layer 0 and its
 first routed-expert layer (160 experts, top-6, 2 shared; ``--dtype
 bfloat16`` keeps its weights at 10.7 GB); ``--arch deepseek-v3-671b
---n-layers 2`` two of its three dense MLA layers.  ``--importance``
+--n-layers 2`` two of its three dense MLA layers.  ``--arch qwen1.5-4b``
+(qkv bias), ``command-r-35b`` (tied embeddings: the rotation unties the
+head; ``--no-rotate`` keeps none), ``minitron-4b`` and ``mamba2-780m``
+(Mamba-2 blocks, whose AttnCon falls back to ActNorm) take the same
+flags.  ``--importance``
 picks any of the paper's eight token-importance strategies and
 ``--expansion M`` adds M - 1 circular shifts of every calibration sample.
 """

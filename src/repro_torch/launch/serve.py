@@ -16,7 +16,10 @@ tokens/s exclude the capture, which the JSON line reports apart
 latent attention on a latent cache) the same way, and ``--arch
 deepseek-v2-236b --n-layers 2`` its dense layer 0 and a routed-expert
 layer (every expert stack one ``quant_matmul`` launch for all 160
-experts).
+experts).  ``--arch qwen1.5-4b`` (qkv bias) and ``command-r-35b`` (tied
+embeddings) serve as llama3-8b does; ``--arch mamba2-780m`` serves its
+Mamba-2 blocks in batch mode only, the recurrent state in the flat cache
+(``--mode engine`` refuses it, as the reference's engine does).
 
 ``--packed DIR`` serves a packed RSQ artifact (from launch.quantize
 --pack-out).  The default keeps the codes packed on the device
@@ -164,13 +167,15 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, n_gen: int,
     capture_s = 0.0
     if loop == "graph" and n_gen > 1:
         replay, static = decode_graph(model, params, b, t, n_gen, sampled)
+        # captured first: the warm-up step advances the static cache in
+        # place (a Mamba block's state too), so the prefill's goes in after
+        capture_s = replay.ready()
         for dst, src in zip(static["cache"], cache):
             for key, a in src.items():
                 dst[key].copy_(a)
         static["tok"].copy_(tok)
         static["temp"].copy_(temp)
         static["seeds"].copy_(seeds)
-        capture_s = replay.ready()
         t1 = time.perf_counter()
         out = torch.cat([tok, replay.run()], dim=1)
     else:
@@ -195,8 +200,20 @@ def kv_cache_bytes(model: Model, batch: int,
     cache), and of the same cache held in the activation dtype; from the
     codec's layout alone, no tensor allocated.  GQA holds K and V of each
     KV head (Dh values each) per token and layer; MLA the latent
-    (kv_lora_rank values) and the rope key (qk_rope_dim values)."""
+    (kv_lora_rank values) and the rope key (qk_rope_dim values).  A Mamba
+    model's cache is its recurrent state, of no token axis and never
+    quantized: the conv window (W - 1 rows of d_inner + 2·state) in the
+    activation dtype and the fp32 SSM state (nh x hd x state) a layer, the
+    same bytes either way."""
     cfg, codec = model.cfg, model.codec
+    if cfg.family == "ssm":
+        per_layer = ((cfg.ssm_conv_width - 1)
+                     * (cfg.d_inner + 2 * cfg.ssm_d_state)
+                     * model.dtype.itemsize
+                     + cfg.ssm_n_heads * cfg.ssm_head_dim * cfg.ssm_d_state
+                     * 4)
+        state = cfg.n_layers * batch * per_layer
+        return state, state
     if cfg.attn_kind == "mla":  # one row each of c and r, no head axis
         rows, widths = cfg.n_layers * batch, (cfg.kv_lora_rank,
                                               cfg.qk_rope_dim)
@@ -432,7 +449,7 @@ def main(argv=None) -> dict:
         prefill_tok_s=args.batch * args.prompt_len / stats["prefill_s"],
         decode_tok_s=(args.batch * (args.gen - 1) / stats["decode_s"]
                       if args.gen > 1 else 0.0))
-    if cfg.kv_bits:
+    if cfg.kv_bits or cfg.family == "ssm":
         result["kv_cache_bytes"], result["kv_cache_fp_bytes"] = kv_cache_bytes(
             model, args.batch, args.prompt_len + args.gen)
     if args.profile:

@@ -411,21 +411,34 @@ def paged_extend_attention_quantized(q, k_new, v_new, k_pool, ks_pool,
 
 
 def init_gqa(gen, cfg, dtype, device) -> dict:
+    """wq / wk / wv / wo, and with ``cfg.qkv_bias`` the zero biases ``bq``
+    / ``bk`` / ``bv`` (qwen1.5), as the reference draws them."""
     d, h, kvh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    return {
+    p = {
         "wq": dense_init(gen, d, h * dh, dtype, device),
         "wk": dense_init(gen, d, kvh * dh, dtype, device),
         "wv": dense_init(gen, d, kvh * dh, dtype, device),
         "wo": dense_init(gen, h * dh, d, dtype, device),
     }
+    if cfg.qkv_bias:
+        for name, n in (("bq", h * dh), ("bk", kvh * dh), ("bv", kvh * dh)):
+            p[name] = torch.zeros((n,), dtype=dtype, device=device)
+    return p
+
+
+def _biased(x: torch.Tensor, p: dict, w: str, b: str) -> torch.Tensor:
+    """``linear(x, p[w])`` plus the bias ``p[b]`` where the block has one,
+    added after the projection and before RoPE."""
+    y = linear(x, p[w])
+    return y + p[b] if b in p else y
 
 
 def gqa_qkv(p: dict, cfg, x: torch.Tensor, positions: torch.Tensor):
     b, t, _ = x.shape
     h, kvh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = linear(x, p["wq"]).reshape(b, t, h, dh)
-    k = linear(x, p["wk"]).reshape(b, t, kvh, dh)
-    v = linear(x, p["wv"]).reshape(b, t, kvh, dh)
+    q = _biased(x, p, "wq", "bq").reshape(b, t, h, dh)
+    k = _biased(x, p, "wk", "bk").reshape(b, t, kvh, dh)
+    v = _biased(x, p, "wv", "bv").reshape(b, t, kvh, dh)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     return q, k, v

@@ -1,6 +1,7 @@
-"""Decoder LM: the attention + SwiGLU block stack of the reference's
-``models/lm.py``, with GQA attention (llama3) or MLA (deepseek's dense
-layers) as the mixer.
+"""Decoder LM: the block stack of the reference's ``models/lm.py``, with
+GQA attention (llama3, qwen1.5 with qkv bias, command-r), MLA (deepseek)
+or the Mamba-2 mixer (``models.ssm``; mamba2, whose blocks have no FFN) as
+the mixer.
 
 Parameters are a plain dict, laid out like the reference's with the layer
 stack unrolled into a list (the reference stacks layers on a leading axis
@@ -11,8 +12,13 @@ for ``lax.scan``, after a list of ``first_dense_layers`` unstacked
      "layers": [{"mixer_norm", "mixer": {...}, "ffn_norm",
                  "ffn": {"wi", "wu", "wd"}}, ...]}
 
-with mixer ``{"wq", "wk", "wv", "wo"}`` (GQA) or ``{"wq_a", "q_norm",
-"wq_b", "wkv_a", "kv_norm", "wkv_b", "wo"}`` (MLA).  A routed-expert layer
+with mixer ``{"wq", "wk", "wv", "wo"}`` (GQA; plus ``{"bq", "bk", "bv"}``
+with ``qkv_bias``), ``{"wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm",
+"wkv_b", "wo"}`` (MLA) or ``models.ssm.init_mamba``'s leaves (a Mamba
+block: no ``ffn_norm``, no ``ffn``).  A model with ``tie_embeddings``
+draws no ``head``: its logits contract the (V, D) table over D
+(:meth:`Model.head_logits`), and an explicit ``head`` (rotation unties
+it) takes precedence.  A routed-expert layer
 (``cfg.ffn_kinds()`` "moe": deepseek's layers after its dense prefix) has
 the FFN ``{"router", "experts": {"wi", "wu", "wd"}, "shared": {"wi", "wu",
 "wd"}}`` of ``models.moe``, expert weights stacked (E, d_in, d_out).  Any
@@ -26,7 +32,12 @@ layer's codec lays them out (``kv_bits`` 8 or 2; S rounded up to a
 latent rows ``{"c", "r"}`` (B, S, kvr|dr), or ``{"c", "cs", "r", "rs"}``
 with codes (B, S, w) and scales (B, S / chunk), no head axis.  The paged
 pools of the serving engine (``serving.paged``) hold the same per-layer
-entries with a page axis in place of the batch and sequence axes.
+entries with a page axis in place of the batch and sequence axes.  A
+Mamba block's cache entry is its recurrent state, ``{"conv": (B, W-1,
+d_inner + 2·state)`` in the activation dtype, ``"ssm": (B, nh, hd,
+state)`` fp32``}``, advanced in place by each decode step; it is not
+paged (the engine and the chunked prefill refuse Mamba blocks, as the
+reference's do).
 """
 from __future__ import annotations
 
@@ -35,10 +46,11 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import matmul, resolve_device
 from repro_torch.kernels.attn_colsum.ops import attn_colsum
 from repro_torch.models import attention as att
 from repro_torch.models import moe
+from repro_torch.models import ssm
 from repro_torch.models.layers import (apply_dense_ffn, capture_dense_ffn,
                                        cross_entropy_chunked, dense_init,
                                        embed_lookup, init_dense_ffn,
@@ -64,23 +76,41 @@ def layer_loc(cfg: ModelConfig, li: int) -> list:
     return ["groups", li - cfg.first_dense_layers, 0]
 
 
-def init_block(gen, cfg: ModelConfig, dtype, device, ffn: str = "dense"
-               ) -> dict:
-    """One block's params; ``ffn`` is the layer's ``cfg.ffn_kinds()``
-    entry, "dense" or "moe"."""
+def init_block(gen, cfg: ModelConfig, dtype, device, ffn: str = "dense",
+               mixer: str = "attn") -> dict:
+    """One block's params; ``mixer`` and ``ffn`` are the layer's
+    ``cfg.layer_kinds()`` ("attn" or "mamba") and ``cfg.ffn_kinds()``
+    ("dense", "moe" or "none") entries."""
     d = cfg.d_model
-    init_mixer = att.init_mla if _is_mla(cfg) else att.init_gqa
-    return {
-        "mixer_norm": torch.ones((d,), dtype=dtype, device=device),
-        "mixer": init_mixer(gen, cfg, dtype, device),
-        "ffn_norm": torch.ones((d,), dtype=dtype, device=device),
-        "ffn": (moe.init_moe(gen, cfg, dtype, device) if ffn == "moe" else
-                init_dense_ffn(gen, d, cfg.d_ff, dtype, device)),
-    }
+    if mixer == "mamba":
+        init_mixer = ssm.init_mamba
+    else:
+        init_mixer = att.init_mla if _is_mla(cfg) else att.init_gqa
+    p = {"mixer_norm": torch.ones((d,), dtype=dtype, device=device),
+         "mixer": init_mixer(gen, cfg, dtype, device)}
+    if ffn != "none":
+        p["ffn_norm"] = torch.ones((d,), dtype=dtype, device=device)
+        p["ffn"] = (moe.init_moe(gen, cfg, dtype, device) if ffn == "moe"
+                    else init_dense_ffn(gen, d, cfg.d_ff, dtype, device))
+    return p
 
 
 def _is_moe(p: dict) -> bool:
     return "experts" in p["ffn"]
+
+
+def _is_mamba(p: dict) -> bool:
+    return "wzx" in p["mixer"]
+
+
+def _refuse_mamba(p: dict, what: str, state: str) -> None:
+    """The paged paths' refusal of a Mamba block, in the reference's
+    words."""
+    if _is_mamba(p):
+        raise NotImplementedError(
+            f"{what} supports attn/mla mixers, got 'mamba' — ssm/cross "
+            f"state is {state}, not per-page; serve such models through "
+            f"the flat generate() path")
 
 
 def _qkv(p: dict, cfg: ModelConfig, h: torch.Tensor, positions):
@@ -102,6 +132,10 @@ def apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     positions = _positions(x, positions)
     t = x.shape[1]
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    if _is_mamba(p):
+        mix, (conv, state) = ssm.apply_mamba(p["mixer"], cfg, h,
+                                             return_state=True)
+        return _ffn_out(p, cfg, x, mix), {"conv": conv, "ssm": state}
     q, k, v, cache = _qkv(p, cfg, h, positions)
     out = att.flash_attention(q, k, v, kv_chunk=min(512, t))
     return _mix_out(p, cfg, x, out), cache
@@ -110,8 +144,10 @@ def apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 def _ffn_out(p: dict, cfg: ModelConfig, x: torch.Tensor,
              mix: torch.Tensor) -> torch.Tensor:
     """Residual of the mixer's output and the FFN half of a block (dense
-    or routed experts)."""
+    or routed experts; a Mamba block has none)."""
     x = x + mix
+    if "ffn" not in p:
+        return x
     hf = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if _is_moe(p):
         return x + moe.apply_moe(p["ffn"], cfg, hf)[0]
@@ -135,6 +171,9 @@ def decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
     bits either way; a captured loop's position changes at replay)."""
     codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    if _is_mamba(p):  # no position: the state carries the sequence
+        return _ffn_out(p, cfg, x, ssm.mamba_decode(
+            p["mixer"], cfg, h, cache["conv"], cache["ssm"]))
     positions = att.position_index(pos, x.device)
     if _is_mla(cfg):
         c_kv, k_rope = att.mla_latent(p["mixer"], cfg, h, positions)
@@ -174,6 +213,7 @@ def paged_decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     the per-slot mask of the paged kernel are the only differences from
     :func:`decode_block`: a slot's output is the flat step's at the same
     position."""
+    _refuse_mamba(p, "paged decode", "per-slot")
     codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
     b = x.shape[0]
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
@@ -202,9 +242,14 @@ def pad_cache_entry(c: dict, codec, s: int) -> dict:
     """Zero-pad one layer's cache entries along the sequence axis to ``s``
     rows (codes) and ``codec.scale_rows(s)`` rows (scales).  Codes are
     padded after encoding the real rows (a zero kv2 row would encode to
-    code 2, not 0); the zero rows are what the kernels mask out."""
+    code 2, not 0); the zero rows are what the kernels mask out.  A Mamba
+    block's state (``conv``, ``ssm``) is not sequence-indexed and passes
+    through."""
     out = {}
     for key, a in c.items():
+        if key in _STATE:
+            out[key] = a
+            continue
         tgt = s if key in _SCALE_OF else codec.scale_rows(s)
         pad = a.new_zeros((a.shape[0], tgt - a.shape[1]) + a.shape[2:])
         out[key] = torch.cat([a, pad], dim=1)
@@ -213,14 +258,20 @@ def pad_cache_entry(c: dict, codec, s: int) -> dict:
 
 # each sequence-indexed cache entry and the entry of its scales
 _SCALE_OF = {"k": "ks", "v": "vs", "c": "cs", "r": "rs"}
+# a Mamba block's recurrent state: kept as it is whatever the KV codec
+_STATE = ("conv", "ssm")
 
 
 def _encode_cache(codec, entry: dict) -> dict:
     """{"k", "v"} or {"c", "r"} fp rows -> codes and scales,
-    {"k", "ks", "v", "vs"} or {"c", "cs", "r", "rs"}."""
+    {"k", "ks", "v", "vs"} or {"c", "cs", "r", "rs"}; a Mamba state
+    passes through."""
     out = {}
     for key, a in entry.items():
-        out[key], out[_SCALE_OF[key]] = codec.encode(a)
+        if key in _STATE:
+            out[key] = a
+        else:
+            out[key], out[_SCALE_OF[key]] = codec.encode(a)
     return out
 
 
@@ -238,6 +289,7 @@ def ingest_block(p: dict, cfg: ModelConfig, x: torch.Tensor, buf: dict,
     under the same mask as the whole-prompt prefill, and every other op is
     row-wise, so hidden rows, codes and logits are the whole prompt's.
     Returns (x, chunk_cache) with the chunk rows' codes."""
+    _refuse_mamba(p, "chunked prefill", "sequential")
     codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     t = h.shape[1]
@@ -258,6 +310,7 @@ def paged_extend_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     No fp prefix buffer, but lossy against the whole-prompt prefill.
     tbl: (n_past,) pages of the already-ingested chunks.  Returns
     (x, chunk_cache)."""
+    _refuse_mamba(p, "chunked prefill", "sequential")
     codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     if _is_mla(cfg):
@@ -286,10 +339,17 @@ def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     "expert", and
     ``colsum`` is the (B, T) AttnCon score from the ``attn_colsum`` kernel
     (the reference takes it from ``flash_attention(colsum=True)``; MLA's
-    from the expanded per-head q and k, H = KV heads of dn + dr)."""
+    from the expanded per-head q and k, H = KV heads of dn + dr).  A Mamba
+    block's four projections are all "stream" and its ``colsum`` is None:
+    AttnCon falls back to ActNorm there, as in the reference."""
     positions = _positions(x, positions)
     b, t, _ = x.shape
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
+    if _is_mamba(p):
+        mix, m_caps = ssm.capture_mamba(p["mixer"], cfg, h)
+        caps = {f"mixer/{name}": inp for name, inp in m_caps.items()}
+        return (_ffn_out(p, cfg, x, mix), caps,
+                {path: "stream" for path in caps}, None)
     if _is_mla(cfg):
         q, k, v, c_kv, _, ql = att.mla_qkv_inputs(p["mixer"], cfg, h,
                                                   positions)
@@ -324,26 +384,25 @@ def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 
 class Model:
-    """Decoder of GQA blocks with dense FFNs, or of MLA blocks with dense or
-    routed-expert FFNs, for one ``ModelConfig`` on one device."""
+    """Decoder of GQA blocks with dense FFNs (qkv bias and tied embeddings
+    allowed), of MLA blocks with dense or routed-expert FFNs, or of Mamba-2
+    blocks, for one ``ModelConfig`` on one device."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        if cfg.attn_kind == "mla":
-            if not set(cfg.ffn_kinds()) <= {"dense", "moe"} or \
-                    set(cfg.layer_kinds()) != {"attn"}:
-                raise NotImplementedError(
-                    f"{cfg.name}: the port serves MLA decoders whose layers "
-                    f"are attention with a dense or routed-expert FFN")
-        elif cfg.family != "dense" or cfg.attn_kind != "gqa" or cfg.qkv_bias:
+        kinds = set(cfg.layer_kinds())
+        if cfg.family == "ssm":
+            ok = kinds == {"mamba"} and set(cfg.ffn_kinds()) == {"none"}
+        elif cfg.attn_kind == "mla":
+            ok = kinds == {"attn"} and \
+                set(cfg.ffn_kinds()) <= {"dense", "moe"}
+        else:
+            ok = cfg.family == "dense" and cfg.attn_kind == "gqa"
+        if not ok:
             raise NotImplementedError(
-                f"{cfg.name}: the port serves dense GQA decoders without qkv "
-                f"bias and MLA decoders with dense or routed-expert FFNs")
-        if cfg.tie_embeddings:
-            raise NotImplementedError(
-                f"{cfg.name}: tied embeddings (the LM head is the embedding "
-                f"table, and rotation unties it) are a later slice of the "
-                f"port, with the command-r configs; the port's models keep "
-                f"a separate head")
+                f"{cfg.name} ({cfg.family}): the port serves dense GQA "
+                f"decoders, MLA decoders with dense or routed-expert FFNs "
+                f"and Mamba-2 decoders; hybrid, enc-dec and vision models "
+                f"are later slices")
         self.cfg = cfg
         self.codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)  # checks bits
         self.device = resolve_device(device)
@@ -359,13 +418,16 @@ class Model:
         """Random parameters drawn from ``gen`` (which must live on the
         model's device)."""
         cfg, dt, dev = self.cfg, self.dtype, self.device
-        return {
+        params = {
             "embed": init_embedding(gen, cfg.vocab_size, cfg.d_model, dt, dev),
-            "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
-            "head": dense_init(gen, cfg.d_model, cfg.vocab_size, dt, dev),
-            "layers": [init_block(gen, cfg, dt, dev, ffn)
-                       for ffn in cfg.ffn_kinds()],
-        }
+            "final_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev)}
+        if not cfg.tie_embeddings:
+            params["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt,
+                                        dev)
+        params["layers"] = [
+            init_block(gen, cfg, dt, dev, ffn, mixer)
+            for mixer, ffn in zip(cfg.layer_kinds(), cfg.ffn_kinds())]
+        return params
 
     # --------------------------------------------------------------- forward
     def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -381,8 +443,12 @@ class Model:
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps)
 
     def head_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
-        """(..., D) -> (..., V) fp32 logits."""
-        return linear(x, params["head"]).float()
+        """(..., D) -> (..., V) fp32 logits.  A tied model (no ``head``)
+        contracts the (V, D) table over D through a transposed view: no
+        (D, V) copy, which a captured decode would make at every step."""
+        if "head" in params:
+            return linear(x, params["head"]).float()
+        return matmul(x, params["embed"].to(x.dtype).T).float()
 
     def logits(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         return self.head_logits(params, self.hidden_states(params, tokens))
@@ -390,7 +456,8 @@ class Model:
     def loss(self, params: dict, tokens: torch.Tensor,
              labels: torch.Tensor) -> torch.Tensor:
         x = self.hidden_states(params, tokens)
-        return cross_entropy_chunked(x, params["head"], labels)
+        head = params["head"] if "head" in params else params["embed"].T
+        return cross_entropy_chunked(x, head, labels)
 
     # --------------------------------------------------------------- serving
     def _cache_len(self, s: int) -> int:
@@ -420,7 +487,14 @@ class Model:
                                codec.code_dtype),
                     "rs": zeros(scales, codec.scale_dtype)}
 
-        def entry() -> dict:
+        def entry(kind: str) -> dict:
+            if kind == "mamba":
+                return {"conv": zeros((batch, cfg.ssm_conv_width - 1,
+                                       cfg.d_inner + 2 * cfg.ssm_d_state),
+                                      self.dtype),
+                        "ssm": zeros((batch, cfg.ssm_n_heads,
+                                      cfg.ssm_head_dim, cfg.ssm_d_state),
+                                     torch.float32)}
             if _is_mla(cfg):
                 return mla_entry()
             if not codec.quantized:
@@ -435,7 +509,7 @@ class Model:
                 "v": torch.zeros(codes, dtype=codec.code_dtype, device=dev),
                 "vs": torch.zeros(scales, dtype=codec.scale_dtype, device=dev)}
 
-        return [entry() for _ in range(cfg.n_layers)]
+        return [entry(kind) for kind in cfg.layer_kinds()]
 
     def prefill(self, params: dict, tokens: torch.Tensor, *,
                 cache_len: Optional[int] = None, logits: bool = True):
@@ -447,7 +521,8 @@ class Model:
         ``logits=False`` returns ``(None, cache)``: the engine's resume of a
         preempted request rebuilds its pages through this same prefill, but
         its token 0 was drawn before the preemption, so the vocab-wide head
-        product is skipped."""
+        product is skipped.  A Mamba block's entry is its state after the
+        prompt."""
         b, t = tokens.shape
         s = self._cache_len(cache_len or t)
         x = self.embed(params, tokens)
@@ -502,6 +577,9 @@ class Model:
         of prompt length ``t_total``; they live only while the request is
         ingesting."""
         cfg = self.cfg
+        if cfg.family == "ssm":
+            raise NotImplementedError(
+                "chunked prefill supports attn/mla mixers, got 'mamba'")
         if _is_mla(cfg):
             k_shape = (1, t_total, cfg.n_heads,
                        cfg.qk_nope_dim + cfg.qk_rope_dim)

@@ -215,11 +215,13 @@ class Engine:
                  fault_plan=None, retry: Optional[RetryPolicy] = None,
                  watchdog_rounds: int = 256, on_event=None,
                  loop: str = "graph"):
-        if model.cfg.attn_kind not in ("gqa", "mla"):
+        bad = sorted(set(model.cfg.layer_kinds()) - {"attn"})
+        if bad or model.cfg.attn_kind not in ("gqa", "mla"):
             raise ValueError(
-                f"paged serving supports GQA and MLA attention, model has "
-                f"{model.cfg.attn_kind!r}; serve it through "
-                f"launch.serve.generate")
+                f"paged serving supports attn/mla mixers, model has "
+                f"{bad or [model.cfg.attn_kind]} — ssm/cross-attention "
+                f"state is per-slot, not per-page; serve such models "
+                f"through launch.serve.generate")
         if prefill_attn not in ("exact", "paged"):
             raise ValueError(f"prefill_attn must be 'exact' or 'paged', got "
                              f"{prefill_attn!r}")

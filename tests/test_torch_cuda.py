@@ -1834,3 +1834,141 @@ def test_gptq_batched_on_the_kernel_equals_the_plain_loop(cuda, monkeypatch,
     want = gptq_quantize_batched(ws, hs, spec)
     for name in ("q", "w_deq", "scale", "zero", "err"):
         assert torch.equal(got[name], want[name]), name
+
+
+# ------------------------------------------- qwen1.5, command-r and mamba2
+
+
+@pytest.mark.parametrize("bits", [3, 4])
+@pytest.mark.parametrize("m", [1, 4, 64, 256])
+@pytest.mark.parametrize("k,n", [(1536, 48), (1536, 256), (64, 48),
+                                 (3072, 1536)])
+def test_quant_matmul_at_mamba_widths_vs_plain(cuda, bits, m, k, n):
+    """mamba2-780m's narrow projections: ``wdt`` (n 48, less than one
+    column tile), ``wbc`` (n 256) and ``out_proj`` (3072 -> 1536), decode
+    (m <= 4, ``qmm_decode``) and prefill (``qmm_tc``), bf16 and fp32 x."""
+    pw, g = _packed(cuda, bits, k, n, 128 if k % 128 == 0 else -1, seed=31)
+    for dtype, tol in ((torch.bfloat16, 8e-3), (torch.float32, 1e-5)):
+        x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+        want = quant_matmul_ref(x.float(), pw.w_packed, pw.scale, pw.zero,
+                                bits=bits, group_size=pw.group_size)
+        before = quant_matmul.launches
+        got = quant_matmul(x, pw)
+        torch.cuda.synchronize()
+        assert quant_matmul.launches == before + 1
+        assert got.dtype == dtype and got.shape == (m, n)
+        assert _rel(got, want) < tol
+
+
+@pytest.mark.parametrize("kv_bits", [8, 2])
+@pytest.mark.parametrize("grp", [1, 3])
+def test_gqa_attention_kernels_at_one_and_three_query_heads(cuda, kv_bits,
+                                                            grp):
+    """qwen1.5's G 1 (20 query heads on 20 KV heads) and minitron's G 3
+    (24 on 8), Dh 128: the flat decode, the paged decode through a shuffled
+    table (bitwise the flat one) and the paged extend, each against its
+    plain version."""
+    b, s, kv, d, page = 3, 512, 4, 128, 64
+    pos = [500, 37, 255]
+    g = torch.Generator(device=cuda).manual_seed(32 + grp)
+    kq, ks, vq, vs, chunk = _kv_cache(g, b, s, kv, d, kv_bits, cuda)
+    q = torch.randn((b, kv, grp, d), generator=g, device=cuda) * d ** -0.5
+    pos_t = torch.tensor(pos, dtype=torch.int32, device=cuda)
+    kw = dict(kv_bits=kv_bits, chunk=chunk, dh=d, dv=d)
+    acc, _, l = flash_decode_ref(q, kq, ks, vq, vs, pos_t, tile=page, **kw)
+    flat = flash_decode(q, kq, ks, vq, vs, pos_t, kv_bits=kv_bits,
+                        chunk=chunk, dv=d, tile=page)
+    torch.cuda.synchronize()
+    assert flat.shape == (b, kv, grp, d)
+    assert _rel(flat, _finalized(acc, l)) < 1e-5
+    tbl, pools = _paged_pools(kq, ks, vq, vs, chunk, page, 1, seed=33)
+    acc, _, l = paged_flash_decode_ref(tbl, pos_t, q, *pools, page=page, **kw)
+    got = paged_flash_decode(tbl, pos_t, q, *pools, kv_bits=kv_bits,
+                             chunk=chunk, dv=d, page=page)
+    torch.cuda.synchronize()
+    assert _rel(got, _finalized(acc, l)) < 1e-5
+    assert torch.equal(got, flat)
+    # the extend: a 100-token chunk over 3 past pages, bf16 as the model
+    # passes it
+    n_past, L = 3, 100
+    xq, xks, xvq, xvs, _ = _kv_cache(g, 1, (n_past + 1) * page, kv, d,
+                                     kv_bits, cuda)
+    epools = [xq.reshape((n_past + 1, page) + xq.shape[2:]),
+              xks.reshape((n_past + 1, page // chunk) + xks.shape[2:]),
+              xvq.reshape((n_past + 1, page) + xvq.shape[2:]),
+              xvs.reshape((n_past + 1, page // chunk) + xvs.shape[2:])]
+    etbl = (torch.randperm(n_past, generator=torch.Generator().manual_seed(34))
+            + 1).to(torch.int32).to(cuda)
+    qe, k_new, v_new = (torch.randn(shp, generator=g, device=cuda).to(
+        torch.bfloat16) for shp in ((1, L, kv * grp, d), (1, L, kv, d),
+                                    (1, L, kv, d)))
+    ekw = dict(kw, page=page)
+    want = paged_flash_extend_ref(etbl, qe, k_new, v_new, *epools, **ekw)
+    got = paged_flash_extend(etbl, qe, k_new, v_new, *epools, **ekw)
+    torch.cuda.synchronize()
+    assert got.shape == (1, L, kv * grp, d)
+    assert _rel(got, want) < 1e-5
+
+
+@pytest.mark.parametrize("h,kv", [(20, 20), (64, 8)])
+def test_attn_colsum_at_qwen_and_command_r_heads(cuda, h, kv):
+    """qwen1.5's G 1 (20 / 20) and command-r's G 8 (64 / 8), Dh 128, over a
+    calibration batch of 2 x 512."""
+    g = torch.Generator(device=cuda).manual_seed(35)
+    q = torch.randn((2, 512, h, 128), generator=g, device=cuda)
+    k = torch.randn((2, 512, kv, 128), generator=g, device=cuda)
+    want = attn_colsum_ref(q, k)
+    got = attn_colsum(q, k)
+    torch.cuda.synchronize()
+    assert _rel(got, want) < 1e-4
+    assert torch.equal(got, attn_colsum(q, k))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_gram_kernel_at_mamba_width(cuda, dtype):
+    """d 3072 (mamba2-780m's ``out_proj`` input), n 2048: within 1e-5 of
+    the plain version and bitwise symmetric."""
+    g = torch.Generator(device=cuda).manual_seed(36)
+    x = torch.randn((2048, 3072), generator=g, device=cuda).to(dtype)
+    r = torch.rand((2048,), generator=g, device=cuda)
+    got = weighted_gram(x, r)
+    torch.cuda.synchronize()
+    assert _rel(got, weighted_gram_ref(x, r)) < 1e-5
+    assert torch.equal(got, got.T)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_mamba_generate_graph_equals_python_loop(cuda, dtype):
+    """mamba2-780m-smoke with 16 SSD heads on the card, every projection
+    (``wdt`` included) RTN-packed at 3 bits: ``generate`` through the
+    captured decode gives the Python loop's tokens bit for bit, greedy and
+    sampled, with the same launches; the conv and SSM state stay in the
+    static cache, advanced in place at every replay, and the fp32 leaves
+    and state keep their dtype in a bf16 model."""
+    cfg = dataclasses.replace(get_config("mamba2-780m").reduced(),
+                              ssm_head_dim=8, dtype=dtype)
+    model = Model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    spec = QuantSpec(bits=3, group_size=32)
+    for layer in params["layers"]:
+        mixer = layer["mixer"]
+        for name in ("wzx", "wbc", "wdt", "out_proj"):
+            _, q, sc, zr = quantize_weight_rtn(mixer[name].float(), spec)
+            mixer[name] = pack_weight(q, sc, zr, spec)
+        assert mixer["A_log"].dtype == torch.float32
+    prompts = torch.randint(2, cfg.vocab_size, (3, 64),
+                            generator=torch.Generator(device=cuda)
+                            .manual_seed(1), device=cuda)
+    for temperature in (0.0, 1.3):
+        graph, python, n_graph, n_python = _loops(
+            lambda loop: generate(model, params, prompts, 9,
+                                  temperature=temperature, seed=4,
+                                  loop=loop))
+        assert torch.equal(graph, python), (graph.tolist(), python.tolist())
+        assert n_graph == n_python
+    assert n_python["quant_matmul"][1]["qmm_decode"] > 0
+    assert all(r.captured for r, _ in model.graphs.values())
+    static = next(iter(model.graphs.values()))[1]["cache"][0]
+    assert static["ssm"].dtype == torch.float32
+    assert static["conv"].dtype == model.dtype

@@ -131,9 +131,23 @@ def test_model_builds_deepseek_with_its_moe_layers(arch):
     ("mamba2-780m", "dense GQA"), ("jamba-v0.1-52b", "dense GQA"),
     ("qwen1.5-4b", "qkv"), ("command-r-35b", "tied embeddings")])
 def test_model_refuses_ssm_hybrid_qkv_bias_and_tied_embeddings(arch, match):
+    """The hybrid (jamba: GQA and Mamba blocks, MoE on GQA) is still
+    refused.  SSM, qkv bias and tied embeddings are served since they were
+    ported (held to the reference by ``tests/test_torch_dense_variants.py``
+    and ``tests/test_torch_ssm.py``): their full-width configs build, with
+    Mamba blocks, bias leaves and no LM head of their own."""
     cfg = ModelConfig(**dataclasses.asdict(ref_get_config(arch)))
-    with pytest.raises(NotImplementedError, match=match):
-        Model(cfg, "cpu")
+    if cfg.family == "hybrid":
+        with pytest.raises(NotImplementedError, match=match):
+            Model(cfg, "cpu")
+        return
+    model = Model(cfg, "cpu")
+    params = Model(cfg.reduced(), "cpu").init(torch.Generator())
+    mixer = params["layers"][0]["mixer"]
+    assert ("wzx" in mixer) == (cfg.family == "ssm")
+    assert ("bq" in mixer) == cfg.qkv_bias
+    assert ("head" in params) == (not cfg.tie_embeddings)
+    assert model.cfg is cfg
 
 
 @pytest.mark.parametrize("n", [24, 7 * 64])

@@ -109,9 +109,15 @@ def test_rotate_model_with_reference_q(pair):
 
 
 def test_model_refuses_tied_embeddings(tiny_cfg):
-    """A tied config (no separate LM head in the reference) is refused, not
-    served with a randomly drawn head."""
+    """A tied config (no separate LM head in the reference) is not served
+    with a randomly drawn head: since tied embeddings were ported it draws
+    none, and its logits contract the table itself (the reference's
+    ``head_logits``)."""
     cfg = dataclasses.replace(ModelConfig(**dataclasses.asdict(tiny_cfg)),
                               tie_embeddings=True)
-    with pytest.raises(NotImplementedError, match="tied embeddings"):
-        Model(cfg, "cpu")
+    model = Model(cfg, "cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    assert "head" not in params
+    x = torch.randn((3, cfg.d_model), generator=torch.Generator())
+    torch.testing.assert_close(model.head_logits(params, x),
+                               x @ params["embed"].T, rtol=0, atol=0)
