@@ -45,7 +45,11 @@ Phases, in order; any failure exits non-zero before the final line:
      qwen1.5-4b's FFN input and command-r-35b's 22528-row FFN output,
      ``gram`` at d 3072 and 22528, the three GQA attention kernels at one
      (qwen1.5) and three (minitron) query heads a KV head, and
-     ``attn_colsum`` at qwen1.5's and command-r's heads;
+     ``attn_colsum`` at qwen1.5's and command-r's heads; the hybrid
+     slice's (``check_hybrid_kernels``): ``quant_matmul`` at
+     jamba-v0.1-52b's four Mamba projections (``wbc``'s 32 and ``wdt``'s
+     128 columns), ``gram`` on its E 16 expert stacks (n 320, d 4096 and
+     14336) and the stacks' ``quant_matmul`` at m 8 and 40;
   3. the main path: RSQ quantize of llama3-8b at full width and 1 layer
      (random weights from a seed; GPTQ's solves grouped by shape, each
      block of rows one ``solve_block`` launch a group; the layer's
@@ -106,13 +110,23 @@ Phases, in order; any failure exits non-zero before the final line:
      a ``--no-rotate`` quantize served (no ``head``: the tied table is the
      LM head); layer 0's qwen ``mixer/wq`` and command-r ``mixer/wk``
      solves against the host CPU;
-  7. the SSM path (``ssm_path``): mamba2-780m whole (48 layers): quantize
-     (seconds and ``solve_s`` per layer, ``ppl_ratio`` over the whole
-     model) -> keep-packed bf16 serve at prompt 64 / 16 tokens and 1024 /
+  7. the SSM path (``ssm_path``): mamba2-780m, 24 of its 48 layers (48
+     until the hybrid path below needed the time): quantize
+     (seconds and ``solve_s`` per layer, ``ppl_ratio`` over the 24
+     layers) -> keep-packed bf16 serve at prompt 64 / 16 tokens and 1024 /
      32, each in both loops (the Mamba state in the graph's static cache)
      and against the dequantized serve; layer 0's ``wzx``, ``wdt`` and
      ``out_proj`` solves against the host CPU;
-  8. the strategy sweep: the quantize CLI on llama3-8b's layer 0 at full
+  8. the hybrid path (``hybrid_path``): jamba-v0.1-52b at full width, its
+     first layer group (8 layers: Mamba-2 and GQA mixers, dense and
+     16-expert FFNs), bf16: quantize (layer seconds by block kind, peak
+     device memory under 70 GB, ``ppl_ratio``) -> artifact -> keep-packed
+     serve at prompt 64 / 16 tokens (fp cache) and 1024 / 32 (kv8), each
+     in both loops, a traced decode, keep-packed vs dequantized (in fp32
+     when 8 bf16 layers part them beyond 2e-2), then layer 0's ``wbc`` and
+     ``out_proj``, layer 4's ``wk`` and two of layer 1's ``experts/wi``
+     solves against the host CPU (``check_hybrid_solves``);
+  9. the strategy sweep: the quantize CLI on llama3-8b's layer 0 at full
      width, once with each of the paper's eight token-importance strategies
      and once with AttnCon on the calibration set expanded twofold: each
      run's seconds, proxy losses and ``ppl_ratio``; fails on a loss that is
@@ -123,9 +137,10 @@ launches on every path in ``path_launches``, ``gram``'s with its expert
 stack rows in ``experts``, ``solve_block``'s with its launches on each
 path; ``quant_matmul``'s
 entry is its decode row with ``prefill`` and ``prefill_fp32`` rows beside
-it, each with its kernel's launches on both paths, ``quant_matmul_t``'s its
+it, each with its kernel's launches on every path, ``quant_matmul_t``'s its
 decode row with a ``prefill`` row, each with its kernel's MLA launches;
-``quant_matmul``'s expert-stack rows in ``experts``) and
+``quant_matmul``'s expert-stack rows in ``experts`` (jamba's as
+``hybrid_*``) and jamba's Mamba projections in ``hybrid``) and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 reference package.
 
@@ -251,17 +266,52 @@ QWEN_ARCH, CMDR_ARCH, VARIANT_LAYERS = "qwen1.5-4b", "command-r-35b", 1
 # measured: two 22528 x 8192 GPTQ solves and the capture of its 22528-wide
 # FFN, where the script has ~300 s left of its limit)
 VARIANT_SOLVE_CHECK = {QWEN_ARCH: ("mixer/wq",), CMDR_ARCH: ("mixer/wk",)}
-# the SSM path: mamba2-780m whole (48 Mamba-2 layers, d_model 1536, d_inner
-# 3072, 48 SSD heads of 64, state 128, tied embeddings), quantized in fp32,
+# the SSM path: mamba2-780m, 24 of its 48 layers (cut from the whole model
+# to make room for the hybrid path; d_model 1536, d_inner 3072, 48 SSD
+# heads of 64, state 128, tied embeddings), quantized in fp32,
 # served keep-packed in bf16 at (prompt, new tokens) SSM_SERVES, each in
 # both decode loops and against the dequantized serve; layer 0's wzx, wdt
 # (1536 x 48: quantized at full width) and out_proj re-solved on the CPU
-SSM_ARCH, SSM_LAYERS = "mamba2-780m", 48
+SSM_ARCH, SSM_LAYERS = "mamba2-780m", 24
 SSM_SERVES = ((PROMPT_LEN, N_GEN), (KV_PROMPT, KV_GEN))
 SSM_SOLVE_CHECK = ("mixer/wzx", "mixer/wdt", "mixer/out_proj")
 # kernels a path does not run, with the reason
 SSM_PATH_WITHOUT = {"attn_colsum": "attention-free: AttnCon falls back to "
                                    "ActNorm"}
+# the hybrid path: jamba-v0.1-52b at full width, its first layer group (8
+# layers: Mamba-2 blocks at positions 0-3 and 5-7, GQA 32 / 8 at 4; dense
+# FFNs at the even positions, 16 routed experts top-2 of 14336 at the odd
+# ones, no shared expert), in bf16 (26.5 GB of weights; the MoE layers'
+# 14.2 GB of expert Hessians beside them); the quantize run's peak device
+# memory must stay under HYB_MAX_BYTES.  Served keep-packed in bf16 at
+# (prompt, new tokens, kv bits) HYB_SERVES, each in both loops and against
+# the dequantized serve
+HYB_ARCH, HYB_LAYERS, HYB_DTYPE = "jamba-v0.1-52b", 8, "bfloat16"
+HYB_E, HYB_D, HYB_F = 16, 4096, 14336
+HYB_MAX_BYTES = 70e9
+# an expert's capacity (moe_capacity) in a calibration batch (4 x 512
+# tokens x top-2 / 16 x 1.25), a decode step of the serve batch (rounded
+# up to 8) and a prefill of 4 x 64 tokens
+HYB_CAP_CALIB, HYB_CAP_DECODE, HYB_CAP_PREFILL = 320, 8, 40
+HYB_SERVES = ((PROMPT_LEN, N_GEN, 0), (KV_PROMPT, KV_GEN, 8))
+# solves redone on the host CPU, by layer: layer 0's Mamba wbc (n 32) and
+# out_proj (d_in 8192), the GQA block's wk, and HYB_SOLVE_EXPERTS of layer
+# 1's experts/wi (a 14336-row experts/wd solve costs too much host time)
+HYB_SOLVE_CHECK = {0: ("mixer/wbc", "mixer/out_proj"), 4: ("mixer/wk",),
+                   1: ("ffn/experts/wi",)}
+HYB_SOLVE_EXPERTS = 2
+# the rows whose fp32-noise floor is measured too (a second host solve; the
+# others, d_in x d_out 33-59 M, would cost ~1 min of host time more)
+HYB_NOISE_FLOOR = ("mixer/wbc", "mixer/wk")
+# phase 2 shapes of jamba's Mamba projections (d_inner 8192, 128 heads,
+# state 16: wbc's 32 columns are the narrowest output quantized so far)
+HYB_QMM = (("wzx", 4096, 16384), ("wbc", 4096, 32), ("wdt", 4096, 128),
+           ("out_proj", 8192, 4096))
+# kernels the hybrid path does not run, with the reason
+HYB_PATH_WITHOUT = {
+    "paged_flash_decode": "the engine refuses Mamba blocks (state per slot, "
+                          "not per page), as the reference's does",
+    "paged_flash_extend": "the chunked prefill refuses Mamba blocks"}
 # phase 2 shapes of this slice's projections (3-bit, the main path's m):
 # mamba2-780m's four (wdt's 48 columns are less than one column tile),
 # qwen1.5-4b's FFN input and command-r-35b's FFN output; gram at the
@@ -698,6 +748,21 @@ def check_moe_kernels(torch, checks: Checks) -> None:
     ``quant_matmul`` (E 160, 3-bit, group 128, bf16 x; wi / wu 5120 ->
     1536 and wd 1536 -> 5120) at the decode capacity (m 8) and the
     calibration's (m 96), one launch for all experts."""
+    check_expert_kernels(torch, checks, seed=5, arch=MOE_ARCH, e=MOE_E,
+                         n=MOE_CAP_CALIB, d_model=MOE_D, d_ff=MOE_F,
+                         capacities=(MOE_CAP_DECODE, MOE_CAP_CALIB), key="")
+
+
+def check_expert_kernels(torch, checks: Checks, *, seed: int, arch: str,
+                         e: int, n: int, d_model: int, d_ff: int,
+                         capacities: tuple, key: str) -> None:
+    """``check_moe_kernels`` at one model's widths: the batched ``gram``
+    over E expert buffers of n slots at d_model and d_ff, and the
+    expert-stack ``quant_matmul`` (d_model -> d_ff and d_ff -> d_model) at
+    each capacity m of ``capacities``.  Representative rows are keyed
+    ``gram_experts_{key}d{d}`` and ``quant_matmul_experts_{key}{w}_m{m}``.
+    The plain ``gram`` is compared a few experts at a time (at most 4 GB
+    of fp32 Hessians)."""
     from repro_torch.core.quantizer import QuantSpec, quantize_weight_rtn
     from repro_torch.kernels.gram.ops import weighted_gram
     from repro_torch.kernels.gram.ref import weighted_gram_ref
@@ -706,9 +771,9 @@ def check_moe_kernels(torch, checks: Checks) -> None:
     from repro_torch.kernels.quant_matmul.ref import quant_matmul_ref
 
     dev = torch.device("cuda")
-    g = torch.Generator(device=dev).manual_seed(5)
-    timer, e, n = checks.timer, MOE_E, MOE_CAP_CALIB
-    for d in (MOE_D, MOE_F):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    timer = checks.timer
+    for d in (d_model, d_ff):
         x = torch.randn((e, n, d), generator=g, device=dev).to(torch.bfloat16)
         r = torch.rand((e, n), generator=g, device=dev)
         before = weighted_gram.launches
@@ -718,11 +783,13 @@ def check_moe_kernels(torch, checks: Checks) -> None:
             checks.bad.append(f"batched gram (E {e}, d {d}) took "
                               f"{weighted_gram.launches - before} launches")
         diff = peak = 0.0
-        for c in range(0, e, 16):
-            want = weighted_gram_ref(x[c:c + 16], r[c:c + 16])
-            diff = max(diff, float((got[c:c + 16] - want).abs().max()))
+        step = max(1, min(16, (4 << 30) // (4 * d * d)))
+        for c in range(0, e, step):
+            want = weighted_gram_ref(x[c:c + step], r[c:c + step])
+            diff = max(diff, float((got[c:c + step] - want).abs().max()))
             peak = max(peak, float(want.abs().max()))
-            if not torch.equal(got[c:c + 16], got[c:c + 16].transpose(1, 2)):
+            if not torch.equal(got[c:c + step],
+                               got[c:c + step].transpose(1, 2)):
                 checks.bad.append(f"batched gram (E {e}, d {d}) is not "
                                   f"bitwise symmetric")
             del want
@@ -737,15 +804,16 @@ def check_moe_kernels(torch, checks: Checks) -> None:
         del xr, got
         torch.cuda.empty_cache()
         # the six bf16 term products of each triangle, as the 2-D row
-        checks.record("gram", {"E": e, "n": n, "d": d, "x": "bfloat16"},
+        checks.record("gram", {"arch": arch, "E": e, "n": n, "d": d,
+                               "x": "bfloat16"},
                       (diff, diff / max(peak, 1e-30)), None, TOL_FP32, ms,
                       plain_ms, library_ms, nbytes,
                       6.0 * e * n * d * (d + 1), "bfloat16",
-                      f"gram_experts_d{d}")
+                      f"gram_experts_{key}d{d}")
         del x, r
     spec = QuantSpec(bits=BITS, group_size=GROUP)
-    for wname, (kk, nn) in (("wi/wu", (MOE_D, MOE_F)),
-                            ("wd", (MOE_F, MOE_D))):
+    for wname, (kk, nn) in (("wi/wu", (d_model, d_ff)),
+                            ("wd", (d_ff, d_model))):
         parts, deq = [], []
         for _ in range(e):  # an RTN stack, packed expert by expert
             w = torch.randn((kk, nn), generator=g, device=dev) * kk ** -0.5
@@ -758,7 +826,7 @@ def check_moe_kernels(torch, checks: Checks) -> None:
             zero=torch.stack([p.zero for p in parts]))
         w_bf16 = torch.stack(deq)
         del parts, deq
-        for m in (MOE_CAP_DECODE, MOE_CAP_CALIB):
+        for m in capacities:
             x = torch.randn((e, m, kk), generator=g, device=dev).to(
                 torch.bfloat16)
             want = quant_matmul_ref(x.float(), pw.w_packed, pw.scale,
@@ -777,11 +845,11 @@ def check_moe_kernels(torch, checks: Checks) -> None:
             library_ms = timer.ms([lambda: torch.bmm(x, w_bf16)])
             nbytes = (x.numel() + e * m * nn) * 2 + pw.nbytes
             checks.record("quant_matmul",
-                          {"arch": MOE_ARCH, "weight": f"experts/{wname}",
+                          {"arch": arch, "weight": f"experts/{wname}",
                            "E": e, "m": m, "k": kk, "n": nn, "bits": BITS},
                           got, want, TOL_BF16, ms, plain_ms, library_ms,
                           nbytes, 2.0 * e * m * nn * kk, "bfloat16",
-                          f"quant_matmul_experts_{wname}_m{m}")
+                          f"quant_matmul_experts_{key}{wname}_m{m}")
             del x, want, got
         del pw, w_bf16
         torch.cuda.empty_cache()
@@ -806,6 +874,30 @@ def check_variant_kernels(torch, checks: Checks) -> None:
         check_colsum(torch, checks, g, CALIB_BATCH, CALIB_SEQ, h, kv, 128,
                      False)
         torch.cuda.empty_cache()
+
+
+def check_hybrid_kernels(torch, checks: Checks) -> None:
+    """Phase 2, the hybrid slice's new shapes at jamba-v0.1-52b's widths:
+    ``quant_matmul`` at its Mamba projections HYB_QMM (decode m 4 and
+    prefill m 256; ``wbc``'s 32 and ``wdt``'s 128 columns are narrower
+    than a column tile), and ``check_expert_kernels`` at E 16: ``gram``
+    over HYB_CAP_CALIB slots at d 4096 and 14336 (a 13.2 GB stack of
+    Hessians), the stacks' ``quant_matmul`` at the decode capacity (m 8)
+    and a 4 x 64 prefill's (m 40).  Its GQA block's kernels run at
+    llama3-8b's shapes (H 32 / 8, Dh 128), checked in the first slice."""
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(8)
+    for wname, kk, nn in HYB_QMM:
+        check_packed(torch, checks, g, wname, kk, nn, BITS,
+                     (SERVE_BATCH, SERVE_BATCH * PROMPT_LEN),
+                     {SERVE_BATCH: f"quant_matmul_hybrid_{wname}",
+                      SERVE_BATCH * PROMPT_LEN:
+                      f"quant_matmul_prefill_hybrid_{wname}"},
+                     arch=HYB_ARCH)
+    torch.cuda.empty_cache()
+    check_expert_kernels(torch, checks, seed=9, arch=HYB_ARCH, e=HYB_E,
+                         n=HYB_CAP_CALIB, d_model=HYB_D, d_ff=HYB_F,
+                         capacities=(HYB_CAP_DECODE, HYB_CAP_PREFILL),
+                         key="hybrid_")
 
 
 def check_hadamard(torch, checks: Checks) -> None:
@@ -1760,12 +1852,8 @@ def check_solves(torch, entries: dict, proxy_card: dict, *, arch=ARCH,
     block's capture has no scores: AttnCon falls back to ActNorm, as in the
     pipeline."""
     from repro_torch.core import hessian as hess
-    from repro_torch.core.gptq import gptq_quantize
     from repro_torch.core.importance import ImportanceInputs, attn_con
     from repro_torch.core.pipeline import RSQConfig
-    from repro_torch.core.quantizer import (dequantize_packed,
-                                            quantize_weight_rtn,
-                                            unpack_codes, words_from_numpy)
     from repro_torch.core.rotation import rotate_model
     from repro_torch.data.calibration import calibration_set
     from repro_torch.device import generator
@@ -1819,55 +1907,9 @@ def check_solves(torch, entries: dict, proxy_card: dict, *, arch=ARCH,
     rows, bad = {}, []
     for path in paths:
         sub, name = path.split("/")
-        w, h = blk[sub][name], hs[path]
-        d_in = w.shape[0]
-        block = min(rsq.gptq_block, d_in)
-        host = gptq_quantize(w, h, rsq.spec(), damp=rsq.damp, block=block)
-        noise = torch.randn(h.shape, generator=torch.Generator()
-                            .manual_seed(SEED))
-        rel = 2.0 ** -24 * math.sqrt(N_CALIB * CALIB_SEQ)
-        noisy = gptq_quantize(w, h * (1 + rel * 0.5 * (noise + noise.T)),
-                              rsq.spec(), damp=rsq.damp, block=block)
-        del noise
-        e = entries[f"layer0/{path}"]
-        words = words_from_numpy(e["codes"])
-        match = float((unpack_codes(words, BITS, d_in) == host["q"])
-                      .float().mean())
-        floor = float((noisy["q"] == host["q"]).float().mean())
-        w_card = dequantize_packed(words, torch.from_numpy(e["scale"]),
-                                   torch.from_numpy(e["zero"]), bits=BITS,
-                                   d_in=d_in)
-        w_rtn = quantize_weight_rtn(w, rsq.spec())[0]
-        h_dev, w_dev = h.to(dev), w.to(dev)
-
-        def out_err(wq) -> float:  # tr(ΔᵀHΔ), on the card for speed
-            delta = w_dev - wq.to(dev)
-            return float((delta * (h_dev @ delta)).sum())
-
-        p_card, p_host = proxy_card[path], float(host["err"])
-        row = {"code_match": match, "code_match_fp32_noise": floor,
-               "proxy_card": p_card, "proxy_cpu": p_host,
-               "proxy_rel_diff": abs(p_card - p_host) / p_host,
-               "out_err_card": out_err(w_card), "out_err_cpu":
-               out_err(host["w_deq"]), "out_err_rtn": out_err(w_rtn)}
-        row["out_err_rel_diff"] = (abs(row["out_err_card"]
-                                       - row["out_err_cpu"])
-                                   / row["out_err_cpu"])
-        rows[path] = row
-        if not match >= MIN_CODE_MATCH:
-            bad.append(f"{path}: {match:.4f} of codes equal "
-                       f"< {MIN_CODE_MATCH}")
-        if not row["proxy_rel_diff"] <= TOL_PROXY:
-            bad.append(f"{path}: proxy loss {p_card} (card) vs {p_host} "
-                       f"(cpu) > {TOL_PROXY} relative")
-        if not row["out_err_rel_diff"] <= TOL_PROXY:
-            bad.append(f"{path}: output error {row['out_err_card']} (card "
-                       f"codes) vs {row['out_err_cpu']} (cpu) > {TOL_PROXY} "
-                       f"relative")
-        if not row["out_err_card"] < row["out_err_rtn"]:
-            bad.append(f"{path}: GPTQ output error {row['out_err_card']} "
-                       f"not below RTN's {row['out_err_rtn']}")
-        del h_dev, w_dev
+        rows[path] = solve_row(torch, blk[sub][name], hs[path],
+                               entries[f"layer0/{path}"], proxy_card[path],
+                               rsq, path, bad)
     torch.cuda.empty_cache()
     log({"solve_check": {"arch": arch, "layer": 0, "weights": rows,
                          "seconds": time.perf_counter() - t0,
@@ -2501,6 +2543,72 @@ def overload_runs(mode: str, engine_run, chunk, attn, sps, base,
         if why:
             bad.append(f"{tag} {name}: " + "; ".join(why))
     return rows
+
+
+def solve_row(torch, w, h, e: dict, p_card: float, rsq, tag: str,
+              bad: list, noise_floor: bool = True) -> dict:
+    """One weight's card solve against the same GPTQ solve on the host CPU
+    (``check_solves``' rule): ``w`` (d_in, d_out) and its Hessian ``h``
+    on the CPU, ``e`` its artifact entry (the card's codes, scales and
+    zeros), ``p_card`` the card's proxy loss.  Appends each failure to
+    ``bad`` (prefixed ``tag``) and returns the logged row; with
+    ``noise_floor`` the CPU also re-solves after perturbing H by fp32
+    summation noise and reports how many codes that alone keeps (a
+    diagnostic: it costs a second host solve)."""
+    from repro_torch.core.gptq import gptq_quantize
+    from repro_torch.core.pipeline import _solve_spec
+    from repro_torch.core.quantizer import (dequantize_packed,
+                                            quantize_weight_rtn,
+                                            unpack_codes, words_from_numpy)
+
+    dev = torch.device("cuda")
+    w = w.float()
+    d_in = w.shape[0]
+    spec, block = _solve_spec(rsq, d_in)  # the pipeline's own
+    host = gptq_quantize(w, h, spec, damp=rsq.damp, block=block)
+    floor = None
+    if noise_floor:
+        noise = torch.randn(h.shape, generator=torch.Generator()
+                            .manual_seed(SEED))
+        rel = 2.0 ** -24 * math.sqrt(N_CALIB * CALIB_SEQ)
+        noisy = gptq_quantize(w, h * (1 + rel * 0.5 * (noise + noise.T)),
+                              spec, damp=rsq.damp, block=block)
+        floor = float((noisy["q"] == host["q"]).float().mean())
+        del noise, noisy
+    words = words_from_numpy(e["codes"])
+    match = float((unpack_codes(words, BITS, d_in) == host["q"]).float()
+                  .mean())
+    w_card = dequantize_packed(words, torch.from_numpy(e["scale"]),
+                               torch.from_numpy(e["zero"]), bits=BITS,
+                               d_in=d_in)
+    h_dev, w_dev = h.to(dev), w.to(dev)
+
+    def out_err(wq) -> float:  # tr(ΔᵀHΔ), on the card for speed
+        delta = w_dev - wq.float().to(dev)
+        return float((delta * (h_dev @ delta)).sum())
+
+    p_host = float(host["err"])
+    row = {"code_match": match, "code_match_fp32_noise": floor,
+           "proxy_card": p_card, "proxy_cpu": p_host,
+           "proxy_rel_diff": abs(p_card - p_host) / p_host,
+           "out_err_card": out_err(w_card),
+           "out_err_cpu": out_err(host["w_deq"]),
+           "out_err_rtn": out_err(quantize_weight_rtn(w, spec)[0])}
+    row["out_err_rel_diff"] = (abs(row["out_err_card"] - row["out_err_cpu"])
+                               / row["out_err_cpu"])
+    if not match >= MIN_CODE_MATCH:
+        bad.append(f"{tag}: {match:.4f} of codes equal < {MIN_CODE_MATCH}")
+    if not row["proxy_rel_diff"] <= TOL_PROXY:
+        bad.append(f"{tag}: proxy loss {p_card} (card) vs {p_host} (cpu) > "
+                   f"{TOL_PROXY} relative")
+    if not row["out_err_rel_diff"] <= TOL_PROXY:
+        bad.append(f"{tag}: output error {row['out_err_card']} (card codes) "
+                   f"vs {row['out_err_cpu']} (cpu) > {TOL_PROXY} relative")
+    if not row["out_err_card"] < row["out_err_rtn"]:
+        bad.append(f"{tag}: GPTQ output error {row['out_err_card']} not "
+                   f"below RTN's {row['out_err_rtn']}")
+    del h_dev, w_dev
+    return row
 
 
 def launch_delta(after: dict, before: dict) -> dict:
@@ -3382,8 +3490,8 @@ def variants_path(torch) -> dict:
 
 
 def ssm_path(torch) -> dict:
-    """Phase 7, the Mamba-2 slice: RSQ quantize of mamba2-780m whole (48
-    layers, full width, fp32; AttnCon falls back to ActNorm on these
+    """Phase 7, the Mamba-2 slice: RSQ quantize of mamba2-780m (SSM_LAYERS
+    of 48 layers, full width, fp32; AttnCon falls back to ActNorm on these
     attention-free layers) -> artifact -> keep-packed bf16 serve at each of
     SSM_SERVES in the graph and the Python loop (the conv and SSM state in
     the graph's static cache: bitwise equal tokens and launches, one
@@ -3510,6 +3618,435 @@ def ssm_path(torch) -> dict:
     check_solves(torch, entries, proxy0, arch=SSM_ARCH, n_layers=SSM_LAYERS,
                  paths=SSM_SOLVE_CHECK)
     return launches
+
+
+def hybrid_kinds(cfg) -> list:
+    """Each layer's block kind, ``<mixer>+<ffn>`` (``mamba+moe``)."""
+    return [f"{m}+{f}" for m, f in zip(cfg.layer_kinds(), cfg.ffn_kinds())]
+
+
+def hybrid_path(torch) -> dict:
+    """Phase 8, the hybrid slice: RSQ quantize of jamba-v0.1-52b at full
+    width, its first layer group (HYB_LAYERS layers: Mamba-2 and GQA
+    mixers, dense and 16-expert FFNs), bf16 weights -> artifact (each
+    layer's seconds, ``capture_s`` and ``solve_s`` by block kind, the peak
+    device memory, which must stay under HYB_MAX_BYTES, and ``ppl_ratio``)
+    -> loaded once keep-packed in bf16 -> ``generate`` at each of
+    HYB_SERVES (prompt 64 / 16 tokens with an fp cache, 1024 / 32 with
+    kv8: the Mamba states and the GQA block's K/V in one cache) in the
+    graph and the Python loop (``generate_loops``), one traced decode (its
+    idle share), then the fp-cache serve against the same weights
+    dequantized (as ``--no-keep-packed`` loads them): the same tokens and
+    first-step logits within TOL_SERVE_LOGITS, or else both serves again
+    in fp32, which must then agree to TOL_SSM_FP32_SERVE with the same
+    tokens, the bf16 keep-packed serve no farther from the fp32 one than
+    SSM_BF16_FACTOR times the bf16 dequantized one; then
+    ``check_hybrid_solves``.  Launches are counted from zero over the
+    quantize and the serves."""
+    from repro_torch.checkpoint.packed import (load_packed_entry,
+                                               load_packed_forward_params,
+                                               resident_weight_bytes)
+    from repro_torch.core.quantizer import dequantize_packed
+    from repro_torch.data.calibration import SyntheticCorpus
+    from repro_torch.device import generator
+    from repro_torch.kernels.attn_colsum.ops import attn_colsum
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.gptq_block.ops import solve_block
+    from repro_torch.kernels.gram.ops import weighted_gram
+    from repro_torch.kernels.hadamard.ops import fwht
+    from repro_torch.kernels.quant_matmul.ops import is_packed, quant_matmul
+    from repro_torch.launch import quantize, serve
+    from repro_torch.launch.quantize import model_config
+    from repro_torch.models.lm import Model
+
+    counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
+               "quant_matmul": quant_matmul, "fwht": fwht,
+               "solve_block": solve_block}
+    counted.update({name: getattr(fd_ops, name) for name in KvAudit.GQA})
+
+    def mapped(tree, fn, name="", in_place=False):
+        """``fn`` on every leaf: a new tree, or ``tree`` itself with each
+        leaf replaced as it goes (the old one freed before the next)."""
+        if isinstance(tree, (dict, list)):
+            out = tree if in_place else type(tree)()
+            items = tree.items() if isinstance(tree, dict) else \
+                enumerate(tree)
+            for k, v in items:
+                new = mapped(v, fn, k if isinstance(tree, dict) else name,
+                             in_place)
+                if isinstance(out, dict) or in_place:
+                    out[k] = new
+                else:
+                    out.append(new)
+            return out
+        return fn(tree, name)
+
+    def dequantized(dtype):  # as ``load_packed_params``, in ``dtype``
+        def fn(w, name):
+            if not is_packed(w):
+                return w if w.dtype == torch.float32 else w.to(dtype)
+            if w.w_packed.ndim == 2:
+                return dequantize_packed(w.w_packed, w.scale, w.zero,
+                                         bits=w.bits, d_in=w.d_in).to(dtype)
+            out = torch.empty((w.w_packed.shape[0], w.d_in,
+                               w.w_packed.shape[-1]), dtype=dtype,
+                              device=w.w_packed.device)
+            for e in range(out.shape[0]):  # an expert at a time
+                out[e] = dequantize_packed(w.w_packed[e], w.scale[e],
+                                           w.zero[e], bits=w.bits,
+                                           d_in=w.d_in)
+            return out
+        return fn
+
+    def fp32_residual(w, name):  # keep-packed with an fp32 residual
+        return w if is_packed(w) else w.float()
+
+    dev = torch.device("cuda")
+    cfg = model_config(HYB_ARCH, HYB_LAYERS, HYB_DTYPE)
+    kinds = hybrid_kinds(cfg)
+    art = ROOT / "build" / "chip_smoke_hybrid_artifact"
+    common = ["--arch", HYB_ARCH, "--n-layers", str(HYB_LAYERS), "--device",
+              "cuda", "--bits", str(BITS), "--group-size", str(GROUP),
+              "--n-calib", str(N_CALIB), "--calib-seq", str(CALIB_SEQ),
+              "--batch", str(CALIB_BATCH), "--dtype", HYB_DTYPE,
+              "--seed", str(SEED)]
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seed=SEED)
+    row: dict = {"arch": HYB_ARCH}
+    try:
+        shutil.rmtree(art, ignore_errors=True)
+        reset_counts(counted)
+        q, row["quantize_s"], peak = quantize_run(
+            torch, quantize, common + ["--pack-out", str(art)])
+        summary, layer_reps = q["summary"], q["report"]["layers"]
+        del q
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["quantize_max_memory_allocated"] = peak
+        by_kind: dict = {}
+        for li, kind in enumerate(kinds):
+            rep = layer_reps[f"layer{li}"]
+            by_kind.setdefault(kind, []).append(
+                {k: rep[k] for k in ("seconds", "capture_s", "solve_s",
+                                     "apply_s")})
+        log({"hybrid_layer_calibration": {
+            "arch": HYB_ARCH, "kinds": kinds, "by_kind": by_kind,
+            "quantize_max_memory_allocated": peak,
+            "quantize_s": row["quantize_s"]}})
+        row.update({k: summary[k] for k in ("ppl_fp", "ppl_quant",
+                                            "ppl_ratio", "n_weights")})
+        check_ratio(summary, HYB_ARCH)
+        if not peak <= HYB_MAX_BYTES:
+            fail(f"{HYB_ARCH}: the quantize run's peak device memory {peak} "
+                 f"B > {HYB_MAX_BYTES:.3g}")
+        proxies = {li: layer_reps[f"layer{li}"]["weights"]
+                   for li in HYB_SOLVE_CHECK}
+        t0 = time.perf_counter()
+        params, meta = load_packed_forward_params(art, device=dev,
+                                                  dtype=torch.bfloat16)
+        row["load_s"] = time.perf_counter() - t0
+        # the entries of the layers the solve check runs through (the
+        # loader above verified the file)
+        last = max(HYB_SOLVE_CHECK)
+        entries = {name: load_packed_entry(art, name)
+                   for name, em in meta["entries"].items()
+                   if int(em["tag"][5:]) <= last}
+        row["resident_packed_bytes"], row["resident_fp_bytes"] = \
+            resident_weight_bytes(params)
+        serves, first = {}, None
+        for prompt, n_gen, kv in HYB_SERVES:
+            model = Model(dataclasses.replace(cfg, kv_bits=kv), dev)
+            prompts = corpus.sample(generator(SEED + 1), SERVE_BATCH,
+                                    prompt).to(dev)
+            tag = f"{HYB_ARCH} prompt {prompt} kv{kv}"
+            run, loops = generate_loops(torch, model, params, prompts, n_gen,
+                                        tag)
+            cache_b, fp_b = serve.kv_cache_bytes(model, SERVE_BATCH,
+                                                 prompt + n_gen)
+            serves[f"prompt{prompt}_gen{n_gen}_kv{kv}"] = {
+                "prefill_tok_s": run["prefill_tok_s"],
+                "decode_tok_s": run["decode_tok_s"], "loops": loops,
+                "cache_bytes": cache_b, "cache_fp_bytes": fp_b}
+            if not bool(torch.isfinite(run["first_logits"]).all()):
+                fail(f"{tag}: non-finite logits from the keep-packed serve")
+            if first is None:
+                first = (model, prompts, run)
+        model, prompts, packed = first
+        bf16_run = {k: packed[k] for k in ("tokens", "first_logits")}
+        prof = serve.profile_generate(model, params, prompts, N_GEN)
+        wall_ms = 1e3 * SERVE_BATCH * (PROMPT_LEN / packed["prefill_tok_s"]
+                                       + (N_GEN - 1) / packed["decode_tok_s"])
+        prof["untraced_wall_ms"] = wall_ms
+        prof["idle_share"] = 1.0 - prof["device_busy_ms"] / wall_ms
+        launches = read_counts(counted)
+
+        def serve_with(p, dtype: str):
+            """``generate`` on ``p`` with a model of its own, whose
+            captured graphs (and the params they hold) go with it."""
+            m = Model(dataclasses.replace(cfg, dtype=dtype), dev)
+            st: dict = {}
+            toks = serve.generate(m, p, prompts, N_GEN, stats=st)
+            return {"tokens": toks.cpu().tolist(),
+                    "first_logits": st["first_logits"],
+                    "decode_tok_s": SERVE_BATCH * (N_GEN - 1)
+                    / st["decode_s"]}
+
+        deq = mapped(params, dequantized(torch.bfloat16))
+        dequant = serve_with(deq, HYB_DTYPE)
+        del deq
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["dequantized_decode_tok_s"] = dequant["decode_tok_s"]
+        agree = dict(agreement(torch, packed, dequant), tol=TOL_SERVE_LOGITS)
+        row["bf16_vs_dequantized_bf16"] = agree
+        log({"hybrid_serves": {"serves": serves, "bf16_vs_dequantized_bf16":
+                               agree, "dequantized_decode_tok_s":
+                               dequant["decode_tok_s"]}})
+        if not (agree["tokens_equal"]
+                and agree["first_logits_rel_diff"] <= TOL_SERVE_LOGITS):
+            # bf16 activations over 8 layers: hold both serves in fp32
+            kp32 = serve_with(mapped(params, fp32_residual), "float32")
+            # 53 GB of fp32 weights: each packed leaf is replaced in
+            # place, so the codes go as the fp32 weights come; the bf16
+            # serves' graphs (and what they hold) go first
+            del model, first, packed
+            gc.collect()
+            torch.cuda.empty_cache()
+            deq32 = serve_with(mapped(params, dequantized(torch.float32),
+                                      in_place=True), "float32")
+            row["fp32_vs_dequantized_fp32"] = serve_agreement(
+                torch, kp32, deq32, cfg.vocab_size, f"{HYB_ARCH} fp32",
+                TOL_SSM_FP32_SERVE)
+            row["bf16_vs_fp32"] = agreement(torch, bf16_run, deq32)
+            row["dequantized_bf16_vs_fp32"] = agreement(torch, dequant, deq32)
+            far = row["bf16_vs_fp32"]["first_logits_rel_diff"]
+            deq_far = row["dequantized_bf16_vs_fp32"]["first_logits_rel_diff"]
+            if not row["fp32_vs_dequantized_fp32"]["tokens_equal"]:
+                fail(f"{HYB_ARCH}: fp32 keep-packed and dequantized greedy "
+                     f"tokens differ")
+            if not far <= SSM_BF16_FACTOR * deq_far:
+                fail(f"{HYB_ARCH}: bf16 keep-packed logits {far:.3g} from "
+                     f"the fp32 serve's, more than {SSM_BF16_FACTOR} x the "
+                     f"bf16 dequantized serve's {deq_far:.3g}")
+        del params, dequant
+    finally:
+        shutil.rmtree(art, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    row.update(serves=serves, launches=launches, widths={k: getattr(cfg, k)
+               for k in ("d_model", "n_heads", "n_kv_heads", "d_ff",
+                         "vocab_size", "n_routed_experts", "moe_top_k",
+                         "moe_d_ff", "d_inner", "ssm_n_heads", "ssm_d_state",
+                         "ssm_chunk", "scan_period")},
+               reduced={"n_layers": f"{HYB_LAYERS} of "
+                        f"{model_config(HYB_ARCH, 0, HYB_DTYPE).n_layers} "
+                        f"(one layer group)"},
+               layer_seconds={f"layer{li}": layer_reps[f"layer{li}"]["seconds"]
+                              for li in range(HYB_LAYERS)})
+    log({"hybrid_path": row})
+    log({"hybrid_decode_profile": prof})
+    missing = [name for name, c in launches.items()
+               if c <= 0 and name not in NO_PATH
+               and name not in MAIN_PATH_WITHOUT
+               and name not in HYB_PATH_WITHOUT]
+    if missing:
+        fail(f"hybrid path never launched: {missing}")
+    check_hybrid_solves(torch, entries, meta, proxies)
+    return launches
+
+
+def check_hybrid_solves(torch, entries: dict, meta: dict,
+                        proxies: dict) -> dict:
+    """The hybrid path's HYB_SOLVE_CHECK solves against the same solves on
+    the host CPU, by ``check_solves``' rule (``solve_row``).
+
+    The card rebuilds the pipeline's inputs: the quantize CLI's weights
+    from the same seed, each block rotated when reached, and the stream
+    carried through the earlier blocks with the artifact's codes
+    dequantized (what the pipeline propagated through).  At a checked
+    layer the host CPU takes the block's input, computes the token
+    importances with the plain versions (q, k and the ``attn_colsum``
+    plain version at the GQA block; ActNorm at a Mamba block, as AttnCon
+    falls back to it) and builds the checked weights' Hessians from their
+    inputs: the GQA block's ``wk`` input from its own rms norm; a Mamba
+    mixer's from the card's capture, as ``check_expert_solves`` takes the
+    FFN input (plain PyTorch on both sides, no kernel of the port: a bf16
+    SSD scan on the host rounds otherwise than the card's, which alone
+    left 83% of ``out_proj``'s 8192-row codes equal, with proxy losses
+    3.5e-5 apart).  For layer 1's routed experts the card gives the FFN
+    input and r; the CPU routes and builds the capacity buffers, and
+    HYB_SOLVE_EXPERTS experts whose slot tables agree on card and CPU are
+    solved, their card proxy losses from the same solves redone on the
+    card."""
+    from repro_torch.core import hessian as hess
+    from repro_torch.core.importance import ImportanceInputs, attn_con
+    from repro_torch.core.pipeline import RSQConfig
+    from repro_torch.core.quantizer import (dequantize_packed,
+                                            words_from_numpy)
+    from repro_torch.core.rotation import (rotate_ends, rotate_layer,
+                                           rotation_matrix)
+    from repro_torch.data.calibration import calibration_set
+    from repro_torch.device import generator
+    from repro_torch.kernels.attn_colsum.ops import attn_colsum
+    from repro_torch.launch.quantize import model_config
+    from repro_torch.models import attention as att
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.lm import Model, apply_block, capture_block
+
+    t0 = time.perf_counter()
+    rsq = RSQConfig(bits=BITS, group_size=GROUP, seed=SEED)
+    cfg = model_config(HYB_ARCH, HYB_LAYERS, HYB_DTYPE)
+    dev = torch.device("cuda")
+    model = Model(cfg, dev)  # the quantize CLI's draws, in its order
+    params = model.init(generator(SEED, dev))
+    last = max(HYB_SOLVE_CHECK)
+    layers = params.pop("layers")[:last + 1]
+    q = rotation_matrix(params, cfg, None, generator(rsq.seed, dev))
+    ends = rotate_ends(params, q)
+    del params
+    calib = calibration_set(cfg.vocab_size, N_CALIB, CALIB_SEQ, seed=SEED)
+    xs = [model.embed(ends, calib[i:i + CALIB_BATCH].to(dev))
+          for i in range(0, N_CALIB, CALIB_BATCH)]
+    del ends
+
+    def cpu(tree):
+        return {k: cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    rows, bad = {}, []
+    for li in range(last + 1):
+        blk = rotate_layer(layers[li], cfg, q)
+        layers[li] = None
+        paths = HYB_SOLVE_CHECK.get(li, ())
+        name = {p: f"layer{li}/{p}" for p in paths}
+        if any(p.startswith("ffn/experts/") for p in paths):
+            rows.update(hybrid_expert_solves(torch, blk, cfg, xs, entries,
+                                             name, proxies[li], rsq, bad))
+        elif paths:
+            mixer = cpu(blk["mixer"])
+            hs: dict = {}
+            for x in xs:
+                x_c = x.cpu()
+                h = rms_norm(x_c, blk["mixer_norm"].cpu(), cfg.norm_eps)
+                if "wzx" in mixer:  # the card's capture, see above
+                    caps = capture_block(blk, cfg, x)[1]
+                    m_caps = {p.split("/")[1]: caps[p].cpu() for p in paths}
+                    del caps
+                    colsum = None
+                else:
+                    qq, kk, _ = att.gqa_qkv(mixer, cfg, h,
+                                            torch.arange(h.shape[1]))
+                    m_caps = {"wq": h, "wk": h, "wv": h}
+                    colsum = attn_colsum(qq, kk)
+                r = attn_con(ImportanceInputs(z_in=x_c, attn_colsum=colsum),
+                             r_min=rsq.r_min, r_max=rsq.r_max).reshape(-1)
+                for p in paths:
+                    x_p = m_caps[p.split("/")[1]]
+                    hs[p] = hess.accumulate(hs.get(p), x_p.reshape(
+                        -1, x_p.shape[-1]), r)
+            for p in paths:
+                rows[name[p]] = solve_row(
+                    torch, mixer[p.split("/")[1]], hs[p], entries[name[p]],
+                    proxies[li][p], rsq, name[p], bad,
+                    noise_floor=p in HYB_NOISE_FLOOR)
+            del mixer, hs
+        if li < last:  # the stream through the quantized block
+            for ename, e in entries.items():
+                em = meta["entries"][ename]
+                if em["tag"] != f"layer{li}":
+                    continue
+                node = blk
+                parts = em["path"].split("/")
+                for key in parts[:-1]:
+                    node = node[key]
+                node[parts[-1]] = dequantize_packed(
+                    words_from_numpy(e["codes"]).to(dev),
+                    torch.from_numpy(e["scale"]).to(dev),
+                    torch.from_numpy(e["zero"]).to(dev), bits=BITS,
+                    d_in=em["d_in"]).to(node[parts[-1]].dtype)
+            xs = [apply_block(blk, cfg, x)[0] for x in xs]
+        del blk
+        gc.collect()
+        torch.cuda.empty_cache()
+    del xs, layers
+    gc.collect()
+    torch.cuda.empty_cache()
+    log({"hybrid_solve_check": {
+        "arch": HYB_ARCH, "weights": rows,
+        "seconds": time.perf_counter() - t0,
+        "min_code_match": MIN_CODE_MATCH, "tol_proxy": TOL_PROXY}})
+    if bad:
+        fail(f"{HYB_ARCH}: GPTQ on the card disagrees with the CPU: "
+             + "; ".join(bad))
+    return rows
+
+
+def hybrid_expert_solves(torch, blk: dict, cfg, xs: list, entries: dict,
+                         name: dict, proxy: dict, rsq, bad: list) -> dict:
+    """``check_hybrid_solves``' routed-expert part: ``experts/wi`` of
+    HYB_SOLVE_EXPERTS experts of one Mamba + MoE block."""
+    from repro_torch.core import hessian as hess
+    from repro_torch.core.gptq import gptq_quantize_batched
+    from repro_torch.core.importance import ImportanceInputs, attn_con
+    from repro_torch.core.pipeline import _solve_spec
+    from repro_torch.models import moe, ssm
+    from repro_torch.models.layers import rms_norm
+
+    e_all, cap = cfg.n_routed_experts, HYB_CAP_CALIB
+    router = blk["ffn"]["router"]
+    # per batch: the card's slot table, buffers and r; the CPU's
+    batches = []
+    for x in xs:
+        h = rms_norm(x, blk["mixer_norm"], cfg.norm_eps)
+        x2 = x + ssm.apply_mamba(blk["mixer"], cfg, h)
+        hf = rms_norm(x2, blk["ffn_norm"], cfg.norm_eps).reshape(
+            -1, cfg.d_model)
+        r = attn_con(ImportanceInputs(z_in=x), r_min=rsq.r_min,
+                     r_max=rsq.r_max).reshape(-1)
+        idx, w, _ = moe.route(router, hf, cfg.moe_top_k)
+        buf, st, _, _ = moe._expert_buffers(hf, idx, w, e_all, cap)
+        idx_c, w_c, _ = moe.route(router.cpu(), hf.cpu(), cfg.moe_top_k)
+        buf_c, st_c, _, _ = moe._expert_buffers(hf.cpu(), idx_c, w_c, e_all,
+                                                cap)
+        batches.append((st, buf, r, buf_c, st_c, r.cpu()))
+        del h, x2, hf
+    same = [all(torch.equal(b[4].reshape(e_all, cap)[ex],
+                            b[0].cpu().reshape(e_all, cap)[ex])
+                for b in batches) for ex in range(e_all)]
+    chosen = [ex for ex in range(e_all) if same[ex]][:HYB_SOLVE_EXPERTS]
+    if len(chosen) < HYB_SOLVE_EXPERTS:
+        fail(f"{HYB_ARCH}: only {len(chosen)} experts route alike on the "
+             f"card and the CPU")
+    sel = torch.tensor(chosen)
+    dev = torch.device("cuda")
+    h_cpu = h_card = None
+    for st, buf, r, buf_c, st_c, r_c in batches:
+        rs = torch.cat([r_c, r_c.new_zeros((1,))])[st_c]
+        h_cpu = hess.accumulate(h_cpu, buf_c[sel],
+                                rs.reshape(e_all, cap)[sel])
+        rd = torch.cat([r, r.new_zeros((1,))])[st]
+        h_card = hess.accumulate(h_card, buf[sel.to(dev)],
+                                 rd.reshape(e_all, cap)[sel.to(dev)])
+    del batches
+    wi = blk["ffn"]["experts"]["wi"][sel.to(dev)]
+    spec, block = _solve_spec(rsq, cfg.d_model)  # the pipeline's own
+    card = gptq_quantize_batched(wi, h_card, spec, damp=rsq.damp,
+                                 block=block)
+    wi_cpu = wi.cpu()
+    path = "ffn/experts/wi"
+    e = entries[name[path]]
+    rows = {}
+    for j, ex in enumerate(chosen):
+        tag = f"{name[path]}[{ex}]"
+        rows[tag] = solve_row(torch, wi_cpu[j], h_cpu[j],
+                              {k: e[k][ex] for k in ("codes", "scale",
+                                                     "zero")},
+                              float(card["err"][j]), rsq, tag, bad,
+                              noise_floor=path in HYB_NOISE_FLOOR)
+    rows[f"{name[path]}:mean_all"] = {
+        "proxy_pipeline_mean_all": proxy[path],
+        "experts_routed_otherwise": e_all - sum(same)}
+    del card, wi, h_card
+    return rows
 
 
 def strategy_sweep(torch) -> list:
@@ -3853,7 +4390,7 @@ def main() -> None:
     checks = Checks(Timer(torch))
     for phase in (check_kernels, check_moe_kernels, check_hadamard,
                   check_kv_kernels, check_mla_kernels, check_gptq_block,
-                  check_variant_kernels):
+                  check_variant_kernels, check_hybrid_kernels):
         t0 = time.perf_counter()
         phase(torch, checks)
         log({"phase_seconds": {phase.__name__: time.perf_counter() - t0}})
@@ -3877,15 +4414,19 @@ def main() -> None:
     ssm_launches = ssm_path(torch)
     log({"phase_seconds": {"ssm_path": time.perf_counter() - t0}})
     t0 = time.perf_counter()
+    hybrid_launches = hybrid_path(torch)
+    log({"phase_seconds": {"hybrid_path": time.perf_counter() - t0}})
+    t0 = time.perf_counter()
     strategy_sweep(torch)
     log({"phase_seconds": {"strategy_sweep": time.perf_counter() - t0}})
     main_launches = dict(launches)
     launches.update({name: mla_launches[name] for name in KvAudit.MLA})
     launches["fwht"] += (mla_launches["fwht"] + moe_launches["fwht"]
-                         + variant_launches["fwht"] + ssm_launches["fwht"])
+                         + variant_launches["fwht"] + ssm_launches["fwht"]
+                         + hybrid_launches["fwht"])
     by_path = {"main_path": main_launches, "mla_path": mla_launches,
                "moe_path": moe_launches, "variants_path": variant_launches,
-               "ssm_path": ssm_launches}
+               "ssm_path": ssm_launches, "hybrid_path": hybrid_launches}
     # quant_matmul's three kernels, each with its launches on both paths;
     # quant_matmul_t's two on the MLA path
     qmm_rows = {"qmm_decode": rows["quant_matmul"],
@@ -3938,12 +4479,27 @@ def main() -> None:
                 subs[sub].update(kernel=kern, kernel_launches={
                     path: counts[kern] for path, counts in by_path.items()})
             entry.update(subs.pop(""), **subs)
-            # the expert stacks (E 160): the tensor-core tile at m 8 and 96
+            # the expert stacks (E 160): the tensor-core tile at m 8 and
+            # 96; jamba's (E 16) at m 8 and 40
             entry["experts"] = {
                 f"{w}_m{m}": {key: rows[f"quant_matmul_experts_{w}_m{m}"][
                     key] for key in keys}
                 for w in ("wi/wu", "wd")
                 for m in (MOE_CAP_DECODE, MOE_CAP_CALIB)}
+            entry["experts"].update({
+                f"hybrid_{w}_m{m}": {key: rows[
+                    f"quant_matmul_experts_hybrid_{w}_m{m}"][key]
+                    for key in keys}
+                for w in ("wi/wu", "wd")
+                for m in (HYB_CAP_DECODE, HYB_CAP_PREFILL)})
+            # jamba's Mamba projections: the decode (m 4) and the
+            # tensor-core tile (m 256) on outputs narrower than a tile
+            entry["hybrid"] = {
+                f"{w}_m{m}": {key: rows[f"quant_matmul{pre}_hybrid_{w}"][key]
+                              for key in keys}
+                for w, _, _ in HYB_QMM
+                for pre, m in (("", SERVE_BATCH),
+                               ("_prefill", SERVE_BATCH * PROMPT_LEN))}
         if name == "quant_matmul_t":  # decode row; the prefill row beside
             entry["kernel"] = "qmm_t_decode"
             entry["kernel_launches"] = {
@@ -3954,10 +4510,14 @@ def main() -> None:
             entry["prefill"].update(kernel="qmm_t_tile", kernel_launches={
                 "mla_path": mla_launches["qmm_t_tile"],
                 "moe_path": moe_launches["qmm_t_tile"]})
-        if name == "gram":  # the expert stacks: one launch for all 160
+        if name == "gram":  # the expert stacks: one launch a stack
             entry["experts"] = {f"d{d}": {key: rows[f"gram_experts_d{d}"][key]
                                           for key in keys}
                                 for d in (MOE_D, MOE_F)}
+            entry["experts"].update({
+                f"hybrid_d{d}": {key: rows[f"gram_experts_hybrid_d{d}"][key]
+                                 for key in keys}
+                for d in (HYB_D, HYB_F)})
         if name == "solve_block":  # every path calibrates through it
             entry["kernel_launches"] = {path: counts[name]
                                         for path, counts in by_path.items()}

@@ -25,9 +25,12 @@ anything).  The packed entries of either writer load bit for bit.
 
 Entry locations are the reference's: ``["prefix", i]`` for the first
 ``first_dense_layers`` layers (unstacked in the reference's tree, a list of
-per-layer blocks), ``["groups", g, 0]`` for the stacked layers after them
-(``models.lm.layer_loc``); the port's flat layer index of a location is
-the number of prefix layers plus g.
+per-layer blocks), ``["groups", g, o]`` for block ``o`` of layer group
+``g`` after them (``models.lm.layer_loc``; a group holds P blocks, each
+position stacked over the groups in the reference's tree as ``b{o}``); the
+port's flat layer index of a location is the number of prefix layers plus
+g·P + o, with P one past the largest ``o`` of the entries (every block
+has quantized weights).
 """
 from __future__ import annotations
 
@@ -163,22 +166,29 @@ def _n_prefix(meta_entries: dict) -> int:
                     if em["loc"][0] == "prefix"), default=-1)
 
 
-def _layer_index(loc: list, n_prefix: int) -> int:
+def _period(meta_entries: dict) -> int:
+    """Blocks a layer group of an artifact: one past its largest block
+    position ``o`` (1 without group entries)."""
+    return 1 + max((em["loc"][2] for em in meta_entries.values()
+                    if em["loc"][0] == "groups"), default=0)
+
+
+def _layer_index(loc: list, n_prefix: int, period: int) -> int:
     """The port's flat layer index of a reference location."""
     if loc[0] == "prefix":
         return int(loc[1])
-    if loc[0] != "groups" or loc[2] != 0:
+    if loc[0] != "groups":
         raise NotImplementedError(
-            f"entry at {loc}: the port reads decoders with one block per "
-            f"layer group")
-    return n_prefix + int(loc[1])
+            f"entry at {loc}: the port reads decoder layers only")
+    return n_prefix + int(loc[1]) * period + int(loc[2])
 
 
-def _quantized_paths(meta_entries: dict) -> set[str]:
-    """Port parameter paths ("layers/<i>/<sub>/<name>") of packed entries."""
-    n_prefix = _n_prefix(meta_entries)
-    return {f"layers/{_layer_index(em['loc'], n_prefix)}/{em['path']}"
-            for em in meta_entries.values()}
+def _entry_paths(meta_entries: dict) -> dict[str, str]:
+    """{entry name: port parameter path ("layers/<i>/<sub>/<name>")}."""
+    n_prefix, period = _n_prefix(meta_entries), _period(meta_entries)
+    return {name: f"layers/{_layer_index(em['loc'], n_prefix, period)}/"
+                  f"{em['path']}"
+            for name, em in meta_entries.items()}
 
 
 # fp leaves a block keeps in the residual, by a quantized weight that marks
@@ -200,15 +210,19 @@ FP32_LEAVES = ("router", "A_log", "D", "dt_bias")
 
 def _block_paths(quantized: set[str], keys: set[str]) -> list[str]:
     """Every leaf path of a block whose quantized weights are
-    ``quantized``, in a tree whose dicts have the keys ``keys``.  A Mamba
-    block has no FFN norm."""
-    if {"mixer/wzx", "mixer/out_proj"} & quantized:
-        return sorted(quantized | {"mixer_norm"}
-                      | {f"mixer/{n}" for n in _MAMBA_LEAVES})
-    paths = quantized | {"mixer_norm", "ffn_norm"} | {
+    ``quantized``, in a tree whose dicts have the keys ``keys``: the
+    leaves of its own mixer (a Mamba block's, or attention's with its
+    internal norms and qkv biases) and of its own FFN, if it has one (an
+    FFN norm, and the router of routed experts; mamba2's blocks have
+    none)."""
+    paths = quantized | {"mixer_norm"} | {
         leaf for w, leaf in _BLOCK_RESIDUAL.items() if w in quantized}
-    if "mixer/wq" in quantized and set(_QKV_BIAS) <= keys:
+    if {"mixer/wzx", "mixer/out_proj"} & quantized:
+        paths |= {f"mixer/{n}" for n in _MAMBA_LEAVES}
+    elif "mixer/wq" in quantized and set(_QKV_BIAS) <= keys:
         paths |= {f"mixer/{n}" for n in _QKV_BIAS}
+    if any(p.startswith("ffn/") for p in quantized):
+        paths.add("ffn_norm")
     return sorted(paths)
 
 
@@ -225,14 +239,16 @@ def _treedef_keys(meta: dict) -> set[str]:
 
 
 def _reference_residual_paths(n_prefix: int, prefix_paths: list[str],
-                              group_paths: list[str],
+                              group_paths: list[list[str]],
                               head: bool = True) -> list[str]:
     """Leaf order of a reference-written residual tree: the reference's
-    {"embed", "final_norm", "groups": {"b0": block}, "head", "prefix":
-    [block, ...]} with stacked group leaves and ``n_prefix`` unstacked
-    prefix blocks, flattened in sorted-key order.  The prefix blocks and
-    the group block each have their own leaves (deepseek's dense prefix
-    and its routed-expert groups); a tied model has no ``head``."""
+    {"embed", "final_norm", "groups": {"b0": block, ..., "b{P-1}": block},
+    "head", "prefix": [block, ...]} with stacked group leaves and
+    ``n_prefix`` unstacked prefix blocks, flattened in sorted-key order
+    (JAX's: "b10" before "b2").  The prefix blocks and each block position
+    ``o`` of a group (``group_paths[o]``) have their own leaves (deepseek's
+    dense prefix and its routed-expert groups; jamba's Mamba and GQA
+    blocks, dense and routed-expert FFNs); a tied model has no ``head``."""
     def block(paths) -> dict:
         node_root: dict = {}
         for p in paths:
@@ -244,7 +260,8 @@ def _reference_residual_paths(n_prefix: int, prefix_paths: list[str],
         return node_root
 
     skel: dict = {"embed": 0, "final_norm": 0,
-                  "groups": {"b0": block(group_paths)}}
+                  "groups": {f"b{o}": block(paths)
+                             for o, paths in enumerate(group_paths)}}
     if head:
         skel["head"] = 0
     if n_prefix:
@@ -275,7 +292,7 @@ def save_packed_artifact(directory, artifact: dict, *, params: dict,
         meta_entries[name] = em
     meta = {"format": FORMAT, "spec": artifact["spec"],
             "entries": meta_entries, "extra": extra or {}, "checksums": {}}
-    skip = _quantized_paths(meta_entries)
+    skip = set(_entry_paths(meta_entries).values())
     res_arrays: dict[str, np.ndarray] = {}
     paths, leaves_meta = [], []
     for path, leaf in _flatten(params).items():
@@ -316,6 +333,22 @@ def load_packed_artifact(directory, *, verify: bool = True
     return entries, meta
 
 
+def load_packed_entry(directory, name: str, *, verify: bool = False
+                      ) -> dict:
+    """One entry's numpy ``codes``, ``scale`` and ``zero`` as stored: the
+    npz members load lazily, so this reads just that entry's shards (the
+    reference's ``load_packed_entry``); ``verify`` hashes the whole
+    packed.npz first."""
+    d = Path(directory)
+    meta = json.loads((d / "meta.json").read_text())
+    if verify:
+        _verify_file(d, meta, "packed.npz")
+    em = meta["entries"][name]
+    with np.load(d / "packed.npz") as z:
+        return {f: _assemble_field(z, f"{name}/{f}", fm)
+                for f, fm in em["fields"].items()}
+
+
 def _load_residual(d: Path, meta: dict, verify: bool) -> dict[str, np.ndarray]:
     """{port parameter path: array} of the residual leaves."""
     if verify:
@@ -325,32 +358,36 @@ def _load_residual(d: Path, meta: dict, verify: bool) -> dict[str, np.ndarray]:
                   for i, fm in enumerate(meta["residual_leaves"])]
     if "residual_paths" in meta:  # written by the port
         return dict(zip(meta["residual_paths"], leaves))
-    # written by the reference: prefix blocks as they are, stacked group
-    # leaves in sorted-key order; quantized leaves are empty markers
-    quantized: dict[str, set] = {"prefix": set(), "groups": set()}
+    # written by the reference: prefix blocks as they are, each block
+    # position's stacked group leaves, in sorted-key order; quantized
+    # leaves are empty markers
+    n_prefix, period = _n_prefix(meta["entries"]), _period(meta["entries"])
+    prefix: set = set()
+    group: list[set] = [set() for _ in range(period)]
     for em in meta["entries"].values():
-        quantized[em["loc"][0]].add(em["path"])
-    n_prefix = _n_prefix(meta["entries"])
+        loc = em["loc"]
+        (prefix if loc[0] == "prefix" else group[loc[2]]).add(em["path"])
     keys = _treedef_keys(meta)
     paths = _reference_residual_paths(
-        n_prefix, _block_paths(quantized["prefix"], keys),
-        _block_paths(quantized["groups"], keys), head="head" in keys)
+        n_prefix, _block_paths(prefix, keys),
+        [_block_paths(q, keys) for q in group], head="head" in keys)
     if len(paths) != len(leaves):
         raise NotImplementedError(
             f"{d}: {len(leaves)} residual leaves, expected {len(paths)} for "
-            f"a decoder of {n_prefix} prefix blocks and one stacked group "
-            f"({paths})")
+            f"a decoder of {n_prefix} prefix blocks and layer groups of "
+            f"{period} blocks ({paths})")
     out = {}
     for path, leaf in zip(paths, leaves):
         if path.startswith("prefix/"):
             _, li, rest = path.split("/", 2)
             if leaf.size:
                 out[f"layers/{li}/{rest}"] = leaf
-        elif not path.startswith("groups/b0/"):
+        elif not path.startswith("groups/"):
             out[path] = leaf
-        elif leaf.size:  # stacked (n_groups, ...) leaf: unstack
+        elif leaf.size:  # block o's (n_groups, ...) stacked leaf: unstack
+            _, b, rest = path.split("/", 2)
             for g in range(leaf.shape[0]):
-                out[f"layers/{n_prefix + g}/{path[len('groups/b0/'):]}"] = \
+                out[f"layers/{n_prefix + g * period + int(b[1:])}/{rest}"] = \
                     leaf[g]
     return out
 
@@ -381,9 +418,9 @@ def _load(directory, device, dtype, verify: bool, keep_packed: bool):
         keep = dtype is None or path.rsplit("/", 1)[-1] in FP32_LEAVES
         flat[path] = t if keep else t.to(dtype)
     spec = meta["spec"]
-    n_prefix = _n_prefix(meta["entries"])
+    paths = _entry_paths(meta["entries"])
     for name, em in meta["entries"].items():
-        path = f"layers/{_layer_index(em['loc'], n_prefix)}/{em['path']}"
+        path = paths[name]
         pw = packed_weight_from_artifact(entries[name], em, spec, device)
         if keep_packed:
             flat[path] = pw

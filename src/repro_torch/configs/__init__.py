@@ -15,6 +15,7 @@ _MODULES = {
     "command-r-35b": "command_r_35b",
     "command-r-plus-104b": "command_r_plus_104b",
     "mamba2-780m": "mamba2_780m",
+    "jamba-v0.1-52b": "jamba_v01_52b",
 }
 
 

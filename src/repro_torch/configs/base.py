@@ -4,8 +4,10 @@ One frozen dataclass describes dense / MoE / SSM / hybrid / enc-dec / VLM
 transformers; ``reduced()`` derives a smoke-test-sized config of the same
 family (same layer pattern, tiny dims).  The port serves dense GQA
 decoders (with qkv bias and tied embeddings), MLA decoders with dense or
-routed-expert FFNs, and Mamba-2 (SSD) decoders; the hybrid, enc-dec and
-VLM fields are kept so configs stay interchangeable with the reference.
+routed-expert FFNs, Mamba-2 (SSD) decoders, and hybrids of GQA and Mamba-2
+blocks with dense or routed-expert FFNs (jamba: ``scan_period`` blocks a
+layer group); the enc-dec and VLM fields are kept so configs stay
+interchangeable with the reference.
 """
 from __future__ import annotations
 

@@ -1,9 +1,12 @@
 """Map the reference's parameter tree (as numpy arrays) to the port's.
 
 The reference keeps its first ``first_dense_layers`` decoder layers as a
-list (``params["prefix"]``) and stacks the rest on a leading axis
-(``params["groups"]["b0"][...]``, from ``jax.vmap(init_group)``); the port
-keeps them all as one list, prefix layers first.  ``embed``, ``head`` and
+list (``params["prefix"]``) and stacks the rest in layer groups of
+``scan_period`` blocks, each block position on a leading axis of its own
+(``params["groups"]["b0"][...]`` ... ``["b{P-1}"]``, from
+``jax.vmap(init_group)``); the port keeps them all as one list, prefix
+layers first, then group by group: layer prefix + g·P + o is block ``o``
+of group ``g``.  ``embed``, ``head`` and
 ``final_norm`` carry over as they are (a tied model has no ``head``).  The tests use this to run both
 packages on the same weights; the port's own entry points draw their
 weights from a ``torch.Generator``.
@@ -25,11 +28,12 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, *,
                     device="cuda") -> dict:
     """Reference params (nested dicts of numpy arrays) -> port params."""
     device = resolve_device(device)
-    if set(np_params["groups"]) != {"b0"}:
-        raise NotImplementedError("params_from_jax maps decoders with one "
-                                  "block per scan group only")
-    stacked = np_params["groups"]["b0"]
-    n_groups = np.asarray(stacked["mixer_norm"]).shape[0]
+    groups = np_params["groups"]
+    period = cfg.scan_period
+    if set(groups) != {f"b{o}" for o in range(period)}:
+        raise ValueError(f"{cfg.name}: layer groups of {sorted(groups)}, "
+                         f"expected b0 ... b{period - 1}")
+    n_groups = np.asarray(groups["b0"]["mixer_norm"]).shape[0]
 
     def layer(i, tree):
         """Block ``i`` of a stacked tree, or the whole of an unstacked one
@@ -44,5 +48,6 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, *,
     if "head" in np_params:  # a tied model has none, in both packages
         out["head"] = _tensor(np_params["head"], device)
     out["layers"] = ([layer(None, blk) for blk in np_params.get("prefix", [])]
-                     + [layer(i, stacked) for i in range(n_groups)])
+                     + [layer(g, groups[f"b{o}"]) for g in range(n_groups)
+                        for o in range(period)])
     return out

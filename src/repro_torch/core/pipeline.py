@@ -24,6 +24,15 @@ slot's token importance.  With ``pack_output`` every
 solve's (q, scale, zero) is also packed into the serving artifact
 (``RSQPipeline.artifact``, saved by
 ``checkpoint.packed.save_packed_artifact``).
+
+Memory: the pipeline holds one layer's rotated block at a time (each is
+rotated when the loop reaches it) and the quantized blocks it has built.
+A caller that keeps its own params (a list of layers) keeps the original
+model beside them; one that hands the layers over as an iterator
+(:func:`handover`) lets each original block go once it is rotated, so a
+run holds about one copy of the weights plus one layer's Hessians and
+solves (jamba's 8-layer group: 26.5 GB of bf16 weights, not three
+copies).
 """
 from __future__ import annotations
 
@@ -38,7 +47,8 @@ from repro_torch.core.expansion import expand_dataset
 from repro_torch.core.gptq import gptq_quantize_batched
 from repro_torch.core.importance import ImportanceInputs, get_strategy
 from repro_torch.core.quantizer import QuantSpec, pack_codes
-from repro_torch.core.rotation import rotate_model
+from repro_torch.core.rotation import (rotate_ends, rotate_layer,
+                                       rotation_matrix)
 from repro_torch.device import generator
 from repro_torch.models.lm import Model, apply_block, capture_block, layer_loc
 
@@ -202,9 +212,13 @@ def quantize_layer_weights(p_block: dict, hessians: dict[str, torch.Tensor],
                     sols[path] = {key: v[j] for key, v in out.items()}
                     continue
                 if path not in sols:  # the stack's outputs, filled in turn
-                    sols[path] = {key: v.new_empty((w.shape[0],)
-                                                   + tuple(v.shape[1:]))
-                                  for key, v in out.items()}
+                    # (its dequantized weights in the stack's own dtype:
+                    # the cast they get below anyway, without a transient
+                    # fp32 stack of 3.8 GB at jamba's widths)
+                    sols[path] = {key: v.new_empty(
+                        (w.shape[0],) + tuple(v.shape[1:]),
+                        dtype=w.dtype if key == "w_deq" else v.dtype)
+                        for key, v in out.items()}
                 for key, v in out.items():
                     sols[path][key][i] = v[j]
             del out
@@ -246,6 +260,14 @@ def _accumulate(hessians: dict, caps: dict, dom: dict,
         hessians[path] = hess.accumulate(hessians.get(path), x_c, r_rows)
 
 
+def handover(layers: list):
+    """The blocks of ``layers``, which it empties as it yields them: as
+    ``params["layers"]`` of :meth:`RSQPipeline.run`, the caller holds no
+    block the pipeline has taken, and each is freed once replaced."""
+    while layers:
+        yield layers.pop(0)
+
+
 class RSQPipeline:
     def __init__(self, model: Model, rsq: RSQConfig):
         self.model = model
@@ -268,17 +290,25 @@ class RSQPipeline:
         expansion (``rsq.expansion`` M makes N·M samples of them).
 
         ``rotation``: the (d_model, d_model) Q to rotate with; drawn from
-        ``torch.Generator(rsq.seed)`` when None.  Returns (new_params,
-        report)."""
+        ``torch.Generator(rsq.seed)`` when None.  ``params["layers"]`` is
+        a list, which stays as it is, or an iterator of the blocks
+        (:func:`handover`), read one block a layer.  The result is
+        ``rotate_model``'s rotation, block by block, then the same solves.
+        Returns (new_params, report)."""
         model, cfg, rsq = self.model, self.cfg, self.rsq
         report: dict[str, Any] = {"layers": {}, "rsq": dataclasses.asdict(rsq)}
+        layers = params["layers"]
+        n_layers = (len(layers) if isinstance(layers, (list, tuple))
+                    else cfg.n_layers)
+        q = None
         if rsq.rotate:
             gen = None if rotation is not None else generator(
                 rsq.seed, model.device)
-            params, _ = rotate_model(params, cfg, rotation, gen=gen)
+            q = rotation_matrix(params, cfg, rotation, gen)
+            params = rotate_ends(params, q)
             report["rotated"] = True
-        new_params = dict(params)
-        new_params["layers"] = list(params["layers"])
+        new_params = {k: v for k, v in params.items() if k != "layers"}
+        new_params["layers"] = []
 
         calib = expand_dataset(calib_tokens.to(model.device), rsq.expansion)
         counts = torch.bincount(calib.reshape(-1), minlength=cfg.vocab_size
@@ -293,7 +323,9 @@ class RSQPipeline:
                 torch.cuda.synchronize(model.device)
             return time.perf_counter()
 
-        for li, p_blk in enumerate(params["layers"]):
+        for li, p_blk in enumerate(layers):
+            if q is not None:  # rotation is set-up: outside the layer's time
+                p_blk = rotate_layer(p_blk, cfg, q)
             t0 = clock()
             hessians: dict[str, torch.Tensor] = {}
             for x_b, tok in zip(acts, toks):
@@ -305,8 +337,8 @@ class RSQPipeline:
             collect = {} if rsq.pack_output else None
             p_new, weights = quantize_layer_weights(p_blk, hessians, rsq,
                                                     collect=collect)
-            del hessians
-            new_params["layers"][li] = p_new
+            del hessians, p_blk
+            new_params["layers"].append(p_new)
             tag = f"layer{li}"
             for path, sol in (collect or {}).items():
                 name = f"{tag}/{path}"
@@ -318,7 +350,7 @@ class RSQPipeline:
                               "dtype": sol["dtype"],
                               "loc": layer_loc(cfg, li)}
             t2 = clock()
-            if li + 1 < len(params["layers"]):
+            if li + 1 < n_layers:
                 acts = [apply_block(p_new, cfg, x_b)[0] for x_b in acts]
             t3 = clock()
             rep = {"weights": weights, "seconds": round(t3 - t0, 4),

@@ -87,10 +87,11 @@ def _each_expert(fn, w: torch.Tensor) -> torch.Tensor:
 
 def fuse_norms_block(p: dict, cfg: ModelConfig) -> dict:
     """Fold the block's RMSNorm γ into its consuming weights (new dict);
-    MLA's q_norm and kv_norm fold into wq_b and wkv_b.  A routed-expert
-    FFN folds the FFN norm into its router, each expert's wi / wu and its
-    shared FFN's wi / wu.  A Mamba block (no FFN) folds its mixer norm
-    into wzx, wbc and wdt."""
+    MLA's q_norm and kv_norm fold into wq_b and wkv_b, a Mamba block's
+    mixer norm into wzx, wbc and wdt.  The FFN norm of a block that has an
+    FFN (every block but mamba2's; a jamba Mamba block's too) folds into
+    its wi / wu, or for routed experts into the router, each expert's wi /
+    wu and, where there is one, the shared FFN's wi / wu."""
     mixer = dict(p["mixer"])
     for name in _MIXER_IN:
         if name in mixer:
@@ -129,9 +130,11 @@ def _rotate_ffn(ffn: dict, rot_in, rot_out) -> dict:
 
 
 def rotate_block(p: dict, cfg: ModelConfig, q: torch.Tensor) -> dict:
-    """Apply the stream rotation to one block (norms must be fused first).
-    A routed-expert FFN: the router is Qᵀ W, every expert's wi / wu Qᵀ W_e
-    and its wd W_e Q, the shared FFN as a dense one."""
+    """Apply the stream rotation to one block (norms must be fused first):
+    its mixer's stream-side weights (attention or Mamba), then its FFN, if
+    it has one.  A routed-expert FFN: the router is Qᵀ W, every expert's
+    wi / wu Qᵀ W_e and its wd W_e Q, the shared FFN (where there is one)
+    as a dense one."""
     qf = q.float()
 
     def rot_in(w):  # (d_model, d_out) -> Qᵀ W
@@ -162,6 +165,38 @@ def rotate_block(p: dict, cfg: ModelConfig, q: torch.Tensor) -> dict:
     return {**p, "mixer": mixer, "ffn": ffn}
 
 
+def rotation_matrix(params: dict, cfg: ModelConfig,
+                    q: torch.Tensor | None = None,
+                    gen: torch.Generator | None = None) -> torch.Tensor:
+    """The fp32 (d_model, d_model) Q on the model's device: ``q`` itself,
+    or when None a ``random_hadamard(gen, d_model)`` draw."""
+    if q is None:
+        if gen is None:
+            raise ValueError("rotate_model needs a rotation q or a generator")
+        q = random_hadamard(gen, cfg.d_model)
+    return q.to(device=params["embed"].device, dtype=torch.float32)
+
+
+def rotate_layer(p: dict, cfg: ModelConfig, q: torch.Tensor) -> dict:
+    """One decoder block as ``rotate_model`` leaves it: norms fused, then
+    rotated by the fp32 ``q``."""
+    return rotate_block(fuse_norms_block(p, cfg), cfg, q)
+
+
+def rotate_ends(params: dict, q: torch.Tensor) -> dict:
+    """Every leaf of ``params`` but its layers as ``rotate_model`` leaves
+    it (the table E·Q, the head with the final norm's γ folded in, then
+    Qᵀ·head; the final norm ones), in a new dict without ``layers``."""
+    head = params["head"] if "head" in params else params["embed"].T
+    head = _scale_in(head, params["final_norm"])
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out.update(
+        final_norm=torch.ones_like(params["final_norm"]),
+        embed=(params["embed"].float() @ q).to(params["embed"].dtype),
+        head=(q.T @ head.float()).to(head.dtype))
+    return out
+
+
 def rotate_model(params: dict, cfg: ModelConfig, q: torch.Tensor | None = None,
                  *, gen: torch.Generator | None = None) -> tuple[dict, dict]:
     """Fuse norms then rotate the whole model. Returns (params, {"q": Q}).
@@ -171,19 +206,7 @@ def rotate_model(params: dict, cfg: ModelConfig, q: torch.Tensor | None = None,
     the reference's: the head Qᵀ·diag(γ)·Eᵀ beside the table E·Q (the
     final norm's γ cannot fold into the table, which also feeds the
     stream)."""
-    if q is None:
-        if gen is None:
-            raise ValueError("rotate_model needs a rotation q or a generator")
-        q = random_hadamard(gen, cfg.d_model)
-    q = q.to(device=params["embed"].device, dtype=torch.float32)
-    layers = [rotate_block(fuse_norms_block(b, cfg), cfg, q)
-              for b in params["layers"]]
-    head = params["head"] if "head" in params else params["embed"].T
-    head = _scale_in(head, params["final_norm"])
-    out = dict(params)
-    out.update(
-        layers=layers,
-        final_norm=torch.ones_like(params["final_norm"]),
-        embed=(params["embed"].float() @ q).to(params["embed"].dtype),
-        head=(q.T @ head.float()).to(head.dtype))
+    q = rotation_matrix(params, cfg, q, gen)
+    out = rotate_ends(params, q)
+    out["layers"] = [rotate_layer(b, cfg, q) for b in params["layers"]]
     return out, {"q": q}

@@ -16,7 +16,12 @@ bfloat16`` keeps its weights at 10.7 GB); ``--arch deepseek-v3-671b
 (qkv bias), ``command-r-35b`` (tied embeddings: the rotation unties the
 head; ``--no-rotate`` keeps none), ``minitron-4b`` and ``mamba2-780m``
 (Mamba-2 blocks, whose AttnCon falls back to ActNorm) take the same
-flags.  ``--importance``
+flags; ``--arch jamba-v0.1-52b --n-layers 8 --dtype bfloat16`` quantizes
+its first layer group (Mamba and GQA blocks, dense and 16-expert FFNs;
+26.5 GB of weights), and a depth that is not a whole number of layer
+groups (``scan_period`` blocks) is refused.  The CLI keeps one copy of
+the weights: it hands the layers to the pipeline (``handover``) after the
+fp perplexity, and each block is freed once rotated.  ``--importance``
 picks any of the paper's eight token-importance strategies and
 ``--expansion M`` adds M - 1 circular shifts of every calibration sample.
 """
@@ -31,7 +36,7 @@ import torch
 
 from repro_torch.checkpoint.packed import save_packed_artifact
 from repro_torch.configs import get_config
-from repro_torch.core.pipeline import RSQConfig, RSQPipeline
+from repro_torch.core.pipeline import RSQConfig, RSQPipeline, handover
 from repro_torch.data.calibration import calibration_set, heldout_set
 from repro_torch.device import generator, resolve_device
 from repro_torch.models.lm import Model
@@ -66,7 +71,8 @@ def main(argv=None) -> dict:
                     help="cut the depth to this many layers (0: the "
                     "architecture's own); widths are kept, and each kept "
                     "layer is of the architecture's own kind (deepseek's "
-                    "dense prefix, then its routed-expert layers)")
+                    "dense prefix, then its routed-expert layers); a whole "
+                    "number of layer groups (jamba: 8 blocks a group)")
     ap.add_argument("--bits", type=int, default=3)
     ap.add_argument("--group-size", type=int, default=128)
     ap.add_argument("--importance", default="attn_con",
@@ -106,8 +112,10 @@ def main(argv=None) -> dict:
                     pack_output=args.pack_out is not None)
     base_ppl = eval_ppl(model, params, heldout, args.batch)
     pipe = RSQPipeline(model, rsq)
+    params["layers"] = handover(params["layers"])
     qparams, report = pipe.run(params, calib, batch_size=args.batch,
                                verbose=True)
+    del params
     q_ppl = eval_ppl(model, qparams, heldout, args.batch)
     summary = {
         "arch": args.arch, "n_layers": cfg.n_layers, "device": str(device),

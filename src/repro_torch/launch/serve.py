@@ -19,7 +19,11 @@ layer (every expert stack one ``quant_matmul`` launch for all 160
 experts).  ``--arch qwen1.5-4b`` (qkv bias) and ``command-r-35b`` (tied
 embeddings) serve as llama3-8b does; ``--arch mamba2-780m`` serves its
 Mamba-2 blocks in batch mode only, the recurrent state in the flat cache
-(``--mode engine`` refuses it, as the reference's engine does).
+(``--mode engine`` refuses it, as the reference's engine does), and
+``--arch jamba-v0.1-52b --n-layers 8`` its first layer group (7 Mamba-2
+blocks and one GQA block, dense and 16-expert FFNs) the same way: the
+cache holds each Mamba block's state beside the GQA block's K/V (fp or
+``--kv-bits`` codes), and ``--mode engine`` refuses it too.
 
 ``--packed DIR`` serves a packed RSQ artifact (from launch.quantize
 --pack-out).  The default keeps the codes packed on the device
@@ -201,33 +205,31 @@ def kv_cache_bytes(model: Model, batch: int,
     codec's layout alone, no tensor allocated.  GQA holds K and V of each
     KV head (Dh values each) per token and layer; MLA the latent
     (kv_lora_rank values) and the rope key (qk_rope_dim values).  A Mamba
-    model's cache is its recurrent state, of no token axis and never
+    layer's entry is its recurrent state, of no token axis and never
     quantized: the conv window (W - 1 rows of d_inner + 2·state) in the
-    activation dtype and the fp32 SSM state (nh x hd x state) a layer, the
-    same bytes either way."""
+    activation dtype and the fp32 SSM state (nh x hd x state), the same
+    bytes either way.  Counted layer by layer, by kind: a hybrid holds
+    both."""
     cfg, codec = model.cfg, model.codec
-    if cfg.family == "ssm":
-        per_layer = ((cfg.ssm_conv_width - 1)
-                     * (cfg.d_inner + 2 * cfg.ssm_d_state)
-                     * model.dtype.itemsize
-                     + cfg.ssm_n_heads * cfg.ssm_head_dim * cfg.ssm_d_state
-                     * 4)
-        state = cfg.n_layers * batch * per_layer
-        return state, state
+    kinds = cfg.layer_kinds()
+    n_mamba = kinds.count("mamba")
+    n_attn = len(kinds) - n_mamba
+    state = n_mamba * batch * (
+        (cfg.ssm_conv_width - 1) * (cfg.d_inner + 2 * cfg.ssm_d_state)
+        * model.dtype.itemsize
+        + cfg.ssm_n_heads * cfg.ssm_head_dim * cfg.ssm_d_state * 4)
     if cfg.attn_kind == "mla":  # one row each of c and r, no head axis
-        rows, widths = cfg.n_layers * batch, (cfg.kv_lora_rank,
-                                              cfg.qk_rope_dim)
+        rows, widths = n_attn * batch, (cfg.kv_lora_rank, cfg.qk_rope_dim)
     else:  # K and V of every KV head
-        rows, widths = 2 * cfg.n_layers * batch * cfg.n_kv_heads, \
-            (cfg.head_dim,)
+        rows, widths = 2 * n_attn * batch * cfg.n_kv_heads, (cfg.head_dim,)
     fp = rows * cache_len * sum(widths) * model.dtype.itemsize
     if not codec.quantized:
-        return fp, fp
+        return state + fp, state + fp
     s = model._cache_len(cache_len)
     per_row = sum(s * codec.code_cols(w) * codec.code_dtype.itemsize
                   + codec.scale_rows(s) * codec.scale_dtype.itemsize
                   for w in widths)
-    return rows * per_row, fp
+    return state + rows * per_row, state + fp
 
 
 def serve_engine(model: Model, params: dict, prompts: torch.Tensor,
@@ -449,7 +451,7 @@ def main(argv=None) -> dict:
         prefill_tok_s=args.batch * args.prompt_len / stats["prefill_s"],
         decode_tok_s=(args.batch * (args.gen - 1) / stats["decode_s"]
                       if args.gen > 1 else 0.0))
-    if cfg.kv_bits or cfg.family == "ssm":
+    if cfg.kv_bits or "mamba" in cfg.layer_kinds():
         result["kv_cache_bytes"], result["kv_cache_fp_bytes"] = kv_cache_bytes(
             model, args.batch, args.prompt_len + args.gen)
     if args.profile:

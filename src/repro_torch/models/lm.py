@@ -1,12 +1,15 @@
 """Decoder LM: the block stack of the reference's ``models/lm.py``, with
 GQA attention (llama3, qwen1.5 with qkv bias, command-r), MLA (deepseek)
 or the Mamba-2 mixer (``models.ssm``; mamba2, whose blocks have no FFN) as
-the mixer.
+the mixer, or both GQA and Mamba-2 blocks in one stack (jamba's hybrid,
+each block with a dense or a routed-expert FFN).
 
 Parameters are a plain dict, laid out like the reference's with the layer
-stack unrolled into a list (the reference stacks layers on a leading axis
-for ``lax.scan``, after a list of ``first_dense_layers`` unstacked
-``prefix`` layers; ``convert.params_from_jax`` maps both)::
+stack unrolled into a list (the reference stacks layer groups of
+``scan_period`` blocks ``{"b0", ..., "b{P-1}"}`` on a leading axis for
+``lax.scan``, after a list of ``first_dense_layers`` unstacked ``prefix``
+layers; ``convert.params_from_jax`` maps both, and :func:`layer_loc` gives
+a layer's place among them)::
 
     {"embed": (V, D), "head": (D, V), "final_norm": (D,),
      "layers": [{"mixer_norm", "mixer": {...}, "ffn_norm",
@@ -15,13 +18,15 @@ for ``lax.scan``, after a list of ``first_dense_layers`` unstacked
 with mixer ``{"wq", "wk", "wv", "wo"}`` (GQA; plus ``{"bq", "bk", "bv"}``
 with ``qkv_bias``), ``{"wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm",
 "wkv_b", "wo"}`` (MLA) or ``models.ssm.init_mamba``'s leaves (a Mamba
-block: no ``ffn_norm``, no ``ffn``).  A model with ``tie_embeddings``
+block of mamba2 has no ``ffn_norm`` and no ``ffn``; one of jamba has
+both).  A model with ``tie_embeddings``
 draws no ``head``: its logits contract the (V, D) table over D
 (:meth:`Model.head_logits`), and an explicit ``head`` (rotation unties
 it) takes precedence.  A routed-expert layer
-(``cfg.ffn_kinds()`` "moe": deepseek's layers after its dense prefix) has
-the FFN ``{"router", "experts": {"wi", "wu", "wd"}, "shared": {"wi", "wu",
-"wd"}}`` of ``models.moe``, expert weights stacked (E, d_in, d_out).  Any
+(``cfg.ffn_kinds()`` "moe": deepseek's layers after its dense prefix,
+jamba's odd positions) has the FFN ``{"router", "experts": {"wi", "wu",
+"wd"}, "shared": {"wi", "wu", "wd"}}`` of ``models.moe`` (no ``shared``
+without shared experts), expert weights stacked (E, d_in, d_out).  Any
 projection weight may be a ``PackedWeight`` (keep-packed serving); the
 forward is the same code either way (``layers.linear``).  The KV cache is
 a list of per-layer dicts, updated in place by ``decode_step``.  GQA:
@@ -35,9 +40,10 @@ pools of the serving engine (``serving.paged``) hold the same per-layer
 entries with a page axis in place of the batch and sequence axes.  A
 Mamba block's cache entry is its recurrent state, ``{"conv": (B, W-1,
 d_inner + 2·state)`` in the activation dtype, ``"ssm": (B, nh, hd,
-state)`` fp32``}``, advanced in place by each decode step; it is not
-paged (the engine and the chunked prefill refuse Mamba blocks, as the
-reference's do).
+state)`` fp32``}``, advanced in place by each decode step and never
+quantized (a hybrid's cache holds both kinds of entry, layer by layer);
+it is not paged (the engine and the chunked prefill refuse Mamba blocks,
+as the reference's do).
 """
 from __future__ import annotations
 
@@ -70,10 +76,24 @@ def _is_mla(cfg: ModelConfig) -> bool:
 def layer_loc(cfg: ModelConfig, li: int) -> list:
     """The reference's location of decoder layer ``li`` (packed artifact
     entries): ``["prefix", li]`` for the first ``first_dense_layers``
-    layers, ``["groups", g, 0]`` for the stacked ones after them."""
+    layers, ``["groups", g, o]`` for the stacked ones after them, block
+    ``o`` of layer group ``g`` (``scan_period`` blocks a group)."""
     if li < cfg.first_dense_layers:
         return ["prefix", li]
-    return ["groups", li - cfg.first_dense_layers, 0]
+    return ["groups", *divmod(li - cfg.first_dense_layers, cfg.scan_period)]
+
+
+def check_groups(cfg: ModelConfig) -> None:
+    """Refuse a body (the layers after the prefix) that is not a whole
+    number of layer groups: the reference stacks ``scan_period`` blocks a
+    group and has no place for a partial one."""
+    body, period = cfg.n_layers - cfg.first_dense_layers, cfg.scan_period
+    if body % period:
+        raise ValueError(
+            f"{cfg.name}: {body} layers after the {cfg.first_dense_layers} "
+            f"prefix layers are not a multiple of its scan period {period} "
+            f"(a layer group holds {period} blocks); cut the depth to a "
+            f"multiple of {period}")
 
 
 def init_block(gen, cfg: ModelConfig, dtype, device, ffn: str = "dense",
@@ -125,41 +145,46 @@ def _qkv(p: dict, cfg: ModelConfig, h: torch.Tensor, positions):
 
 
 def apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                positions=None):
+                positions=None, aux: Optional[list] = None):
     """Full-sequence forward (prefill / calibration).
     Returns (x, cache) with the block's fp cache entry (``{"k", "v"}`` or
-    MLA's ``{"c", "r"}``)."""
+    MLA's ``{"c", "r"}``).  ``aux``, where given, receives a routed-expert
+    FFN's load-balance loss."""
     positions = _positions(x, positions)
     t = x.shape[1]
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     if _is_mamba(p):
         mix, (conv, state) = ssm.apply_mamba(p["mixer"], cfg, h,
                                              return_state=True)
-        return _ffn_out(p, cfg, x, mix), {"conv": conv, "ssm": state}
+        return _ffn_out(p, cfg, x, mix, aux), {"conv": conv, "ssm": state}
     q, k, v, cache = _qkv(p, cfg, h, positions)
     out = att.flash_attention(q, k, v, kv_chunk=min(512, t))
-    return _mix_out(p, cfg, x, out), cache
+    return _mix_out(p, cfg, x, out, aux), cache
 
 
 def _ffn_out(p: dict, cfg: ModelConfig, x: torch.Tensor,
-             mix: torch.Tensor) -> torch.Tensor:
+             mix: torch.Tensor, aux: Optional[list] = None) -> torch.Tensor:
     """Residual of the mixer's output and the FFN half of a block (dense
-    or routed experts; a Mamba block has none)."""
+    or routed experts; mamba2's blocks have none); a routed-expert FFN's
+    load-balance loss goes to ``aux`` where it is given."""
     x = x + mix
     if "ffn" not in p:
         return x
     hf = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if _is_moe(p):
-        return x + moe.apply_moe(p["ffn"], cfg, hf)[0]
+        y, a = moe.apply_moe(p["ffn"], cfg, hf)
+        if aux is not None:
+            aux.append(a)
+        return x + y
     return x + apply_dense_ffn(p["ffn"], hf)
 
 
 def _mix_out(p: dict, cfg: ModelConfig, x: torch.Tensor,
-             out: torch.Tensor) -> torch.Tensor:
+             out: torch.Tensor, aux: Optional[list] = None) -> torch.Tensor:
     """Attention output projection, residual and the FFN half of a block."""
     b, t = out.shape[:2]
     return _ffn_out(p, cfg, x, linear(out.reshape(b, t, -1),
-                                      p["mixer"]["wo"]))
+                                      p["mixer"]["wo"]), aux)
 
 
 def decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
@@ -341,15 +366,16 @@ def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     (the reference takes it from ``flash_attention(colsum=True)``; MLA's
     from the expanded per-head q and k, H = KV heads of dn + dr).  A Mamba
     block's four projections are all "stream" and its ``colsum`` is None:
-    AttnCon falls back to ActNorm there, as in the reference."""
+    AttnCon falls back to ActNorm there, as in the reference; its FFN,
+    where it has one (jamba), is captured as an attention block's."""
     positions = _positions(x, positions)
     b, t, _ = x.shape
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     if _is_mamba(p):
         mix, m_caps = ssm.capture_mamba(p["mixer"], cfg, h)
         caps = {f"mixer/{name}": inp for name, inp in m_caps.items()}
-        return (_ffn_out(p, cfg, x, mix), caps,
-                {path: "stream" for path in caps}, None)
+        return _capture_ffn(p, cfg, x + mix, caps,
+                            {path: "stream" for path in caps}, None)
     if _is_mla(cfg):
         q, k, v, c_kv, _, ql = att.mla_qkv_inputs(p["mixer"], cfg, h,
                                                   positions)
@@ -362,9 +388,19 @@ def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     out = att.flash_attention(q, k, v, kv_chunk=min(512, t))
     colsum = attn_colsum(q, k)
     attn_out = out.reshape(b, t, -1)
-    x = x + linear(attn_out, p["mixer"]["wo"])
     caps["mixer/wo"] = attn_out
-    dom = {path: "stream" for path in caps}
+    return _capture_ffn(p, cfg, x + linear(attn_out, p["mixer"]["wo"]), caps,
+                        {path: "stream" for path in caps}, colsum)
+
+
+def _capture_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, caps: dict,
+                 dom: dict, colsum):
+    """The FFN half of :func:`capture_block` after the mixer's residual
+    ``x``: adds the FFN's inputs to ``caps`` and ``dom`` (in place) and
+    returns capture_block's (y, caps, domains, colsum); a block without an
+    FFN returns ``x``."""
+    if "ffn" not in p:
+        return x, caps, dom, colsum
     hf = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
     if not _is_moe(p):
         y, f_caps = capture_dense_ffn(p["ffn"], hf)
@@ -385,24 +421,28 @@ def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
 
 class Model:
     """Decoder of GQA blocks with dense FFNs (qkv bias and tied embeddings
-    allowed), of MLA blocks with dense or routed-expert FFNs, or of Mamba-2
-    blocks, for one ``ModelConfig`` on one device."""
+    allowed), of MLA blocks with dense or routed-expert FFNs, of Mamba-2
+    blocks, or of GQA and Mamba-2 blocks with dense or routed-expert FFNs
+    (the hybrid), for one ``ModelConfig`` on one device."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
-        kinds = set(cfg.layer_kinds())
+        kinds, ffns = set(cfg.layer_kinds()), set(cfg.ffn_kinds())
         if cfg.family == "ssm":
-            ok = kinds == {"mamba"} and set(cfg.ffn_kinds()) == {"none"}
+            ok = kinds == {"mamba"} and ffns == {"none"}
+        elif cfg.family == "hybrid":
+            ok = cfg.attn_kind == "gqa" and kinds <= {"attn", "mamba"} \
+                and ffns <= {"dense", "moe"}
         elif cfg.attn_kind == "mla":
-            ok = kinds == {"attn"} and \
-                set(cfg.ffn_kinds()) <= {"dense", "moe"}
+            ok = kinds == {"attn"} and ffns <= {"dense", "moe"}
         else:
             ok = cfg.family == "dense" and cfg.attn_kind == "gqa"
         if not ok:
             raise NotImplementedError(
                 f"{cfg.name} ({cfg.family}): the port serves dense GQA "
-                f"decoders, MLA decoders with dense or routed-expert FFNs "
-                f"and Mamba-2 decoders; hybrid, enc-dec and vision models "
-                f"are later slices")
+                f"decoders, MLA decoders with dense or routed-expert FFNs, "
+                f"Mamba-2 decoders and GQA / Mamba-2 hybrids; enc-dec and "
+                f"vision models are later slices")
+        check_groups(cfg)
         self.cfg = cfg
         self.codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)  # checks bits
         self.device = resolve_device(device)
@@ -433,13 +473,16 @@ class Model:
     def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         return embed_lookup(params["embed"], tokens).to(self.dtype)
 
-    def hidden_states(self, params: dict, tokens: torch.Tensor
-                      ) -> torch.Tensor:
-        """(B, T) tokens -> (B, T, D) final hidden states (post final norm)."""
+    def hidden_states(self, params: dict, tokens: torch.Tensor, *,
+                      aux: Optional[list] = None) -> torch.Tensor:
+        """(B, T) tokens -> (B, T, D) final hidden states (post final norm);
+        ``aux``, where given, receives each routed-expert layer's
+        load-balance loss, in layer order."""
         x = self.embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=x.device)
         for p_blk in params["layers"]:
-            x, _ = apply_block(p_blk, self.cfg, x, positions=positions)
+            x, _ = apply_block(p_blk, self.cfg, x, positions=positions,
+                               aux=aux)
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps)
 
     def head_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -455,9 +498,15 @@ class Model:
 
     def loss(self, params: dict, tokens: torch.Tensor,
              labels: torch.Tensor) -> torch.Tensor:
-        x = self.hidden_states(params, tokens)
+        """The reference's: next-token cross entropy plus 0.01 x the sum of
+        the routed-expert layers' load-balance losses (0 without experts)."""
+        aux: list = []
+        x = self.hidden_states(params, tokens, aux=aux)
         head = params["head"] if "head" in params else params["embed"].T
-        return cross_entropy_chunked(x, head, labels)
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for a in aux:  # summed in layer order, from 0, as the reference
+            total = total + a
+        return cross_entropy_chunked(x, head, labels) + 0.01 * total
 
     # --------------------------------------------------------------- serving
     def _cache_len(self, s: int) -> int:
@@ -577,7 +626,7 @@ class Model:
         of prompt length ``t_total``; they live only while the request is
         ingesting."""
         cfg = self.cfg
-        if cfg.family == "ssm":
+        if "mamba" in cfg.layer_kinds():
             raise NotImplementedError(
                 "chunked prefill supports attn/mla mixers, got 'mamba'")
         if _is_mla(cfg):

@@ -1972,3 +1972,124 @@ def test_mamba_generate_graph_equals_python_loop(cuda, dtype):
     static = next(iter(model.graphs.values()))[1]["cache"][0]
     assert static["ssm"].dtype == torch.float32
     assert static["conv"].dtype == model.dtype
+
+
+# ----------------------------------------------------- the jamba hybrid
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("d", [512, 1792])
+def test_gram_kernel_batched_at_jamba_widths(cuda, d, dtype):
+    """jamba's expert stacks: E 16 capacity buffers of n 320 (a 4 x 512
+    calibration batch, top 2, capacity factor 1.25), d narrowed from 4096
+    and 14336 by 8 (d 1792 is not a multiple of the 128-wide tile's
+    square): one launch, each matrix within 1e-5 of its plain version and
+    bitwise symmetric from zero."""
+    g = torch.Generator(device=cuda).manual_seed(40 + d)
+    x = torch.randn((16, 320, d), generator=g, device=cuda).to(dtype)
+    r = torch.rand((16, 320), generator=g, device=cuda)
+    before = weighted_gram.launches
+    got = weighted_gram(x, r)
+    torch.cuda.synchronize()
+    assert weighted_gram.launches == before + 1
+    for e in range(16):
+        assert _rel(got[e], weighted_gram_ref(x[e], r[e])) < 1e-5, e
+    assert torch.equal(got, got.transpose(1, 2))
+
+
+@pytest.mark.parametrize("bits", [3, 4])
+@pytest.mark.parametrize("m", [1, 4, 64, 256])
+@pytest.mark.parametrize("k,n", [(4096, 32), (4096, 128), (512, 32)])
+def test_quant_matmul_at_jamba_mamba_widths_vs_plain(cuda, bits, m, k, n):
+    """jamba's narrowest projections: ``wbc`` (n 32, the narrowest output
+    the port quantizes) and ``wdt`` (n 128, 128 heads), decode (m <= 4,
+    ``qmm_decode``) and prefill (``qmm_tc``), bf16 and fp32 x."""
+    pw, g = _packed(cuda, bits, k, n, 128, seed=41)
+    for dtype, tol in ((torch.bfloat16, 8e-3), (torch.float32, 1e-5)):
+        x = torch.randn((m, k), generator=g, device=cuda).to(dtype)
+        want = quant_matmul_ref(x.float(), pw.w_packed, pw.scale, pw.zero,
+                                bits=bits, group_size=128)
+        before = quant_matmul.launches
+        got = quant_matmul(x, pw)
+        torch.cuda.synchronize()
+        assert quant_matmul.launches == before + 1
+        assert got.dtype == dtype and got.shape == (m, n)
+        assert _rel(got, want) < tol
+
+
+@pytest.mark.parametrize("m", [8, 40])
+@pytest.mark.parametrize("k,n", [(4096, 14336), (14336, 4096)])
+def test_quant_matmul_expert_stack_at_jamba_widths(cuda, m, k, n):
+    """jamba's expert stacks (E 16, 3-bit, group 128: wi / wu 4096 ->
+    14336, wd 14336 -> 4096) at the decode capacity (m 8) and a 4 x 64
+    prefill's (m 40): one launch, each expert's bf16 output within one
+    bf16 rounding of its plain version."""
+    g = torch.Generator(device=cuda).manual_seed(42)
+    w = torch.randn((16, k, n), generator=g, device=cuda) * k ** -0.5
+    pw = _packed_stack(w, QuantSpec(3, 128))
+    del w
+    x = torch.randn((16, m, k), generator=g, device=cuda).to(torch.bfloat16)
+    before = quant_matmul.launches
+    got = quant_matmul(x, pw)
+    torch.cuda.synchronize()
+    assert quant_matmul.launches == before + 1
+    assert got.shape == (16, m, n) and got.dtype == torch.bfloat16
+    for e in range(16):
+        want = quant_matmul_ref(x[e].float(), pw.w_packed[e], pw.scale[e],
+                                pw.zero[e], bits=3, group_size=128, d_in=k)
+        assert _rel(got[e], want) < 8e-3, e
+    del pw, got
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_hybrid_generate_graph_equals_python_loop(cuda, kv_bits):
+    """jamba-v0.1-52b-smoke at 8 layers (two groups of Mamba and GQA
+    blocks, dense and routed-expert FFNs) on the card in bf16, every
+    projection at least 16 wide RTN-packed at 3 bits: ``generate``
+    through the captured decode (the prefill's Mamba states and the GQA
+    blocks' K/V or kv8 codes loaded into the static cache after the
+    capture) gives the Python loop's tokens bit for bit, greedy and
+    sampled, with the same launches."""
+    cfg = dataclasses.replace(get_config("jamba-v0.1-52b").reduced(),
+                              n_layers=8, dtype="bfloat16", kv_bits=kv_bits)
+    model = Model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    spec = QuantSpec(bits=3, group_size=32)
+    names = ("wzx", "wbc", "wdt", "out_proj", "wq", "wk", "wv", "wo", "wi",
+             "wu", "wd")
+
+    def pack(node):
+        for name, w in node.items():
+            if isinstance(w, dict):
+                pack(w)
+            elif name in names and min(w.shape[-2:]) >= 16:
+                node[name] = (_packed_stack(w, spec) if w.ndim == 3 else
+                              pack_weight(*quantize_weight_rtn(
+                                  w.float(), spec)[1:], spec))
+
+    for layer in params["layers"]:
+        pack(layer)
+    prompts = torch.randint(2, cfg.vocab_size, (3, 64),
+                            generator=torch.Generator(device=cuda)
+                            .manual_seed(1), device=cuda)
+    for temperature in (0.0, 1.3):
+        graph, python, n_graph, n_python = _loops(
+            lambda loop: generate(model, params, prompts, 9,
+                                  temperature=temperature, seed=4,
+                                  loop=loop))
+        assert torch.equal(graph, python), (graph.tolist(), python.tolist())
+        assert n_graph == n_python
+    assert n_python["quant_matmul"][1]["qmm_decode"] > 0
+    assert n_python["quant_matmul"][1]["qmm_tc"] > 0  # the expert stacks
+    if kv_bits:
+        assert n_python["flash_decode"][0] > 0
+    assert all(r.captured for r, _ in model.graphs.values())
+    static = next(iter(model.graphs.values()))[1]["cache"]
+    for kind, entry in zip(cfg.layer_kinds(), static):
+        if kind == "mamba":
+            assert entry["ssm"].dtype == torch.float32
+        else:
+            assert ("ks" in entry) == bool(kv_bits)

@@ -131,20 +131,20 @@ def test_model_builds_deepseek_with_its_moe_layers(arch):
     ("mamba2-780m", "dense GQA"), ("jamba-v0.1-52b", "dense GQA"),
     ("qwen1.5-4b", "qkv"), ("command-r-35b", "tied embeddings")])
 def test_model_refuses_ssm_hybrid_qkv_bias_and_tied_embeddings(arch, match):
-    """The hybrid (jamba: GQA and Mamba blocks, MoE on GQA) is still
-    refused.  SSM, qkv bias and tied embeddings are served since they were
-    ported (held to the reference by ``tests/test_torch_dense_variants.py``
-    and ``tests/test_torch_ssm.py``): their full-width configs build, with
-    Mamba blocks, bias leaves and no LM head of their own."""
+    """SSM, qkv bias, tied embeddings and the hybrid (jamba: Mamba and GQA
+    blocks, routed experts on every other block) are served since they
+    were ported (held to the reference by
+    ``tests/test_torch_dense_variants.py``, ``tests/test_torch_ssm.py`` and
+    ``tests/test_torch_hybrid.py``): their full-width configs build, with
+    Mamba blocks, bias leaves and no LM head of their own; jamba's smoke
+    group has a Mamba block first and a GQA block second."""
     cfg = ModelConfig(**dataclasses.asdict(ref_get_config(arch)))
-    if cfg.family == "hybrid":
-        with pytest.raises(NotImplementedError, match=match):
-            Model(cfg, "cpu")
-        return
     model = Model(cfg, "cpu")
     params = Model(cfg.reduced(), "cpu").init(torch.Generator())
     mixer = params["layers"][0]["mixer"]
-    assert ("wzx" in mixer) == (cfg.family == "ssm")
+    assert ("wzx" in mixer) == (cfg.family in ("ssm", "hybrid"))
+    if cfg.family == "hybrid":
+        assert "wq" in params["layers"][1]["mixer"]
     assert ("bq" in mixer) == cfg.qkv_bias
     assert ("head" in params) == (not cfg.tie_embeddings)
     assert model.cfg is cfg
