@@ -110,9 +110,10 @@ Phases, in order; any failure exits non-zero before the final line:
      a ``--no-rotate`` quantize served (no ``head``: the tied table is the
      LM head); layer 0's qwen ``mixer/wq`` and command-r ``mixer/wk``
      solves against the host CPU;
-  7. the SSM path (``ssm_path``): mamba2-780m, 24 of its 48 layers (48
-     until the hybrid path below needed the time): quantize
-     (seconds and ``solve_s`` per layer, ``ppl_ratio`` over the 24
+  7. the SSM path (``ssm_path``): mamba2-780m, 12 of its 48 layers (48
+     until the hybrid path below needed the time, then 24 until the
+     cross path did): quantize
+     (seconds and ``solve_s`` per layer, ``ppl_ratio`` over the 12
      layers) -> keep-packed bf16 serve at prompt 64 / 16 tokens and 1024 /
      32, each in both loops (the Mamba state in the graph's static cache)
      and against the dequantized serve; layer 0's ``wzx``, ``wdt`` and
@@ -126,7 +127,28 @@ Phases, in order; any failure exits non-zero before the final line:
      when 8 bf16 layers part them beyond 2e-2), then layer 0's ``wbc`` and
      ``out_proj``, layer 4's ``wk`` and two of layer 1's ``experts/wi``
      solves against the host CPU (``check_hybrid_solves``);
-  9. the strategy sweep: the quantize CLI on llama3-8b's layer 0 at full
+  9. the cross path (``cross_path``), through the library entry points
+     (the CLIs take no frames or media): whisper-medium whole (24
+     non-causal encoder blocks, 24 decoder blocks with cross-attention on
+     the encoder's output) in fp32, calibrated on 8 x 448 tokens with
+     8 x 1500 frames, and llama-3.2-vision-11b's first layer group (5
+     layers, cross-attention at 3 on 6404 media rows a sample) in bf16:
+     quantize (layer seconds, ``capture_s`` and ``solve_s`` by block kind,
+     peak device memory, ``ppl_ratio`` with frames or media) -> artifact
+     -> keep-packed bf16 serve at two (prompt, new tokens, kv bits) each,
+     in both loops (the cross K/V computed by the prefill, static in the
+     graph's cache), a traced decode, keep-packed vs dequantized (in fp32
+     where bf16 parts them), then whisper's ``enc0/mixer/wq`` (non-causal
+     AttnCon) and ``layer0/cross/wk`` (an unweighted Hessian of the
+     encoder's output) and the vision model's ``layer3/mixer/wk`` solves
+     against the host CPU (``cross_solves``); phase 2's
+     ``check_cross_kernels`` rows: ``attn_colsum``'s non-causal form at
+     the encoder's B 4, T 1500, H = KV 16, Dh 64 (``noncausal`` beside the
+     causal row in the ``kernels`` line) and its causal form at T 448,
+     ``flash_decode`` at G 1, KV 16, Dh 64, ``quant_matmul`` at whisper's
+     three projection shapes, ``gram`` at d 1024 and on 4 x 6404 bf16
+     media rows of d 4096 (``media``);
+  10. the strategy sweep: the quantize CLI on llama3-8b's layer 0 at full
      width, once with each of the paper's eight token-importance strategies
      and once with AttnCon on the calibration set expanded twofold: each
      run's seconds, proxy losses and ``ppl_ratio``; fails on a loss that is
@@ -134,7 +156,9 @@ Phases, in order; any failure exits non-zero before the final line:
 Each path fails if a kernel it runs was never launched.  The last two
 lines are the ``kernels`` JSON object (twelve kernels, each with its
 launches on every path in ``path_launches``, ``gram``'s with its expert
-stack rows in ``experts``, ``solve_block``'s with its launches on each
+stack rows in ``experts`` and its media row in ``media``,
+``attn_colsum``'s with its non-causal row in ``noncausal`` and each
+form's launches on every path, ``solve_block``'s with its launches on each
 path; ``quant_matmul``'s
 entry is its decode row with ``prefill`` and ``prefill_fp32`` rows beside
 it, each with its kernel's launches on every path, ``quant_matmul_t``'s its
@@ -266,18 +290,20 @@ QWEN_ARCH, CMDR_ARCH, VARIANT_LAYERS = "qwen1.5-4b", "command-r-35b", 1
 # measured: two 22528 x 8192 GPTQ solves and the capture of its 22528-wide
 # FFN, where the script has ~300 s left of its limit)
 VARIANT_SOLVE_CHECK = {QWEN_ARCH: ("mixer/wq",), CMDR_ARCH: ("mixer/wk",)}
-# the SSM path: mamba2-780m, 24 of its 48 layers (cut from the whole model
-# to make room for the hybrid path; d_model 1536, d_inner 3072, 48 SSD
+# the SSM path: mamba2-780m, 12 of its 48 layers (cut from the whole model
+# to 24 to make room for the hybrid path, then to 12 for the cross path;
+# d_model 1536, d_inner 3072, 48 SSD
 # heads of 64, state 128, tied embeddings), quantized in fp32,
 # served keep-packed in bf16 at (prompt, new tokens) SSM_SERVES, each in
 # both decode loops and against the dequantized serve; layer 0's wzx, wdt
 # (1536 x 48: quantized at full width) and out_proj re-solved on the CPU
-SSM_ARCH, SSM_LAYERS = "mamba2-780m", 24
+SSM_ARCH, SSM_LAYERS = "mamba2-780m", 12
 SSM_SERVES = ((PROMPT_LEN, N_GEN), (KV_PROMPT, KV_GEN))
 SSM_SOLVE_CHECK = ("mixer/wzx", "mixer/wdt", "mixer/out_proj")
 # kernels a path does not run, with the reason
-SSM_PATH_WITHOUT = {"attn_colsum": "attention-free: AttnCon falls back to "
-                                   "ActNorm"}
+SSM_PATH_WITHOUT = dict.fromkeys(
+    ("attn_colsum", "colsum_causal"),
+    "attention-free: AttnCon falls back to ActNorm")
 # the hybrid path: jamba-v0.1-52b at full width, its first layer group (8
 # layers: Mamba-2 blocks at positions 0-3 and 5-7, GQA 32 / 8 at 4; dense
 # FFNs at the even positions, 16 routed experts top-2 of 14336 at the odd
@@ -312,6 +338,42 @@ HYB_PATH_WITHOUT = {
     "paged_flash_decode": "the engine refuses Mamba blocks (state per slot, "
                           "not per page), as the reference's does",
     "paged_flash_extend": "the chunked prefill refuses Mamba blocks"}
+# the cross path (``cross_path``): whisper-medium whole (24 non-causal
+# encoder blocks and 24 decoder blocks, each with a cross-attention
+# sub-layer on the encoder's output; d 1024, 16 heads of 64, d_ff 4096,
+# qkv bias), fp32 weights, calibrated on N_CALIB x WSP_CTX decoder tokens
+# (its text context) with N_CALIB x WSP_FRAMES frames (its 30 s audio
+# context; the stub frontend's frames N(0, 1) from a torch.Generator) in
+# batches of CALIB_BATCH, served keep-packed in bf16 at (prompt, new
+# tokens, kv bits) WSP_SERVES; then llama-3.2-vision-11b's first layer
+# group (VIS_LAYERS layers: GQA 32 / 8 at 0, 1, 2 and 4, cross-attention
+# on VIS_MEDIA patch rows a sample at 3), bf16, calibrated on the main
+# path's N_CALIB x CALIB_SEQ tokens, served at VIS_SERVES; each serve in
+# both loops and against the dequantized serve (in fp32 when bf16 parts
+# them beyond TOL_SERVE_LOGITS, as the SSM path)
+WSP_ARCH, WSP_FRAMES, WSP_CTX = "whisper-medium", 1500, 448
+WSP_SERVES = ((PROMPT_LEN, N_GEN, 0), (384, 32, 8))
+VIS_ARCH, VIS_LAYERS, VIS_DTYPE = "llama-3.2-vision-11b", 5, "bfloat16"
+VIS_SERVES = ((PROMPT_LEN, N_GEN, 0), (KV_PROMPT, KV_GEN, 8))
+# solves redone on the host CPU: whisper's enc0 wq (non-causal AttnCon
+# importances) and layer 0's cross wk (an unweighted Hessian of the
+# encoder's output), the vision model's cross mixer wk (of the media rows)
+WSP_SOLVE_CHECK = ("enc0/mixer/wq", "layer0/cross/wk")
+VIS_SOLVE_CHECK = ("layer3/mixer/wk",)
+# phase 2 shapes of the cross path: whisper's projections (3-bit, m 4 and
+# 256), its attention heads (16 on 16 of 64) in attn_colsum (the encoder's
+# non-causal form over 1500 frames, the decoder's causal form over 448
+# positions) and flash_decode (G 1 over 448 positions), gram at d 1024 on
+# an encoder batch and on a vision batch's media rows (bf16, no r)
+WSP_QMM = (("wq/wk/wv/wo", 1024, 1024), ("wi/wu", 1024, 4096),
+           ("wd", 4096, 1024))
+WSP_HEADS, WSP_DH, VIS_MEDIA, VIS_D = 16, 64, 6404, 4096
+# kernels the cross path does not run, with the reason
+CROSS_PATH_WITHOUT = {
+    "paged_flash_decode": "the engine refuses cross-attention (media and "
+                          "encoder K/V are per request, not per page), as "
+                          "the reference's does",
+    "paged_flash_extend": "the chunked prefill refuses cross-attention"}
 # phase 2 shapes of this slice's projections (3-bit, the main path's m):
 # mamba2-780m's four (wdt's 48 columns are less than one column tile),
 # qwen1.5-4b's FFN input and command-r-35b's FFN output; gram at the
@@ -417,11 +479,24 @@ NO_PATH = {"fwht": "no path runs it: core/rotation applies dense Hadamard "
                    "matrices (in the reference too) and nothing outside "
                    "kernels/hadamard calls fwht; held to its plain version "
                    "in phase 2 only"}
+# kernels only an encoder's attention runs: the paths without one (every
+# path but the cross path's whisper) do not launch them
+NO_ENCODER = {"colsum_noncausal": "attn_colsum's non-causal form: no "
+                                  "encoder on this path"}
 
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def never_launched(launches: dict, *without) -> list:
+    """The kernels of a path's ``launches`` that it never launched, but
+    NO_PATH's and those named in ``without`` (each the path's
+    {name: reason} or names)."""
+    skip = set(NO_PATH).union(*without)
+    return [name for name, c in launches.items()
+            if c <= 0 and name not in skip]
 
 
 def log(obj) -> None:
@@ -589,86 +664,110 @@ def check_kernels(torch, checks: Checks) -> None:
 
 
 def check_gram(torch, checks: Checks, g, d: int, representative,
-               arch: str = ARCH) -> None:
-    """``gram`` on one fp32 calibration batch (B*T tokens) of a d-wide
-    weight input drawn from ``g`` against its plain version (TOL_FP32),
-    bitwise symmetric from a zero accumulator; timed into an accumulator
-    with the plain version and ``xrᵀ xr`` beside it."""
+               arch: str = ARCH, n: int = CALIB_BATCH * CALIB_SEQ,
+               media: bool = False) -> None:
+    """``gram`` on one calibration batch (n rows, B*T tokens by default)
+    of a d-wide weight input drawn from ``g`` against its plain version
+    (TOL_FP32), bitwise symmetric from a zero accumulator; timed into an
+    accumulator with the plain version and ``xrᵀ xr`` beside it.  The
+    rows are fp32 with importances r, or with ``media`` bf16 media rows
+    with none (r None), as cross-attention's wk / wv take them."""
     from repro_torch.kernels.gram.ops import weighted_gram
     from repro_torch.kernels.gram.ref import weighted_gram_ref
 
     timer, dev = checks.timer, torch.device("cuda")
-    n = CALIB_BATCH * CALIB_SEQ
     x = torch.randn((n, d), generator=g, device=dev)
-    r = torch.rand((n,), generator=g, device=dev)
+    r = None if media else torch.rand((n,), generator=g, device=dev)
+    if media:
+        x = x.to(torch.bfloat16)
     want = weighted_gram_ref(x, r)
     got = weighted_gram(x, r)
     # from a zero accumulator the kernel's result is bitwise symmetric
     if not torch.equal(got, got.T):
         checks.bad.append(f"gram (n {n}, d {d}) is not bitwise symmetric")
-    # read x and r once, read and write the (d, d) accumulator
-    nbytes = n * d * 4 + n * 4 + 2 * d * d * 4
-    sets = checks.clones((x, r, torch.zeros_like(want)), nbytes)
-    ms = timer.ms(lambda a=a: weighted_gram(a[0], a[1], out=a[2], alpha=2.0)
-                  for a in sets)
-    plain_ms = timer.ms(lambda a=a: weighted_gram_ref(a[0], a[1])
+    # read x (and r) once, read and write the (d, d) accumulator
+    nbytes = n * d * x.element_size() + (0 if media else n * 4) \
+        + 2 * d * d * 4
+    # (x, accumulator[, r]): r goes in positionally where there is one
+    sets = checks.clones((x, torch.zeros_like(want))
+                         + (() if media else (r,)), nbytes)
+    ms = timer.ms(lambda a=a: weighted_gram(a[0], *a[2:], out=a[1],
+                                            alpha=2.0) for a in sets)
+    plain_ms = timer.ms(lambda a=a: weighted_gram_ref(a[0], *a[2:])
                         for a in sets)
-    xrs = [(a[0] * a[1][:, None],) for a in sets]
+    xrs = [(a[0].float() * (a[2][:, None] if a[2:] else 1.0),)
+           for a in sets]
     library_ms = timer.ms(lambda a=a: torch.mm(a[0].T, a[0]) for a in xrs)
     # the least work: the product is symmetric, d(d+1)/2 distinct entries
     # of n multiply-adds each, at the cheapest fp32-accurate tensor-core
     # rate, as the other fp32 rows: both operands fp32, so three bf16 terms
     # each and the six term products i + j < 3 at 989 TFLOP/s (cheaper
-    # than three TF32 products at 495, and than the fp32 pipes' 67)
-    checks.record("gram", {"arch": arch, "n": n, "d": d}, got, want,
-                  TOL_FP32, ms, plain_ms, library_ms, nbytes,
-                  6.0 * n * d * (d + 1), "bfloat16", representative)
+    # than three TF32 products at 495, and than the fp32 pipes' 67); bf16
+    # media rows without r need the one bf16 product
+    flops = (1.0 if media else 6.0) * n * d * (d + 1)
+    shape = {"arch": arch, "n": n, "d": d}
+    if media:
+        shape["x"] = "bfloat16 media rows, no r"
+    checks.record("gram", shape, got, want, TOL_FP32, ms, plain_ms,
+                  library_ms, nbytes, flops, "bfloat16", representative)
     del x, r, want, got, sets, xrs
     torch.cuda.empty_cache()
 
 
-def colsum_flops(b: int, t: int, h: int, dh: int) -> float:
+def colsum_flops(b: int, t: int, h: int, dh: int,
+                 causal: bool = True) -> float:
     """The least work of ``attn_colsum`` on fp32 q and k, for its bound: the
-    causal half of q kᵀ once (the kernel's two passes compute it twice), at
+    causal half of q kᵀ once (all of it when not ``causal``; the kernel's
+    two passes compute it twice), at
     the cheapest fp32-accurate tensor-core rate, as the other fp32 rows: both
     operands fp32, so three bf16 terms each and the six term products
     i + j < 3 at 989 TFLOP/s (cheaper than three TF32 products at 495, and
     than the fp32 pipes' 67).  The exps (one a score) are not counted."""
-    return 6.0 * 2.0 * b * h * (t * (t + 1) / 2) * dh
+    pairs = t * (t + 1) / 2 if causal else t * t
+    return 6.0 * 2.0 * b * h * pairs * dh
 
 
 def check_colsum(torch, checks: Checks, g, b: int, t: int, h: int, kv: int,
-                 dh: int, representative: bool) -> None:
-    """``attn_colsum`` on fp32 q (B, T, H, Dh) and k (B, T, KV, Dh) drawn
-    from ``g`` against its plain version (TOL_COLSUM), two calls bitwise
-    equal; timed with the plain version and the materialised causal
-    softmax (one PyTorch expression) beside it."""
+                 dh: int, representative, *, causal: bool = True,
+                 arch: str | None = None) -> None:
+    """``attn_colsum`` (``causal``, or the non-causal form an encoder
+    runs) on fp32 q (B, T, H, Dh) and k (B, T, KV, Dh) drawn from ``g``
+    against its plain version (TOL_COLSUM), two calls bitwise equal;
+    timed with the plain version and the materialised softmax (one
+    PyTorch expression) beside it."""
     from repro_torch.kernels.attn_colsum.ops import attn_colsum
     from repro_torch.kernels.attn_colsum.ref import attn_colsum_ref
 
     timer, dev = checks.timer, torch.device("cuda")
     q = torch.randn((b, t, h, dh), generator=g, device=dev)
     k = torch.randn((b, t, kv, dh), generator=g, device=dev)
-    want = attn_colsum_ref(q, k)
-    got = attn_colsum(q, k)
+    want = attn_colsum_ref(q, k, causal=causal)
+    got = attn_colsum(q, k, causal=causal)
     shape = {"B": b, "T": t, "H": h, "KV": kv, "Dh": dh}
-    if not torch.equal(got, attn_colsum(q, k)):
+    if not causal:
+        shape["causal"] = False
+    if arch:
+        shape["arch"] = arch
+    if not torch.equal(got, attn_colsum(q, k, causal=causal)):
         checks.bad.append(f"attn_colsum {shape}: two calls differ")
     nbytes = (q.numel() + k.numel()) * 4 + b * t * 4
     sets = checks.clones((q, k), nbytes)
-    ms = timer.ms(lambda a=a: attn_colsum(*a) for a in sets)
-    plain_ms = timer.ms(lambda a=a: attn_colsum_ref(*a) for a in sets)
-    causal = torch.ones((t, t), dtype=torch.bool, device=dev).tril()
+    ms = timer.ms(lambda a=a: attn_colsum(*a, causal=causal) for a in sets)
+    plain_ms = timer.ms(lambda a=a: attn_colsum_ref(*a, causal=causal)
+                        for a in sets)
+    mask = torch.ones((t, t), dtype=torch.bool, device=dev)
+    if causal:
+        mask = mask.tril()
 
     def materialized(qq, kk):
         kr = kk.repeat_interleave(h // kv, dim=2)
         s = torch.einsum("bthd,bshd->bhts", qq, kr) * dh ** -0.5
-        return torch.softmax(s.masked_fill(~causal, -1e30), -1).sum((1, 2))
+        return torch.softmax(s.masked_fill(~mask, -1e30), -1).sum((1, 2))
 
     library_ms = timer.ms(lambda a=a: materialized(*a) for a in sets)
     checks.record("attn_colsum", shape, got, want, TOL_COLSUM, ms, plain_ms,
-                  library_ms, nbytes, colsum_flops(b, t, h, dh), "bfloat16",
-                  representative)
+                  library_ms, nbytes, colsum_flops(b, t, h, dh, causal),
+                  "bfloat16", representative)
     del q, k, want, got, sets
 
 
@@ -1281,16 +1380,18 @@ def check_gptq_block(torch, checks: Checks) -> None:
 
 
 def gqa_decode_inputs(torch, g, bits: int, kv: int = FD_KV,
-                      grp: int = FD_G) -> dict:
+                      grp: int = FD_G, dh: int = FD_DH,
+                      s: int = FD_S) -> dict:
     """Phase 2's decode inputs at llama3-8b's heads (or ``kv`` KV heads of
-    ``grp`` query heads each): a flat kv``bits`` cache (B 4, S 8192, KV 8,
-    Dh 128) of random keys and values drawn from ``g``, a scaled query
-    group (G 4) and pos = S - 37, plus the same codes in paged pools
-    through a shuffled table with one trash column (page 0)."""
+    ``grp`` query heads each, of ``dh``): a flat kv``bits`` cache (B 4,
+    S 8192 or ``s``, KV 8, Dh 128) of random keys and values drawn from
+    ``g``, a scaled query group (G 4) and pos = S - 37, plus the same codes
+    in paged pools through a shuffled table with one trash column (page
+    0)."""
     from repro_torch.models.attention import kv_codec
 
     dev = torch.device("cuda")
-    b, s, dh, page = FD_B, FD_S, FD_DH, 64
+    b, page = FD_B, 64
     n_tiles = s // page
     codec = kv_codec(bits, page)
     kq, ks = codec.encode(torch.randn((b, s, kv, dh), generator=g,
@@ -1349,15 +1450,17 @@ def gqa_extend_inputs(torch, g, bits: int, kv: int = FD_KV,
 
 
 def check_kv_kernels(torch, checks: Checks, kv: int = FD_KV,
-                     grp: int = FD_G, arch: str = ARCH) -> None:
+                     grp: int = FD_G, arch: str = ARCH, dh: int = FD_DH,
+                     s: int = FD_S, extend: bool = True) -> None:
     """Phase 2, quantized-KV slice: flat and paged flash decode (kv8, kv2)
     at B 4, S 8192, KV 8, G 4, Dh 128 (or ``arch``'s ``kv`` x ``grp``
-    heads; only llama3-8b's rows represent the kernels), pos = S - 37, the
+    heads of ``dh`` over ``s`` positions; only llama3-8b's rows represent
+    the kernels), pos = S - 37, the
     paged call through a shuffled page table with a trash entry and held
-    bitwise to the flat call; then the chunked-prefill extend at L 256 over
-    16 past pages.  The yardstick is ``scaled_dot_product_attention`` (GQA)
-    on the cache already dequantized to bf16; the dequantization is not
-    timed."""
+    bitwise to the flat call; then (``extend``) the chunked-prefill extend
+    at L 256 over 16 past pages.  The yardstick is
+    ``scaled_dot_product_attention`` (GQA) on the cache already
+    dequantized to bf16; the dequantization is not timed."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_decode.ops import (flash_decode,
@@ -1372,7 +1475,7 @@ def check_kv_kernels(torch, checks: Checks, kv: int = FD_KV,
     main = arch == ARCH
     g = torch.Generator(device=dev).manual_seed(1 if main else kv + grp)
     timer, record, clones = checks.timer, checks.record, checks.clones
-    b, s, dh = FD_B, FD_S, FD_DH
+    b = FD_B
     h = kv * grp
     pos_v = s - FD_TAIL
 
@@ -1387,7 +1490,7 @@ def check_kv_kernels(torch, checks: Checks, kv: int = FD_KV,
         return x[:, :, :rows].to(torch.bfloat16).contiguous()
 
     for bits in KV_BITS:
-        di = gqa_decode_inputs(torch, g, bits, kv, grp)
+        di = gqa_decode_inputs(torch, g, bits, kv, grp, dh, s)
         codec, page, q, pos = di["codec"], di["page"], di["q"], di["pos"]
         kq, ks, vq, vs = di["flat"]
         kw = dict(kv_bits=bits, chunk=codec.chunk, dv=dh)
@@ -1442,6 +1545,8 @@ def check_kv_kernels(torch, checks: Checks, kv: int = FD_KV,
                "float32", main and bits == 8)
         del kq, ks, vq, vs, pools, sets, flat, got, want, di
         torch.cuda.empty_cache()
+        if not extend:
+            continue
 
         # extend: an L-token chunk over FE_PAST past pages, bf16 inputs
         xi = gqa_extend_inputs(torch, g, bits, kv, grp)
@@ -2158,9 +2263,11 @@ class FinalChunks:
 
 def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
             lossy_paged_bits=(2,), kv_bits=KV_BITS, modes=ENGINE_MODES,
-            overload: bool = True, traced_modes=TRACED_MODES) -> None:
+            overload: bool = True, traced_modes=TRACED_MODES,
+            params=None) -> None:
     """The quantized-KV serving path of one artifact (loaded once,
-    keep-packed), for each of ``kv_bits`` (kv8 and kv2):
+    keep-packed, unless the caller hands its loaded ``params`` over), for
+    each of ``kv_bits`` (kv8 and kv2):
     ``launch.serve.generate`` through the flat quantized cache (batch 4,
     prompt 1024, 32 new tokens, after a 2-token warm-up), then the
     ``Engine`` on a Poisson trace of 8 requests (prompt 512, budgets 16-64,
@@ -2218,8 +2325,9 @@ def kv_path(torch, art: Path, *, arch: str, n_layers: int, audit_names,
         for name in real:
             setattr(att, name, guard(name))
         audit.install()
-        params, _ = load_packed_forward_params(art, device=dev,
-                                               dtype=torch.bfloat16)
+        if params is None:
+            params, _ = load_packed_forward_params(art, device=dev,
+                                                   dtype=torch.bfloat16)
         for bits in kv_bits:
             t0 = time.perf_counter()
             cfg = dataclasses.replace(model_config(arch, n_layers,
@@ -2665,6 +2773,81 @@ def serve_loops(torch, serve, serve_args, tag: str) -> tuple[dict, dict]:
                    "capture_s": graph["capture_s"]}
 
 
+def fp_cache_serves(torch, serve, serve_args: list, art: Path, cfg,
+                    weight_dtype, tag: str) -> tuple:
+    """A path's fp-cache serves of its artifact, which is read twice: the
+    serve CLI in the graph loop (the user's entry point; its load checks
+    the artifact's files), then one more load in this process,
+    keep-packed in bf16 (unchecked: the files were just checked), for
+    the rest: the same warm-up and serve in the Python loop (``loop_pair``:
+    the same tokens and launches as the CLI's graph run, or the run
+    fails), the dequantized serve (the codes dequantized in memory to
+    ``weight_dtype``, the dtype they were quantized from, the residual
+    left in bf16, as ``--no-keep-packed`` loads them) and the traced decode
+    (``profile_generate``; its idle share against the CLI run's wall
+    time).  Returns (the CLI run, the loop comparison row, the dequantized
+    run, the traced profile, the loaded params, which ``kv_path``
+    takes)."""
+    from repro_torch.checkpoint.packed import load_packed_forward_params
+    from repro_torch.data.calibration import SyntheticCorpus
+    from repro_torch.device import generator
+    from repro_torch.models.lm import Model
+
+    dev = torch.device("cuda")
+    holder: dict = {}
+
+    def run(loop: str):
+        if loop == "graph":
+            return serve.main(serve_args + ["--loop", "graph"])
+        holder["params"], _ = load_packed_forward_params(
+            art, device=dev, dtype=torch.bfloat16, verify=False)
+        model = Model(cfg, dev)
+        corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seed=SEED)
+        prompts = corpus.sample(generator(SEED + 1), SERVE_BATCH,
+                                PROMPT_LEN).to(dev)
+        holder.update(model=model, prompts=prompts)
+        serve.generate(model, holder["params"], prompts, 2, loop=loop)
+        st: dict = {}
+        toks = serve.generate(model, holder["params"], prompts, N_GEN,
+                              stats=st, loop=loop)
+        return {"tokens": toks.cpu().tolist(),
+                "decode_tok_s": SERVE_BATCH * (N_GEN - 1) / st["decode_s"]}
+
+    bad: list = []
+    packed, python, n_graph = loop_pair(torch, run, tag, bad)
+    if packed["tokens"] != python["tokens"]:
+        bad.append(f"{tag}: the graph loop's tokens differ from the Python "
+                   f"loop's")
+    if bad:
+        fail("; ".join(bad))
+    loops = {"tokens_equal": True, "launches_equal": True,
+             "launches": n_graph, "graph_decode_tok_s": packed["decode_tok_s"],
+             "python_decode_tok_s": python["decode_tok_s"],
+             "captures": packed["captures"], "capture_s": packed["capture_s"]}
+    params, model, prompts = (holder[k] for k in ("params", "model",
+                                                  "prompts"))
+    deq_params = mapped(params, dequantized(torch, weight_dtype,
+                                            residual=False))
+    deq_model = Model(cfg, dev)
+    serve.generate(deq_model, deq_params, prompts, 2)  # warm-up
+    st: dict = {}
+    toks = serve.generate(deq_model, deq_params, prompts, N_GEN, stats=st)
+    dequant = {"tokens": toks.cpu().tolist(),
+               "first_logits": st["first_logits"],
+               "prefill_tok_s": SERVE_BATCH * PROMPT_LEN / st["prefill_s"],
+               "decode_tok_s": SERVE_BATCH * (N_GEN - 1) / st["decode_s"]}
+    del deq_params, deq_model
+    traced = serve.profile_generate(model, params, prompts, N_GEN)
+    traced["untraced_wall_ms"] = (packed["prefill_s"]
+                                  + packed["decode_s"]) * 1e3
+    traced["idle_share"] = (1.0 - traced["device_busy_ms"]
+                            / traced["untraced_wall_ms"])
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return packed, loops, dequant, traced, params
+
+
 def reset_counts(counted: dict) -> None:
     """Every launch count of ``counted``'s wrappers to 0 (by kernel too,
     where a wrapper counts them)."""
@@ -2694,6 +2877,7 @@ def main_path(torch) -> tuple[dict, dict]:
     from repro_torch.kernels.hadamard.ops import fwht
     from repro_torch.kernels.quant_matmul.ops import quant_matmul
     from repro_torch.launch import quantize, serve
+    from repro_torch.launch.quantize import model_config
 
     counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
                "quant_matmul": quant_matmul, "fwht": fwht,
@@ -2719,16 +2903,18 @@ def main_path(torch) -> tuple[dict, dict]:
         entries = {name: e for name, e in load_packed_artifact(art)[0].items()
                    if name.removeprefix("layer0/") in SOLVE_CHECK}
         torch.cuda.empty_cache()
-        packed, loops = serve_loops(torch, serve, serve_args, "fp cache")
+        packed, loops, dequant, traced, params = fp_cache_serves(
+            torch, serve, serve_args, art,
+            model_config(ARCH, N_LAYERS, "bfloat16"), torch.float32,
+            "fp cache")
         launches = read_counts(counted)
-        dequant = serve.main(serve_args + ["--no-keep-packed"])
-        traced = serve.main(serve_args + ["--profile"])["profile"]
         t0 = time.perf_counter()
         kv_counted = {name: getattr(fd_ops, name) for name in KvAudit.GQA}
         for fn in kv_counted.values():
             fn.launches = 0
         kv_path(torch, art, arch=ARCH, n_layers=N_LAYERS,
-                audit_names=KvAudit.GQA)
+                audit_names=KvAudit.GQA, params=params)
+        del params
         launches.update({name: fn.launches
                          for name, fn in kv_counted.items()})
         log({"phase_seconds": {"kv_path": time.perf_counter() - t0}})
@@ -2771,9 +2957,7 @@ def main_path(torch) -> tuple[dict, dict]:
     ratio = summary["ppl_ratio"]
     if not (math.isfinite(ratio) and ratio < 1.5):
         fail(f"quantized/fp perplexity ratio {ratio} (expected finite, < 1.5)")
-    missing = [name for name, c in launches.items()
-               if c <= 0 and name not in NO_PATH
-               and name not in MAIN_PATH_WITHOUT]
+    missing = never_launched(launches, MAIN_PATH_WITHOUT, NO_ENCODER)
     if missing:
         fail(f"main path never launched: {missing}")
     check_solves(torch, entries, proxy0)
@@ -2798,6 +2982,7 @@ def mla_path(torch) -> dict:
     from repro_torch.kernels.quant_matmul.ops import (quant_matmul,
                                                       quant_matmul_t)
     from repro_torch.launch import quantize, serve
+    from repro_torch.launch.quantize import model_config
 
     counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
                "quant_matmul": quant_matmul,
@@ -2830,16 +3015,19 @@ def mla_path(torch) -> dict:
         wkv_b = meta["entries"]["layer0/mixer/wkv_b"]
         del loaded
         torch.cuda.empty_cache()
-        packed, loops = serve_loops(torch, serve, serve_args, "MLA fp cache")
-        dequant = serve.main(serve_args + ["--no-keep-packed"])
-        traced = serve.main(serve_args + ["--profile"])["profile"]
+        packed, loops, dequant, traced, params = fp_cache_serves(
+            torch, serve, serve_args, art,
+            model_config(MLA_ARCH, MLA_LAYERS, "bfloat16"), torch.float32,
+            "MLA fp cache")
         t1 = time.perf_counter()
         # the random-weight model's logits are nearly flat (perplexity
         # about the vocabulary size), and the latent cache's int8
         # read-back flips near-tied first tokens of the kv8 paged prefill
         # too: both bit widths take the lossy rule here
         kv_path(torch, art, arch=MLA_ARCH, n_layers=MLA_LAYERS,
-                audit_names=KvAudit.MLA, lossy_paged_bits=KV_BITS)
+                audit_names=KvAudit.MLA, lossy_paged_bits=KV_BITS,
+                params=params)
+        del params
         launches = read_counts(counted)
         log({"phase_seconds": {"mla_kv_path": time.perf_counter() - t1}})
     finally:
@@ -2889,8 +3077,7 @@ def mla_path(torch) -> dict:
     if not (math.isfinite(ratio) and ratio < 1.5):
         fail(f"MLA: quantized/fp perplexity ratio {ratio} (expected finite, "
              f"< 1.5)")
-    missing = [name for name, c in launches.items()
-               if c <= 0 and name not in NO_PATH]
+    missing = never_launched(launches, NO_ENCODER)
     if missing:
         fail(f"MLA path never launched: {missing}")
     check_solves(torch, entries, proxy0, arch=MLA_ARCH, n_layers=MLA_LAYERS,
@@ -3095,6 +3282,7 @@ def moe_path(torch) -> dict:
     from repro_torch.kernels.quant_matmul.ops import (quant_matmul,
                                                       quant_matmul_t)
     from repro_torch.launch import quantize, serve
+    from repro_torch.launch.quantize import model_config
 
     counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
                "quant_matmul": quant_matmul,
@@ -3133,14 +3321,16 @@ def moe_path(torch) -> dict:
         del q
         gc.collect()
         torch.cuda.empty_cache()
-        packed, loops = serve_loops(torch, serve, serve_args, "MoE fp cache")
-        dequant = serve.main(serve_args + ["--no-keep-packed"])
-        traced = serve.main(serve_args + ["--profile"])["profile"]
+        packed, loops, dequant, traced, params = fp_cache_serves(
+            torch, serve, serve_args, art,
+            model_config(MOE_ARCH, MOE_LAYERS, "bfloat16"), torch.bfloat16,
+            "MoE fp cache")
         t1 = time.perf_counter()
         kv_path(torch, art, arch=MOE_ARCH, n_layers=MOE_LAYERS,
                 audit_names=KvAudit.MLA, lossy_paged_bits=KV_BITS,
                 kv_bits=(8,), modes=MOE_ENGINE_MODES, overload=False,
-                traced_modes=())
+                traced_modes=(), params=params)
+        del params
         launches = read_counts(counted)
         log({"phase_seconds": {"moe_kv_path": time.perf_counter() - t1}})
         check_expert_solves(torch, art,
@@ -3191,8 +3381,7 @@ def moe_path(torch) -> dict:
     if not (math.isfinite(ratio) and ratio < 1.5):
         fail(f"MoE: quantized/fp perplexity ratio {ratio} (expected finite, "
              f"< 1.5)")
-    missing = [name for name, c in launches.items()
-               if c <= 0 and name not in NO_PATH]
+    missing = never_launched(launches, NO_ENCODER)
     if missing:
         fail(f"MoE path never launched: {missing}")
     return launches
@@ -3256,8 +3445,9 @@ def check_ratio(summary: dict, tag: str) -> None:
 
 
 def generate_loops(torch, model, params, prompts, n_gen: int,
-                   tag: str) -> tuple[dict, dict]:
-    """``launch.serve.generate`` on loaded params: a 2-token warm-up, then
+                   tag: str, **inputs) -> tuple[dict, dict]:
+    """``launch.serve.generate`` on loaded params (``inputs``: its
+    ``media`` or ``frames``): a 2-token warm-up, then
     the graph loop and the Python loop (``loop_pair``): the same tokens
     bit for bit and the same launches, one capture a key, or the run
     fails.  Returns the graph run (tokens, first-step logits, tok/s) and
@@ -3265,12 +3455,13 @@ def generate_loops(torch, model, params, prompts, n_gen: int,
     from repro_torch.launch import serve
 
     b, t = prompts.shape
-    serve.generate(model, params, prompts, 2)  # warm-up
+    serve.generate(model, params, prompts, 2, **inputs)  # warm-up
     stats = {"graph": {}, "python": {}}
     bad: list = []
     graph, python, n_graph = loop_pair(
         torch, lambda loop: serve.generate(model, params, prompts, n_gen,
-                                          stats=stats[loop], loop=loop),
+                                          stats=stats[loop], loop=loop,
+                                          **inputs),
         tag, bad)
     if not torch.equal(graph, python):
         bad.append(f"{tag}: the graph loop's tokens differ from the Python "
@@ -3376,7 +3567,6 @@ def variant_run(torch, arch: str) -> tuple[dict, dict, dict]:
         row.update({k: packed[k] for k in ("prefill_tok_s",
                                            "decode_tok_s")})
         if arch == QWEN_ARCH:
-            del params
             t0 = time.perf_counter()
             # random weights give nearly flat logits: the kv8 paged
             # prefill's read-back may flip a near-tied first token, so
@@ -3384,7 +3574,8 @@ def variant_run(torch, arch: str) -> tuple[dict, dict, dict]:
             kv_path(torch, art, arch=arch, n_layers=VARIANT_LAYERS,
                     audit_names=KvAudit.GQA, lossy_paged_bits=KV_BITS,
                     kv_bits=(8,), modes=MOE_ENGINE_MODES, overload=False,
-                    traced_modes=())
+                    traced_modes=(), params=params)
+            del params
             row["kv_path_s"] = time.perf_counter() - t0
         else:
             kv_model = Model(dataclasses.replace(cfg, kv_bits=8), dev)
@@ -3478,9 +3669,7 @@ def variants_path(torch) -> dict:
     runs = {arch: variant_run(torch, arch) for arch in (QWEN_ARCH, CMDR_ARCH)}
     launches = read_counts(counted)
     log({"variants_path": {"archs": list(runs), "launches": launches}})
-    missing = [name for name, c in launches.items()
-               if c <= 0 and name not in NO_PATH
-               and name not in MAIN_PATH_WITHOUT]
+    missing = never_launched(launches, MAIN_PATH_WITHOUT, NO_ENCODER)
     if missing:
         fail(f"variants path never launched: {missing}")
     for arch, (_, entries, proxy0) in runs.items():
@@ -3610,9 +3799,7 @@ def ssm_path(torch) -> dict:
         "ppl_ratio": summary["ppl_ratio"], **resident,
         "serves": serves, "launches": launches}})
     log({"ssm_decode_profile": traced})
-    missing = [name for name, c in launches.items()
-               if c <= 0 and name not in NO_PATH
-               and name not in SSM_PATH_WITHOUT]
+    missing = never_launched(launches, SSM_PATH_WITHOUT, NO_ENCODER)
     if missing:
         fail(f"SSM path never launched: {missing}")
     check_solves(torch, entries, proxy0, arch=SSM_ARCH, n_layers=SSM_LAYERS,
@@ -3646,7 +3833,6 @@ def hybrid_path(torch) -> dict:
     from repro_torch.checkpoint.packed import (load_packed_entry,
                                                load_packed_forward_params,
                                                resident_weight_bytes)
-    from repro_torch.core.quantizer import dequantize_packed
     from repro_torch.data.calibration import SyntheticCorpus
     from repro_torch.device import generator
     from repro_torch.kernels.attn_colsum.ops import attn_colsum
@@ -3654,7 +3840,7 @@ def hybrid_path(torch) -> dict:
     from repro_torch.kernels.gptq_block.ops import solve_block
     from repro_torch.kernels.gram.ops import weighted_gram
     from repro_torch.kernels.hadamard.ops import fwht
-    from repro_torch.kernels.quant_matmul.ops import is_packed, quant_matmul
+    from repro_torch.kernels.quant_matmul.ops import quant_matmul
     from repro_torch.launch import quantize, serve
     from repro_torch.launch.quantize import model_config
     from repro_torch.models.lm import Model
@@ -3663,43 +3849,6 @@ def hybrid_path(torch) -> dict:
                "quant_matmul": quant_matmul, "fwht": fwht,
                "solve_block": solve_block}
     counted.update({name: getattr(fd_ops, name) for name in KvAudit.GQA})
-
-    def mapped(tree, fn, name="", in_place=False):
-        """``fn`` on every leaf: a new tree, or ``tree`` itself with each
-        leaf replaced as it goes (the old one freed before the next)."""
-        if isinstance(tree, (dict, list)):
-            out = tree if in_place else type(tree)()
-            items = tree.items() if isinstance(tree, dict) else \
-                enumerate(tree)
-            for k, v in items:
-                new = mapped(v, fn, k if isinstance(tree, dict) else name,
-                             in_place)
-                if isinstance(out, dict) or in_place:
-                    out[k] = new
-                else:
-                    out.append(new)
-            return out
-        return fn(tree, name)
-
-    def dequantized(dtype):  # as ``load_packed_params``, in ``dtype``
-        def fn(w, name):
-            if not is_packed(w):
-                return w if w.dtype == torch.float32 else w.to(dtype)
-            if w.w_packed.ndim == 2:
-                return dequantize_packed(w.w_packed, w.scale, w.zero,
-                                         bits=w.bits, d_in=w.d_in).to(dtype)
-            out = torch.empty((w.w_packed.shape[0], w.d_in,
-                               w.w_packed.shape[-1]), dtype=dtype,
-                              device=w.w_packed.device)
-            for e in range(out.shape[0]):  # an expert at a time
-                out[e] = dequantize_packed(w.w_packed[e], w.scale[e],
-                                           w.zero[e], bits=w.bits,
-                                           d_in=w.d_in)
-            return out
-        return fn
-
-    def fp32_residual(w, name):  # keep-packed with an fp32 residual
-        return w if is_packed(w) else w.float()
 
     dev = torch.device("cuda")
     cfg = model_config(HYB_ARCH, HYB_LAYERS, HYB_DTYPE)
@@ -3790,7 +3939,7 @@ def hybrid_path(torch) -> dict:
                     "decode_tok_s": SERVE_BATCH * (N_GEN - 1)
                     / st["decode_s"]}
 
-        deq = mapped(params, dequantized(torch.bfloat16))
+        deq = mapped(params, dequantized(torch, torch.bfloat16))
         dequant = serve_with(deq, HYB_DTYPE)
         del deq
         gc.collect()
@@ -3811,8 +3960,8 @@ def hybrid_path(torch) -> dict:
             del model, first, packed
             gc.collect()
             torch.cuda.empty_cache()
-            deq32 = serve_with(mapped(params, dequantized(torch.float32),
-                                      in_place=True), "float32")
+            deq32 = serve_with(mapped(params, dequantized(
+                torch, torch.float32), in_place=True), "float32")
             row["fp32_vs_dequantized_fp32"] = serve_agreement(
                 torch, kp32, deq32, cfg.vocab_size, f"{HYB_ARCH} fp32",
                 TOL_SSM_FP32_SERVE)
@@ -3844,10 +3993,8 @@ def hybrid_path(torch) -> dict:
                               for li in range(HYB_LAYERS)})
     log({"hybrid_path": row})
     log({"hybrid_decode_profile": prof})
-    missing = [name for name, c in launches.items()
-               if c <= 0 and name not in NO_PATH
-               and name not in MAIN_PATH_WITHOUT
-               and name not in HYB_PATH_WITHOUT]
+    missing = never_launched(launches, MAIN_PATH_WITHOUT, HYB_PATH_WITHOUT,
+                             NO_ENCODER)
     if missing:
         fail(f"hybrid path never launched: {missing}")
     check_hybrid_solves(torch, entries, meta, proxies)
@@ -4047,6 +4194,430 @@ def hybrid_expert_solves(torch, blk: dict, cfg, xs: list, entries: dict,
         "experts_routed_otherwise": e_all - sum(same)}
     del card, wi, h_card
     return rows
+
+
+def check_cross_kernels(torch, checks: Checks) -> None:
+    """Phase 2, the cross path's shapes: ``attn_colsum``'s non-causal form
+    at whisper-medium's encoder (B 4, T 1500, H = KV 16, Dh 64; its row
+    ``attn_colsum_noncausal``) and its causal form at the decoder's 448
+    positions, ``flash_decode`` (kv8, kv2) at G 1, KV 16, Dh 64 over 448
+    positions (the engine refuses cross-attention, so no extend),
+    ``quant_matmul`` at WSP_QMM (m 4 and 256), ``gram`` on a whisper
+    encoder batch (4 x 1500 rows of d 1024) and on a vision batch's media
+    rows (4 x 6404 bf16 rows of d 4096, no r: ``gram_media``)."""
+    g = torch.Generator(device=torch.device("cuda")).manual_seed(10)
+    check_colsum(torch, checks, g, CALIB_BATCH, WSP_FRAMES, WSP_HEADS,
+                 WSP_HEADS, WSP_DH, "attn_colsum_noncausal", causal=False,
+                 arch=WSP_ARCH)
+    check_colsum(torch, checks, g, CALIB_BATCH, WSP_CTX, WSP_HEADS,
+                 WSP_HEADS, WSP_DH, False, arch=WSP_ARCH)
+    torch.cuda.empty_cache()
+    check_kv_kernels(torch, checks, WSP_HEADS, 1, WSP_ARCH, dh=WSP_DH,
+                     s=WSP_CTX, extend=False)
+    for wname, kk, nn in WSP_QMM:
+        check_packed(torch, checks, g, wname, kk, nn, BITS,
+                     (SERVE_BATCH, SERVE_BATCH * PROMPT_LEN), arch=WSP_ARCH)
+    torch.cuda.empty_cache()
+    check_gram(torch, checks, g, 1024, False, arch=WSP_ARCH,
+               n=CALIB_BATCH * WSP_FRAMES)
+    check_gram(torch, checks, g, VIS_D, "gram_media", arch=VIS_ARCH,
+               n=CALIB_BATCH * VIS_MEDIA, media=True)
+
+
+def mapped(tree, fn, name="", in_place=False):
+    """``fn(leaf, key)`` on every leaf of a tree of dicts and lists: a new
+    tree, or ``tree`` itself with each leaf replaced as it goes (the old
+    one freed before the next)."""
+    if isinstance(tree, (dict, list)):
+        out = tree if in_place else type(tree)()
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        for k, v in items:
+            new = mapped(v, fn, k if isinstance(tree, dict) else name,
+                         in_place)
+            if isinstance(out, dict) or in_place:
+                out[k] = new
+            else:
+                out.append(new)
+        return out
+    return fn(tree, name)
+
+
+def dequantized(torch, dtype, residual: bool = True):
+    """For ``mapped``: each packed leaf dequantized to ``dtype`` as
+    ``load_packed_params`` loads them (an expert stack one expert at a
+    time); with ``residual`` every other leaf but the fp32 ones cast to
+    ``dtype`` too, else left as it is."""
+    from repro_torch.core.quantizer import dequantize_packed
+    from repro_torch.kernels.quant_matmul.ops import is_packed
+
+    def fn(w, name):
+        if not is_packed(w):
+            return (w if w.dtype == torch.float32 or not residual
+                    else w.to(dtype))
+        if w.w_packed.ndim == 2:
+            return dequantize_packed(w.w_packed, w.scale, w.zero,
+                                     bits=w.bits, d_in=w.d_in).to(dtype)
+        out = torch.empty((w.w_packed.shape[0], w.d_in,
+                           w.w_packed.shape[-1]), dtype=dtype,
+                          device=w.w_packed.device)
+        for e in range(out.shape[0]):  # an expert at a time
+            out[e] = dequantize_packed(w.w_packed[e], w.scale[e], w.zero[e],
+                                       bits=w.bits, d_in=w.d_in)
+        return out
+    return fn
+
+
+def fp32_residual(w, name):
+    """For ``mapped``: keep-packed with an fp32 residual."""
+    from repro_torch.kernels.quant_matmul.ops import is_packed
+
+    return w if is_packed(w) else w.float()
+
+
+def media_ppl(torch, model, params, tokens, extra: dict,
+              batch: int = CALIB_BATCH) -> float:
+    """exp of the mean next-token loss of ``tokens`` (labels rolled by
+    one) with their frames or media ``extra`` ({name: (N, ·, D)})."""
+    total, n = 0.0, 0
+    dev = model.device
+    for i in range(0, tokens.shape[0], batch):
+        b = tokens[i:i + batch].to(dev)
+        kw = {k: v[i:i + batch].to(dev) for k, v in extra.items()}
+        total += float(model.loss(params, b, torch.roll(b, -1, dims=1),
+                                  **kw)) * b.shape[0]
+        n += b.shape[0]
+    return math.exp(total / n)
+
+
+def sync_mem(torch, dev, reset: bool = False) -> int:
+    """The device's peak allocation since the last reset (0 on the CPU);
+    with ``reset`` a clean allocator and a new peak."""
+    if dev.type != "cuda":
+        return 0
+    if reset:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def cross_model_run(torch, dev, cfg, *, calib, calib_seq: int, extra: dict,
+                    serve_extra: dict, serves: tuple, kinds: list,
+                    art: Path, solve_paths: tuple) -> dict:
+    """One model of the cross path: random weights from SEED, fp ppl on
+    held-out tokens, ``RSQPipeline.run`` with its frames or media (3-bit,
+    group 128, AttnCon; the model rotated when each block is reached),
+    ``save_packed_artifact``, quantized ppl, the artifact loaded
+    keep-packed in bf16 and served by ``generate`` at each of ``serves``
+    in both loops, the first serve against the dequantized weights (bf16,
+    then fp32 as the hybrid path where 2e-2 or the tokens part them), a
+    traced decode.  Returns the logged row, with what ``cross_solves``
+    takes (the fp and the quantized params, the report and the
+    ``solve_paths`` entries) under ``_solve``."""
+    from repro_torch.checkpoint.packed import (load_packed_entry,
+                                               load_packed_forward_params,
+                                               resident_weight_bytes,
+                                               save_packed_artifact)
+    from repro_torch.core.pipeline import RSQConfig, RSQPipeline
+    from repro_torch.data.calibration import SyntheticCorpus, heldout_set
+    from repro_torch.device import generator
+    from repro_torch.launch import serve
+    from repro_torch.models.lm import Model
+
+    model = Model(cfg, dev)
+    params = model.init(generator(SEED, dev))
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    held = heldout_set(cfg.vocab_size, N_CALIB, calib_seq, seed=SEED)
+    held_extra = {k: torch.randn(v.shape, generator=g, device=dev).to(
+        v.dtype) for k, v in extra.items()}
+    row: dict = {"arch": cfg.name, "dtype": cfg.dtype,
+                 "ppl_fp": media_ppl(torch, model, params, held, held_extra)}
+    rsq = RSQConfig(bits=BITS, group_size=GROUP, seed=SEED,
+                    pack_output=True)
+    pipe = RSQPipeline(model, rsq)
+    sync_mem(torch, dev, reset=True)
+    t0 = time.perf_counter()
+    qparams, report = pipe.run(params, calib, batch_size=CALIB_BATCH,
+                               **extra)
+    save_packed_artifact(art, pipe.artifact, params=qparams,
+                         extra={"arch": cfg.name, "n_layers": cfg.n_layers})
+    row["quantize_s"] = time.perf_counter() - t0
+    row["quantize_max_memory_allocated"] = sync_mem(torch, dev)
+    row["n_weights"] = len(pipe.artifact["entries"])
+    row["ppl_quant"] = media_ppl(torch, model, qparams, held, held_extra)
+    row["ppl_ratio"] = row["ppl_quant"] / row["ppl_fp"]
+    by_kind: dict = {}
+    for tag, kind in kinds:
+        rep = report["layers"][tag]
+        by_kind.setdefault(kind, []).append(
+            {k: rep[k] for k in ("seconds", "capture_s", "solve_s",
+                                 "apply_s")})
+    row["by_kind"] = by_kind
+    row["by_kind_sums"] = {kind: {k: sum(r[k] for r in reps)
+                                  for k in ("seconds", "capture_s",
+                                            "solve_s")}
+                           for kind, reps in by_kind.items()}
+    del pipe
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    check_ratio(row, cfg.name)
+    entries = {name: load_packed_entry(art, name) for name in solve_paths}
+    bf16 = dataclasses.replace(cfg, dtype="bfloat16")
+    t0 = time.perf_counter()
+    packed, _ = load_packed_forward_params(art, device=dev,
+                                           dtype=torch.bfloat16)
+    row["load_s"] = time.perf_counter() - t0
+    row["resident_packed_bytes"], row["resident_fp_bytes"] = \
+        resident_weight_bytes(packed)
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seed=SEED)
+    served, first = {}, None
+    for prompt, n_gen, kv in serves:
+        model_s = Model(dataclasses.replace(bf16, kv_bits=kv), dev)
+        prompts = corpus.sample(generator(SEED + 1), SERVE_BATCH,
+                                prompt).to(dev)
+        tag = f"{cfg.name} prompt {prompt} kv{kv}"
+        run, loops = generate_loops(torch, model_s, packed, prompts, n_gen,
+                                    tag, **serve_extra)
+        media_len = next(iter(serve_extra.values())).shape[1]
+        cache_b, fp_b = serve.kv_cache_bytes(model_s, SERVE_BATCH,
+                                             prompt + n_gen, media_len)
+        served[f"prompt{prompt}_gen{n_gen}_kv{kv}"] = {
+            "prefill_tok_s": run["prefill_tok_s"],
+            "decode_tok_s": run["decode_tok_s"], "loops": loops,
+            "cache_bytes": cache_b, "cache_fp_bytes": fp_b}
+        if not bool(torch.isfinite(run["first_logits"]).all()):
+            fail(f"{tag}: non-finite logits from the keep-packed serve")
+        if first is None:
+            first = (model_s, prompts, run)
+    row["serves"] = served
+    model_s, prompts, run = first
+    prof = serve.profile_generate(model_s, packed, prompts, N_GEN,
+                                  **serve_extra)
+    wall_ms = 1e3 * SERVE_BATCH * (PROMPT_LEN / run["prefill_tok_s"]
+                                   + (N_GEN - 1) / run["decode_tok_s"])
+    prof["untraced_wall_ms"] = wall_ms
+    prof["idle_share"] = 1.0 - prof["device_busy_ms"] / wall_ms
+    row["decode_profile"] = prof
+
+    def serve_with(p, dtype: str) -> dict:
+        """``generate`` on ``p`` with a model of its own, whose captured
+        graphs (and the params they hold) go with it."""
+        m = Model(dataclasses.replace(cfg, dtype=dtype), dev)
+        st: dict = {}
+        kw = {k: v.to(m.dtype) for k, v in serve_extra.items()}
+        toks = serve.generate(m, p, prompts, N_GEN, stats=st, **kw)
+        return {"tokens": toks.cpu().tolist(),
+                "first_logits": st["first_logits"],
+                "decode_tok_s": SERVE_BATCH * (N_GEN - 1) / st["decode_s"]}
+
+    dequant = serve_with(mapped(packed, dequantized(torch, torch.bfloat16)),
+                         "bfloat16")
+    row["dequantized_decode_tok_s"] = dequant["decode_tok_s"]
+    agree = dict(agreement(torch, run, dequant), tol=TOL_SERVE_LOGITS)
+    row["bf16_vs_dequantized_bf16"] = agree
+    if not (agree["tokens_equal"]
+            and agree["first_logits_rel_diff"] <= TOL_SERVE_LOGITS):
+        # bf16 activations over many layers: hold both serves in fp32
+        kp32 = serve_with(mapped(packed, fp32_residual), "float32")
+        deq32 = serve_with(mapped(packed, dequantized(torch, torch.float32)),
+                           "float32")
+        row["fp32_vs_dequantized_fp32"] = serve_agreement(
+            torch, kp32, deq32, cfg.vocab_size, f"{cfg.name} fp32",
+            TOL_SSM_FP32_SERVE)
+        row["bf16_vs_fp32"] = agreement(torch, run, deq32)
+        row["dequantized_bf16_vs_fp32"] = agreement(torch, dequant, deq32)
+        far = row["bf16_vs_fp32"]["first_logits_rel_diff"]
+        deq_far = row["dequantized_bf16_vs_fp32"]["first_logits_rel_diff"]
+        if not row["fp32_vs_dequantized_fp32"]["tokens_equal"]:
+            fail(f"{cfg.name}: fp32 keep-packed and dequantized greedy "
+                 f"tokens differ")
+        if not far <= SSM_BF16_FACTOR * deq_far:
+            fail(f"{cfg.name}: bf16 keep-packed logits {far:.3g} from the "
+                 f"fp32 serve's, more than {SSM_BF16_FACTOR} x the bf16 "
+                 f"dequantized serve's {deq_far:.3g}")
+    del packed, dequant
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    row["_solve"] = {"params": params, "qparams": qparams, "report": report,
+                     "entries": entries}
+    return row
+
+
+def cross_solves(torch, dev, cfg, solve: dict, extra: dict,
+                 paths: tuple) -> dict:
+    """``paths`` of one cross-path model against the same solves on the
+    host CPU, by ``check_solves``' rule (``solve_row``).  The card gives
+    what the pipeline gave its layer: an encoder block's input (the
+    frames through ``frame_proj``, Q_enc) or the media (a vision batch's
+    rows, or the encoder's output through the quantized encoder blocks,
+    as the pipeline propagated it).  The CPU builds the Hessians with the
+    plain versions: an encoder block's ``mixer/wq`` from its rms norm,
+    weighted by AttnCon of the plain non-causal ``attn_colsum``;
+    cross-attention's ``wk`` from the media rows, unweighted.  Q and Q_enc
+    are the pipeline's draws (``generator(SEED)``, Q first)."""
+    from repro_torch.core import hessian as hess
+    from repro_torch.core.importance import ImportanceInputs, attn_con
+    from repro_torch.core.pipeline import RSQConfig
+    from repro_torch.core.rotation import rotate_layer, rotation_matrix
+    from repro_torch.device import generator
+    from repro_torch.kernels.attn_colsum.ops import attn_colsum
+    from repro_torch.models import attention as att
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.lm import Model
+
+    t0 = time.perf_counter()
+    model = Model(cfg, dev)
+    params, qparams = solve["params"], solve["qparams"]
+    rsq = RSQConfig(bits=BITS, group_size=GROUP, seed=SEED)
+    gen = generator(rsq.seed, dev)
+    q = rotation_matrix(params, cfg, None, gen)
+    q_enc = rotation_matrix(params, cfg, None, gen) if model.encdec else None
+    name = "frames" if model.encdec else "media"
+    batches = [extra[name][i:i + CALIB_BATCH].to(dev, model.dtype)
+               for i in range(0, N_CALIB, CALIB_BATCH)]
+
+    def cpu(tree):
+        return {k: cpu(v) if isinstance(v, dict) else v.cpu()
+                for k, v in tree.items()}
+
+    rows, bad = {}, []
+    for tag in paths:
+        layer, path = tag.split("/", 1)
+        sub, wname = path.split("/")
+        hs = None
+        if layer.startswith("enc"):
+            blk = cpu(rotate_layer(params["encoder"]["layers"][int(layer[3:])],
+                                   cfg, q_enc))
+            for x in batches:
+                x_c = (x @ q_enc.to(x.dtype)).cpu()  # frame_proj
+                h = rms_norm(x_c, blk["mixer_norm"], cfg.norm_eps)
+                qq, kk, _ = att.gqa_qkv(blk["mixer"], cfg, h,
+                                        torch.arange(h.shape[1]))
+                r = attn_con(ImportanceInputs(
+                    z_in=x_c, attn_colsum=attn_colsum(qq, kk, causal=False)),
+                    r_min=rsq.r_min, r_max=rsq.r_max).reshape(-1)
+                hs = hess.accumulate(hs, h.reshape(-1, h.shape[-1]), r)
+        else:
+            li = int(layer[5:])
+            blk = cpu(rotate_layer(
+                params["layers"][li], cfg, q, cross=model.metas[li].cross,
+                q_media=q_enc, media_norm=params["encoder"]["final_norm"]
+                if model.encdec else None))
+            for x in batches:
+                med = model.encode(qparams, x) if model.encdec else x
+                hs = hess.accumulate(hs, med.reshape(-1, med.shape[-1]).cpu())
+        rows[tag] = solve_row(torch, blk[sub][wname], hs,
+                              solve["entries"][tag],
+                              solve["report"]["layers"][layer]["weights"][
+                                  path], rsq, tag, bad)
+        del blk, hs
+    log({"cross_solve_check": {
+        "arch": cfg.name, "weights": rows,
+        "seconds": time.perf_counter() - t0,
+        "min_code_match": MIN_CODE_MATCH, "tol_proxy": TOL_PROXY}})
+    if bad:
+        fail(f"{cfg.name}: GPTQ on the card disagrees with the CPU: "
+             + "; ".join(bad))
+    return rows
+
+
+def cross_path(torch, dev=None) -> dict:
+    """Phase 9, the cross-attention slice, through the library entry points
+    (the CLIs take no frames or media, as the reference's do not):
+    whisper-medium whole in fp32 (encoder blocks first, ``enc{i}``, their
+    AttnCon from the non-causal ``attn_colsum``; the decoder's cross
+    wk / wv on the encoder's output, unweighted), then
+    llama-3.2-vision-11b's first layer group in bf16 (its cross mixer's wk
+    / wv on the media rows), each by ``cross_model_run``; launches counted
+    from zero over both quantize runs and serves (``attn_colsum`` by form:
+    ``colsum_causal`` / ``colsum_noncausal``); then ``cross_solves`` on
+    WSP_SOLVE_CHECK and VIS_SOLVE_CHECK."""
+    from repro_torch.data.calibration import calibration_set
+    from repro_torch.kernels.attn_colsum.ops import attn_colsum
+    from repro_torch.kernels.flash_decode import ops as fd_ops
+    from repro_torch.kernels.gptq_block.ops import solve_block
+    from repro_torch.kernels.gram.ops import weighted_gram
+    from repro_torch.kernels.hadamard.ops import fwht
+    from repro_torch.kernels.quant_matmul.ops import quant_matmul
+    from repro_torch.launch.quantize import model_config
+
+    dev = dev or torch.device("cuda")
+    counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
+               "quant_matmul": quant_matmul, "fwht": fwht,
+               "solve_block": solve_block}
+    counted.update({name: getattr(fd_ops, name) for name in KvAudit.GQA})
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    wsp = model_config(WSP_ARCH, 0, "float32")
+    vis = model_config(VIS_ARCH, VIS_LAYERS, VIS_DTYPE)
+    wsp_extra = {"frames": torch.randn((N_CALIB, WSP_FRAMES, wsp.d_model),
+                                       generator=g, device=dev)}
+    vis_extra = {"media": torch.randn((N_CALIB, vis.n_media_tokens,
+                                       vis.d_model), generator=g,
+                                      device=dev).to(torch.bfloat16)}
+    runs = {}
+    reset_counts(counted)
+    for cfg, calib_seq, extra, serves, paths in (
+            (wsp, WSP_CTX, wsp_extra, WSP_SERVES, WSP_SOLVE_CHECK),
+            (vis, CALIB_SEQ, vis_extra, VIS_SERVES, VIS_SOLVE_CHECK)):
+        name = next(iter(extra))
+        serve_extra = {name: torch.randn(
+            (SERVE_BATCH,) + tuple(extra[name].shape[1:]), generator=g,
+            device=dev).to(torch.bfloat16)}
+        if cfg.family == "encdec":
+            kinds = ([(f"enc{i}", "encoder")
+                      for i in range(cfg.n_encoder_layers)]
+                     + [(f"layer{i}", "decoder")
+                        for i in range(cfg.n_layers)])
+        else:
+            kinds = [(f"layer{i}", kind)
+                     for i, kind in enumerate(cfg.layer_kinds())]
+        art = ROOT / "build" / f"chip_smoke_{cfg.name}_artifact"
+        before = read_counts(counted)
+        try:
+            shutil.rmtree(art, ignore_errors=True)
+            row = cross_model_run(
+                torch, dev, cfg, calib=calibration_set(
+                    cfg.vocab_size, N_CALIB, calib_seq, seed=SEED),
+                calib_seq=calib_seq, extra=extra, serve_extra=serve_extra,
+                serves=serves, kinds=kinds, art=art, solve_paths=paths)
+        finally:
+            shutil.rmtree(art, ignore_errors=True)
+        after = read_counts(counted)
+        row["launches"] = {k: after[k] - before[k] for k in after}
+        row["widths"] = {k: getattr(cfg, k) for k in (
+            "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
+            "vocab_size", "n_encoder_layers", "n_media_tokens",
+            "cross_attn_period", "scan_period", "qkv_bias")}
+        row["calibration"] = {"n_calib": N_CALIB, "calib_seq": calib_seq,
+                              name: tuple(extra[name].shape)}
+        row["reduced"] = ({} if cfg.family == "encdec" else
+                          {"n_layers": f"{VIS_LAYERS} of "
+                           f"{model_config(VIS_ARCH, 0, VIS_DTYPE).n_layers}"
+                           f" (one layer group)"})
+        runs[cfg.name] = (cfg, row, extra, paths)
+        solve = row.pop("_solve")
+        log({"cross_path_model": row})
+        row["_solve"] = solve
+    launches = read_counts(counted)
+    for cfg, row, extra, paths in runs.values():
+        cross_solves(torch, dev, cfg, row.pop("_solve"), extra, paths)
+        gc.collect()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    log({"cross_path": {"launches": launches, "models": {
+        name: {k: row[k] for k in ("quantize_s", "ppl_ratio",
+                                   "quantize_max_memory_allocated",
+                                   "by_kind_sums")}
+        | {"decode_tok_s": {s: v["decode_tok_s"]
+                            for s, v in row["serves"].items()}}
+        for name, (_, row, _, _) in runs.items()}}})
+    missing = never_launched(launches, MAIN_PATH_WITHOUT, CROSS_PATH_WITHOUT)
+    if missing:
+        fail(f"cross path never launched: {missing}")
+    return launches
 
 
 def strategy_sweep(torch) -> list:
@@ -4390,7 +4961,8 @@ def main() -> None:
     checks = Checks(Timer(torch))
     for phase in (check_kernels, check_moe_kernels, check_hadamard,
                   check_kv_kernels, check_mla_kernels, check_gptq_block,
-                  check_variant_kernels, check_hybrid_kernels):
+                  check_variant_kernels, check_hybrid_kernels,
+                  check_cross_kernels):
         t0 = time.perf_counter()
         phase(torch, checks)
         log({"phase_seconds": {phase.__name__: time.perf_counter() - t0}})
@@ -4417,16 +4989,20 @@ def main() -> None:
     hybrid_launches = hybrid_path(torch)
     log({"phase_seconds": {"hybrid_path": time.perf_counter() - t0}})
     t0 = time.perf_counter()
+    cross_launches = cross_path(torch)
+    log({"phase_seconds": {"cross_path": time.perf_counter() - t0}})
+    t0 = time.perf_counter()
     strategy_sweep(torch)
     log({"phase_seconds": {"strategy_sweep": time.perf_counter() - t0}})
     main_launches = dict(launches)
     launches.update({name: mla_launches[name] for name in KvAudit.MLA})
     launches["fwht"] += (mla_launches["fwht"] + moe_launches["fwht"]
                          + variant_launches["fwht"] + ssm_launches["fwht"]
-                         + hybrid_launches["fwht"])
+                         + hybrid_launches["fwht"] + cross_launches["fwht"])
     by_path = {"main_path": main_launches, "mla_path": mla_launches,
                "moe_path": moe_launches, "variants_path": variant_launches,
-               "ssm_path": ssm_launches, "hybrid_path": hybrid_launches}
+               "ssm_path": ssm_launches, "hybrid_path": hybrid_launches,
+               "cross_path": cross_launches}
     # quant_matmul's three kernels, each with its launches on both paths;
     # quant_matmul_t's two on the MLA path
     qmm_rows = {"qmm_decode": rows["quant_matmul"],
@@ -4510,6 +5086,19 @@ def main() -> None:
             entry["prefill"].update(kernel="qmm_t_tile", kernel_launches={
                 "mla_path": mla_launches["qmm_t_tile"],
                 "moe_path": moe_launches["qmm_t_tile"]})
+        if name == "attn_colsum":  # the causal row; the non-causal beside
+            entry["kernel"] = "colsum_causal"
+            entry["kernel_launches"] = {
+                path: counts["colsum_causal"]
+                for path, counts in by_path.items() if "colsum_causal"
+                in counts}
+            entry["noncausal"] = {key: rows["attn_colsum_noncausal"][key]
+                                  for key in keys}
+            entry["noncausal"].update(kernel="colsum_noncausal",
+                                      kernel_launches={
+                                          path: counts["colsum_noncausal"]
+                                          for path, counts in by_path.items()
+                                          if "colsum_noncausal" in counts})
         if name == "gram":  # the expert stacks: one launch a stack
             entry["experts"] = {f"d{d}": {key: rows[f"gram_experts_d{d}"][key]
                                           for key in keys}
@@ -4518,6 +5107,8 @@ def main() -> None:
                 f"hybrid_d{d}": {key: rows[f"gram_experts_hybrid_d{d}"][key]
                                  for key in keys}
                 for d in (HYB_D, HYB_F)})
+            # a vision batch's media rows: bf16, no importances
+            entry["media"] = {key: rows["gram_media"][key] for key in keys}
         if name == "solve_block":  # every path calibrates through it
             entry["kernel_launches"] = {path: counts[name]
                                         for path, counts in by_path.items()}

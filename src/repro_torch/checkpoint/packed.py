@@ -30,7 +30,10 @@ per-layer blocks), ``["groups", g, o]`` for block ``o`` of layer group
 position stacked over the groups in the reference's tree as ``b{o}``); the
 port's flat layer index of a location is the number of prefix layers plus
 g·P + o, with P one past the largest ``o`` of the entries (every block
-has quantized weights).
+has quantized weights).  An encoder-decoder's encoder blocks are at
+``["enc", i]`` (the reference's stacked ``encoder.groups.b0``, one block a
+group), the port's ``encoder/layers/<i>``; its residual holds the
+encoder's norms and final norm and, when rotated, ``frame_proj``.
 """
 from __future__ import annotations
 
@@ -184,10 +187,12 @@ def _layer_index(loc: list, n_prefix: int, period: int) -> int:
 
 
 def _entry_paths(meta_entries: dict) -> dict[str, str]:
-    """{entry name: port parameter path ("layers/<i>/<sub>/<name>")}."""
+    """{entry name: port parameter path ("layers/<i>/<sub>/<name>", an
+    encoder block's "encoder/layers/<i>/<sub>/<name>")}."""
     n_prefix, period = _n_prefix(meta_entries), _period(meta_entries)
-    return {name: f"layers/{_layer_index(em['loc'], n_prefix, period)}/"
-                  f"{em['path']}"
+    return {name: (f"encoder/layers/{em['loc'][1]}" if em["loc"][0] == "enc"
+                   else f"layers/{_layer_index(em['loc'], n_prefix, period)}"
+                   ) + f"/{em['path']}"
             for name, em in meta_entries.items()}
 
 
@@ -212,11 +217,14 @@ def _block_paths(quantized: set[str], keys: set[str]) -> list[str]:
     """Every leaf path of a block whose quantized weights are
     ``quantized``, in a tree whose dicts have the keys ``keys``: the
     leaves of its own mixer (a Mamba block's, or attention's with its
-    internal norms and qkv biases) and of its own FFN, if it has one (an
-    FFN norm, and the router of routed experts; mamba2's blocks have
-    none)."""
+    internal norms and qkv biases), of an enc-dec decoder block's
+    cross-attention sub-layer (``cross_norm``) and of its own FFN, if it
+    has one (an FFN norm, and the router of routed experts; mamba2's
+    blocks have none)."""
     paths = quantized | {"mixer_norm"} | {
         leaf for w, leaf in _BLOCK_RESIDUAL.items() if w in quantized}
+    if any(p.startswith("cross/") for p in quantized):
+        paths.add("cross_norm")
     if {"mixer/wzx", "mixer/out_proj"} & quantized:
         paths |= {f"mixer/{n}" for n in _MAMBA_LEAVES}
     elif "mixer/wq" in quantized and set(_QKV_BIAS) <= keys:
@@ -240,7 +248,9 @@ def _treedef_keys(meta: dict) -> set[str]:
 
 def _reference_residual_paths(n_prefix: int, prefix_paths: list[str],
                               group_paths: list[list[str]],
-                              head: bool = True) -> list[str]:
+                              head: bool = True,
+                              encoder_paths: list[str] | None = None,
+                              frame_proj: bool = False) -> list[str]:
     """Leaf order of a reference-written residual tree: the reference's
     {"embed", "final_norm", "groups": {"b0": block, ..., "b{P-1}": block},
     "head", "prefix": [block, ...]} with stacked group leaves and
@@ -248,7 +258,10 @@ def _reference_residual_paths(n_prefix: int, prefix_paths: list[str],
     (JAX's: "b10" before "b2").  The prefix blocks and each block position
     ``o`` of a group (``group_paths[o]``) have their own leaves (deepseek's
     dense prefix and its routed-expert groups; jamba's Mamba and GQA
-    blocks, dense and routed-expert FFNs); a tied model has no ``head``."""
+    blocks, dense and routed-expert FFNs); a tied model has no ``head``.
+    An encoder-decoder adds {"encoder": {"final_norm", "groups": {"b0":
+    block}}} (``encoder_paths``, its blocks stacked) and, rotated,
+    ``frame_proj``."""
     def block(paths) -> dict:
         node_root: dict = {}
         for p in paths:
@@ -264,6 +277,11 @@ def _reference_residual_paths(n_prefix: int, prefix_paths: list[str],
                              for o, paths in enumerate(group_paths)}}
     if head:
         skel["head"] = 0
+    if encoder_paths is not None:
+        skel["encoder"] = {"final_norm": 0,
+                           "groups": {"b0": block(encoder_paths)}}
+    if frame_proj:
+        skel["frame_proj"] = 0
     if n_prefix:
         skel["prefix"] = [block(prefix_paths) for _ in range(n_prefix)]
     return list(_flatten(skel))
@@ -363,14 +381,18 @@ def _load_residual(d: Path, meta: dict, verify: bool) -> dict[str, np.ndarray]:
     # leaves are empty markers
     n_prefix, period = _n_prefix(meta["entries"]), _period(meta["entries"])
     prefix: set = set()
+    enc: set = set()
     group: list[set] = [set() for _ in range(period)]
     for em in meta["entries"].values():
         loc = em["loc"]
-        (prefix if loc[0] == "prefix" else group[loc[2]]).add(em["path"])
+        (prefix if loc[0] == "prefix" else enc if loc[0] == "enc"
+         else group[loc[2]]).add(em["path"])
     keys = _treedef_keys(meta)
     paths = _reference_residual_paths(
         n_prefix, _block_paths(prefix, keys),
-        [_block_paths(q, keys) for q in group], head="head" in keys)
+        [_block_paths(q, keys) for q in group], head="head" in keys,
+        encoder_paths=_block_paths(enc, keys) if enc else None,
+        frame_proj="frame_proj" in keys)
     if len(paths) != len(leaves):
         raise NotImplementedError(
             f"{d}: {len(leaves)} residual leaves, expected {len(paths)} for "
@@ -382,6 +404,11 @@ def _load_residual(d: Path, meta: dict, verify: bool) -> dict[str, np.ndarray]:
             _, li, rest = path.split("/", 2)
             if leaf.size:
                 out[f"layers/{li}/{rest}"] = leaf
+        elif path.startswith("encoder/groups/"):
+            if leaf.size:  # the encoder's (n_enc, ...) stacked leaf
+                rest = path.split("/", 3)[3]
+                for li in range(leaf.shape[0]):
+                    out[f"encoder/layers/{li}/{rest}"] = leaf[li]
         elif not path.startswith("groups/"):
             out[path] = leaf
         elif leaf.size:  # block o's (n_groups, ...) stacked leaf: unstack
@@ -400,8 +427,10 @@ def _build_tree(flat: dict[str, Any]) -> dict:
         for part in parts[:-1]:
             node = node.setdefault(part, {})
         node[parts[-1]] = leaf
-    layers = tree.pop("layers", {})
-    tree["layers"] = [layers[str(i)] for i in range(len(layers))]
+    for node in (tree, tree.get("encoder")):
+        if node is not None:  # the decoder's and the encoder's layers
+            layers = node.pop("layers", {})
+            node["layers"] = [layers[str(i)] for i in range(len(layers))]
     return tree
 
 

@@ -16,6 +16,8 @@ _MODULES = {
     "command-r-plus-104b": "command_r_plus_104b",
     "mamba2-780m": "mamba2_780m",
     "jamba-v0.1-52b": "jamba_v01_52b",
+    "whisper-medium": "whisper_medium",
+    "llama-3.2-vision-11b": "llama32_vision_11b",
 }
 
 

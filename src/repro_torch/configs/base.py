@@ -4,10 +4,14 @@ One frozen dataclass describes dense / MoE / SSM / hybrid / enc-dec / VLM
 transformers; ``reduced()`` derives a smoke-test-sized config of the same
 family (same layer pattern, tiny dims).  The port serves dense GQA
 decoders (with qkv bias and tied embeddings), MLA decoders with dense or
-routed-expert FFNs, Mamba-2 (SSD) decoders, and hybrids of GQA and Mamba-2
+routed-expert FFNs, Mamba-2 (SSD) decoders, hybrids of GQA and Mamba-2
 blocks with dense or routed-expert FFNs (jamba: ``scan_period`` blocks a
-layer group); the enc-dec and VLM fields are kept so configs stay
-interchangeable with the reference.
+layer group), an encoder-decoder (whisper: ``n_encoder_layers``
+non-causal encoder blocks, a cross-attention sub-layer in every decoder
+block) and a decoder with cross-attention layers on media embeddings
+(llama-3.2-vision: ``cross_attn_period`` / ``cross_attn_offset``,
+``n_media_tokens``).  Every field is the reference's, so configs stay
+interchangeable with it.
 """
 from __future__ import annotations
 

@@ -6,8 +6,11 @@ list (``params["prefix"]``) and stacks the rest in layer groups of
 (``params["groups"]["b0"][...]`` ... ``["b{P-1}"]``, from
 ``jax.vmap(init_group)``); the port keeps them all as one list, prefix
 layers first, then group by group: layer prefix + g·P + o is block ``o``
-of group ``g``.  ``embed``, ``head`` and
-``final_norm`` carry over as they are (a tied model has no ``head``).  The tests use this to run both
+of group ``g``.  ``embed``, ``head``, ``final_norm`` and a rotated
+enc-dec model's ``frame_proj`` carry over as they are (a tied model has no
+``head``); an encoder's stacked blocks (``encoder.groups.b0``, one block a
+group) become the list ``encoder.layers`` beside its ``final_norm``.  The
+tests use this to run both
 packages on the same weights; the port's own entry points draw their
 weights from a ``torch.Generator``.
 """
@@ -45,9 +48,18 @@ def params_from_jax(np_params: dict, cfg: ModelConfig, *,
 
     out = {"embed": _tensor(np_params["embed"], device),
            "final_norm": _tensor(np_params["final_norm"], device)}
-    if "head" in np_params:  # a tied model has none, in both packages
-        out["head"] = _tensor(np_params["head"], device)
+    # a tied model has no head, and only a rotated enc-dec has frame_proj
+    for name in ("head", "frame_proj"):
+        if name in np_params:
+            out[name] = _tensor(np_params[name], device)
     out["layers"] = ([layer(None, blk) for blk in np_params.get("prefix", [])]
                      + [layer(g, groups[f"b{o}"]) for g in range(n_groups)
                         for o in range(period)])
+    if "encoder" in np_params:
+        enc = np_params["encoder"]
+        blocks = enc["groups"]["b0"]
+        out["encoder"] = {
+            "layers": [layer(li, blocks) for li in range(
+                np.asarray(blocks["mixer_norm"]).shape[0])],
+            "final_norm": _tensor(enc["final_norm"], device)}
     return out

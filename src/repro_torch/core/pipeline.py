@@ -8,7 +8,12 @@
      positions), accumulate H_w = 2 X R² Xᵀ per weight (``gram`` kernel),
      run GPTQ, write the dequantized weights back and propagate the
      *quantized* block's outputs to the next layer (the standard GPTQ
-     error-feedback scheme).
+     error-feedback scheme).  An encoder-decoder's encoder blocks go
+     first (tags ``enc{i}``, artifact locations ``["enc", i]``, the last
+     one propagated too): their outputs, through the encoder's final norm,
+     are the decoder's media.  Media rows (a vision model's, or the
+     encoder's output) calibrate the cross-attention K/V projections
+     unweighted: they are no tokens of the stream and have no importance.
 
 Baselines are config points: GPTQ = no rotation + uniform; QuaRot =
 rotation + uniform; RSQ = rotation + a token-importance strategy.  This is
@@ -50,7 +55,9 @@ from repro_torch.core.quantizer import QuantSpec, pack_codes
 from repro_torch.core.rotation import (rotate_ends, rotate_layer,
                                        rotation_matrix)
 from repro_torch.device import generator
-from repro_torch.models.lm import Model, apply_block, capture_block, layer_loc
+from repro_torch.models.layers import rms_norm
+from repro_torch.models.lm import (DECODER, ENCODER, Model, apply_block,
+                                   capture_block, layer_loc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -238,8 +245,10 @@ def _accumulate(hessians: dict, caps: dict, dom: dict,
     """Add one calibration batch to every weight's Hessian (in place).
 
     Token-aligned inputs ("stream", "hidden") flatten to (B·T, d_in) and
-    take r (B·T,); an expert stack's (E, C, d_in) buffers take r scattered
-    into their slots through ``ffn/__moe_slot_token`` (0 on an empty slot)
+    take r (B·T,); media rows ("media", (B, Tm, d_in)) flatten likewise
+    and take no importance (uniform); an expert stack's (E, C, d_in)
+    buffers take r scattered into their slots through
+    ``ffn/__moe_slot_token`` (0 on an empty slot)
     and accumulate (E, d_in, d_in) Hessians.  Expert weights that read one
     buffer (wi and wu) share one accumulator: their Hessians are equal bit
     for bit (deepseek-v2: 16.8 GB once instead of twice)."""
@@ -256,7 +265,8 @@ def _accumulate(hessians: dict, caps: dict, dom: dict,
             r_rows = torch.cat([r, r.new_zeros((1,))])[slot_token]
             r_rows = r_rows.reshape(x_c.shape[:2])
         else:
-            x_c, r_rows = x_c.reshape(-1, x_c.shape[-1]), r
+            x_c = x_c.reshape(-1, x_c.shape[-1])
+            r_rows = None if dom[path] == "media" else r
         hessians[path] = hess.accumulate(hessians.get(path), x_c, r_rows)
 
 
@@ -284,28 +294,41 @@ class RSQPipeline:
         return _chunk_mask(self.strategy(inp, **self.skw), self.rsq)
 
     def run(self, params: dict, calib_tokens: torch.Tensor, *,
-            batch_size: int = 8, rotation: Optional[torch.Tensor] = None,
+            batch_size: int = 8, media: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
+            rotation: Optional[torch.Tensor] = None,
+            rotation_enc: Optional[torch.Tensor] = None,
             verbose: bool = False) -> tuple[dict, dict]:
         """Quantize ``params``. calib_tokens: (N, T) integer tokens, before
         expansion (``rsq.expansion`` M makes N·M samples of them).
+        ``media`` (N, Tm, D), a vision model's, and ``frames`` (N, Tf, D),
+        an encoder-decoder's (Tf may differ from T), are cut into batches
+        as the tokens are.
 
-        ``rotation``: the (d_model, d_model) Q to rotate with; drawn from
-        ``torch.Generator(rsq.seed)`` when None.  ``params["layers"]`` is
-        a list, which stays as it is, or an iterator of the blocks
-        (:func:`handover`), read one block a layer.  The result is
-        ``rotate_model``'s rotation, block by block, then the same solves.
-        Returns (new_params, report)."""
+        ``rotation``: the (d_model, d_model) Q to rotate with, and an
+        encoder-decoder's ``rotation_enc`` Q_enc; each drawn from
+        ``torch.Generator(rsq.seed)`` when None (Q first).
+        ``params["layers"]`` is a list, which stays as it is, or an
+        iterator of the blocks (:func:`handover`), read one block a layer;
+        an encoder's ``params["encoder"]["layers"]`` likewise.  The result
+        is ``rotate_model``'s rotation, block by block, then the same
+        solves.  Returns (new_params, report)."""
         model, cfg, rsq = self.model, self.cfg, self.rsq
         report: dict[str, Any] = {"layers": {}, "rsq": dataclasses.asdict(rsq)}
         layers = params["layers"]
         n_layers = (len(layers) if isinstance(layers, (list, tuple))
                     else cfg.n_layers)
-        q = None
+        encoder = params.get("encoder")
+        if model.encdec and frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder calibrates on "
+                             f"frames=(N, Tf, d_model)")
+        q = q_enc = None
         if rsq.rotate:
-            gen = None if rotation is not None else generator(
-                rsq.seed, model.device)
+            gen = generator(rsq.seed, model.device)  # draws where Q is None
             q = rotation_matrix(params, cfg, rotation, gen)
-            params = rotate_ends(params, q)
+            if encoder is not None:
+                q_enc = rotation_matrix(params, cfg, rotation_enc, gen)
+            params = rotate_ends(params, q, q_enc)
             report["rotated"] = True
         new_params = {k: v for k, v in params.items() if k != "layers"}
         new_params["layers"] = []
@@ -313,61 +336,108 @@ class RSQPipeline:
         calib = expand_dataset(calib_tokens.to(model.device), rsq.expansion)
         counts = torch.bincount(calib.reshape(-1), minlength=cfg.vocab_size
                                 )[:cfg.vocab_size].float()
-        toks = [calib[i:i + batch_size]
-                for i in range(0, calib.shape[0], batch_size)]
+        n = calib.shape[0]
+
+        def batches(a: torch.Tensor) -> list:
+            return [a[i:i + batch_size].to(model.device, model.dtype)
+                    for i in range(0, n, batch_size)]
+
+        toks = [calib[i:i + batch_size] for i in range(0, n, batch_size)]
         acts = [model.embed(params, tok) for tok in toks]
-        entries: dict[str, dict] = {}
-        meta: dict[str, dict] = {}
+        media_b = batches(media) if media is not None else None
+        ctx = {"rsq": rsq, "toks": toks, "counts": counts, "report": report,
+               "entries": {}, "meta": {}, "verbose": verbose}
+        if encoder is not None:
+            xs = batches(frames)
+            if "frame_proj" in params:
+                xs = [x @ params["frame_proj"].to(x.dtype) for x in xs]
+            enc_layers = []
+            for li, p_blk in enumerate(encoder["layers"]):
+                if q is not None:
+                    p_blk = rotate_layer(p_blk, cfg, q_enc)
+                p_new, xs = self._layer(ctx, p_blk, xs, None, f"enc{li}",
+                                        ["enc", li], ENCODER, True)
+                enc_layers.append(p_new)
+            new_params["encoder"] = {"layers": enc_layers,
+                                     "final_norm": params["encoder"][
+                                         "final_norm"]}
+            media_b = [rms_norm(x, params["encoder"]["final_norm"],
+                                cfg.norm_eps) for x in xs]
+            del xs
+        for li, p_blk in enumerate(layers):
+            meta = model.metas[li]
+            if q is not None:  # rotation is set-up: outside the layer's time
+                p_blk = rotate_layer(
+                    p_blk, cfg, q, cross=meta.cross, q_media=q_enc,
+                    media_norm=None if encoder is None
+                    else encoder["final_norm"])
+            p_new, acts = self._layer(ctx, p_blk, acts, media_b,
+                                      f"layer{li}", layer_loc(cfg, li), meta,
+                                      li + 1 < n_layers)
+            new_params["layers"].append(p_new)
+        if rsq.pack_output:
+            self.artifact = {
+                "entries": ctx["entries"], "meta": ctx["meta"],
+                "spec": {"bits": rsq.bits, "sym": rsq.sym,
+                         "group_size": rsq.group_size, "method": "gptq"}}
+            report["packed"] = {"entries": len(ctx["entries"])}
+        return new_params, report
+
+    def _layer(self, ctx: dict, p_blk: dict, acts: list, media_b,
+               tag: str, loc: list, meta=DECODER,
+               propagate: bool = True) -> tuple[dict, list]:
+        """Calibrate one (rotated) block on ``acts``, its input batches
+        (with ``media_b``, the media batches its cross-attention reads):
+        capture, importances, Hessians, the grouped solves, the artifact's
+        entries under ``tag`` at ``loc``, and with ``propagate`` the
+        quantized block's outputs.  Returns (the quantized block, the next
+        layer's input batches, or ``acts`` itself when not propagated)."""
+        model, cfg, rsq = self.model, self.cfg, ctx["rsq"]
+
         def clock() -> float:  # wall time after the device has caught up
             if model.device.type == "cuda":
                 torch.cuda.synchronize(model.device)
             return time.perf_counter()
 
-        for li, p_blk in enumerate(layers):
-            if q is not None:  # rotation is set-up: outside the layer's time
-                p_blk = rotate_layer(p_blk, cfg, q)
-            t0 = clock()
-            hessians: dict[str, torch.Tensor] = {}
-            for x_b, tok in zip(acts, toks):
-                y, caps, dom, colsum = capture_block(p_blk, cfg, x_b)
-                r = self._importance(x_b, y, tok, colsum, counts).reshape(-1)
-                _accumulate(hessians, caps, dom, r)
-                del caps, y
-            t1 = clock()
-            collect = {} if rsq.pack_output else None
-            p_new, weights = quantize_layer_weights(p_blk, hessians, rsq,
-                                                    collect=collect)
-            del hessians, p_blk
-            new_params["layers"].append(p_new)
-            tag = f"layer{li}"
-            for path, sol in (collect or {}).items():
-                name = f"{tag}/{path}"
-                entries[name] = {"codes": _pack_stack(sol["q"], rsq.bits),
-                                 "scale": sol["scale"], "zero": sol["zero"]}
-                d_in = int(sol["q"].shape[-2])
-                meta[name] = {"path": path, "tag": tag, "d_in": d_in,
-                              "group_size": d_in // int(sol["scale"].shape[-2]),
-                              "dtype": sol["dtype"],
-                              "loc": layer_loc(cfg, li)}
-            t2 = clock()
-            if li + 1 < n_layers:
-                acts = [apply_block(p_new, cfg, x_b)[0] for x_b in acts]
-            t3 = clock()
-            rep = {"weights": weights, "seconds": round(t3 - t0, 4),
-                   "capture_s": round(t1 - t0, 4),
-                   "solve_s": round(t2 - t1, 4),
-                   "apply_s": round(t3 - t2, 4)}
-            report["layers"][tag] = rep
-            if verbose:
-                print(f"  [{tag}] {len(weights)} weights quantized in "
-                      f"{rep['seconds']}s", flush=True)
-        if rsq.pack_output:
-            self.artifact = {
-                "entries": entries, "meta": meta,
-                "spec": {"bits": rsq.bits, "sym": rsq.sym,
-                         "group_size": rsq.group_size, "method": "gptq"}}
-            report["packed"] = {"entries": len(entries)}
-        return new_params, report
+        medias = media_b if media_b is not None else [None] * len(acts)
+        t0 = clock()
+        hessians: dict[str, torch.Tensor] = {}
+        for x_b, tok, med in zip(acts, ctx["toks"], medias):
+            y, caps, dom, colsum = capture_block(p_blk, cfg, x_b, media=med,
+                                                 meta=meta)
+            r = self._importance(x_b, y, tok, colsum,
+                                 ctx["counts"]).reshape(-1)
+            _accumulate(hessians, caps, dom, r)
+            del caps, y
+        t1 = clock()
+        collect = {} if rsq.pack_output else None
+        p_new, weights = quantize_layer_weights(p_blk, hessians, rsq,
+                                                collect=collect)
+        del hessians, p_blk
+        for path, sol in (collect or {}).items():
+            name = f"{tag}/{path}"
+            ctx["entries"][name] = {"codes": _pack_stack(sol["q"], rsq.bits),
+                                    "scale": sol["scale"],
+                                    "zero": sol["zero"]}
+            d_in = int(sol["q"].shape[-2])
+            ctx["meta"][name] = {
+                "path": path, "tag": tag, "d_in": d_in,
+                "group_size": d_in // int(sol["scale"].shape[-2]),
+                "dtype": sol["dtype"], "loc": loc}
+        t2 = clock()
+        if propagate:
+            acts = [apply_block(p_new, cfg, x_b, media=med, meta=meta)[0]
+                    for x_b, med in zip(acts, medias)]
+        t3 = clock()
+        rep = {"weights": weights, "seconds": round(t3 - t0, 4),
+               "capture_s": round(t1 - t0, 4),
+               "solve_s": round(t2 - t1, 4),
+               "apply_s": round(t3 - t2, 4)}
+        ctx["report"]["layers"][tag] = rep
+        if ctx["verbose"]:
+            print(f"  [{tag}] {len(weights)} weights quantized in "
+                  f"{rep['seconds']}s", flush=True)
+        return p_new, acts
 
 
 def quantize_model(model: Model, params: dict, calib_tokens,

@@ -1,12 +1,15 @@
 // AttnCon column sums: col[b, j] = sum_{h, i} softmax(q k^T / sqrt(Dh))[i, j]
-// over the query heads h and queries i, causal, without ever forming the
-// T x T attention map.
+// over the query heads h and queries i, without ever forming the T x T
+// attention map; causal (a decoder's self-attention) or not (an
+// encoder's), a template flag C of both passes.
 //
 // Replaces: attn_colsum_pallas in src/repro/kernels/attn_colsum/kernel.py
-// (its two pallas_calls, _rowstats_kernel and _colsum_kernel).
+// (its two pallas_calls, _rowstats_kernel and _colsum_kernel, and their
+// static `causal`).
 //
-// What bounds it on the H100: operations.  The function needs the causal
-// half of q k^T once, B·H·T(T+1)/2·Dh multiply-adds, and an exp per score,
+// What bounds it on the H100: operations.  The function needs q k^T once,
+// its causal half B·H·T(T+1)/2·Dh multiply-adds (non-causal: B·H·T²·Dh),
+// and an exp per score,
 // on 2·T·Dh input values per head.  fp32 q and k are held to 1e-4, so the
 // least time is that product at the cheapest fp32-accurate tensor-core
 // rate: each operand as three bf16 terms, the six term products i + j < 3
@@ -35,15 +38,20 @@
 //     positions, so each key tile is loaded once for all of them; warp w
 //     holds 16 rows (one head, 16 positions) and keeps, per query, the
 //     running max and denominator (log2 domain) over key tiles up to the
-//     diagonal.
+//     diagonal (non-causal: over every key tile).
 //   pass 2 (colsum): a block takes 16·warps keys of one key head, warp w
 //     its 16 keys as the fixed operand, and streams the query tiles at or
-//     below the diagonal of every query head of the group: Sᵀ = K Qᵀ, so
+//     below the diagonal (non-causal: every query tile) of every query
+//     head of the group: Sᵀ = K Qᵀ, so
 //     a key's column sum is a row sum inside the warp (over the lane's
 //     columns, then a fixed butterfly over the 4 lanes of a row).  The
 //     (head, query tile) items of a key block are dealt to Z blocks in
 //     turn (Z from the launcher's plan, for the card's SMs); each block
-//     writes its own piece of the (B, KV·Z, T) scratch.
+//     writes its own piece of the (B, KV·Z, T) scratch.  Z counts blocks,
+//     not work: the non-causal form's key blocks all hold the same items
+//     (n_rep x every query tile, twice the causal form's average), so
+//     dealing them in turn already balances them, and the same plan (and
+//     scratch size) serves both forms.
 //   pass 3: col[b, j] = the pieces of (b, j) added in (key head, z) order.
 // Measured (chip_smoke.py on an H100 80GB HBM3 at 700 W, fp32 q and k,
 // B 4, T 512): 0.24 ms at llama3-8b's heads (32 on 8, Dh 128) against the
@@ -261,10 +269,10 @@ __device__ __forceinline__ void scores(float (&sh)[NJ][4], float (&sx)[NJ][4],
 }
 
 // Pass 1.  Grid (B·H/hb, ceil(T / qb)), qb = 16·warps / hb query
-// positions; the last query tiles (the most key tiles) first.  Warp w:
+// positions; the last query tiles (causal: the most key tiles) first.  Warp w:
 // head h0 + w % hb, positions q0 + 16·(w / hb) + 0..15.
 // ml[(b·H + h)·T + p] = (max in log2 units, denominator).
-template <typename T, int KS, int NT>
+template <typename T, int KS, int NT, bool C>
 __global__ void __launch_bounds__(32 * warps_for(NT),
                                   KS <= 8 && warps_for(NT) == 4 ? 2 : 1)
 rowstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -289,7 +297,7 @@ rowstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
   load_fixed<T, KS, NT>(af, p0 + gr < g.T ? qh + (p0 + gr) * qs : nullptr,
                         p0 + gr + 8 < g.T ? qh + (p0 + gr + 8) * qs : nullptr,
                         g.Dh);
-  const int n_kt = (min(g.T, q0 + qb) - 1) / TILE + 1;
+  const int n_kt = ((C ? min(g.T, q0 + qb) : g.T) - 1) / TILE + 1;
   auto key_row = [&](int kt) {
     return [=](int i) -> const T* {
       const int j = kt * TILE + i;
@@ -309,7 +317,8 @@ rowstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int h2 = 0; h2 < 8 / NJ; ++h2) {
       const int key0 = kt * TILE + 8 * NJ * h2;
-      if (key0 > p0 + 15 || key0 >= g.T) continue;  // all masked: warp-uniform
+      // all masked: warp-uniform
+      if ((C && key0 > p0 + 15) || key0 >= g.T) continue;
       float sh[NJ][4], sx[NJ][4];
       scores<KS, NT, NJ>(sh, sx, af, terms, S::PITCH, h2);
 #pragma unroll
@@ -322,7 +331,7 @@ rowstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
           for (int e = 0; e < 2; ++e) {
             const int key = key0 + 8 * j + 2 * t + e;
             const float sv = (sh[j][2 * ri + e] + sx[j][2 * ri + e]) * sl2;
-            v[2 * j + e] = key <= p && key < g.T ? sv : NEG;
+            v[2 * j + e] = (!C || key <= p) && key < g.T ? sv : NEG;
             mx = fmaxf(mx, v[2 * j + e]);
           }
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
@@ -351,11 +360,11 @@ rowstats_kernel(const T* __restrict__ q, const T* __restrict__ k,
 // Pass 2.  Grid (B·KV, ceil(T / F), Z), F = 16·warps: block (b·KV + kvh,
 // kt, z) takes keys kt·F .. + F - 1 of key head kvh, warp w keys kt·F +
 // 16w + 0..15 as its fixed rows, and the items (head hl of the group,
-// 64-query tile qt >= qt0 = kt·F / 64), numbered hl·(n_qt - qt0) + qt - qt0,
-// that are z mod Z.  Each key's sum runs
+// 64-query tile qt >= qt0 = kt·F / 64, or every tile (qt0 = 0) when not
+// causal), numbered hl·(n_qt - qt0) + qt - qt0, that are z mod Z.  Each key's sum runs
 // over the items in order, then over its lane's columns in order, then the
 // 4 lanes in a fixed butterfly; part[(b·KV·Z + kvh·Z + z)·T + key].
-template <typename T, int KS, int NT>
+template <typename T, int KS, int NT, bool C>
 __global__ void __launch_bounds__(32 * warps_for(NT),
                                   KS <= 8 && warps_for(NT) == 4 ? 2 : 1)
 colsum_kernel(const T* __restrict__ q, const T* __restrict__ k,
@@ -379,7 +388,8 @@ colsum_kernel(const T* __restrict__ q, const T* __restrict__ k,
                         k0 + gr + 8 < g.T ? kh + (k0 + gr + 8) * ks : nullptr,
                         g.Dh);
   const int n_qt = (g.T - 1) / TILE + 1;
-  const int qt0 = kt * FIXED / TILE;  // the first query tile at the diagonal
+  // the first query tile: at the diagonal, or the first of all
+  const int qt0 = C ? kt * FIXED / TILE : 0;
   const int per_head = n_qt - qt0;
   const int n_items = g.n_rep * per_head;
   auto query_row = [&](int it) {
@@ -417,7 +427,7 @@ colsum_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int h2 = 0; h2 < 8 / NJ; ++h2) {
       const int qs0 = qt * TILE + 8 * NJ * h2;
       // all masked (queries before the warp's keys, or past T): uniform
-      if (qs0 + 8 * NJ - 1 < k0 || qs0 >= g.T) continue;
+      if ((C && qs0 + 8 * NJ - 1 < k0) || qs0 >= g.T) continue;
       float sh[NJ][4], sx[NJ][4];
       scores<KS, NT, NJ>(sh, sx, af, terms, S::PITCH, h2);
 #pragma unroll
@@ -431,7 +441,8 @@ colsum_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int p = qt * TILE + i;
             const float2 s = st[i];
             const float sv = (sh[j][2 * ri + e] + sx[j][2 * ri + e]) * sl2;
-            if (p >= key && p < g.T) acc[ri] += exp2f(sv - s.x) * s.y;
+            if ((!C || p >= key) && p < g.T)
+              acc[ri] += exp2f(sv - s.x) * s.y;
           }
       }
     }
@@ -480,7 +491,7 @@ int heads_a_block(int n_rep) {
   return n_rep % 4 == 0 ? 4 : n_rep % 2 == 0 ? 2 : 1;
 }
 
-template <typename T, int KS, int NT>
+template <typename T, int KS, int NT, bool C>
 int launch(const T* q, const T* k, float* scratch, float* col, const Geo& g,
            cudaStream_t s) {
   using S = Smem<T, KS, NT>;
@@ -490,24 +501,24 @@ int launch(const T* q, const T* k, float* scratch, float* col, const Geo& g,
                   reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
                   reinterpret_cast<uintptr_t>(k) % 16 == 0;
   int err = allow_smem(
-      reinterpret_cast<const void*>(rowstats_kernel<T, KS, NT>), S::BYTES);
+      reinterpret_cast<const void*>(rowstats_kernel<T, KS, NT, C>), S::BYTES);
   if (err == 0)
-    err = allow_smem(reinterpret_cast<const void*>(colsum_kernel<T, KS, NT>),
-                     S::BYTES);
+    err = allow_smem(
+        reinterpret_cast<const void*>(colsum_kernel<T, KS, NT, C>), S::BYTES);
   if (err != 0) return err;
   float2* ml = reinterpret_cast<float2*>(scratch);
   float* part = scratch + 2 * (size_t)g.B * g.H * g.T;
   constexpr int THREADS = 32 * warps_for(NT), FIXED = 16 * warps_for(NT);
   const int qb = FIXED / g.hb;
   const dim3 grid1(g.B * (g.H / g.hb), (g.T + qb - 1) / qb);
-  rowstats_kernel<T, KS, NT><<<grid1, THREADS, S::BYTES, s>>>(q, k, ml, g,
-                                                              sl2, vec);
+  rowstats_kernel<T, KS, NT, C><<<grid1, THREADS, S::BYTES, s>>>(q, k, ml, g,
+                                                                 sl2, vec);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   const int Z = plan_z(g.B, g.T, g.KV, FIXED);
   const dim3 grid2(g.B * g.KV, (g.T - 1) / FIXED + 1, Z);
-  colsum_kernel<T, KS, NT><<<grid2, THREADS, S::BYTES, s>>>(q, k, ml, part, g,
-                                                            sl2, vec);
+  colsum_kernel<T, KS, NT, C><<<grid2, THREADS, S::BYTES, s>>>(
+      q, k, ml, part, g, sl2, vec);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   sum_pieces<<<(g.B * g.T + 255) / 256, 256, 0, s>>>(part, col, g.B, g.T,
@@ -515,14 +526,21 @@ int launch(const T* q, const T* k, float* scratch, float* col, const Geo& g,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int NT>
+template <typename T, int NT, bool C>
 int launch_ks(const void* q, const void* k, float* scratch, float* col,
               const Geo& g, cudaStream_t s) {
   const T* qt = static_cast<const T*>(q);
   const T* kt = static_cast<const T*>(k);
-  if (g.Dh <= 64) return launch<T, 4, NT>(qt, kt, scratch, col, g, s);
-  if (g.Dh <= 128) return launch<T, 8, NT>(qt, kt, scratch, col, g, s);
-  return launch<T, MAX_KS, NT>(qt, kt, scratch, col, g, s);
+  if (g.Dh <= 64) return launch<T, 4, NT, C>(qt, kt, scratch, col, g, s);
+  if (g.Dh <= 128) return launch<T, 8, NT, C>(qt, kt, scratch, col, g, s);
+  return launch<T, MAX_KS, NT, C>(qt, kt, scratch, col, g, s);
+}
+
+template <bool C>
+int launch_type(const void* q, const void* k, int bf16, float* scratch,
+                float* col, const Geo& g, cudaStream_t s) {
+  if (bf16) return launch_ks<__nv_bfloat16, 1, C>(q, k, scratch, col, g, s);
+  return launch_ks<float, SPLIT_TERMS, C>(q, k, scratch, col, g, s);
 }
 
 }  // namespace
@@ -537,15 +555,17 @@ extern "C" long attn_colsum_scratch(int B, int T, int H, int KV, int bf16) {
 }
 
 // q: (B, T, H, Dh), k: (B, T, KV, Dh), both fp32 (bf16 == 0) or bf16,
-// contiguous, Dh <= 192 (else cudaErrorInvalidValue); scratch: the floats
-// attn_colsum_scratch gives; col: (B, T) fp32, written (not accumulated).
+// contiguous, Dh <= 192 (else cudaErrorInvalidValue); causal: 1 for the
+// causal map, 0 for the full one; scratch: the floats attn_colsum_scratch
+// gives; col: (B, T) fp32, written (not accumulated).
 extern "C" int attn_colsum_launch(const void* q, const void* k, int bf16,
-                                  float* scratch, float* col, int B, int T,
-                                  int H, int KV, int Dh, void* stream) {
+                                  int causal, float* scratch, float* col,
+                                  int B, int T, int H, int KV, int Dh,
+                                  void* stream) {
   if (Dh < 1 || Dh > 16 * MAX_KS || T < 1 || KV < 1 || H % KV != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const Geo g{B, T, H, KV, Dh, H / KV, heads_a_block(H / KV)};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) return launch_ks<__nv_bfloat16, 1>(q, k, scratch, col, g, s);
-  return launch_ks<float, SPLIT_TERMS>(q, k, scratch, col, g, s);
+  if (causal) return launch_type<true>(q, k, bf16, scratch, col, g, s);
+  return launch_type<false>(q, k, bf16, scratch, col, g, s);
 }

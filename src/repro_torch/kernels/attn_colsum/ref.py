@@ -11,10 +11,11 @@ NEG_INF = -1e30
 
 
 def attn_colsum_ref(q: torch.Tensor, k: torch.Tensor, *,
-                    blk: int = 256) -> torch.Tensor:
+                    causal: bool = True, blk: int = 256) -> torch.Tensor:
     """q: (B, T, H, Dh), k: (B, T, KV, Dh) -> (B, T) fp32 scores
-    sum_{h, i} softmax(q kᵀ / sqrt(Dh))[h, i, j], causal; query head h
-    reads key head h // (H // KV)."""
+    sum_{h, i} softmax(q kᵀ / sqrt(Dh))[h, i, j]; query head h reads key
+    head h // (H // KV).  ``causal`` masks the keys after each query (a
+    decoder); without it every query sees every key (an encoder)."""
     b, t, h, dh = q.shape
     n_rep = h // k.shape[2]
     qf = q.float().permute(0, 2, 1, 3)  # (B, H, T, Dh)
@@ -27,7 +28,8 @@ def attn_colsum_ref(q: torch.Tensor, k: torch.Tensor, *,
     for j0 in range(0, t, blk):
         kp = pos[j0:j0 + blk]
         s = (qf @ kf[:, :, j0:j0 + blk].transpose(-1, -2)) * scale
-        s = s.masked_fill(pos[:, None] < kp[None, :], NEG_INF)
+        if causal:
+            s = s.masked_fill(pos[:, None] < kp[None, :], NEG_INF)
         m_new = torch.maximum(m, s.amax(-1))
         l = l * torch.exp(m - m_new) + torch.exp(s - m_new[..., None]).sum(-1)
         m = m_new
@@ -38,6 +40,7 @@ def attn_colsum_ref(q: torch.Tensor, k: torch.Tensor, *,
         qp = pos[i0:i0 + blk]
         s = (qf[:, :, i0:i0 + blk] @ kf.transpose(-1, -2)) * scale
         p = torch.exp(s - m[:, :, i0:i0 + blk, None]) * inv_l[:, :, i0:i0 + blk, None]
-        p = p.masked_fill(qp[:, None] < pos[None, :], 0.0)
+        if causal:
+            p = p.masked_fill(qp[:, None] < pos[None, :], 0.0)
         col += p.sum(-2)
     return col.sum(1)

@@ -19,7 +19,12 @@ head; ``--no-rotate`` keeps none), ``minitron-4b`` and ``mamba2-780m``
 flags; ``--arch jamba-v0.1-52b --n-layers 8 --dtype bfloat16`` quantizes
 its first layer group (Mamba and GQA blocks, dense and 16-expert FFNs;
 26.5 GB of weights), and a depth that is not a whole number of layer
-groups (``scan_period`` blocks) is refused.  The CLI keeps one copy of
+groups (``scan_period`` blocks) is refused.  ``--arch whisper-medium``
+(enc-dec) and ``llama-3.2-vision-11b`` (cross-attention layers) are
+refused too: they calibrate on frames or media, which this CLI does not
+draw (nor does the reference's); ``RSQPipeline.run(..., media=, frames=)``
+and ``checkpoint.packed.save_packed_artifact`` quantize them from Python.
+The CLI keeps one copy of
 the weights: it hands the layers to the pipeline (``handover``) after the
 fp perplexity, and each block is freed once rotated.  ``--importance``
 picks any of the paper's eight token-importance strategies and
@@ -54,6 +59,16 @@ def eval_ppl(model: Model, params: dict, tokens: torch.Tensor,
         total += float(loss) * b.shape[0]
         n += b.shape[0]
     return math.exp(total / n)
+
+
+def refuse_media(cfg, entry: str) -> None:
+    """The CLIs' refusal of a model that takes frames or media."""
+    if cfg.family in ("encdec", "vlm"):
+        what = "frames" if cfg.family == "encdec" else "media"
+        raise ValueError(
+            f"{cfg.name} ({cfg.family}) takes {what}=, which the CLIs do "
+            f"not draw (nor do the reference's); run it from Python: "
+            f"{entry}")
 
 
 def model_config(arch: str, n_layers: int, dtype: str):
@@ -99,6 +114,9 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     cfg = model_config(args.arch, args.n_layers, args.dtype)
+    refuse_media(cfg, "core.pipeline.RSQPipeline(model, rsq).run(params, "
+                 "calib, media=, frames=), then checkpoint.packed."
+                 "save_packed_artifact")
     model = Model(cfg, device)
     params = model.init(generator(args.seed, device))
     calib = calibration_set(cfg.vocab_size, args.n_calib, args.calib_seq,

@@ -23,7 +23,11 @@ Mamba-2 blocks in batch mode only, the recurrent state in the flat cache
 ``--arch jamba-v0.1-52b --n-layers 8`` its first layer group (7 Mamba-2
 blocks and one GQA block, dense and 16-expert FFNs) the same way: the
 cache holds each Mamba block's state beside the GQA block's K/V (fp or
-``--kv-bits`` codes), and ``--mode engine`` refuses it too.
+``--kv-bits`` codes), and ``--mode engine`` refuses it too.  An
+encoder-decoder (whisper-medium) and a model with cross-attention layers
+(llama-3.2-vision-11b) take frames or media that this CLI does not draw
+(nor does the reference's): it refuses them and names the library entry
+point, ``generate(..., media=, frames=)``, which serves both.
 
 ``--packed DIR`` serves a packed RSQ artifact (from launch.quantize
 --pack-out).  The default keeps the codes packed on the device
@@ -68,7 +72,7 @@ from repro_torch.checkpoint.packed import (load_packed_forward_params,
                                            resident_weight_bytes)
 from repro_torch.data.calibration import SyntheticCorpus
 from repro_torch.device import generator, resolve_device
-from repro_torch.launch.quantize import model_config
+from repro_torch.launch.quantize import model_config, refuse_media
 from repro_torch.models.lm import Model
 from repro_torch.runtime.fault import FaultPlan
 from repro_torch.runtime.graphs import LOOPS, Replay
@@ -83,20 +87,25 @@ def _sync(device: torch.device) -> None:
 
 
 def decode_graph(model: Model, params: dict, b: int, t: int, n_gen: int,
-                 sampled: bool) -> tuple[Replay, dict]:
+                 sampled: bool, media_len: int = 0) -> tuple[Replay, dict]:
     """The counterpart of the reference's ``_scan_decode_fn``: the n_gen - 1
     decode steps of a (b, t) prompt batch as one region, sampling inside it
     with the token index on the device, captured as one CUDA graph on the
-    card.  Kept on ``model.graphs`` by (params, b, t, n_gen, sampled), as
-    the reference's ``lru_cache`` keeps its programs by (model, n_gen,
-    sampled); the temperature and the seeds are buffer values, not keys.
-    Returns the ``Replay`` and its static inputs: ``cache`` (the one static
-    storage of the flat cache, which the caller loads with the prefill's),
-    ``tok`` (B, 1) token 0, ``temp`` and ``seeds`` (B,)."""
-    key = (id(params), b, t, n_gen, sampled)
+    card.  Kept on ``model.graphs`` by (params, b, t, n_gen, sampled),
+    with media_len after them where there is media, as the reference's
+    ``lru_cache`` keeps its programs by (model, n_gen, sampled); the
+    temperature and the seeds are buffer values, not keys.  Returns the
+    ``Replay`` and its static inputs:
+    ``cache`` (the one static storage of the flat cache, which the caller
+    loads with the prefill's: cross-attention's K/V of ``media_len``
+    media rows too, computed by the prefill outside the graph and read by
+    every replayed step), ``tok`` (B, 1) token 0, ``temp`` and ``seeds``
+    (B,)."""
+    key = (id(params), b, t, n_gen, sampled) + (
+        (media_len,) if media_len else ())
     if key not in model.graphs:
         dev = model.device
-        static = {"cache": model.init_cache(b, t + n_gen),
+        static = {"cache": model.init_cache(b, t + n_gen, media_len),
                   "tok": torch.zeros((b, 1), dtype=torch.int64, device=dev),
                   "pos": torch.full((1,), t, dtype=torch.int64, device=dev),
                   "temp": torch.zeros((b,), device=dev),
@@ -132,11 +141,16 @@ def graph_stats(replays) -> dict:
 
 @torch.no_grad()
 def generate(model: Model, params: dict, prompts: torch.Tensor, n_gen: int,
-             *, temperature: float = 0.0, seed: int = 0,
-             stats: dict | None = None, loop: str = "graph") -> torch.Tensor:
+             *, media: torch.Tensor | None = None,
+             frames: torch.Tensor | None = None, temperature: float = 0.0,
+             seed: int = 0, stats: dict | None = None,
+             loop: str = "graph") -> torch.Tensor:
     """prompts: (B, T) -> (B, n_gen) tokens.  Token 0 comes from the
     prefill logits, then n_gen - 1 decode steps, through the quantized
-    cache when the model's ``kv_bits`` is set.  Greedy at temperature 0;
+    cache when the model's ``kv_bits`` is set.  ``media`` (B, Tm, D) feeds
+    a vision model's cross-attention layers, ``frames`` (B, Tf, D) an
+    encoder-decoder's encoder; the prefill computes their cross-attention
+    K/V once, which stay fp in the cache.  Greedy at temperature 0;
     otherwise row ``i`` draws token ``j`` from the (seed + i, j) stream,
     the engine's for a request with that seed.
 
@@ -162,7 +176,9 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, n_gen: int,
                              sampled=sampled)[:, None]
 
     t0 = time.perf_counter()
-    logits, cache = model.prefill(params, prompts, cache_len=t + n_gen)
+    logits, cache = model.prefill(params, prompts, media=media,
+                                  frames=frames, cache_len=t + n_gen)
+    extra = media if media is not None else frames
     tok = draw(logits, 0)
     if stats is not None:
         _sync(dev)
@@ -170,7 +186,9 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, n_gen: int,
         stats["first_logits"] = logits
     capture_s = 0.0
     if loop == "graph" and n_gen > 1:
-        replay, static = decode_graph(model, params, b, t, n_gen, sampled)
+        replay, static = decode_graph(
+            model, params, b, t, n_gen, sampled,
+            0 if extra is None else extra.shape[1])
         # captured first: the warm-up step advances the static cache in
         # place (a Mamba block's state too), so the prefill's goes in after
         capture_s = replay.ready()
@@ -197,8 +215,8 @@ def generate(model: Model, params: dict, prompts: torch.Tensor, n_gen: int,
     return out
 
 
-def kv_cache_bytes(model: Model, batch: int,
-                   cache_len: int) -> tuple[int, int]:
+def kv_cache_bytes(model: Model, batch: int, cache_len: int,
+                   media_len: int = 0) -> tuple[int, int]:
     """Bytes of a flat cache of ``batch`` x ``cache_len`` tokens as
     ``model.init_cache`` lays it out (codes and scales for a quantized
     cache), and of the same cache held in the activation dtype; from the
@@ -209,15 +227,20 @@ def kv_cache_bytes(model: Model, batch: int,
     quantized: the conv window (W - 1 rows of d_inner + 2·state) in the
     activation dtype and the fp32 SSM state (nh x hd x state), the same
     bytes either way.  Counted layer by layer, by kind: a hybrid holds
-    both."""
+    both.  A cross-attention layer (an enc-dec decoder block's sub-layer
+    too) holds K and V of every KV head for ``media_len`` media rows, in
+    the activation dtype whatever the codec."""
     cfg, codec = model.cfg, model.codec
     kinds = cfg.layer_kinds()
     n_mamba = kinds.count("mamba")
-    n_attn = len(kinds) - n_mamba
+    n_attn = len(kinds) - n_mamba - kinds.count("cross")
+    n_cross = len(kinds) if model.encdec else kinds.count("cross")
     state = n_mamba * batch * (
         (cfg.ssm_conv_width - 1) * (cfg.d_inner + 2 * cfg.ssm_d_state)
         * model.dtype.itemsize
         + cfg.ssm_n_heads * cfg.ssm_head_dim * cfg.ssm_d_state * 4)
+    state += 2 * n_cross * batch * media_len * cfg.n_kv_heads \
+        * cfg.head_dim * model.dtype.itemsize
     if cfg.attn_kind == "mla":  # one row each of c and r, no head axis
         rows, widths = n_attn * batch, (cfg.kv_lora_rank, cfg.qk_rope_dim)
     else:  # K and V of every KV head
@@ -265,22 +288,24 @@ def serve_engine(model: Model, params: dict, prompts: torch.Tensor,
 
 @torch.no_grad()
 def profile_generate(model: Model, params: dict, prompts: torch.Tensor,
-                     n_gen: int, top: int = 12, loop: str = "graph") -> dict:
+                     n_gen: int, top: int = 12, loop: str = "graph",
+                     **inputs) -> dict:
     """One traced greedy ``generate`` under ``torch.profiler``: device time
     by kernel name and the summed device-busy time (the profiler slows the
     host, so the traced wall time is not the run's; compare the busy time
     with an untraced run of the same work).  The decode graph is captured
-    by an untraced call first, so the trace holds replays only."""
+    by an untraced call first, so the trace holds replays only.
+    ``inputs``: ``media`` or ``frames``, as ``generate`` takes them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if model.device.type == "cuda":
         activities.append(ProfilerActivity.CUDA)
-    generate(model, params, prompts, n_gen, loop=loop)
+    generate(model, params, prompts, n_gen, loop=loop, **inputs)
     _sync(model.device)
     with profile(activities=activities) as prof:
-        generate(model, params, prompts, n_gen, loop=loop)
+        generate(model, params, prompts, n_gen, loop=loop, **inputs)
         _sync(model.device)
     rows = []
     for ev in prof.key_averages():
@@ -373,6 +398,8 @@ def main(argv=None) -> dict:
 
     device = resolve_device(args.device)
     cfg = model_config(args.arch, args.n_layers, args.dtype)
+    refuse_media(cfg, "launch.serve.generate(model, params, prompts, n_gen, "
+                 "media=, frames=)")
     if args.kv_bits is not None:
         cfg = dataclasses.replace(cfg, kv_bits=args.kv_bits)
     if args.mode == "engine" and not cfg.kv_bits:

@@ -1,13 +1,15 @@
 """Attention: chunked (flash-style) prefill attention, fp decode
 attention, the quantized KV cache (codecs, flat and paged appends) with
-attention on its codes, the GQA projections and the MLA block (absorbed
-latent attention, flat and paged).
+attention on its codes, the GQA projections, the MLA block (absorbed
+latent attention, flat and paged) and cross-attention on media or encoder
+rows.
 
 ``flash_attention`` scans KV chunks with a running (max, denominator,
 accumulator) triple and never forms the (T, T) score matrix, as the
 reference does in jnp; it is plain PyTorch here because the reference's
-version is not a Pallas kernel either.  The AttnCon column sums come from
-the ``attn_colsum`` kernel (``models.lm.capture_block``), not from here.
+version is not a Pallas kernel either, and so is cross-attention.  The
+AttnCon column sums come from the ``attn_colsum`` kernel
+(``models.lm.capture_block``), not from here.
 
 The quantized cache never leaves codes + scales on the serving path: prefill
 encodes, decode appends one encoded token, and attention reads the codes
@@ -49,12 +51,18 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    kv_chunk: int = 512, q_offset: int = 0) -> torch.Tensor:
-    """Causal self-attention.  q: (B, Tq, H, Dh) at positions ``q_offset +
+                    causal: bool = True, kv_chunk: int = 512,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Chunked attention.  q: (B, Tq, H, Dh) at positions ``q_offset +
     arange(Tq)``; k: (B, Tk, KV, Dh); v: (B, Tk, KV, Dv).  Returns
-    (B, Tq, H, Dv) in q's dtype (fp32 softmax math).  A chunk of queries
-    with its offset walks the same KV chunks as the whole prompt does, so
-    its rows are bitwise the whole prompt's (exact chunked prefill)."""
+    (B, Tq, H, Dv) in q's dtype (fp32 softmax math).  ``causal`` masks the
+    keys after each query; without it every query sees every key (an
+    encoder's self-attention, cross-attention on media or encoder rows).
+    A ragged Tk ends in a shorter last chunk: the reference pads K and V
+    to a chunk multiple and masks the padding, whose exps are exactly 0,
+    so the sums are the same.  A chunk of queries with its offset walks
+    the same KV chunks as the whole prompt does, so its rows are bitwise
+    the whole prompt's (exact chunked prefill)."""
     b, tq, h, dh = q.shape
     tk, kv_heads = k.shape[1], k.shape[2]
     n_rep = h // kv_heads
@@ -68,8 +76,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         k_r = _repeat_kv(k[:, off:off + kv_chunk], n_rep).float()
         v_r = _repeat_kv(v[:, off:off + kv_chunk], n_rep).float()
         s = matmul(qf, k_r.permute(0, 2, 3, 1))           # (B, H, Tq, c)
-        kv_pos = off + torch.arange(k_r.shape[1], device=q.device)
-        s = torch.where(q_pos[:, None] >= kv_pos[None, :], s, NEG_INF)
+        if causal:
+            kv_pos = off + torch.arange(k_r.shape[1], device=q.device)
+            s = torch.where(q_pos[:, None] >= kv_pos[None, :], s, NEG_INF)
         m_new = torch.maximum(m, s.amax(-1, keepdim=True))
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
@@ -638,3 +647,46 @@ def mla_extend_paged(p: dict, cfg, x: torch.Tensor, c_new: torch.Tensor,
         page=pools["c"].shape[1])[None]                     # (1, L, H, kvr)
     return linear(expand_v(ctx_lat).reshape(b, t, h * dv).to(x.dtype),
                   p["wo"])
+
+
+# ------------------------------------------------------------ cross-attention
+#
+# Queries from the decoder stream, keys and values from media rows (a
+# vision model's patch embeddings) or from the encoder's output (enc-dec),
+# both d_model wide; no biases, no RoPE, no mask.  Prefill computes the K/V
+# of the media once (``cross_kv``) and the cache keeps them in the
+# activation dtype, never quantized; each decode step attends on them.
+
+
+def init_cross_attn(gen, cfg, dtype, device) -> dict:
+    d, h, kvh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    return {"wq": dense_init(gen, d, h * dh, dtype, device),
+            "wk": dense_init(gen, d, kvh * dh, dtype, device),
+            "wv": dense_init(gen, d, kvh * dh, dtype, device),
+            "wo": dense_init(gen, h * dh, d, dtype, device)}
+
+
+def cross_kv(p: dict, cfg, media: torch.Tensor
+             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """media: (B, Tm, D) -> K, V (B, Tm, KV, Dh)."""
+    b, tm, _ = media.shape
+    kvh, dh = cfg.n_kv_heads, cfg.head_dim
+    return (linear(media, p["wk"]).reshape(b, tm, kvh, dh),
+            linear(media, p["wv"]).reshape(b, tm, kvh, dh))
+
+
+def cross_attention(p: dict, cfg, x: torch.Tensor, kv) -> torch.Tensor:
+    """The attention output (B, T, H·Dh) of x's queries on ``kv``, before
+    ``wo`` (the input ``wo`` is calibrated on)."""
+    b, t, _ = x.shape
+    q = linear(x, p["wq"]).reshape(b, t, cfg.n_heads, cfg.head_dim)
+    k, v = kv
+    out = flash_attention(q, k, v, causal=False,
+                          kv_chunk=min(512, k.shape[1]))
+    return out.reshape(b, t, -1)
+
+
+def apply_cross_attn(p: dict, cfg, x: torch.Tensor, kv) -> torch.Tensor:
+    """x: (B, T, D) attending on ``kv = cross_kv(p, cfg, media)`` (the
+    cache's, in decode) -> (B, T, D)."""
+    return linear(cross_attention(p, cfg, x, kv), p["wo"])

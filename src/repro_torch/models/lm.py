@@ -2,7 +2,11 @@
 GQA attention (llama3, qwen1.5 with qkv bias, command-r), MLA (deepseek)
 or the Mamba-2 mixer (``models.ssm``; mamba2, whose blocks have no FFN) as
 the mixer, or both GQA and Mamba-2 blocks in one stack (jamba's hybrid,
-each block with a dense or a routed-expert FFN).
+each block with a dense or a routed-expert FFN), or GQA and
+cross-attention mixers (llama-3.2-vision: every ``cross_attn_period``-th
+block attends on media rows instead of the stream), or an encoder-decoder
+(whisper: non-causal encoder blocks over frame embeddings, and decoder
+blocks with a cross-attention sub-layer on the encoder's output).
 
 Parameters are a plain dict, laid out like the reference's with the layer
 stack unrolled into a list (the reference stacks layer groups of
@@ -14,6 +18,15 @@ a layer's place among them)::
     {"embed": (V, D), "head": (D, V), "final_norm": (D,),
      "layers": [{"mixer_norm", "mixer": {...}, "ffn_norm",
                  "ffn": {"wi", "wu", "wd"}}, ...]}
+
+and, for an encoder-decoder, ``"encoder": {"layers": [block, ...],
+"final_norm": (D,)}`` (the reference's stacked ``encoder.groups.b0``
+unrolled) beside them, each decoder block with ``"cross_norm"`` and
+``"cross": {"wq", "wk", "wv", "wo"}``, and after rotation ``"frame_proj"``
+(D, D), the encoder rotation that the stub frontend's output projection
+would absorb.  A vision model's cross-attention mixer is ``{"wq", "wk",
+"wv", "wo"}`` (no biases); nothing in the params tells it from GQA, so
+the block functions take its :class:`BlockMeta` (``Model.metas``).
 
 with mixer ``{"wq", "wk", "wv", "wo"}`` (GQA; plus ``{"bq", "bk", "bv"}``
 with ``qkv_bias``), ``{"wq_a", "q_norm", "wq_b", "wkv_a", "kv_norm",
@@ -43,10 +56,17 @@ d_inner + 2·state)`` in the activation dtype, ``"ssm": (B, nh, hd,
 state)`` fp32``}``, advanced in place by each decode step and never
 quantized (a hybrid's cache holds both kinds of entry, layer by layer);
 it is not paged (the engine and the chunked prefill refuse Mamba blocks,
-as the reference's do).
+as the reference's do).  A cross-attention layer's entry holds the K and V
+of the media (or of the encoder's output) ``{"xk", "xv"}`` (B, Tm, KV, Dh)
+in the activation dtype, computed once by the prefill and never
+quantized, beside an enc-dec decoder block's self-attention K/V; the
+engine and the chunked prefill refuse them too.  Media (``media=``, a
+vision model's (B, Tm, D) patch embeddings) and frames (``frames=``, an
+encoder's (B, Tf, D) input) are cast to the model's dtype.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -96,18 +116,44 @@ def check_groups(cfg: ModelConfig) -> None:
             f"multiple of {period}")
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockMeta:
+    """What a block's params do not say: ``cross``, a cross-attention
+    mixer (its leaves are GQA's without biases); ``causal``, False for an
+    encoder block's self-attention."""
+    cross: bool = False
+    causal: bool = True
+
+
+DECODER = BlockMeta()
+CROSS = BlockMeta(cross=True)
+ENCODER = BlockMeta(causal=False)
+
+
+def block_metas(cfg: ModelConfig) -> list[BlockMeta]:
+    """Each decoder layer's meta, from ``cfg.layer_kinds()``."""
+    return [CROSS if kind == "cross" else DECODER
+            for kind in cfg.layer_kinds()]
+
+
 def init_block(gen, cfg: ModelConfig, dtype, device, ffn: str = "dense",
-               mixer: str = "attn") -> dict:
+               mixer: str = "attn", has_cross: bool = False) -> dict:
     """One block's params; ``mixer`` and ``ffn`` are the layer's
-    ``cfg.layer_kinds()`` ("attn" or "mamba") and ``cfg.ffn_kinds()``
-    ("dense", "moe" or "none") entries."""
+    ``cfg.layer_kinds()`` ("attn", "mamba" or "cross") and
+    ``cfg.ffn_kinds()`` ("dense", "moe" or "none") entries; ``has_cross``
+    adds an enc-dec decoder block's cross-attention sub-layer."""
     d = cfg.d_model
     if mixer == "mamba":
         init_mixer = ssm.init_mamba
+    elif mixer == "cross":
+        init_mixer = att.init_cross_attn
     else:
         init_mixer = att.init_mla if _is_mla(cfg) else att.init_gqa
     p = {"mixer_norm": torch.ones((d,), dtype=dtype, device=device),
          "mixer": init_mixer(gen, cfg, dtype, device)}
+    if has_cross:
+        p["cross_norm"] = torch.ones((d,), dtype=dtype, device=device)
+        p["cross"] = att.init_cross_attn(gen, cfg, dtype, device)
     if ffn != "none":
         p["ffn_norm"] = torch.ones((d,), dtype=dtype, device=device)
         p["ffn"] = (moe.init_moe(gen, cfg, dtype, device) if ffn == "moe"
@@ -123,14 +169,21 @@ def _is_mamba(p: dict) -> bool:
     return "wzx" in p["mixer"]
 
 
-def _refuse_mamba(p: dict, what: str, state: str) -> None:
-    """The paged paths' refusal of a Mamba block, in the reference's
-    words."""
-    if _is_mamba(p):
+def _refuse_unpaged(p: dict, what: str, state: str) -> None:
+    """The paged paths' refusal of a Mamba block or of a block with
+    cross-attention, in the reference's words."""
+    kind = "mamba" if _is_mamba(p) else "cross" if "cross" in p else None
+    if kind:
         raise NotImplementedError(
-            f"{what} supports attn/mla mixers, got 'mamba' — ssm/cross "
+            f"{what} supports attn/mla mixers, got {kind!r} — ssm/cross "
             f"state is {state}, not per-page; serve such models through "
             f"the flat generate() path")
+
+
+def _cross_kv(p: dict, cfg: ModelConfig, media):
+    """The K/V of a block's cross-attention sub-layer on ``media`` (None
+    for a block without one)."""
+    return att.cross_kv(p["cross"], cfg, media) if "cross" in p else None
 
 
 def _qkv(p: dict, cfg: ModelConfig, h: torch.Tensor, positions):
@@ -145,11 +198,14 @@ def _qkv(p: dict, cfg: ModelConfig, h: torch.Tensor, positions):
 
 
 def apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                positions=None, aux: Optional[list] = None):
+                positions=None, aux: Optional[list] = None, media=None,
+                meta: BlockMeta = DECODER):
     """Full-sequence forward (prefill / calibration).
     Returns (x, cache) with the block's fp cache entry (``{"k", "v"}`` or
-    MLA's ``{"c", "r"}``).  ``aux``, where given, receives a routed-expert
-    FFN's load-balance loss."""
+    MLA's ``{"c", "r"}``; a cross-attention mixer's ``{"xk", "xv"}``, and
+    an enc-dec decoder block's self-attention K/V with them).  ``aux``,
+    where given, receives a routed-expert FFN's load-balance loss;
+    ``media`` (B, Tm, D) is what cross-attention attends on."""
     positions = _positions(x, positions)
     t = x.shape[1]
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
@@ -157,17 +213,31 @@ def apply_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         mix, (conv, state) = ssm.apply_mamba(p["mixer"], cfg, h,
                                              return_state=True)
         return _ffn_out(p, cfg, x, mix, aux), {"conv": conv, "ssm": state}
+    if meta.cross:
+        k, v = att.cross_kv(p["mixer"], cfg, media)
+        mix = att.apply_cross_attn(p["mixer"], cfg, h, (k, v))
+        return _ffn_out(p, cfg, x, mix, aux), {"xk": k, "xv": v}
     q, k, v, cache = _qkv(p, cfg, h, positions)
-    out = att.flash_attention(q, k, v, kv_chunk=min(512, t))
-    return _mix_out(p, cfg, x, out, aux), cache
+    out = att.flash_attention(q, k, v, causal=meta.causal,
+                              kv_chunk=min(512, t))
+    xkv = _cross_kv(p, cfg, media)
+    if xkv is not None:
+        cache.update(xk=xkv[0], xv=xkv[1])
+    return _mix_out(p, cfg, x, out, aux, xkv), cache
 
 
 def _ffn_out(p: dict, cfg: ModelConfig, x: torch.Tensor,
-             mix: torch.Tensor, aux: Optional[list] = None) -> torch.Tensor:
-    """Residual of the mixer's output and the FFN half of a block (dense
-    or routed experts; mamba2's blocks have none); a routed-expert FFN's
-    load-balance loss goes to ``aux`` where it is given."""
+             mix: torch.Tensor, aux: Optional[list] = None,
+             xkv=None) -> torch.Tensor:
+    """Residual of the mixer's output, an enc-dec decoder block's
+    cross-attention sub-layer on ``xkv`` (its K/V of the encoder's
+    output), and the FFN half of a block (dense or routed experts;
+    mamba2's blocks have none); a routed-expert FFN's load-balance loss
+    goes to ``aux`` where it is given."""
     x = x + mix
+    if "cross" in p:
+        hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        x = x + att.apply_cross_attn(p["cross"], cfg, hc, xkv)
     if "ffn" not in p:
         return x
     hf = rms_norm(x, p["ffn_norm"], cfg.norm_eps)
@@ -180,25 +250,32 @@ def _ffn_out(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def _mix_out(p: dict, cfg: ModelConfig, x: torch.Tensor,
-             out: torch.Tensor, aux: Optional[list] = None) -> torch.Tensor:
-    """Attention output projection, residual and the FFN half of a block."""
+             out: torch.Tensor, aux: Optional[list] = None,
+             xkv=None) -> torch.Tensor:
+    """Attention output projection, residual and the rest of a block."""
     b, t = out.shape[:2]
     return _ffn_out(p, cfg, x, linear(out.reshape(b, t, -1),
-                                      p["mixer"]["wo"]), aux)
+                                      p["mixer"]["wo"]), aux, xkv)
 
 
 def decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
-                 pos) -> torch.Tensor:
+                 pos, meta: BlockMeta = DECODER) -> torch.Tensor:
     """One-token step. x: (B, 1, D); writes this token's K/V (or its codes
     and scales) into the cache at ``pos`` (in place) and attends over
     positions <= pos, on the codes directly for a quantized cache.
     ``pos``: an int, or a 0-d or (1,) int tensor on the device (the same
-    bits either way; a captured loop's position changes at replay)."""
+    bits either way; a captured loop's position changes at replay).
+    Cross-attention attends on the cache's ``xk`` / ``xv``, which a step
+    does not change."""
     codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     if _is_mamba(p):  # no position: the state carries the sequence
         return _ffn_out(p, cfg, x, ssm.mamba_decode(
             p["mixer"], cfg, h, cache["conv"], cache["ssm"]))
+    xkv = (cache["xk"], cache["xv"]) if "xk" in cache else None
+    if meta.cross:
+        return _ffn_out(p, cfg, x, att.apply_cross_attn(p["mixer"], cfg, h,
+                                                        xkv))
     positions = att.position_index(pos, x.device)
     if _is_mla(cfg):
         c_kv, k_rope = att.mla_latent(p["mixer"], cfg, h, positions)
@@ -226,7 +303,7 @@ def decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
         cache["k"].index_copy_(1, positions, k)
         cache["v"].index_copy_(1, positions, v)
         out = att.decode_attention(q, cache["k"], cache["v"], positions)
-    return _mix_out(p, cfg, x, out)
+    return _mix_out(p, cfg, x, out, xkv=xkv)
 
 
 def paged_decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -238,7 +315,7 @@ def paged_decode_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     the per-slot mask of the paged kernel are the only differences from
     :func:`decode_block`: a slot's output is the flat step's at the same
     position."""
-    _refuse_mamba(p, "paged decode", "per-slot")
+    _refuse_unpaged(p, "paged decode", "per-slot")
     codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
     b = x.shape[0]
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
@@ -272,7 +349,7 @@ def pad_cache_entry(c: dict, codec, s: int) -> dict:
     through."""
     out = {}
     for key, a in c.items():
-        if key in _STATE:
+        if key in _KEPT:
             out[key] = a
             continue
         tgt = s if key in _SCALE_OF else codec.scale_rows(s)
@@ -283,17 +360,18 @@ def pad_cache_entry(c: dict, codec, s: int) -> dict:
 
 # each sequence-indexed cache entry and the entry of its scales
 _SCALE_OF = {"k": "ks", "v": "vs", "c": "cs", "r": "rs"}
-# a Mamba block's recurrent state: kept as it is whatever the KV codec
-_STATE = ("conv", "ssm")
+# kept as they are whatever the KV codec: a Mamba block's recurrent state,
+# and cross-attention's K/V of the media (or of the encoder's output)
+_KEPT = ("conv", "ssm", "xk", "xv")
 
 
 def _encode_cache(codec, entry: dict) -> dict:
     """{"k", "v"} or {"c", "r"} fp rows -> codes and scales,
-    {"k", "ks", "v", "vs"} or {"c", "cs", "r", "rs"}; a Mamba state
-    passes through."""
+    {"k", "ks", "v", "vs"} or {"c", "cs", "r", "rs"}; a Mamba state and
+    cross-attention's K/V pass through."""
     out = {}
     for key, a in entry.items():
-        if key in _STATE:
+        if key in _KEPT:
             out[key] = a
         else:
             out[key], out[_SCALE_OF[key]] = codec.encode(a)
@@ -314,7 +392,7 @@ def ingest_block(p: dict, cfg: ModelConfig, x: torch.Tensor, buf: dict,
     under the same mask as the whole-prompt prefill, and every other op is
     row-wise, so hidden rows, codes and logits are the whole prompt's.
     Returns (x, chunk_cache) with the chunk rows' codes."""
-    _refuse_mamba(p, "chunked prefill", "sequential")
+    _refuse_unpaged(p, "chunked prefill", "sequential")
     codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     t = h.shape[1]
@@ -335,7 +413,7 @@ def paged_extend_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     No fp prefix buffer, but lossy against the whole-prompt prefill.
     tbl: (n_past,) pages of the already-ingested chunks.  Returns
     (x, chunk_cache)."""
-    _refuse_mamba(p, "chunked prefill", "sequential")
+    _refuse_unpaged(p, "chunked prefill", "sequential")
     codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
     if _is_mla(cfg):
@@ -353,21 +431,26 @@ def paged_extend_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-                  positions=None):
+                  positions=None, media=None, meta: BlockMeta = DECODER):
     """Calibration forward of one block for the RSQ pipeline.
 
     Returns (y, caps, domains, colsum): ``caps`` maps each weight path to
     its input (B, T, d_in), or (E, C, d_in) capacity buffers for a routed
     expert stack (domain "expert", with the slot -> token map (E·C,) in
     ``caps["ffn/__moe_slot_token"]``, T for an empty slot; a MoE layer's
-    shared FFN sees (B·T, d_in)), ``domains`` to "stream", "hidden" or
-    "expert", and
+    shared FFN sees (B·T, d_in)), ``domains`` to "stream", "hidden",
+    "media" or "expert", and
     ``colsum`` is the (B, T) AttnCon score from the ``attn_colsum`` kernel
     (the reference takes it from ``flash_attention(colsum=True)``; MLA's
-    from the expanded per-head q and k, H = KV heads of dn + dr).  A Mamba
+    from the expanded per-head q and k, H = KV heads of dn + dr; an
+    encoder block's from the full, non-causal map).  A Mamba
     block's four projections are all "stream" and its ``colsum`` is None:
     AttnCon falls back to ActNorm there, as in the reference; its FFN,
-    where it has one (jamba), is captured as an attention block's."""
+    where it has one (jamba), is captured as an attention block's.  A
+    cross-attention mixer's ``wk`` / ``wv`` (and an enc-dec decoder
+    block's ``cross/wk`` / ``cross/wv``) read the media rows (B, Tm, D),
+    domain "media", which take no token importance; a cross mixer's
+    ``colsum`` is None (ActNorm again)."""
     positions = _positions(x, positions)
     b, t, _ = x.shape
     h = rms_norm(x, p["mixer_norm"], cfg.norm_eps)
@@ -376,6 +459,9 @@ def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
         caps = {f"mixer/{name}": inp for name, inp in m_caps.items()}
         return _capture_ffn(p, cfg, x + mix, caps,
                             {path: "stream" for path in caps}, None)
+    if meta.cross:
+        caps, dom, mix = _capture_cross(p["mixer"], cfg, h, media, "mixer")
+        return _capture_ffn(p, cfg, x + mix, caps, dom, None)
     if _is_mla(cfg):
         q, k, v, c_kv, _, ql = att.mla_qkv_inputs(p["mixer"], cfg, h,
                                                   positions)
@@ -385,12 +471,34 @@ def capture_block(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
     else:
         q, k, v = att.gqa_qkv(p["mixer"], cfg, h, positions)
         caps = {"mixer/wq": h, "mixer/wk": h, "mixer/wv": h}
-    out = att.flash_attention(q, k, v, kv_chunk=min(512, t))
-    colsum = attn_colsum(q, k)
+    out = att.flash_attention(q, k, v, causal=meta.causal,
+                              kv_chunk=min(512, t))
+    colsum = attn_colsum(q, k, causal=meta.causal)
     attn_out = out.reshape(b, t, -1)
     caps["mixer/wo"] = attn_out
-    return _capture_ffn(p, cfg, x + linear(attn_out, p["mixer"]["wo"]), caps,
-                        {path: "stream" for path in caps}, colsum)
+    dom = {path: "stream" for path in caps}
+    x = x + linear(attn_out, p["mixer"]["wo"])
+    if "cross" in p:
+        hc = rms_norm(x, p["cross_norm"], cfg.norm_eps)
+        c_caps, c_dom, mix = _capture_cross(p["cross"], cfg, hc, media,
+                                            "cross")
+        caps.update(c_caps)
+        dom.update(c_dom)
+        x = x + mix
+    return _capture_ffn(p, cfg, x, caps, dom, colsum)
+
+
+def _capture_cross(pc: dict, cfg: ModelConfig, h: torch.Tensor, media,
+                   name: str) -> tuple[dict, dict, torch.Tensor]:
+    """Cross-attention ``pc`` (at ``name``: "mixer" or "cross") of the
+    normed stream ``h`` on ``media``: its weights' inputs, their domains
+    and its output (B, T, D)."""
+    out = att.cross_attention(pc, cfg, h, att.cross_kv(pc, cfg, media))
+    caps = {f"{name}/wq": h, f"{name}/wk": media, f"{name}/wv": media,
+            f"{name}/wo": out}
+    dom = {f"{name}/wq": "stream", f"{name}/wk": "media",
+           f"{name}/wv": "media", f"{name}/wo": "stream"}
+    return caps, dom, linear(out, pc["wo"])
 
 
 def _capture_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, caps: dict,
@@ -422,8 +530,10 @@ def _capture_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor, caps: dict,
 class Model:
     """Decoder of GQA blocks with dense FFNs (qkv bias and tied embeddings
     allowed), of MLA blocks with dense or routed-expert FFNs, of Mamba-2
-    blocks, or of GQA and Mamba-2 blocks with dense or routed-expert FFNs
-    (the hybrid), for one ``ModelConfig`` on one device."""
+    blocks, of GQA and Mamba-2 blocks with dense or routed-expert FFNs
+    (the hybrid), of GQA and cross-attention blocks with dense FFNs (a
+    vision model), or an encoder-decoder of GQA blocks with dense FFNs
+    (whisper), for one ``ModelConfig`` on one device."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         kinds, ffns = set(cfg.layer_kinds()), set(cfg.ffn_kinds())
@@ -432,6 +542,9 @@ class Model:
         elif cfg.family == "hybrid":
             ok = cfg.attn_kind == "gqa" and kinds <= {"attn", "mamba"} \
                 and ffns <= {"dense", "moe"}
+        elif cfg.family in ("vlm", "encdec"):
+            ok = cfg.attn_kind == "gqa" and kinds <= {"attn", "cross"} \
+                and ffns == {"dense"}
         elif cfg.attn_kind == "mla":
             ok = kinds == {"attn"} and ffns <= {"dense", "moe"}
         else:
@@ -440,10 +553,14 @@ class Model:
             raise NotImplementedError(
                 f"{cfg.name} ({cfg.family}): the port serves dense GQA "
                 f"decoders, MLA decoders with dense or routed-expert FFNs, "
-                f"Mamba-2 decoders and GQA / Mamba-2 hybrids; enc-dec and "
-                f"vision models are later slices")
+                f"Mamba-2 decoders, GQA / Mamba-2 hybrids, and GQA decoders "
+                f"with dense FFNs and cross-attention (vision, enc-dec); "
+                f"layers {sorted(kinds)} with FFNs {sorted(ffns)} are later "
+                f"slices")
         check_groups(cfg)
         self.cfg = cfg
+        self.metas = block_metas(cfg)
+        self.encdec = cfg.family == "encdec"
         self.codec = att.kv_codec(cfg.kv_bits, cfg.kv_chunk)  # checks bits
         self.device = resolve_device(device)
         self.dtype = getattr(torch, cfg.dtype)
@@ -465,24 +582,63 @@ class Model:
             params["head"] = dense_init(gen, cfg.d_model, cfg.vocab_size, dt,
                                         dev)
         params["layers"] = [
-            init_block(gen, cfg, dt, dev, ffn, mixer)
+            init_block(gen, cfg, dt, dev, ffn, mixer, has_cross=self.encdec)
             for mixer, ffn in zip(cfg.layer_kinds(), cfg.ffn_kinds())]
+        if self.encdec:
+            params["encoder"] = {
+                "layers": [init_block(gen, cfg, dt, dev)
+                           for _ in range(cfg.n_encoder_layers)],
+                "final_norm": torch.ones((cfg.d_model,), dtype=dt,
+                                         device=dev)}
         return params
 
     # --------------------------------------------------------------- forward
     def embed(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
         return embed_lookup(params["embed"], tokens).to(self.dtype)
 
+    def encode(self, params: dict, frames: torch.Tensor) -> torch.Tensor:
+        """(B, Tf, D) frame embeddings -> the encoder's output (B, Tf, D),
+        after its final norm: the decoder's media.  A rotated model's
+        ``frame_proj`` takes the frames into the encoder's rotated basis
+        first."""
+        x = frames.to(self.dtype)
+        if "frame_proj" in params:
+            x = x @ params["frame_proj"].to(x.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        for p_blk in params["encoder"]["layers"]:
+            x, _ = apply_block(p_blk, self.cfg, x, positions=positions,
+                               meta=ENCODER)
+        return rms_norm(x, params["encoder"]["final_norm"],
+                        self.cfg.norm_eps)
+
+    def media(self, params: dict, media=None, frames=None):
+        """What cross-attention attends on: the encoder's output of
+        ``frames`` (enc-dec), ``media`` in the model's dtype (vision), or
+        None (a model without cross-attention)."""
+        if self.encdec:
+            if frames is None:
+                raise ValueError(f"{self.cfg.name}: an encoder-decoder "
+                                 f"takes frames=(B, Tf, d_model)")
+            return self.encode(params, frames)
+        if any(m.cross for m in self.metas):
+            if media is None:
+                raise ValueError(f"{self.cfg.name}: cross-attention layers "
+                                 f"take media=(B, Tm, d_model)")
+            return media.to(self.dtype)
+        return None
+
     def hidden_states(self, params: dict, tokens: torch.Tensor, *,
+                      media=None, frames=None,
                       aux: Optional[list] = None) -> torch.Tensor:
         """(B, T) tokens -> (B, T, D) final hidden states (post final norm);
         ``aux``, where given, receives each routed-expert layer's
         load-balance loss, in layer order."""
         x = self.embed(params, tokens)
+        med = self.media(params, media, frames)
         positions = torch.arange(tokens.shape[1], device=x.device)
-        for p_blk in params["layers"]:
+        for p_blk, meta in zip(params["layers"], self.metas):
             x, _ = apply_block(p_blk, self.cfg, x, positions=positions,
-                               aux=aux)
+                               aux=aux, media=med, meta=meta)
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps)
 
     def head_logits(self, params: dict, x: torch.Tensor) -> torch.Tensor:
@@ -493,15 +649,19 @@ class Model:
             return linear(x, params["head"]).float()
         return matmul(x, params["embed"].to(x.dtype).T).float()
 
-    def logits(self, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-        return self.head_logits(params, self.hidden_states(params, tokens))
+    def logits(self, params: dict, tokens: torch.Tensor, *, media=None,
+               frames=None) -> torch.Tensor:
+        return self.head_logits(params, self.hidden_states(
+            params, tokens, media=media, frames=frames))
 
     def loss(self, params: dict, tokens: torch.Tensor,
-             labels: torch.Tensor) -> torch.Tensor:
+             labels: torch.Tensor, *, media=None,
+             frames=None) -> torch.Tensor:
         """The reference's: next-token cross entropy plus 0.01 x the sum of
         the routed-expert layers' load-balance losses (0 without experts)."""
         aux: list = []
-        x = self.hidden_states(params, tokens, aux=aux)
+        x = self.hidden_states(params, tokens, media=media, frames=frames,
+                               aux=aux)
         head = params["head"] if "head" in params else params["embed"].T
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for a in aux:  # summed in layer order, from 0, as the reference
@@ -515,13 +675,25 @@ class Model:
         size, so flat and paged capacity share one rule)."""
         return self.codec.round_len(s)
 
-    def init_cache(self, batch: int, cache_len: int) -> list[dict]:
+    def init_cache(self, batch: int, cache_len: int,
+                   media_len: int = 0) -> list[dict]:
+        """A zero cache of ``cache_len`` positions (rounded by the codec);
+        cross-attention entries hold ``media_len`` media rows."""
         cfg, codec, dev = self.cfg, self.codec, self.device
         s = self._cache_len(cache_len)
         kvh, dh = cfg.n_kv_heads, cfg.head_dim
+        crossed = self.encdec or any(m.cross for m in self.metas)
+        if crossed and media_len < 1:
+            raise ValueError(f"{cfg.name}: a cache of cross-attention layers "
+                             f"needs media_len, the media (or frame) rows")
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=dev)
+
+        def cross_entry() -> dict:
+            shape = (batch, media_len, kvh, dh)
+            return {"xk": zeros(shape, self.dtype),
+                    "xv": zeros(shape, self.dtype)}
 
         def mla_entry() -> dict:
             kvr, dr = cfg.kv_lora_rank, cfg.qk_rope_dim
@@ -537,6 +709,13 @@ class Model:
                     "rs": zeros(scales, codec.scale_dtype)}
 
         def entry(kind: str) -> dict:
+            if kind == "cross":
+                return cross_entry()
+            if self.encdec:
+                return {**self_entry(kind), **cross_entry()}
+            return self_entry(kind)
+
+        def self_entry(kind: str) -> dict:
             if kind == "mamba":
                 return {"conv": zeros((batch, cfg.ssm_conv_width - 1,
                                        cfg.d_inner + 2 * cfg.ssm_d_state),
@@ -560,8 +739,9 @@ class Model:
 
         return [entry(kind) for kind in cfg.layer_kinds()]
 
-    def prefill(self, params: dict, tokens: torch.Tensor, *,
-                cache_len: Optional[int] = None, logits: bool = True):
+    def prefill(self, params: dict, tokens: torch.Tensor, *, media=None,
+                frames=None, cache_len: Optional[int] = None,
+                logits: bool = True):
         """Returns (last-token logits (B, V) fp32, cache of length
         ``cache_len`` (default T), rounded by the codec).  A quantized cache
         is written already encoded: the prompt's K/V never sit in the cache
@@ -571,14 +751,20 @@ class Model:
         preempted request rebuilds its pages through this same prefill, but
         its token 0 was drawn before the preemption, so the vocab-wide head
         product is skipped.  A Mamba block's entry is its state after the
-        prompt."""
+        prompt; a cross-attention layer's holds the K/V of the media (of
+        the encoder's output of ``frames``), in fp whatever the codec.  The
+        reference's enc-dec cache also keeps the encoder's output
+        (``cache["media"]``); no decode step reads it, and this cache (a
+        list of layer entries) does not."""
         b, t = tokens.shape
         s = self._cache_len(cache_len or t)
         x = self.embed(params, tokens)
+        med = self.media(params, media, frames)
         positions = torch.arange(t, device=x.device)
         cache = []
-        for p_blk in params["layers"]:
-            x, kv = apply_block(p_blk, self.cfg, x, positions=positions)
+        for p_blk, meta in zip(params["layers"], self.metas):
+            x, kv = apply_block(p_blk, self.cfg, x, positions=positions,
+                                media=med, meta=meta)
             if self.codec.quantized:
                 cache.append(pad_cache_entry(
                     _encode_cache(self.codec, kv), self.codec, s))
@@ -597,8 +783,8 @@ class Model:
         returns the (B, V) fp32 logits."""
         pos = att.position_index(pos, self.device)
         x = self.embed(params, token)
-        for p_blk, c in zip(params["layers"], cache):
-            x = decode_block(p_blk, self.cfg, x, c, pos)
+        for p_blk, c, meta in zip(params["layers"], cache, self.metas):
+            x = decode_block(p_blk, self.cfg, x, c, pos, meta)
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return self.head_logits(params, x[:, 0])
 
@@ -626,9 +812,12 @@ class Model:
         of prompt length ``t_total``; they live only while the request is
         ingesting."""
         cfg = self.cfg
-        if "mamba" in cfg.layer_kinds():
-            raise NotImplementedError(
-                "chunked prefill supports attn/mla mixers, got 'mamba'")
+        kinds = set(cfg.layer_kinds()) | ({"cross"} if self.encdec else set())
+        for kind in ("mamba", "cross"):
+            if kind in kinds:
+                raise NotImplementedError(
+                    f"chunked prefill supports attn/mla mixers, got "
+                    f"{kind!r}")
         if _is_mla(cfg):
             k_shape = (1, t_total, cfg.n_heads,
                        cfg.qk_nope_dim + cfg.qk_rope_dim)

@@ -222,6 +222,11 @@ class Engine:
                 f"{bad or [model.cfg.attn_kind]} — ssm/cross-attention "
                 f"state is per-slot, not per-page; serve such models "
                 f"through launch.serve.generate")
+        if model.cfg.family == "encdec":
+            raise ValueError(
+                "paged serving does not support cross-attention caches "
+                "(media/encoder KV is request-global, not paged); use "
+                "launch.serve.generate")
         if prefill_attn not in ("exact", "paged"):
             raise ValueError(f"prefill_attn must be 'exact' or 'paged', got "
                              f"{prefill_attn!r}")

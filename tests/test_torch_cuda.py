@@ -12,7 +12,8 @@ Tolerances are relative to the largest reference magnitude:
     fp32 terms in different orders;
   * attn_colsum: 1e-4 — two passes of exp on scores from three-term bf16
     products on the tensor cores; the column sums are added in a fixed
-    order, so two calls give the same bits;
+    order, so two calls give the same bits; the same for its non-causal
+    form (an encoder's, at Whisper's 1500 frames);
   * bf16 outputs: 8e-3 — one rounding of the fp32 result to bf16
     (2^-8 relative) at a different point; the bf16 prefill product on the
     tensor cores (exact bf16 products of x and code - zero, fp32 sums, each
@@ -2093,3 +2094,84 @@ def test_hybrid_generate_graph_equals_python_loop(cuda, kv_bits):
             assert entry["ssm"].dtype == torch.float32
         else:
             assert ("ks" in entry) == bool(kv_bits)
+
+
+# ------------------------------------------ cross-attention and the encoder
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("b,t,h,kv,dh", [
+    (4, 1500, 16, 16, 64),  # whisper-medium's encoder: 30 s of frames
+    (2, 37, 8, 2, 40), (1, 129, 8, 8, 36), (2, 300, 128, 128, 192)])
+def test_attn_colsum_noncausal_kernel_vs_plain(cuda, dtype, b, t, h, kv,
+                                                dh):
+    """The non-causal form (an encoder's AttnCon) at Whisper's encoder
+    shape, ragged T and Dh, GQA groups and MLA's width: within 1e-4 of its
+    plain version, the column mass T·H, two calls bitwise equal, counted
+    as ``colsum_noncausal``, and not the causal form's result."""
+    g = torch.Generator(device=cuda).manual_seed(32)
+    q = torch.randn((b, t, h, dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((b, t, kv, dh), generator=g, device=cuda).to(dtype)
+    want = attn_colsum_ref(q, k, causal=False)
+    before = dict(attn_colsum.by_kernel)
+    got = attn_colsum(q, k, causal=False)
+    torch.cuda.synchronize()
+    assert attn_colsum.by_kernel["colsum_noncausal"] == \
+        before["colsum_noncausal"] + 1
+    assert attn_colsum.by_kernel["colsum_causal"] == before["colsum_causal"]
+    assert _rel(got, want) < 1e-4
+    np.testing.assert_allclose(got.sum(-1).cpu().numpy(), t * h, rtol=1e-4)
+    assert torch.equal(got, attn_colsum(q, k, causal=False))
+    assert _rel(attn_colsum(q, k), want) > 1e-2
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium", "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("kv_bits", [0, 8])
+def test_cross_generate_graph_equals_python_loop(cuda, arch, kv_bits):
+    """The smoke enc-dec and vision models on the card in bf16, every
+    projection RTN-packed at 3 bits: ``generate`` through the captured
+    decode, whose static cache holds the cross layers' K/V (computed by
+    the prefill outside the graph), gives the Python loop's tokens bit for
+    bit, greedy and sampled, with the same launches."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="bfloat16",
+                              kv_bits=kv_bits)
+    model = Model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    spec = QuantSpec(bits=3, group_size=32)
+
+    def pack(node):
+        for name, w in node.items():
+            if isinstance(w, dict):
+                pack(w)
+            elif name in ("wq", "wk", "wv", "wo", "wi", "wu", "wd"):
+                node[name] = pack_weight(*quantize_weight_rtn(
+                    w.float(), spec)[1:], spec)
+
+    for layer in params["layers"] + params.get("encoder", {}).get(
+            "layers", []):
+        pack(layer)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    prompts = torch.randint(2, cfg.vocab_size, (3, 64), generator=g,
+                            device=cuda)
+    rows = 40 if cfg.family == "encdec" else cfg.n_media_tokens
+    extra = torch.randn((3, rows, cfg.d_model), generator=g,
+                        device=cuda).to(torch.bfloat16)
+    kw = {"frames" if cfg.family == "encdec" else "media": extra}
+    for temperature in (0.0, 1.3):
+        graph, python, n_graph, n_python = _loops(
+            lambda loop: generate(model, params, prompts, 9,
+                                  temperature=temperature, seed=4,
+                                  loop=loop, **kw))
+        assert torch.equal(graph, python), (graph.tolist(), python.tolist())
+        assert n_graph == n_python
+    assert n_python["quant_matmul"][1]["qmm_decode"] > 0
+    if kv_bits:
+        assert n_python["flash_decode"][0] > 0
+    assert all(r.captured for r, _ in model.graphs.values())
+    static = next(iter(model.graphs.values()))[1]["cache"]
+    for kind, entry in zip(cfg.layer_kinds(), static):
+        if kind == "cross" or cfg.family == "encdec":
+            assert entry["xk"].shape == (3, rows, cfg.n_kv_heads,
+                                         cfg.head_dim)
+            assert entry["xk"].dtype == torch.bfloat16

@@ -158,27 +158,23 @@ __all__ = ["test_params_match_reference_layout",
 
 def test_configs_are_the_references():
     for name in ("minitron-4b", "qwen1.5-4b", "command-r-35b",
-                 "command-r-plus-104b", "mamba2-780m"):
+                 "command-r-plus-104b", "mamba2-780m", "whisper-medium",
+                 "llama-3.2-vision-11b"):
         assert dataclasses.asdict(get_config(name)) == dataclasses.asdict(
             ref_get_config(name)), name
         Model(get_config(name + "-smoke"), "cpu")
 
 
-@pytest.mark.parametrize("arch", ["jamba-v0.1-52b", "whisper-medium",
-                                  "llama-3.2-vision-11b"])
+@pytest.mark.parametrize("arch", ["jamba-v0.1-52b"])
 def test_model_refuses_what_is_not_ported(arch):
-    """Enc-dec and vision models are later slices.  The hybrid is served
-    since it was ported (``tests/test_torch_hybrid.py``), but not at a
-    depth that is not a whole number of its layer groups, which the
-    reference refuses too."""
+    """The hybrid is served since it was ported
+    (``tests/test_torch_hybrid.py``), but not at a depth that is not a
+    whole number of its layer groups, which the reference refuses too.
+    (Enc-dec and vision models are served since they were ported,
+    ``tests/test_torch_cross.py``.)"""
     cfg = ModelConfig(**dataclasses.asdict(ref_get_config(arch).reduced()))
-    if cfg.family == "hybrid":
-        with pytest.raises(ValueError, match="scan period"):
-            Model(dataclasses.replace(cfg, n_layers=cfg.scan_period + 2),
-                  "cpu")
-        return
-    with pytest.raises(NotImplementedError, match="later slices"):
-        Model(cfg, "cpu")
+    with pytest.raises(ValueError, match="scan period"):
+        Model(dataclasses.replace(cfg, n_layers=cfg.scan_period + 2), "cpu")
 
 
 def test_params_match_reference_layout(case):

@@ -126,6 +126,36 @@ def test_attn_colsum_plain_vs_reference(b, t, h, kv, dh):
     _close(got, col)
 
 
+@pytest.mark.parametrize("b,t,h,kv,dh,blk", [(2, 64, 4, 2, 16, 32),
+                                             (1, 50, 4, 4, 8, 50)])
+def test_attn_colsum_noncausal_plain_vs_reference(b, t, h, kv, dh, blk):
+    """``causal=False`` (an encoder's AttnCon): the plain version against
+    the reference's plain version and its Pallas kernel in interpret mode
+    (per head, keys repeated), and against the reference's streaming
+    ``flash_attention(colsum=True, causal=False)`` on a key length that is
+    no multiple of its 16-key chunks (T 50: padded and masked there)."""
+    rng = np.random.default_rng(t + 1)
+    q = rng.standard_normal((b, t, h, dh)).astype(np.float32)
+    k = rng.standard_normal((b, t, kv, dh)).astype(np.float32)
+    v = rng.standard_normal((b, t, kv, dh)).astype(np.float32)
+    got = attn_colsum(_t(q), _t(k), causal=False).numpy()
+    kr = np.repeat(k, h // kv, axis=2)
+    qf = q.transpose(0, 2, 1, 3).reshape(b * h, t, dh)
+    kf = kr.transpose(0, 2, 1, 3).reshape(b * h, t, dh)
+    oracle = np.asarray(ref_colsum(jnp.asarray(qf), jnp.asarray(kf),
+                                   causal=False))
+    _close(got, oracle.reshape(b, h, t).sum(1))
+    pallas = attn_colsum_pallas(jnp.asarray(qf), jnp.asarray(kf),
+                                causal=False, blk=blk, interpret=True)
+    _close(got, np.asarray(pallas).reshape(b, h, t).sum(1))
+    _, col = ref_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                       causal=False, kv_chunk=16, colsum=True)
+    _close(got, col)
+    # every query's row sums to 1: the columns hold T x H in all
+    np.testing.assert_allclose(got.sum(-1), t * h, rtol=1e-5)
+    assert not np.allclose(got, attn_colsum(_t(q), _t(k)).numpy())
+
+
 @pytest.mark.parametrize("kernel", ["gram", "attn_colsum", "quant_matmul",
                                     "fwht"])
 def test_wrappers_raise_off_cpu_and_cuda(kernel):
