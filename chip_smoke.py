@@ -148,13 +148,43 @@ Phases, in order; any failure exits non-zero before the final line:
      ``flash_decode`` at G 1, KV 16, Dh 64, ``quant_matmul`` at whisper's
      three projection shapes, ``gram`` at d 1024 and on 4 x 6404 bf16
      media rows of d 4096 (``media``);
-  10. the strategy sweep: the quantize CLI on llama3-8b's layer 0 at full
+  10. the LDLQ path (``ldlq_path``): the quantize CLI with ``--method
+     ldlq`` on llama3-8b at full width, 1 layer, fp32, sequential: layer
+     seconds, ``capture_s``, ``solve_s``, the peak device memory and
+     ``ppl_ratio``, ``ldlq_block``'s launches (208 a layer); layer 0's
+     ``mixer/wk`` solved on the card, bitwise the same solve with the
+     plain loop there, and against the host CPU on the same H (the same
+     scales, >= 99% of the octets, the proxy loss within 1%), and both
+     solves against an fp64 solve of that H on the host (the card's share
+     of equal lattice points at most 5 points below the host's, its proxy
+     loss within 1%; logged: the factors' errors, and the card's solve on
+     an fp32 factor); and the refusal of ``--pack-out`` with it; phase 2's ``check_ldlq_block``:
+     LDLQ's in-block solve with the E8 rounder (no Pallas counterpart: the
+     reference's XLA compiles that loop) bitwise against its plain loop at
+     llama3-8b's four shape groups (timed, with its byte bound, registers,
+     spills and the measured cost of a row), on octets of a 1/2- and a
+     1/4-grid (the rounder's ties) and at d_out 8 and 32768;
+  11. the schedules-and-resume path (``schedule_resume_path``): llama3-8b
+     at full width, 2 layers, bf16, GPTQ with ``pack_output``, from
+     Python: the sequential and the overlapped schedule bitwise (params,
+     artifact entries, reports), each one's wall time and host syncs a
+     layer (``torch.cuda.set_sync_debug_mode``); a run killed at 1:solve
+     and resumed by a fresh pipeline and ``QuantizeRunner``, and an
+     in-process retry at 1:capture, each bitwise the sequential run; the
+     checkpoint overhead in seconds and bytes;
+  12. the strategy sweep: the quantize CLI on llama3-8b's layer 0 at full
      width, once with each of the paper's eight token-importance strategies
      and once with AttnCon on the calibration set expanded twofold: each
      run's seconds, proxy losses and ``ppl_ratio``; fails on a loss that is
      not finite.
+The CLI runs of phases 3-10 and 12 and the cross path's pipelines take
+the sequential schedule (``--scheduler sequential``), which times each
+stage of a layer; the overlapped schedule, the default on CUDA, is held
+to it in phase 11 and on the MoE path's quantize run, run again on the
+default schedule (``default_schedule_check``: the artifact's files
+bitwise, the seconds and the peak device memory).
 Each path fails if a kernel it runs was never launched.  The last two
-lines are the ``kernels`` JSON object (twelve kernels, each with its
+lines are the ``kernels`` JSON object (thirteen kernels, each with its
 launches on every path in ``path_launches``, ``gram``'s with its expert
 stack rows in ``experts`` and its media row in ``media``,
 ``attn_colsum``'s with its non-causal row in ``noncausal`` and each
@@ -167,6 +197,10 @@ decode row with a ``prefill`` row, each with its kernel's MLA launches;
 ``hybrid_*``) and jamba's Mamba projections in ``hybrid``) and
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the JAX
 reference package.
+
+``--only PHASE[,PHASE...]`` (for development) runs the named phase-2
+checks and, of the paths, ``moe_path``, ``ldlq_path`` and
+``schedule_resume_path``, and prints no result line.
 
 ``--compare OTHER/src`` runs no phase: it times ``gram`` (d 4096 and
 14336), ``attn_colsum`` (llama3-8b's and the MLA path's heads), the packed
@@ -401,6 +435,30 @@ SWEEP_EXPANSION = 2
 # deepseek-v3's wkv_a (576 columns: ragged) and wkv_b (d_in 512)
 SOLVE_SHAPES = {"wk": (1, 1024), "wd": (1, 4096), "wq+wo": (2, 4096),
                 "wkv_a": (1, 576), "wkv_b": (1, 32768)}
+# phase 2 shapes of LDLQ's in-block solve (N matrices of one shape, d_out):
+# llama3-8b's four shape groups, as the pipeline stacks them (wq + wo, wk +
+# wv, wi + wu solved together; wd alone, d_in 14336); a layer's launches
+# (32 + 32 + 32 blocks of 128 rows at d_in 4096, 112 at 14336)
+LDLQ_SHAPES = {"wq+wo": (2, 4096), "wk+wv": (2, 1024), "wi+wu": (2, 14336),
+               "wd": (1, 4096)}
+LDLQ_LAUNCHES = 208
+# the LDLQ path's wk solve, card against the host CPU on one H: the share
+# of the first block's octets that must come out the same (U is factored
+# on each device and the deferred products sum in another order; the
+# scales are the same bits, from fp64).  Over the whole 4096 rows the
+# solves part as rows go on, as two host solves do on H and on H with
+# fp32 summation noise (``ldlq_path`` logs that floor beside the share):
+# logged, not held
+LDLQ_MIN_OCTETS = 0.99
+LDLQ_BLOCK = 128
+# the whole wk solve against an fp64 solve of the same H: the card's share
+# of lattice points equal to the fp64 solve's may fall at most this far
+# below the host CPU's (an E8 flip feeds 8 columns' errors to every later
+# row, so a less accurate factor shows here first)
+LDLQ_FP64_MARGIN = 0.05
+# the schedules-and-resume path: llama3-8b at full width, this many layers
+# (a resume needs a layer checkpoint before the failing layer), bf16
+SR_LAYERS = 2
 # phase 2 shapes of the MLA kernels (deepseek-v3: 128 heads, latent 512,
 # rope 64, nope and value heads 128)
 MLA_H, MLA_DN, MLA_DV, MLA_DL, MLA_DR = 128, 128, 128, 512, 64
@@ -2895,7 +2953,8 @@ def main_path(torch) -> tuple[dict, dict]:
             "--bits", str(BITS), "--group-size", str(GROUP),
             "--n-calib", str(N_CALIB), "--calib-seq", str(CALIB_SEQ),
             "--batch", str(CALIB_BATCH), "--dtype", "float32",
-            "--seed", str(SEED), "--pack-out", str(art)])
+            "--seed", str(SEED), "--scheduler", "sequential",
+            "--pack-out", str(art)])
         quantize_s = time.perf_counter() - t0
         summary = q["summary"]
         proxy0 = q["report"]["layers"]["layer0"]["weights"]
@@ -3004,7 +3063,8 @@ def mla_path(torch) -> dict:
             "--bits", str(BITS), "--group-size", str(GROUP),
             "--n-calib", str(N_CALIB), "--calib-seq", str(CALIB_SEQ),
             "--batch", str(CALIB_BATCH), "--dtype", "float32",
-            "--seed", str(SEED), "--pack-out", str(art)])
+            "--seed", str(SEED), "--scheduler", "sequential",
+            "--pack-out", str(art)])
         quantize_s = time.perf_counter() - t0
         summary = q["summary"]
         proxy0 = q["report"]["layers"]["layer0"]["weights"]
@@ -3260,6 +3320,54 @@ def check_expert_solves(torch, art: Path, proxy_mean: float) -> dict:
     return rows
 
 
+def default_schedule_check(torch, quantize, q_args: list, seq_art: Path,
+                           arch: str) -> dict:
+    """The quantize CLI of a path again on its default schedule (no
+    ``--scheduler``: overlapped on CUDA), after the path's own launches
+    were read: its seconds and peak device memory beside the sequential
+    run's, and its packed artifact's files bitwise (SHA-256) those of the
+    sequential run's ``seq_art``; ``meta.json`` alike but for the
+    configuration's ``scheduler``, which names the schedule."""
+    import hashlib
+
+    def unscheduled(tree):
+        if isinstance(tree, dict):
+            return {k: unscheduled(v) for k, v in tree.items()
+                    if k != "scheduler"}
+        if isinstance(tree, list):
+            return [unscheduled(v) for v in tree]
+        return tree
+
+    def shas(d: Path) -> dict:
+        out = {p.name: hashlib.sha256(p.read_bytes()).hexdigest()
+               for p in sorted(d.iterdir()) if p.name != "meta.json"}
+        out["meta.json"] = unscheduled(json.loads(
+            (d / "meta.json").read_text()))
+        return out
+
+    art = seq_art.with_name(seq_art.name + "_default_schedule")
+    shutil.rmtree(art, ignore_errors=True)
+    try:
+        q, seconds, peak = quantize_run(torch, quantize,
+                                        q_args + ["--pack-out", str(art)])
+        row = {"arch": arch, "scheduler": q["summary"]["scheduler"],
+               "quantize_s": seconds, "quantize_max_memory_allocated": peak,
+               "layer_seconds": q["summary"]["layer_seconds"],
+               "ppl_ratio": q["summary"]["ppl_ratio"],
+               "artifact_bitwise_sequential": shas(art) == shas(seq_art)}
+        del q
+    finally:
+        shutil.rmtree(art, ignore_errors=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+    log({"default_schedule": row})
+    if row["scheduler"] != "overlapped" or \
+            not row["artifact_bitwise_sequential"]:
+        fail(f"{arch}: the default schedule's quantize run against the "
+             f"sequential one: {row}")
+    return row
+
+
 def moe_path(torch) -> dict:
     """Phase 5, the MoE slice: RSQ quantize of deepseek-v2-236b at full
     width, 2 layers (layer 0 dense, layer 1 with 160 routed experts, top-6,
@@ -3272,7 +3380,9 @@ def moe_path(torch) -> dict:
     chunked-paged admission on the MLA path's trace).  The MoE layer's
     calibration seconds and the quantize run's peak device memory are
     logged.  Every kernel's launches are counted from zero over the whole
-    path."""
+    path.  Then the quantize run again on the default schedule
+    (``default_schedule_check``: overlapped, its artifact bitwise the
+    sequential one's, with its seconds and peak memory)."""
     from repro_torch.configs import get_config
     from repro_torch.kernels.attn_colsum.ops import attn_colsum
     from repro_torch.kernels.flash_decode import ops as fd_ops
@@ -3303,11 +3413,13 @@ def moe_path(torch) -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        q = quantize.main(common + [
+        q_args = common + [
             "--bits", str(BITS), "--group-size", str(GROUP),
             "--n-calib", str(N_CALIB), "--calib-seq", str(CALIB_SEQ),
             "--batch", str(CALIB_BATCH), "--dtype", MOE_DTYPE,
-            "--seed", str(SEED), "--pack-out", str(art)])
+            "--seed", str(SEED)]
+        q = quantize.main(q_args + ["--scheduler", "sequential",
+                                    "--pack-out", str(art)])
         quantize_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated()
         summary = q["summary"]
@@ -3335,6 +3447,7 @@ def moe_path(torch) -> dict:
         log({"phase_seconds": {"moe_kv_path": time.perf_counter() - t1}})
         check_expert_solves(torch, art,
                             layer1["weights"]["ffn/experts/wd"])
+        default_schedule_check(torch, quantize, q_args, art, MOE_ARCH)
     finally:
         shutil.rmtree(art, ignore_errors=True)
 
@@ -3537,7 +3650,7 @@ def variant_run(torch, arch: str) -> tuple[dict, dict, dict]:
               "cuda", "--bits", str(BITS), "--group-size", str(GROUP),
               "--n-calib", str(N_CALIB), "--calib-seq", str(CALIB_SEQ),
               "--batch", str(CALIB_BATCH), "--dtype", "float32",
-              "--seed", str(SEED)]
+              "--seed", str(SEED), "--scheduler", "sequential"]
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seed=SEED)
     prompts = corpus.sample(generator(SEED + 1), SERVE_BATCH,
                             PROMPT_LEN).to(dev)
@@ -3719,7 +3832,8 @@ def ssm_path(torch) -> dict:
             "--bits", str(BITS), "--group-size", str(GROUP),
             "--n-calib", str(N_CALIB), "--calib-seq", str(CALIB_SEQ),
             "--batch", str(CALIB_BATCH), "--dtype", "float32",
-            "--seed", str(SEED), "--pack-out", str(art)])
+            "--seed", str(SEED), "--scheduler", "sequential",
+            "--pack-out", str(art)])
         summary = q["summary"]
         proxy0 = q["report"]["layers"]["layer0"]["weights"]
         n_weights = summary["n_weights"]
@@ -3858,7 +3972,7 @@ def hybrid_path(torch) -> dict:
               "cuda", "--bits", str(BITS), "--group-size", str(GROUP),
               "--n-calib", str(N_CALIB), "--calib-seq", str(CALIB_SEQ),
               "--batch", str(CALIB_BATCH), "--dtype", HYB_DTYPE,
-              "--seed", str(SEED)]
+              "--seed", str(SEED), "--scheduler", "sequential"]
     corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seed=SEED)
     row: dict = {"arch": HYB_ARCH}
     try:
@@ -4334,7 +4448,7 @@ def cross_model_run(torch, dev, cfg, *, calib, calib_seq: int, extra: dict,
     row: dict = {"arch": cfg.name, "dtype": cfg.dtype,
                  "ppl_fp": media_ppl(torch, model, params, held, held_extra)}
     rsq = RSQConfig(bits=BITS, group_size=GROUP, seed=SEED,
-                    pack_output=True)
+                    pack_output=True, scheduler="sequential")
     pipe = RSQPipeline(model, rsq)
     sync_mem(torch, dev, reset=True)
     t0 = time.perf_counter()
@@ -4634,7 +4748,7 @@ def strategy_sweep(torch) -> list:
               "--bits", str(BITS), "--group-size", str(GROUP),
               "--n-calib", str(N_CALIB), "--calib-seq", str(CALIB_SEQ),
               "--batch", str(CALIB_BATCH), "--dtype", "float32",
-              "--seed", str(SEED)]
+              "--seed", str(SEED), "--scheduler", "sequential"]
     runs, bad = [], []
     for importance, expansion in ([(name, 1) for name in SWEEP_STRATEGIES]
                                   + [("attn_con", SWEEP_EXPANSION)]):
@@ -4660,6 +4774,614 @@ def strategy_sweep(torch) -> list:
         fail("strategy sweep: a loss or a perplexity ratio is not finite: "
              + "; ".join(bad))
     return runs
+
+
+# ---------------------------------------------------------------- LDLQ / E8
+
+
+def ldlq_instances() -> dict:
+    """{warps a block: {registers, spill_store_bytes}} of each instance of
+    ``ldlq_block_kernel<WARPS>`` in this run's ptxas log (empty where the
+    library was reused from an earlier build)."""
+    from repro_torch.kernels import build
+
+    out = {}
+    for name, regs in ptxas_kernels(build.ptxas_report("ldlq_block")).items():
+        m = re.search(r"ldlq_block_kernelILi(\d+)E", name)
+        if m:
+            out[int(m.group(1))] = {"registers": regs["registers"],
+                                    "spill_store_bytes":
+                                        regs["spill_store_bytes"]}
+    return out
+
+
+def ldlq_warps(torch, n: int, d_out: int) -> int:
+    """The warps a block of ``ldlq_block``'s launch (as the C launcher
+    picks them): 8 where N x ceil(d_out / 32) warps exceed 4 an SM, else
+    4."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return 8 if n * -(-d_out // 32) > 4 * sms else 4
+
+
+def ldlq_inputs(torch, g, n: int, block: int, d_out: int):
+    """``solve_inputs``' rows and U tiles, and each row's E8 scale (its
+    RMS / 2, as ``core.ldlq.row_scales``)."""
+    from repro_torch.core.ldlq import row_scales
+
+    wb, ub = solve_inputs(torch, g, n, block, d_out)
+    return wb, ub, row_scales(wb)[..., 0]
+
+
+def ldlq_bytes(n: int, block: int, d_out: int) -> int:
+    """``ldlq_block``'s least traffic: read the block's rows, U tile and
+    scales, write deq and err."""
+    return n * (block * d_out + block * block + block
+                + 2 * block * d_out) * 4
+
+
+def ldlq_flops(n: int, block: int, d_out: int) -> float:
+    """The least fp32 work: the later rows' updates (a product and a
+    difference each) and, per coordinate, the rounder's ~60 operations
+    (two roundings, two distances, the divisions)."""
+    return n * d_out * (block * (block - 1) + 60.0 * block)
+
+
+def ldlq_block_ms(checks: Checks, wb, ub, scales) -> float:
+    from repro_torch.kernels.ldlq_block.ops import ldlq_block
+
+    n, block, d_out = wb.shape
+    sets = checks.clones((wb, ub, scales), ldlq_bytes(n, block, d_out))
+    return checks.timer.ms(lambda a=a: ldlq_block(*a) for a in sets)
+
+
+def check_ldlq_block(torch, checks: Checks) -> None:
+    """Phase 2, LDLQ's in-block solve with the E8 rounder (``ldlq_block``,
+    no Pallas counterpart: the reference's XLA compiles the loop): bitwise
+    against its plain loop on the card at LDLQ_SHAPES (llama3-8b's four
+    shape groups, block 128; timed, with the byte bound, the kernel's
+    registers and spills (of the instance each shape runs: 4 or 8 warps
+    a block) and the measured cost of a row, the slope from 64 rows to
+    128; ``wd`` the representative row), on rows of a 1/2- and a
+    1/4-grid at scale 1 and a diagonal U (every octet on the rounder's
+    ties) and at d_out 8 and 32768; then one whole wd solve (14336 x 4096)
+    under the profiler (``ldlq_solve_profile``)."""
+    from repro_torch.kernels.ldlq_block.ops import ldlq_block
+    from repro_torch.kernels.ldlq_block.ref import ldlq_block_ref, tie_octets
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    instances = ldlq_instances()
+    log({"ldlq_block_instances": instances})
+    mhz = max_sm_mhz()
+
+    def bitwise(tag, got, want) -> None:
+        for name, a, b in zip(("deq", "err"), got, want):
+            if a.shape != b.shape or not torch.equal(a, b):
+                checks.bad.append(f"ldlq_block {tag}: {name} differs from "
+                                  f"the plain loop")
+
+    block = 128
+    for wname, (n, d_out) in LDLQ_SHAPES.items():
+        wb, ub, scales = ldlq_inputs(torch, g, n, block, d_out)
+        got = ldlq_block(wb, ub, scales)
+        want = ldlq_block_ref(wb, ub, scales)
+        bitwise(wname, got, want)
+        ms = ldlq_block_ms(checks, wb, ub, scales)
+        plain_ms = host_ms(torch, lambda: ldlq_block_ref(wb, ub, scales))
+        ms_64 = ldlq_block_ms(checks, wb[:, :64].contiguous(),
+                              ub[:, :64, :64].contiguous(),
+                              scales[:, :64].contiguous())
+        warps = ldlq_warps(torch, n, d_out)
+        inst = instances.get(warps, {"registers": None,
+                                     "spill_store_bytes": None})
+        checks.record("ldlq_block", {"weight": wname, "N": n,
+                                     "block": block, "d_out": d_out},
+                      got[0], want[0], 0.0, ms, plain_ms, None,
+                      ldlq_bytes(n, block, d_out),
+                      ldlq_flops(n, block, d_out), "float32",
+                      wname == "wd", warps_a_block=warps, **inst,
+                      ms_block_64=ms_64,
+                      row_cycles_measured=(ms - ms_64) / (block - 64)
+                      * mhz * 1e3, max_sm_mhz=mhz,
+                      launches_a_layer=LDLQ_LAUNCHES)
+        del wb, ub, scales, got, want
+    for d_out in (8, 32768):
+        wb, ub, scales = ldlq_inputs(torch, g, 1, block, d_out)
+        bitwise(f"d_out {d_out}", ldlq_block(wb, ub, scales),
+                ldlq_block_ref(wb, ub, scales))
+    for step in (0.5, 0.25):
+        d_out = 4096
+        wb = tie_octets(64 * d_out // 8, step, seed=int(8 * step)).reshape(
+            1, 64, d_out).to(dev)
+        ub = torch.diag_embed(torch.rand((1, 64), generator=g, device=dev)
+                              + 0.5)
+        scales = torch.ones((1, 64), device=dev)
+        bitwise(f"ties on a {step} grid", ldlq_block(wb, ub, scales),
+                ldlq_block_ref(wb, ub, scales))
+
+    # where one solve's time goes: llama3-8b's wd (14336 x 4096: 112
+    # launches, the Cholesky factor and inverse at d 14336, the scales, the
+    # deferred products), warm, untraced and under the profiler
+    from repro_torch.core.ldlq import ldlq_quantize
+
+    w = torch.randn((14336, 4096), generator=g, device=dev) * 14336 ** -0.5
+    x = torch.randn((CALIB_BATCH * CALIB_SEQ, 14336), generator=g,
+                    device=dev)
+    h = 2.0 * x.T @ x
+    del x
+    ldlq_quantize(w, h)
+    wall_ms = host_ms(torch, lambda: ldlq_quantize(w, h), reps=1)
+    before = ldlq_block.launches
+    prof, _ = profile_engine(torch, lambda: ldlq_quantize(w, h))
+    log({"ldlq_solve_profile": {"weight": "wd", "d_in": 14336,
+                                "d_out": 4096, "untraced_wall_ms": wall_ms,
+                                "launches": ldlq_block.launches - before,
+                                **prof}})
+    del w, h
+    torch.cuda.empty_cache()
+
+
+def wk_hessian(torch, dev):
+    """Layer 0's rotated ``mixer/wk`` (fp32, on the card) and its Hessian
+    from the quantize CLI's draws (seed SEED, N_CALIB x CALIB_SEQ tokens):
+    the mixer's normed inputs weighted by AttnCon's scores, accumulated by
+    the ``gram`` kernel, as the pipeline does."""
+    from repro_torch.core import hessian as hess
+    from repro_torch.core.importance import ImportanceInputs, attn_con
+    from repro_torch.core.pipeline import RSQConfig
+    from repro_torch.core.rotation import rotate_model
+    from repro_torch.data.calibration import calibration_set
+    from repro_torch.device import generator
+    from repro_torch.kernels.attn_colsum.ops import attn_colsum
+    from repro_torch.launch.quantize import model_config
+    from repro_torch.models import attention as att
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.models.lm import Model
+
+    rsq = RSQConfig(seed=SEED)
+    cfg = model_config(ARCH, 1, "float32")
+    model = Model(cfg, dev)
+    params = model.init(generator(SEED, dev))
+    params, _ = rotate_model(params, cfg, gen=generator(rsq.seed, dev))
+    calib = calibration_set(cfg.vocab_size, N_CALIB, CALIB_SEQ, seed=SEED)
+    blk = params["layers"][0]
+    h = None
+    for i in range(0, N_CALIB, CALIB_BATCH):
+        x_b = model.embed(params, calib[i:i + CALIB_BATCH].to(dev))
+        hn = rms_norm(x_b, blk["mixer_norm"], cfg.norm_eps)
+        q, k, _ = att.gqa_qkv(blk["mixer"], cfg, hn,
+                              torch.arange(x_b.shape[1], device=dev))
+        r = attn_con(ImportanceInputs(z_in=x_b, attn_colsum=attn_colsum(
+            q, k)), r_min=rsq.r_min, r_max=rsq.r_max).reshape(-1)
+        h = hess.accumulate(h, hn.reshape(-1, hn.shape[-1]), r)
+    w = blk["mixer"]["wk"].float().clone()
+    del params, blk
+    torch.cuda.empty_cache()
+    return w, h
+
+
+def ldlq_fp64(torch, w, h, scales, block: int = LDLQ_BLOCK,
+              damp: float = 0.01) -> dict:
+    """The LDLQ solve of ``core.ldlq.ldlq_quantize`` on the host in fp64
+    (the same damping, factor, block order and E8 rounder, on the given
+    fp32 scales): the arbiter of the fp32 solves.  Returns ``w_deq``,
+    ``err`` and the factor ``u`` in fp64."""
+    from repro_torch.core.ldlq import e8_quantize_row
+
+    hf = h.double()
+    hf = 0.5 * (hf + hf.T)
+    d = torch.diagonal(hf)
+    dead = d <= 0.0
+    hf = hf + torch.diag(dead.double())
+    mean_d = torch.where(dead, 0.0, d).mean()
+    hf = hf + damp * torch.clamp_min(mean_d, 1e-8) * torch.eye(
+        hf.shape[0], dtype=hf.dtype)
+    lr = torch.linalg.cholesky(hf.flip(0, 1)).flip(0, 1)
+    u = torch.linalg.solve_triangular(
+        lr, torch.eye(lr.shape[0], dtype=lr.dtype), upper=True)
+    wc = w.double().clone()
+    sc = scales.double()
+    deq = torch.empty_like(wc)
+    err = 0.0
+    for b0 in range(0, wc.shape[0], block):
+        b1 = b0 + block
+        errb = torch.empty((block, wc.shape[1]), dtype=wc.dtype)
+        for i in range(b0, b1):
+            row = wc[i]
+            deq[i] = e8_quantize_row(row, sc[i])
+            errb[i - b0] = (row - deq[i]) / u[i, i]
+            wc[i + 1:b1] -= u[i, i + 1:b1, None] * errb[i - b0][None]
+        wc[b1:] -= u[b0:b1, b1:].T @ errb
+        err += float((errb * errb).sum())
+    return {"w_deq": deq, "err": err, "u": u}
+
+
+def ldlq_path(torch) -> dict:
+    """The LDLQ path: the quantize CLI with ``--method ldlq`` on llama3-8b
+    at full width, 1 layer, fp32, N_CALIB x CALIB_SEQ tokens in batches of
+    CALIB_BATCH, sequential (each stage timed): layer seconds, capture_s,
+    solve_s, the peak device memory and ``ppl_ratio`` (finite, < 1.5),
+    launches counted (``ldlq_block`` must launch, ``solve_block`` must
+    not).  Then layer 0's ``mixer/wk`` solved on the card (the kernel) and
+    on the host CPU (the plain loop) on the same H: the same scales, at
+    least LDLQ_MIN_OCTETS of the octets equal and the proxy loss within
+    TOL_PROXY; and both solves against an fp64 solve of that H on the host
+    (``ldlq_fp64``): the card's share of equal lattice points no more than
+    LDLQ_FP64_MARGIN below the host's, its proxy loss within TOL_PROXY of
+    the fp64 one.  Logged beside them: each factor's error against the
+    fp64 one, in the port's precision (fp64, rounded) and in fp32, and the
+    card's solve on its fp32 factor against the fp64 solve.  Then ``--pack-out`` with ``--method ldlq``, which must be
+    refused (LDLQ has no integer codes)."""
+    from repro_torch.core import ldlq as ldlq_mod
+    from repro_torch.core.gptq import factor_stack
+    from repro_torch.core.ldlq import ldlq_quantize
+    from repro_torch.kernels.attn_colsum.ops import attn_colsum
+    from repro_torch.kernels.gptq_block.ops import solve_block
+    from repro_torch.kernels.gram.ops import weighted_gram
+    from repro_torch.kernels.hadamard.ops import fwht
+    from repro_torch.kernels.ldlq_block.ops import ldlq_block
+    from repro_torch.kernels.ldlq_block.ref import ldlq_block_ref
+    from repro_torch.kernels.quant_matmul.ops import quant_matmul
+    from repro_torch.launch import quantize
+
+    counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
+               "quant_matmul": quant_matmul, "fwht": fwht,
+               "solve_block": solve_block, "ldlq_block": ldlq_block}
+    dev = torch.device("cuda")
+    common = ["--arch", ARCH, "--n-layers", "1", "--device", "cuda",
+              "--n-calib", str(N_CALIB), "--calib-seq", str(CALIB_SEQ),
+              "--batch", str(CALIB_BATCH), "--dtype", "float32",
+              "--seed", str(SEED), "--method", "ldlq"]
+    reset_counts(counted)
+    q, seconds, peak = quantize_run(torch, quantize, common + [
+        "--scheduler", "sequential"])
+    launches = read_counts(counted)
+    summary = q["summary"]
+    layer = q["report"]["layers"]["layer0"]
+    del q
+    check_ratio(summary, "ldlq_path")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    w, h = wk_hessian(torch, dev)
+    card = ldlq_quantize(w, h)
+    # the same solve on the card with the plain loop in the kernel's place
+    # (the same U and products): bitwise
+    ldlq_mod.ldlq_block = ldlq_block_ref
+    try:
+        plain = ldlq_quantize(w, h)
+    finally:
+        ldlq_mod.ldlq_block = ldlq_block
+    in_situ = {k: bool(torch.equal(card[k], plain[k])) for k in card}
+    del plain
+    # the same solve on the card on an fp32 factor (the reference's
+    # precision; the port factors LDLQ's H in fp64, core.ldlq.FACTOR_DTYPE)
+    ldlq_mod.FACTOR_DTYPE = torch.float32
+    try:
+        card32 = ldlq_quantize(w, h)["w_deq"].cpu()
+    finally:
+        ldlq_mod.FACTOR_DTYPE = torch.float64
+    w_cpu, h_cpu = w.cpu(), h.cpu()
+    host = ldlq_quantize(w_cpu, h_cpu)
+    t64 = time.perf_counter()
+    exact = ldlq_fp64(torch, w_cpu, h_cpu, host["scales"])
+    t64 = time.perf_counter() - t64
+    scales = host["scales"].double()
+
+    def u_err(hh, dtype) -> float:
+        """The relative (Frobenius) error of a factor against fp64's."""
+        u = factor_stack(hh[None], 0.01, True, dtype)[0][0].cpu().double()
+        return float((u - exact["u"]).norm() / exact["u"].norm())
+
+    u_errs = {"card": u_err(h, torch.float64),
+              "cpu": u_err(h_cpu, torch.float64),
+              "card_fp32_factor": u_err(h, torch.float32),
+              "cpu_fp32_factor": u_err(h_cpu, torch.float32)}
+
+    def octets(a, b):
+        """1 where an octet's lattice points (w_deq / scale) agree."""
+        pa = torch.round(2.0 * a.double() / scales)
+        pb = torch.round(2.0 * b.double() / scales)
+        return (pa == pb).reshape(w.shape[0], -1, 8).all(-1).float()
+
+    def by_512(eq):
+        return [float(eq[i:i + 512].mean()) for i in range(0, len(eq), 512)]
+
+    card_deq = card["w_deq"].cpu()
+    eq = octets(card_deq, host["w_deq"])
+    eq_card64 = octets(card_deq, exact["w_deq"])
+    eq_host64 = octets(host["w_deq"], exact["w_deq"])
+    solve = {"weight": "layer0/mixer/wk", "octets_equal": float(eq.mean()),
+             "octets_equal_by_512_rows": by_512(eq),
+             "fp64": {"card_octets_equal": float(eq_card64.mean()),
+                      "cpu_octets_equal": float(eq_host64.mean()),
+                      "card_by_512_rows": by_512(eq_card64),
+                      "cpu_by_512_rows": by_512(eq_host64),
+                      "card_fp32_factor_octets_equal": float(octets(
+                          card32, exact["w_deq"]).mean()),
+                      "u_rel_err": u_errs,
+                      "proxy": exact["err"], "seconds": t64},
+             "kernel_vs_plain_loop_on_card": in_situ,
+             "scales_equal": bool(torch.equal(card["scales"].cpu(),
+                                              host["scales"])),
+             "proxy_card": float(card["err"]),
+             "proxy_cpu": float(host["err"]),
+             "seconds": time.perf_counter() - t0}
+    solve["proxy_rel_diff"] = (abs(solve["proxy_card"] - solve["proxy_cpu"])
+                               / solve["proxy_cpu"])
+    solve["fp64"]["card_proxy_rel_diff"] = (
+        abs(solve["proxy_card"] - exact["err"]) / exact["err"])
+    del w, h, card, card32, host, exact, w_cpu, h_cpu, card_deq
+    torch.cuda.empty_cache()
+    refused = None
+    art = ROOT / "build" / "chip_smoke_ldlq_artifact"
+    try:
+        quantize.main(common + ["--pack-out", str(art)])
+    except ValueError as e:
+        refused = str(e)
+    row = {"arch": ARCH, "reduced": {"n_layers": "1 of 32"},
+           "method": "ldlq", "scheduler": summary["scheduler"],
+           "quantize_s": seconds, "quantize_max_memory_allocated": peak,
+           "layer_seconds": layer["seconds"],
+           "capture_s": layer["capture_s"], "solve_s": layer["solve_s"],
+           "apply_s": layer["apply_s"], "proxy_losses": layer["weights"],
+           "ppl_fp": summary["ppl_fp"], "ppl_quant": summary["ppl_quant"],
+           "ppl_ratio": summary["ppl_ratio"], "launches": launches,
+           "wk_solve_check": solve, "pack_out_refused": refused}
+    log({"ldlq_path": row})
+    if launches["ldlq_block"] != LDLQ_LAUNCHES:
+        fail(f"ldlq_path: {launches['ldlq_block']} ldlq_block launches, "
+             f"expected {LDLQ_LAUNCHES} (one a 128-row block a shape group)")
+    if launches["solve_block"] or not launches["gram"] or \
+            not launches["attn_colsum"]:
+        fail(f"ldlq_path: wrong kernels launched: {launches}")
+    if not (all(in_situ.values()) and solve["scales_equal"]
+            and solve["octets_equal"] >= LDLQ_MIN_OCTETS
+            and solve["proxy_rel_diff"] <= TOL_PROXY):
+        fail(f"ldlq_path: the card's wk solve against the host's: {solve}")
+    fp64 = solve["fp64"]
+    if not (fp64["card_octets_equal"] >= fp64["cpu_octets_equal"]
+            - LDLQ_FP64_MARGIN
+            and fp64["card_proxy_rel_diff"] <= TOL_PROXY):
+        fail(f"ldlq_path: the card's whole wk solve against an fp64 solve "
+             f"is clearly worse than the host's fp32 solve: {fp64}")
+    if refused is None or "integer codes" not in refused or art.exists():
+        fail(f"ldlq_path: --pack-out with --method ldlq was not refused "
+             f"({refused!r})")
+    return launches
+
+
+# ------------------------------------------------ schedules and resume
+
+
+def tree_equal(torch, a, b) -> bool:
+    """Two trees of tensors and values: the same keys, dtypes and bits."""
+    if isinstance(a, dict):
+        return (isinstance(b, dict) and list(a) == list(b)
+                and all(tree_equal(torch, a[k], b[k]) for k in a))
+    if isinstance(a, (list, tuple)):
+        return (isinstance(b, (list, tuple)) and len(a) == len(b)
+                and all(tree_equal(torch, x, y) for x, y in zip(a, b)))
+    if isinstance(a, torch.Tensor):
+        return (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a, b.to(a.device)))
+    return a == b
+
+
+def counting_syncs(torch, fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: (its
+    result, a row of the host's waits for the device: the implicit syncs
+    PyTorch warns of, by the line of this package that made them, and the
+    explicit ``torch.cuda.synchronize`` calls (the sequential schedule's
+    clocks), and its wall seconds)."""
+    import collections
+    import warnings
+
+    explicit = [0]
+    real_sync = torch.cuda.synchronize
+
+    def counted_sync(*args, **kw):
+        explicit[0] += 1
+        return real_sync(*args, **kw)
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.synchronize = counted_sync
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            t0 = time.perf_counter()
+            out = fn()
+            real_sync()
+            seconds = time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize = real_sync
+    where = collections.Counter(
+        f"{Path(w.filename).name}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return out, {"implicit": sum(where.values()), "explicit": explicit[0],
+                 "implicit_at": dict(where)}, seconds
+
+
+def schedule_resume_path(torch) -> dict:
+    """The schedulers and resumable quantization on the card: llama3-8b at
+    full width, SR_LAYERS layers, bf16, GPTQ with ``pack_output``, from
+    Python.  The sequential and the overlapped schedule (the wall time of
+    each and the host syncs a layer PyTorch warns of) give the same params
+    and artifact entries bit for bit (each schedule timed twice, in turns:
+    the first run pays the card's warm-up); a run killed at 1:solve
+    (``max_restarts`` 0, the default schedule) and resumed by a fresh
+    pipeline and runner gives the sequential run's, bit for bit; an
+    in-process retry at 1:capture (sequential, so that it resumes from
+    layer 0's checkpoint) recovers with the same result; and the
+    checkpoint overhead (seconds and bytes).  Compared in memory: no artifact is
+    written."""
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.core.pipeline import RSQConfig, RSQPipeline
+    from repro_torch.core.resume import QuantizeRunner
+    from repro_torch.data.calibration import calibration_set
+    from repro_torch.device import generator
+    from repro_torch.kernels.attn_colsum.ops import attn_colsum
+    from repro_torch.kernels.gptq_block.ops import solve_block
+    from repro_torch.kernels.gram.ops import weighted_gram
+    from repro_torch.kernels.hadamard.ops import fwht
+    from repro_torch.kernels.ldlq_block.ops import ldlq_block
+    from repro_torch.kernels.quant_matmul.ops import quant_matmul
+    from repro_torch.launch.quantize import model_config
+    from repro_torch.models.lm import Model
+    from repro_torch.runtime.fault import (FaultPlan, InjectedFailure,
+                                           RetryPolicy)
+
+    counted = {"gram": weighted_gram, "attn_colsum": attn_colsum,
+               "quant_matmul": quant_matmul, "fwht": fwht,
+               "solve_block": solve_block, "ldlq_block": ldlq_block}
+    dev = torch.device("cuda")
+    cfg = model_config(ARCH, SR_LAYERS, "bfloat16")
+    model = Model(cfg, dev)
+    params = model.init(generator(SEED, dev))
+    calib = calibration_set(cfg.vocab_size, N_CALIB, CALIB_SEQ, seed=SEED)
+    progress = ROOT / "build" / "chip_smoke_progress"
+
+    def rsq(sched=None):
+        return RSQConfig(bits=BITS, group_size=GROUP, seed=SEED,
+                         pack_output=True, scheduler=sched)
+
+    def run(sched):
+        pipe = RSQPipeline(model, rsq(sched))
+        q, rep = pipe.run(params, calib, batch_size=CALIB_BATCH)
+        return q, rep, pipe.artifact
+
+    row: dict = {"arch": ARCH, "reduced": {"n_layers": f"{SR_LAYERS} of 32"},
+                 "dtype": "bfloat16", "method": "gptq"}
+    bad: list = []
+    reset_counts(counted)
+    (q_seq, rep_seq, art_seq), syncs, secs = counting_syncs(
+        torch, lambda: run("sequential"))
+    launches = read_counts(counted)
+    # the first run paid the card's warm-up: each schedule is timed again,
+    # in turns, and the second pair is the one to compare
+    (q_ovl, rep_ovl, art_ovl), o_syncs, o_secs = counting_syncs(
+        torch, lambda: run(None))
+    times = {"sequential": [secs], "overlapped": [o_secs]}
+    for sched in ("sequential", None):
+        _, _, t = counting_syncs(torch, lambda: run(sched)[1])
+        times["sequential" if sched else "overlapped"].append(t)
+        gc.collect()
+        torch.cuda.empty_cache()
+    per_layer = {k: v / SR_LAYERS for k, v in syncs.items()
+                 if k != "implicit_at"}
+    row["sequential"] = {"seconds": times["sequential"], "host_syncs": syncs,
+                         "host_syncs_a_layer": per_layer,
+                         "layers": {t: {k: v for k, v in r.items()
+                                        if k != "weights"}
+                                    for t, r in rep_seq["layers"].items()}}
+    row["overlapped"] = {"scheduler": rep_ovl["scheduler"],
+                         "seconds": times["overlapped"],
+                         "host_syncs": o_syncs,
+                         "host_syncs_a_layer": {
+                             k: v / SR_LAYERS for k, v in o_syncs.items()
+                             if k != "implicit_at"}}
+    same = {"params": tree_equal(torch, q_seq, q_ovl),
+            "entries": tree_equal(torch, art_seq["entries"],
+                                  art_ovl["entries"]),
+            "meta": art_seq["meta"] == art_ovl["meta"],
+            "reports": all(rep_seq["layers"][t]["weights"]
+                           == rep_ovl["layers"][t]["weights"]
+                           for t in rep_seq["layers"])}
+    row["overlapped"]["bitwise_sequential"] = same
+    if rep_ovl["scheduler"] != "overlapped" or not all(same.values()):
+        bad.append(f"overlapped against sequential: {same}")
+    del q_ovl, art_ovl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def resumed_same(q, art) -> dict:
+        return {"params": tree_equal(torch, q_seq, q),
+                "entries": tree_equal(torch, art_seq["entries"],
+                                      art["entries"]),
+                "meta": art_seq["meta"] == art["meta"]}
+
+    try:
+        shutil.rmtree(progress, ignore_errors=True)
+        r1 = QuantizeRunner(RSQPipeline(model, rsq()),
+                            CheckpointManager(progress),
+                            policy=RetryPolicy(max_restarts=0))
+        t0 = time.perf_counter()
+        try:
+            r1.run(params, calib, batch_size=CALIB_BATCH,
+                   fault=FaultPlan({(1, "solve"): 1}))
+            bad.append("the fault at 1:solve did not stop the run")
+        except InjectedFailure:
+            pass
+        killed_s = time.perf_counter() - t0
+        ckpt_bytes = sum(f.stat().st_size for f in progress.rglob("*")
+                         if f.is_file())
+        pipe2 = RSQPipeline(model, rsq())
+        r2 = QuantizeRunner(pipe2, CheckpointManager(progress),
+                            policy=RetryPolicy(max_restarts=0))
+        t0 = time.perf_counter()
+        q2, rep2 = r2.run(params, calib, batch_size=CALIB_BATCH)
+        resumed_s = time.perf_counter() - t0
+        # each layer's blocks and entries are written once, in a part;
+        # each step holds the activations (and, overlapped, Hessians)
+        parts_bytes = sum(f.stat().st_size for f in
+                          (progress / "parts").iterdir())
+        steps_bytes = sum(f.stat().st_size for f in progress.rglob("*")
+                          if f.is_file()) - parts_bytes
+        same = resumed_same(q2, pipe2.artifact)
+        row["kill_resume"] = {
+            "fault": "1:solve", "killed_run_s": killed_s,
+            "resumed_run_s": resumed_s, "checkpoint_bytes": ckpt_bytes,
+            "after_resume": {"parts_bytes": parts_bytes,
+                             "parts": len(list((progress / "parts")
+                                               .iterdir())),
+                             "steps_bytes": steps_bytes,
+                             "steps": CheckpointManager(progress)
+                             .all_steps()},
+            "ckpt_overhead_s": r1.ckpt_overhead_s + r2.ckpt_overhead_s,
+            "events": r1.events.kinds() + r2.events.kinds(),
+            "layer0_resumed": bool(rep2["layers"]["layer0"].get("resumed")),
+            "bitwise_sequential": same}
+        if not all(same.values()) or not row["kill_resume"]["layer0_resumed"]:
+            bad.append(f"killed and resumed against sequential: {same}")
+        del q2, pipe2
+        gc.collect()
+        torch.cuda.empty_cache()
+        shutil.rmtree(progress, ignore_errors=True)
+        # sequential: layer 1's capture comes after layer 0's commit, so
+        # the retry resumes there (under the overlapped schedule layer 1's
+        # capture runs inside layer 0's apply sweep, before any commit,
+        # and a retry starts over)
+        pipe3 = RSQPipeline(model, rsq("sequential"))
+        r3 = QuantizeRunner(pipe3, CheckpointManager(progress),
+                            policy=RetryPolicy(max_restarts=2,
+                                               backoff_s=0.001))
+        t0 = time.perf_counter()
+        q3, _ = r3.run(params, calib, batch_size=CALIB_BATCH,
+                       fault=FaultPlan.parse(["1:capture:1"]))
+        same = resumed_same(q3, pipe3.artifact)
+        row["retry"] = {"fault": "1:capture:1", "scheduler": "sequential",
+                        "seconds":
+                        time.perf_counter() - t0, "restarts": r3.restarts,
+                        "events": r3.events.kinds(),
+                        "ckpt_overhead_s": r3.ckpt_overhead_s,
+                        "bitwise_sequential": same}
+        if r3.restarts != 1 or not all(same.values()) or \
+                "resume" not in r3.events.kinds():
+            bad.append(f"in-process retry: {row['retry']}")
+        del q3, pipe3
+    finally:
+        shutil.rmtree(progress, ignore_errors=True)
+    row["launches"] = launches
+    log({"schedule_resume_path": row})
+    if bad:
+        fail("schedule_resume_path: " + "; ".join(bad))
+    if not launches["solve_block"] or launches["ldlq_block"]:
+        fail(f"schedule_resume_path: wrong kernels launched: {launches}")
+    del q_seq, art_seq, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def card_torch(src: Path):
@@ -4939,8 +5661,12 @@ def main() -> None:
     if len(args) == 2 and args[0] == "--compare":
         compare(Path(args[1]))
         return
-    if args:
-        fail("usage: chip_smoke.py [--compare OTHER/src]")
+    only = None
+    if len(args) == 2 and args[0] == "--only":
+        only = set(args[1].split(","))
+    elif args:
+        fail("usage: chip_smoke.py [--compare OTHER/src | --only "
+             "PHASE[,PHASE...]]")
     torch = card_torch(SRC)
     t_start = time.perf_counter()
 
@@ -4962,7 +5688,9 @@ def main() -> None:
     for phase in (check_kernels, check_moe_kernels, check_hadamard,
                   check_kv_kernels, check_mla_kernels, check_gptq_block,
                   check_variant_kernels, check_hybrid_kernels,
-                  check_cross_kernels):
+                  check_cross_kernels, check_ldlq_block):
+        if only is not None and phase.__name__ not in only:
+            continue
         t0 = time.perf_counter()
         phase(torch, checks)
         log({"phase_seconds": {phase.__name__: time.perf_counter() - t0}})
@@ -4970,6 +5698,16 @@ def main() -> None:
         fail("kernel disagrees with its plain version: "
              + "; ".join(checks.bad))
     rows = checks.rows
+    if only is not None:  # a partial run for development: no result line
+        for path in (moe_path, ldlq_path, schedule_resume_path):
+            if path.__name__ in only:
+                t0 = time.perf_counter()
+                path(torch)
+                log({"phase_seconds": {path.__name__:
+                                       time.perf_counter() - t0}})
+        log(f"partial run ({sorted(only)}): "
+            f"{time.perf_counter() - t_start:.1f} s, no result")
+        return
     t0 = time.perf_counter()
     launches, _ = main_path(torch)
     log({"phase_seconds": {"main_path": time.perf_counter() - t0}})
@@ -4992,17 +5730,27 @@ def main() -> None:
     cross_launches = cross_path(torch)
     log({"phase_seconds": {"cross_path": time.perf_counter() - t0}})
     t0 = time.perf_counter()
+    ldlq_launches = ldlq_path(torch)
+    log({"phase_seconds": {"ldlq_path": time.perf_counter() - t0}})
+    t0 = time.perf_counter()
+    sr_launches = schedule_resume_path(torch)
+    log({"phase_seconds": {"schedule_resume_path":
+                           time.perf_counter() - t0}})
+    t0 = time.perf_counter()
     strategy_sweep(torch)
     log({"phase_seconds": {"strategy_sweep": time.perf_counter() - t0}})
     main_launches = dict(launches)
+    launches["ldlq_block"] = ldlq_launches["ldlq_block"]
     launches.update({name: mla_launches[name] for name in KvAudit.MLA})
     launches["fwht"] += (mla_launches["fwht"] + moe_launches["fwht"]
                          + variant_launches["fwht"] + ssm_launches["fwht"]
-                         + hybrid_launches["fwht"] + cross_launches["fwht"])
+                         + hybrid_launches["fwht"] + cross_launches["fwht"]
+                         + ldlq_launches["fwht"] + sr_launches["fwht"])
     by_path = {"main_path": main_launches, "mla_path": mla_launches,
                "moe_path": moe_launches, "variants_path": variant_launches,
                "ssm_path": ssm_launches, "hybrid_path": hybrid_launches,
-               "cross_path": cross_launches}
+               "cross_path": cross_launches, "ldlq_path": ldlq_launches,
+               "schedule_resume_path": sr_launches}
     # quant_matmul's three kernels, each with its launches on both paths;
     # quant_matmul_t's two on the MLA path
     qmm_rows = {"qmm_decode": rows["quant_matmul"],
@@ -5024,7 +5772,8 @@ def main() -> None:
                "paged_mla_flash_decode": f"{csrc}/mla_decode.cu",
                "paged_mla_flash_extend": f"{csrc}/mla_decode.cu",
                "fwht": f"{csrc}/hadamard.cu",
-               "solve_block": f"{csrc}/gptq_block.cu"}
+               "solve_block": f"{csrc}/gptq_block.cu",
+               "ldlq_block": f"{csrc}/ldlq_block.cu"}
     replaces = {"gram": "src/repro/kernels/gram/kernel.py:33",
                 "attn_colsum": "src/repro/kernels/attn_colsum/kernel.py:74",
                 "quant_matmul": "src/repro/kernels/quant_matmul/kernel.py:66",
@@ -5037,8 +5786,9 @@ def main() -> None:
                 "paged_mla_flash_decode": f"{fd}:520",
                 "paged_mla_flash_extend": f"{fd}:632",
                 "fwht": "src/repro/kernels/hadamard/kernel.py:51",
-                # no Pallas kernel: the loop XLA compiles (row_step)
-                "solve_block": "src/repro/core/gptq.py:127"}
+                # no Pallas kernel: the loops XLA compiles (row_step)
+                "solve_block": "src/repro/core/gptq.py:127",
+                "ldlq_block": "src/repro/core/ldlq.py:70"}
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms", "shape")
     kernels = []
@@ -5117,6 +5867,15 @@ def main() -> None:
             entry["pallas"] = ("none: the reference's XLA compiles this "
                                "loop (a fori_loop in the scan over blocks, "
                                "vmapped by gptq_quantize_batched)")
+        if name == "ldlq_block":  # the LDLQ path calibrates through it
+            entry["kernel_launches"] = {path: counts[name]
+                                        for path, counts in by_path.items()
+                                        if name in counts}
+            entry.update({key: row[key] for key in (
+                "registers", "spill_store_bytes", "row_cycles_measured")})
+            entry["pallas"] = ("none: the reference's XLA compiles this "
+                               "loop (a fori_loop in the scan over blocks, "
+                               "vmapped by ldlq_quantize_batched)")
         if name in NO_PATH:
             entry["path"] = NO_PATH[name]
         entry["path_launches"] = {path: counts[name]

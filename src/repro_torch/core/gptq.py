@@ -45,11 +45,47 @@ def _inv_upper(u: torch.Tensor) -> torch.Tensor:
     return torch.linalg.solve_triangular(u, eye, upper=True)
 
 
+def hinv_cholesky_ex(h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(U, info): upper-triangular U with H⁻¹ = Uᵀ U, and info 0 where H
+    was positive definite.  Factor the index-reversed H as L̃ L̃ᵀ, so
+    H = Ũ Ũᵀ with Ũ = J L̃ J upper-triangular, and U = Ũ⁻¹.  Nothing here
+    waits for the device: ``check_factors`` reads info back."""
+    lr, info = torch.linalg.cholesky_ex(h.flip(0, 1))
+    return _inv_upper(lr.flip(0, 1)), info
+
+
 def hinv_cholesky(h: torch.Tensor) -> torch.Tensor:
-    """Upper-triangular U with H⁻¹ = Uᵀ U: factor the index-reversed H as
-    L̃ L̃ᵀ, so H = Ũ Ũᵀ with Ũ = J L̃ J upper-triangular, and U = Ũ⁻¹."""
-    lr = torch.linalg.cholesky(h.flip(0, 1))
-    return _inv_upper(lr.flip(0, 1))
+    """:func:`hinv_cholesky_ex`'s U, raising as ``torch.linalg.cholesky``
+    does where H is not positive definite."""
+    u, info = hinv_cholesky_ex(h)
+    check_factors(info)
+    return u
+
+
+def check_factors(info: torch.Tensor) -> None:
+    """Raise as ``torch.linalg.cholesky`` does where a factorization of
+    ``factor_stack`` failed (one read-back of ``info``)."""
+    if bool((info != 0).any()):
+        raise torch.linalg.LinAlgError(
+            f"a damped Hessian is not positive definite (cholesky_ex info "
+            f"{info.flatten().tolist()})")
+
+
+def factor_stack(hs: torch.Tensor, damp: float, check: bool = True,
+                 dtype: torch.dtype = torch.float32
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(U (N, d, d) fp32, info (N,)) of each prepared H of a stack,
+    factored on its own (so U rounds as in a single solve).  ``dtype``:
+    the precision of the factorization and the triangular inverse (the
+    prepared H is fp32; U is rounded to fp32 once).  ``check`` reads info
+    back and raises on a failed factorization; without it the caller
+    checks later (``check_factors``), and nothing waits for the device."""
+    us, infos = zip(*(hinv_cholesky_ex(prepare_hessian(h, damp).to(dtype))
+                      for h in hs))
+    info = torch.stack(infos)
+    if check:
+        check_factors(info)
+    return torch.stack(us).float(), info
 
 
 def gptq_quantize(w: torch.Tensor, h: torch.Tensor, spec: QuantSpec, *,
@@ -67,14 +103,16 @@ def gptq_quantize(w: torch.Tensor, h: torch.Tensor, spec: QuantSpec, *,
 
 def gptq_quantize_batched(ws: torch.Tensor, hs: torch.Tensor,
                           spec: QuantSpec, *, damp: float = 0.01,
-                          block: int = 128) -> dict:
+                          block: int = 128, check: bool = True) -> dict:
     """ws: (N, d_in, d_out); hs: (N, d_in, d_in): N independent solves
     (the counterpart of the reference's vmapped ``gptq_quantize_batched``).
 
     Returns the outputs of :func:`gptq_quantize` with a leading N axis
     (``err`` (N,)).  Each matrix's H is prepared and factored on its own, so
     U rounds as in a single solve; every block of rows is one
-    ``solve_block`` call for all N."""
+    ``solve_block`` call for all N.  With ``check=False`` a failed
+    factorization does not raise here: ``info`` (N,) is returned for the
+    caller to check (``check_factors``)."""
     n, d_in, d_out = ws.shape
     if hs.shape != (n, d_in, d_in):
         raise ValueError(f"hs must be ({n}, {d_in}, {d_in}), got "
@@ -87,8 +125,7 @@ def gptq_quantize_batched(ws: torch.Tensor, hs: torch.Tensor,
         raise ValueError(f"group {gs} does not tile block {block}")
     rows_per_group = min(gs, block)
 
-    u = torch.stack([hinv_cholesky(prepare_hessian(hs[i], damp))
-                     for i in range(n)])
+    u, info = factor_stack(hs, damp, check)
     wc = ws.float().clone()
     # one global group, from the original weight
     fixed = solver_params(wc, spec) if gs > block else None
@@ -106,6 +143,9 @@ def gptq_quantize_batched(ws: torch.Tensor, hs: torch.Tensor,
         if fixed is None or not scales:
             scales.append(s)
             zeros.append(z)
-    return {"w_deq": torch.cat(deqs, 1).to(ws.dtype), "q": torch.cat(qs, 1),
-            "scale": torch.cat(scales, 1), "zero": torch.cat(zeros, 1),
-            "err": err_total}
+    out = {"w_deq": torch.cat(deqs, 1).to(ws.dtype), "q": torch.cat(qs, 1),
+           "scale": torch.cat(scales, 1), "zero": torch.cat(zeros, 1),
+           "err": err_total}
+    if not check:
+        out["info"] = info
+    return out

@@ -39,12 +39,15 @@ import math
 
 import torch
 
+from repro_torch.checkpoint.checkpoint import CheckpointManager
 from repro_torch.checkpoint.packed import save_packed_artifact
 from repro_torch.configs import get_config
 from repro_torch.core.pipeline import RSQConfig, RSQPipeline, handover
+from repro_torch.core.resume import QuantizeRunner
 from repro_torch.data.calibration import calibration_set, heldout_set
 from repro_torch.device import generator, resolve_device
 from repro_torch.models.lm import Model
+from repro_torch.runtime.fault import FaultPlan, RetryPolicy
 
 
 @torch.no_grad()
@@ -108,12 +111,45 @@ def main(argv=None) -> dict:
                     help="cuda (default) or cpu")
     ap.add_argument("--pack-out", default=None, metavar="DIR",
                     help="write the packed serving artifact here; serve it "
-                    "with repro_torch.launch.serve --packed DIR")
+                    "with repro_torch.launch.serve --packed DIR (GPTQ only)")
+    ap.add_argument("--method", default="gptq", choices=["gptq", "ldlq"],
+                    help="the solver: GPTQ, or LDLQ with the E8 rounder")
+    ap.add_argument("--scheduler", default="auto",
+                    choices=["auto", "sequential", "overlapped"],
+                    help="layer schedule (auto: sequential on the CPU, "
+                    "overlapped on CUDA)")
+    ap.add_argument("--save-every-layers", type=int, default=0, metavar="N",
+                    help="checkpoint the quantization's progress every N "
+                    "layer solves into --progress-dir (0: none); a killed "
+                    "run goes on with --resume")
+    ap.add_argument("--progress-dir", default=None, metavar="DIR",
+                    help="progress checkpoints (default <pack-out>.progress, "
+                    "or ./quantize_progress without --pack-out)")
+    ap.add_argument("--resume", action="store_true",
+                    help="go on from the latest checkpoint in --progress-dir "
+                    "(without it an existing one is refused)")
+    ap.add_argument("--fail-at", action="append", default=[],
+                    metavar="LAYER:STAGE[:COUNT]",
+                    help="inject a failure at a stage point (stage: "
+                    "capture|solve|apply|pack); repeatable")
+    ap.add_argument("--max-restarts", type=int, default=3,
+                    help="in-process retries after a recoverable failure")
+    ap.add_argument("--kv-bits", type=int, default=None,
+                    help="the serving KV cache recorded in the artifact's "
+                    "meta: 0 (activation dtype), 8 (int8) or 2 (log codes); "
+                    "weight quantization is unaffected")
     ap.add_argument("--out", default=None, help="write report JSON here")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = model_config(args.arch, args.n_layers, args.dtype)
+    if args.kv_bits is not None:
+        if args.kv_bits not in (0, 2, 8):
+            ap.error(f"--kv-bits {args.kv_bits} is not supported — use 0 "
+                     f"(KV cache in the activation dtype), 8 (int8 + "
+                     f"per-token scales) or 2 (packed log codes + "
+                     f"per-chunk scales)")
+        cfg = dataclasses.replace(cfg, kv_bits=args.kv_bits)
     refuse_media(cfg, "core.pipeline.RSQPipeline(model, rsq).run(params, "
                  "calib, media=, frames=), then checkpoint.packed."
                  "save_packed_artifact")
@@ -126,13 +162,35 @@ def main(argv=None) -> dict:
     rsq = RSQConfig(bits=args.bits, group_size=args.group_size,
                     rotate=not args.no_rotate, importance=args.importance,
                     r_min=args.r_min, expansion=args.expansion,
-                    seed=args.seed,
+                    seed=args.seed, method=args.method,
+                    scheduler=(None if args.scheduler == "auto"
+                               else args.scheduler),
                     pack_output=args.pack_out is not None)
+    pipe = RSQPipeline(model, rsq)  # refuses ldlq with --pack-out
+    runner = None
+    if (args.resume or args.save_every_layers > 0
+            or args.progress_dir is not None or args.fail_at):
+        progress = args.progress_dir or (
+            args.pack_out + ".progress" if args.pack_out
+            else "quantize_progress")
+        ckpt = CheckpointManager(progress)
+        if ckpt.latest_step() is not None and not args.resume:
+            ap.error(f"progress dir {progress!r} holds checkpoints from a "
+                     f"previous run; pass --resume to continue it, or "
+                     f"remove the directory to start over")
+        runner = QuantizeRunner(
+            pipe, ckpt, save_every_layers=max(args.save_every_layers, 1),
+            policy=RetryPolicy(max_restarts=args.max_restarts),
+            resume=args.resume, verbose=True)
     base_ppl = eval_ppl(model, params, heldout, args.batch)
-    pipe = RSQPipeline(model, rsq)
-    params["layers"] = handover(params["layers"])
-    qparams, report = pipe.run(params, calib, batch_size=args.batch,
-                               verbose=True)
+    if runner is None:
+        params["layers"] = handover(params["layers"])
+        qparams, report = pipe.run(params, calib, batch_size=args.batch,
+                                   verbose=True)
+    else:
+        fault = FaultPlan.parse(args.fail_at) if args.fail_at else None
+        qparams, report = runner.run(params, calib, fault=fault,
+                                     batch_size=args.batch, verbose=True)
     del params
     q_ppl = eval_ppl(model, qparams, heldout, args.batch)
     summary = {
@@ -140,17 +198,24 @@ def main(argv=None) -> dict:
         "rsq": dataclasses.asdict(rsq), "n_calib": args.n_calib,
         "calib_seq": args.calib_seq, "ppl_fp": base_ppl,
         "ppl_quant": q_ppl, "ppl_ratio": q_ppl / base_ppl,
+        "scheduler": report["scheduler"],
         "layer_seconds": {
             t: {k: rep[k] for k in ("seconds", "capture_s", "solve_s",
-                                    "apply_s")}
+                                    "apply_s") if k in rep}
             for t, rep in report["layers"].items()},
         "n_weights": sum(len(r["weights"]) for r in report["layers"].values()),
     }
+    if runner is not None:
+        summary["fault_tolerance"] = {
+            "restarts": runner.restarts,
+            "ckpt_overhead_s": round(runner.ckpt_overhead_s, 4),
+            "events": [e["kind"] for e in runner.events]}
     if args.pack_out:
         save_packed_artifact(args.pack_out, pipe.artifact, params=qparams,
                              extra={"arch": args.arch,
                                     "n_layers": cfg.n_layers,
-                                    "rsq": dataclasses.asdict(rsq)})
+                                    "rsq": dataclasses.asdict(rsq),
+                                    "kv_bits": cfg.kv_bits})
         summary["pack_out"] = args.pack_out
     print(json.dumps(summary, indent=2))
     if args.out:

@@ -48,7 +48,11 @@ Tolerances are relative to the largest reference magnitude:
     rows, errors, scales and zeros; each step is the one correctly rounded
     operation the plain loop performs, with no FMA contraction.  A whole
     ``gptq_quantize_batched`` on the kernel is bitwise the same solve on
-    the plain loop (the rest of the solve is the same torch code).
+    the plain loop (the rest of the solve is the same torch code);
+  * LDLQ's in-block solve (``ldlq_block``): bitwise, dequantized rows and
+    errors, signs of zeros included on the rounder's ties; the layer
+    schedulers: the overlapped schedule bitwise the sequential one on the
+    card (params, reports, artifact entries).
 """
 import dataclasses
 import gc
@@ -84,6 +88,8 @@ from repro_torch.kernels.gptq_block.ref import (solve_block_ref,
 from repro_torch.kernels.gram.ops import weighted_gram
 from repro_torch.kernels.gram.ref import weighted_gram_ref
 from repro_torch.kernels.hadamard.ops import fwht
+from repro_torch.kernels.ldlq_block.ops import ldlq_block
+from repro_torch.kernels.ldlq_block.ref import ldlq_block_ref, tie_octets
 from repro_torch.kernels.hadamard.ref import fwht_ref
 from repro_torch.kernels.quant_matmul.ops import (mla_latent_weights,
                                                   pack_weight, quant_matmul,
@@ -2175,3 +2181,98 @@ def test_cross_generate_graph_equals_python_loop(cuda, arch, kv_bits):
             assert entry["xk"].shape == (3, rows, cfg.n_kv_heads,
                                          cfg.head_dim)
             assert entry["xk"].dtype == torch.bfloat16
+
+
+def _ldlq_inputs(cuda, n, block, d_out, seed):
+    """N blocks of rows, the diagonal U tiles of real Hessians and each
+    row's E8 scale (its RMS / 2), on the card."""
+    wb, ub = _solve_inputs(cuda, n, block, d_out, seed)
+    scales = (wb.square().mean(-1).sqrt() * 0.5).clamp_min(1e-8)
+    return wb, ub, scales
+
+
+@pytest.mark.parametrize("n,block,d_out", [
+    (1, 128, 8), (2, 24, 40), (3, 64, 576), (4, 96, 1000), (1, 128, 4096),
+    (2, 128, 1024), (4, 33, 64), (1, 128, 32768), (3, 1, 16)])
+def test_ldlq_block_kernel_bitwise_plain(cuda, n, block, d_out):
+    """N 1-4, blocks of 1-128 rows, d_out 8-32768 (a multiple of 8; not
+    of the kernel's 64 columns a block): deq and err bitwise the plain
+    loop's, one launch a call."""
+    wb, ub, scales = _ldlq_inputs(cuda, n, block, d_out, block + d_out)
+    before = ldlq_block.launches
+    got = ldlq_block(wb, ub, scales)
+    torch.cuda.synchronize()
+    assert ldlq_block.launches == before + 1
+    want = ldlq_block_ref(wb, ub, scales)
+    for name, a, b in zip(("deq", "err"), got, want):
+        assert a.shape == b.shape and a.dtype == b.dtype, name
+        assert torch.equal(a, b), (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("step", [0.5, 0.25])
+@pytest.mark.parametrize("d_out", [8, 256, 4104])
+def test_ldlq_block_tie_octets_bitwise_plain(cuda, step, d_out):
+    """Rows on a 1/2 or 1/4 grid at scale 1 and a diagonal U (no
+    compensation moves them off the grid): every octet sits on the
+    rounder's ties (half to even, the first of equal |δ|, δ = 0, da ==
+    db), and the kernel breaks each as the plain loop does."""
+    block = 64
+    wb = tie_octets(block * d_out // 8, step, seed=d_out).reshape(
+        1, block, d_out).to(cuda)
+    ub = torch.diag_embed(torch.rand((1, block), device=cuda) + 0.5)
+    scales = torch.ones((1, block), device=cuda)
+    got = ldlq_block(wb, ub, scales)
+    want = ldlq_block_ref(wb, ub, scales)
+    for name, a, b in zip(("deq", "err"), got, want):
+        assert torch.equal(a, b), (name, _rel(a, b))
+        assert torch.equal(torch.signbit(a), torch.signbit(b)), name
+
+
+@pytest.mark.parametrize("method", ["gptq", "ldlq"])
+@pytest.mark.parametrize("arch", ["llama3-8b", "deepseek-v2-236b"])
+def test_schedulers_bitwise_on_the_card(cuda, arch, method):
+    """The overlapped schedule (the default on CUDA: no host sync until the
+    end of the stack) against the sequential one on the card: the same
+    params, reports and artifact entries bit for bit, through the
+    ``gram``, ``attn_colsum`` and ``solve_block`` / ``ldlq_block``
+    kernels."""
+    from repro_torch.core.pipeline import RSQConfig, RSQPipeline
+
+    cfg = dataclasses.replace(get_config(arch).reduced(), dtype="float32")
+    model = Model(cfg, cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    calib = torch.randint(2, cfg.vocab_size, (8, 64),
+                          generator=torch.Generator().manual_seed(1))
+    outs = {}
+    for sched in ("sequential", None):
+        pipe = RSQPipeline(model, RSQConfig(
+            bits=4, group_size=32, method=method, scheduler=sched,
+            pack_output=method == "gptq"))
+        before = (ldlq_block if method == "ldlq" else solve_block).launches
+        q, rep = pipe.run(params, calib, batch_size=4)
+        torch.cuda.synchronize()
+        assert (ldlq_block if method == "ldlq" else solve_block).launches \
+            > before
+        outs[rep["scheduler"]] = (q, rep, pipe.artifact)
+    (q_s, rep_s, art_s), (q_o, rep_o, art_o) = (outs["sequential"],
+                                                outs["overlapped"])
+
+    def same(a, b):
+        if isinstance(a, dict):
+            assert list(a) == list(b)
+            for k in a:
+                same(a[k], b[k])
+        elif isinstance(a, list):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                same(x, y)
+        elif isinstance(a, torch.Tensor):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+        else:
+            assert a == b
+
+    same(q_s, q_o)
+    for tag, r in rep_s["layers"].items():
+        assert r["weights"] == rep_o["layers"][tag]["weights"], tag
+    if method == "gptq":
+        same(art_s["entries"], art_o["entries"])

@@ -71,6 +71,17 @@ def test_calibration_modules_are_checked(module):
     assert ROOT / "src" / "repro_torch" / module in SOURCES
 
 
+@pytest.mark.parametrize("module", [
+    "kernels/ldlq_block/__init__.py", "kernels/ldlq_block/ops.py",
+    "kernels/ldlq_block/ref.py", "kernels/ldlq_block/kernel.py",
+    "core/ldlq.py", "core/scheduler.py", "core/resume.py",
+    "checkpoint/checkpoint.py"])
+def test_ldlq_schedule_resume_modules_are_checked(module):
+    """LDLQ's kernel, the layer schedulers and resumable quantization are
+    among the sources the boundary check reads."""
+    assert ROOT / "src" / "repro_torch" / module in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_import(path):
     bad = _imported_roots(path) & FORBIDDEN
