@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (``src/repro_torch``) on one NVIDIA GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --compare OTHER/src
+    python3 chip_smoke.py --compare OTHER/src [NAME,...]
 
 Phases, in order; any failure exits non-zero before the final line:
   1. card and build: the card's name and power limit, then every CUDA
@@ -110,10 +110,10 @@ Phases, in order; any failure exits non-zero before the final line:
      a ``--no-rotate`` quantize served (no ``head``: the tied table is the
      LM head); layer 0's qwen ``mixer/wq`` and command-r ``mixer/wk``
      solves against the host CPU;
-  7. the SSM path (``ssm_path``): mamba2-780m, 12 of its 48 layers (48
-     until the hybrid path below needed the time, then 24 until the
-     cross path did): quantize
-     (seconds and ``solve_s`` per layer, ``ppl_ratio`` over the 12
+  7. the SSM path (``ssm_path``): mamba2-780m, 6 of its 48 layers (48
+     until the hybrid path below needed the time, 24 until the cross
+     path did, 12 until the script's time did): quantize
+     (seconds and ``solve_s`` per layer, ``ppl_ratio`` over the 6
      layers) -> keep-packed bf16 serve at prompt 64 / 16 tokens and 1024 /
      32, each in both loops (the Mamba state in the graph's static cache)
      and against the dequantized serve; layer 0's ``wzx``, ``wdt`` and
@@ -161,9 +161,14 @@ Phases, in order; any failure exits non-zero before the final line:
      an fp32 factor); and the refusal of ``--pack-out`` with it; phase 2's ``check_ldlq_block``:
      LDLQ's in-block solve with the E8 rounder (no Pallas counterpart: the
      reference's XLA compiles that loop) bitwise against its plain loop at
-     llama3-8b's four shape groups (timed, with its byte bound, registers,
-     spills and the measured cost of a row), on octets of a 1/2- and a
-     1/4-grid (the rounder's ties) and at d_out 8 and 32768;
+     llama3-8b's four shape groups (timed, with its byte bound, the
+     instance R each runs, its registers, spills and SASS chain estimate
+     and the measured cost of a row), at each instance R (blocks of 1, 7,
+     33 and 127 rows at d_out 8, 24, 1000 and 4104, and N 3 at 14336), on
+     octets of a 1/2- and a 1/4-grid (the rounder's ties), on rows whose
+     two divisions land halfway between fp32 subnormals, and at d_out 8
+     and 32768; its division alone against IEEE division on 2^24 random
+     bit patterns;
   11. the schedules-and-resume path (``schedule_resume_path``): llama3-8b
      at full width, 2 layers, bf16, GPTQ with ``pack_output``, from
      Python: the sequential and the overlapped schedule bitwise (params,
@@ -202,15 +207,18 @@ reference package.
 checks and, of the paths, ``moe_path``, ``ldlq_path`` and
 ``schedule_resume_path``, and prints no result line.
 
-``--compare OTHER/src`` runs no phase: it times ``gram`` (d 4096 and
+``--compare OTHER/src [NAME,...]`` runs no phase: it times (all, or, to
+spend fewer minutes of the card on a kernel under work, the named ones of
+``TIMERS``) ``gram`` (d 4096 and
 14336), ``attn_colsum`` (llama3-8b's and the MLA path's heads), the packed
 matmul as phase 2 does at llama3-8b's down projection (bf16, 3 and 4 bits,
 m 4, 256 and 512), the three GQA attention wrappers on phase 2's inputs
 (kv8 and kv2), and MLA's absorb (``quant_matmul_t``) and expand
 (``quant_matmul``, fp32), each at m 4 and 128, extend (kv8 and kv2) and
 latent decode (flat and paged, kv8 and kv2, at B 4, S 8192 and at the
-engine's 4 slots at positions 512-575), and GPTQ's in-block solve
-(``solve_block``) at phase 2's five shapes, with ``repro_torch`` imported
+engine's 4 slots at positions 512-575), GPTQ's in-block solve
+(``solve_block``) at phase 2's five shapes and LDLQ's (``ldlq_block``) at
+its four, with ``repro_torch`` imported
 from OTHER/src (another checkout, e.g. the parent commit from ``git
 archive``) and from this one in turns (other, this, this, other; one
 process each) and prints the four runs as one JSON line.
@@ -324,14 +332,15 @@ QWEN_ARCH, CMDR_ARCH, VARIANT_LAYERS = "qwen1.5-4b", "command-r-35b", 1
 # measured: two 22528 x 8192 GPTQ solves and the capture of its 22528-wide
 # FFN, where the script has ~300 s left of its limit)
 VARIANT_SOLVE_CHECK = {QWEN_ARCH: ("mixer/wq",), CMDR_ARCH: ("mixer/wk",)}
-# the SSM path: mamba2-780m, 12 of its 48 layers (cut from the whole model
-# to 24 to make room for the hybrid path, then to 12 for the cross path;
+# the SSM path: mamba2-780m, 6 of its 48 layers (cut from the whole model
+# to 24 to make room for the hybrid path, to 12 for the cross path, then
+# to 6 to keep the script inside its time;
 # d_model 1536, d_inner 3072, 48 SSD
 # heads of 64, state 128, tied embeddings), quantized in fp32,
 # served keep-packed in bf16 at (prompt, new tokens) SSM_SERVES, each in
 # both decode loops and against the dequantized serve; layer 0's wzx, wdt
 # (1536 x 48: quantized at full width) and out_proj re-solved on the CPU
-SSM_ARCH, SSM_LAYERS = "mamba2-780m", 12
+SSM_ARCH, SSM_LAYERS = "mamba2-780m", 6
 SSM_SERVES = ((PROMPT_LEN, N_GEN), (KV_PROMPT, KV_GEN))
 SSM_SOLVE_CHECK = ("mixer/wzx", "mixer/wdt", "mixer/out_proj")
 # kernels a path does not run, with the reason
@@ -442,6 +451,13 @@ SOLVE_SHAPES = {"wk": (1, 1024), "wd": (1, 4096), "wq+wo": (2, 4096),
 LDLQ_SHAPES = {"wq+wo": (2, 4096), "wk+wv": (2, 1024), "wi+wu": (2, 14336),
                "wd": (1, 4096)}
 LDLQ_LAUNCHES = 208
+# a lane of ``ldlq_block``'s kernel owns its rows LDLQ_CHUNK at a time
+# (csrc/ldlq_block.cu); phase 2 reaches each instance (R 4, 2 and 1) at
+# these blocks of rows (ragged against a round of 4 R rows) and these
+# columns (a warp part-filled)
+LDLQ_CHUNK = 4
+LDLQ_INSTANCE_BLOCKS = (1, 7, 33, 127)
+LDLQ_INSTANCE_D_OUT = (8, 24, 1000, 4104)
 # the LDLQ path's wk solve, card against the host CPU on one H: the share
 # of the first block's octets that must come out the same (U is factored
 # on each device and the deferred products sum in another order; the
@@ -481,12 +497,13 @@ SOLVE_CHUNK = 4
 # dependent-issue latencies (cycles) assumed for Hopper's SASS ops in the
 # chain estimate of ``loop_chain_cycles``: fp32 and integer ALU ops 4 (any op
 # not listed, branches and reconvergence too), the special-function unit's
-# 20, conversions and rounding 10, shared-memory loads 30, shuffles 24.  An
+# 20, conversions and rounding 10, shared-memory loads 30, shuffles 24,
+# fp64 products and FMAs 8.  An
 # estimate, not a measurement: phase 2 logs the measured cost of a row
 # beside it
 SASS_LATENCY = {"MUFU": 20, "FRND": 10, "F2I": 10, "I2F": 10, "F2F": 10,
                 "FCHK": 10, "LDS": 30, "SHFL": 24, "S2R": 20, "LDC": 10,
-                "LDG": 500}
+                "LDG": 500, "DMUL": 8, "DFMA": 8, "DADD": 8}
 SASS_NO_DEST = {"ST", "STS", "STG", "STL", "RED", "BAR", "BRA", "EXIT",
                 "CALL", "RET", "BSSY", "BSYNC", "WARPSYNC", "NOP", "DEPBAR",
                 "MEMBAR", "FENCE", "ERRBAR", "YIELD", "JMP", "CCTL"}
@@ -4780,27 +4797,29 @@ def strategy_sweep(torch) -> list:
 
 
 def ldlq_instances() -> dict:
-    """{warps a block: {registers, spill_store_bytes}} of each instance of
-    ``ldlq_block_kernel<WARPS>`` in this run's ptxas log (empty where the
-    library was reused from an earlier build)."""
+    """{R: {kernel, registers, spills, chain}} of every built instance of
+    ``ldlq_block_kernel<R>``: registers from this run's ptxas log (None
+    where the library was reused from an earlier build); from the
+    library's SASS, the chain of one pass of the widest phase's round loop
+    (one owner's chunk: LDLQ_CHUNK rows) and from it one row's."""
     from repro_torch.kernels import build
 
+    regs = ptxas_kernels(build.ptxas_report("ldlq_block"))
     out = {}
-    for name, regs in ptxas_kernels(build.ptxas_report("ldlq_block")).items():
+    for name, instrs in sass_functions(build._target("ldlq_block")).items():
         m = re.search(r"ldlq_block_kernelILi(\d+)E", name)
         if m:
-            out[int(m.group(1))] = {"registers": regs["registers"],
-                                    "spill_store_bytes":
-                                        regs["spill_store_bytes"]}
+            lanes = int(m.group(1))
+            cycles, body = loop_chain_cycles(instrs)
+            out[lanes] = {
+                "kernel": f"ldlq_block_kernel<{lanes}>",
+                **regs.get(name, {"registers": None,
+                                  "spill_store_bytes": None}),
+                "sass_instructions": len(instrs), "loop_instructions": body,
+                "loop_chain_cycles": cycles,
+                "row_chain_cycles": None if cycles is None
+                else cycles / LDLQ_CHUNK}
     return out
-
-
-def ldlq_warps(torch, n: int, d_out: int) -> int:
-    """The warps a block of ``ldlq_block``'s launch (as the C launcher
-    picks them): 8 where N x ceil(d_out / 32) warps exceed 4 an SM, else
-    4."""
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return 8 if n * -(-d_out // 32) > 4 * sms else 4
 
 
 def ldlq_inputs(torch, g, n: int, block: int, d_out: int):
@@ -4834,25 +4853,45 @@ def ldlq_block_ms(checks: Checks, wb, ub, scales) -> float:
     return checks.timer.ms(lambda a=a: ldlq_block(*a) for a in sets)
 
 
+def ldlq_instance_shapes(sms: int) -> list:
+    """(N, d_out) pairs that reach each instance R of ``ldlq_block`` on a
+    card of ``sms`` SMs, at LDLQ_INSTANCE_D_OUT (the plan: R 4 up to 32
+    columns an SM, R 2 up to 64, R 1 above), and N 3 at 14336 (the widest
+    grid)."""
+    out = []
+    for d_out in LDLQ_INSTANCE_D_OUT:
+        fit = 64 * sms // d_out
+        out += [(1, d_out), (fit, d_out), (fit + 1, d_out)]
+    return out + [(3, 14336)]
+
+
 def check_ldlq_block(torch, checks: Checks) -> None:
     """Phase 2, LDLQ's in-block solve with the E8 rounder (``ldlq_block``,
     no Pallas counterpart: the reference's XLA compiles the loop): bitwise
     against its plain loop on the card at LDLQ_SHAPES (llama3-8b's four
-    shape groups, block 128; timed, with the byte bound, the kernel's
-    registers and spills (of the instance each shape runs: 4 or 8 warps
-    a block) and the measured cost of a row, the slope from 64 rows to
-    128; ``wd`` the representative row), on rows of a 1/2- and a
-    1/4-grid at scale 1 and a diagonal U (every octet on the rounder's
-    ties) and at d_out 8 and 32768; then one whole wd solve (14336 x 4096)
-    under the profiler (``ldlq_solve_profile``)."""
+    shape groups, block 128; timed, with the byte bound, the instance each
+    shape runs (R lanes a column) with its registers, spills and SASS
+    chain estimate, and the measured cost of a row, the slope from 64 rows
+    to 128; ``wd`` the representative row); at every instance R with
+    blocks of LDLQ_INSTANCE_BLOCKS rows (``ldlq_instance_shapes``); on rows
+    of a 1/2- and a 1/4-grid at scale 1 and a diagonal U (every octet on
+    the rounder's ties); on rows whose both divisions land halfway between
+    two fp32 subnormals (``subnormal_tie_inputs``) at each R; at d_out 8
+    and 32768; then one whole wd solve (14336 x 4096) under the profiler
+    (``ldlq_solve_profile``)."""
+    from repro_torch.kernels.ldlq_block.kernel import plan
     from repro_torch.kernels.ldlq_block.ops import ldlq_block
-    from repro_torch.kernels.ldlq_block.ref import ldlq_block_ref, tie_octets
+    from repro_torch.kernels.ldlq_block.ref import (ldlq_block_ref,
+                                                    subnormal_tie_inputs,
+                                                    tie_octets)
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(11)
     instances = ldlq_instances()
-    log({"ldlq_block_instances": instances})
+    for inst in instances.values():
+        log({"ldlq_block_instance": inst})
     mhz = max_sm_mhz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def bitwise(tag, got, want) -> None:
         for name, a, b in zip(("deq", "err"), got, want):
@@ -4871,20 +4910,36 @@ def check_ldlq_block(torch, checks: Checks) -> None:
         ms_64 = ldlq_block_ms(checks, wb[:, :64].contiguous(),
                               ub[:, :64, :64].contiguous(),
                               scales[:, :64].contiguous())
-        warps = ldlq_warps(torch, n, d_out)
-        inst = instances.get(warps, {"registers": None,
-                                     "spill_store_bytes": None})
+        how = plan(n, d_out)
+        inst = instances.get(how["lanes"], {})
+        row_chain = inst.get("row_chain_cycles")
         checks.record("ldlq_block", {"weight": wname, "N": n,
                                      "block": block, "d_out": d_out},
                       got[0], want[0], 0.0, ms, plain_ms, None,
                       ldlq_bytes(n, block, d_out),
                       ldlq_flops(n, block, d_out), "float32",
-                      wname == "wd", warps_a_block=warps, **inst,
+                      wname == "wd", plan=how, instance=inst.get("kernel"),
+                      registers=inst.get("registers"),
+                      spill_store_bytes=inst.get("spill_store_bytes"),
                       ms_block_64=ms_64,
                       row_cycles_measured=(ms - ms_64) / (block - 64)
-                      * mhz * 1e3, max_sm_mhz=mhz,
-                      launches_a_layer=LDLQ_LAUNCHES)
+                      * mhz * 1e3,
+                      chain_estimate_row_cycles=row_chain,
+                      chain_estimate_ms=None if row_chain is None
+                      else block * row_chain / (mhz * 1e3),
+                      max_sm_mhz=mhz, launches_a_layer=LDLQ_LAUNCHES)
         del wb, ub, scales, got, want
+    reached = set()
+    for n, d_out in ldlq_instance_shapes(sms):
+        reached.add(plan(n, d_out)["lanes"])
+        for rows in LDLQ_INSTANCE_BLOCKS:
+            wb, ub, scales = ldlq_inputs(torch, g, n, rows, d_out)
+            bitwise(f"N {n} block {rows} d_out {d_out}",
+                    ldlq_block(wb, ub, scales),
+                    ldlq_block_ref(wb, ub, scales))
+    if reached != {1, 2, 4}:
+        checks.bad.append(f"ldlq_block: the instance shapes reached R "
+                          f"{sorted(reached)}, not 1, 2 and 4")
     for d_out in (8, 32768):
         wb, ub, scales = ldlq_inputs(torch, g, 1, block, d_out)
         bitwise(f"d_out {d_out}", ldlq_block(wb, ub, scales),
@@ -4898,6 +4953,13 @@ def check_ldlq_block(torch, checks: Checks) -> None:
         scales = torch.ones((1, 64), device=dev)
         bitwise(f"ties on a {step} grid", ldlq_block(wb, ub, scales),
                 ldlq_block_ref(wb, ub, scales))
+    # both divisions of every row halfway between two fp32 subnormals, at
+    # R 4, 2 and 1 (one matrix of 256, 64 sms and 128 sms columns)
+    for d_out in (256, 64 * sms, 128 * sms):
+        wb, ub, scales = (t.to(dev) for t in subnormal_tie_inputs(
+            block, d_out, seed=d_out))
+        bitwise(f"subnormal ties d_out {d_out} R {plan(1, d_out)['lanes']}",
+                ldlq_block(wb, ub, scales), ldlq_block_ref(wb, ub, scales))
 
     # where one solve's time goes: llama3-8b's wd (14336 x 4096: 112
     # launches, the Cholesky factor and inverse at d 14336, the scales, the
@@ -5623,31 +5685,52 @@ def time_solve_block(torch) -> list:
     return out
 
 
-# one process of ``compare``: times the tree named by argv[1]
+def time_ldlq_block(torch) -> list:
+    """``ldlq_block`` at LDLQ_SHAPES (blocks of 128 rows) on phase 2's
+    inputs (``ldlq_inputs``), with the ``repro_torch`` that is on
+    sys.path; ms per call from ``Timer`` over cold copies
+    (``ldlq_block_ms``)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    checks = Checks(Timer(torch))
+    out = []
+    for wname, (n, d_out) in LDLQ_SHAPES.items():
+        wb, ub, scales = ldlq_inputs(torch, g, n, 128, d_out)
+        out.append({"weight": wname, "N": n, "block": 128, "d_out": d_out,
+                    "ms": ldlq_block_ms(checks, wb, ub, scales)})
+        del wb, ub, scales
+    torch.cuda.empty_cache()
+    return out
+
+
+# ``compare``'s timers, by the name each run's entry takes
+TIMERS = {"gram": "time_gram", "attn_colsum": "time_attn_colsum",
+          "quant_matmul": "time_quant_matmul",
+          "gqa_attention": "time_gqa_attention", "mla": "time_mla",
+          "solve_block": "time_solve_block", "ldlq_block": "time_ldlq_block"}
+# one process of ``compare``: times the tree named by argv[1] with the
+# timers named by argv[2]
 TIME_ONE_TREE = ("import sys; from pathlib import Path; import chip_smoke "
                  "as c; t = c.card_torch(Path(sys.argv[1])); "
-                 "c.log({'gram': c.time_gram(t), "
-                 "'attn_colsum': c.time_attn_colsum(t), "
-                 "'quant_matmul': c.time_quant_matmul(t), "
-                 "'gqa_attention': c.time_gqa_attention(t), "
-                 "'mla': c.time_mla(t), "
-                 "'solve_block': c.time_solve_block(t)})")
+                 "c.log({k: getattr(c, c.TIMERS[k])(t) "
+                 "for k in sys.argv[2].split(',')})")
 
 
-def compare(other: Path) -> None:
+def compare(other: Path, names=tuple(TIMERS)) -> None:
     """Times ``gram`` (``time_gram``), ``attn_colsum``
     (``time_attn_colsum``), ``quant_matmul`` (``time_quant_matmul``), the
     three GQA attention wrappers (``time_gqa_attention``), MLA's absorb,
-    fp32 expand, extend and latent decode (``time_mla``) and GPTQ's
-    in-block solve (``time_solve_block``) of another checkout's ``src`` and
-    of this one in turns, other, this, this, other, one process each on the
-    same card, and prints them as one JSON line."""
+    fp32 expand, extend and latent decode (``time_mla``) and GPTQ's and
+    LDLQ's in-block solves (``time_solve_block``, ``time_ldlq_block``), or
+    the ``names`` of them (keys of TIMERS), of another checkout's ``src``
+    and of this one in turns, other, this, this, other, one process each
+    on the same card, and prints them as one JSON line."""
     card_torch(SRC)
     order = [other.resolve(), SRC, SRC, other.resolve()]
     runs = []
     for src in order:
         done = subprocess.run(
-            [sys.executable, "-c", TIME_ONE_TREE, str(src)], cwd=ROOT,
+            [sys.executable, "-c", TIME_ONE_TREE, str(src),
+             ",".join(names)], cwd=ROOT,
             capture_output=True, text=True, timeout=900)
         if done.returncode != 0:
             fail(f"timing {src} failed:\n{done.stderr}")
@@ -5658,15 +5741,18 @@ def compare(other: Path) -> None:
 
 def main() -> None:
     args = sys.argv[1:]
-    if len(args) == 2 and args[0] == "--compare":
-        compare(Path(args[1]))
+    if len(args) in (2, 3) and args[0] == "--compare":
+        names = args[2].split(",") if len(args) == 3 else tuple(TIMERS)
+        if not set(names) <= set(TIMERS):
+            fail(f"--compare times {sorted(TIMERS)}, not {names}")
+        compare(Path(args[1]), names)
         return
     only = None
     if len(args) == 2 and args[0] == "--only":
         only = set(args[1].split(","))
     elif args:
-        fail("usage: chip_smoke.py [--compare OTHER/src | --only "
-             "PHASE[,PHASE...]]")
+        fail("usage: chip_smoke.py [--compare OTHER/src [NAME,...] | "
+             "--only PHASE[,PHASE...]]")
     torch = card_torch(SRC)
     t_start = time.perf_counter()
 
@@ -5675,6 +5761,7 @@ def main() -> None:
 
     built = build.build_all()
     log({"build": built})
+    log({"phase_seconds": {"build": built["seconds"]}})
     for name in build.SOURCES:  # nvcc -Xptxas -v of this run's builds
         found = ptxas_kernels(build.ptxas_report(name)).values()
         if found:
@@ -5872,7 +5959,8 @@ def main() -> None:
                                         for path, counts in by_path.items()
                                         if name in counts}
             entry.update({key: row[key] for key in (
-                "registers", "spill_store_bytes", "row_cycles_measured")})
+                "instance", "registers", "spill_store_bytes",
+                "row_cycles_measured")})
             entry["pallas"] = ("none: the reference's XLA compiles this "
                                "loop (a fori_loop in the scan over blocks, "
                                "vmapped by ldlq_quantize_batched)")

@@ -2,6 +2,8 @@
 Shapes, strides and types are checked by ``ops``."""
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from repro_torch.kernels import build
@@ -16,6 +18,17 @@ def _lib():
     return fn
 
 
+def plan(n: int, d_out: int) -> dict:
+    """The launch shape a call of N matrices of d_out columns takes: lanes
+    a column (R), threads a block and blocks along d_out."""
+    fn = build.library("ldlq_block").ldlq_block_plan
+    fn.argtypes = [build.I, build.I, build.P]
+    fn.restype = build.I
+    out = (ctypes.c_int * 3)()
+    build.check(fn(n, d_out, out), "ldlq_block_plan")
+    return {"lanes": out[0], "threads": out[1], "grid_x": out[2]}
+
+
 def ldlq_block_cuda(wb: torch.Tensor, ub: torch.Tensor, scales: torch.Tensor,
                     deq: torch.Tensor, err: torch.Tensor) -> None:
     """One launch for the N matrices of ``wb`` (outputs preallocated)."""
@@ -25,3 +38,4 @@ def ldlq_block_cuda(wb: torch.Tensor, ub: torch.Tensor, scales: torch.Tensor,
                   block, d_out, deq.data_ptr(), err.data_ptr(),
                   torch.cuda.current_stream(wb.device).cuda_stream)
     build.check(code, "ldlq_block")
+

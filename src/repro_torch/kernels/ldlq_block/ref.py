@@ -81,3 +81,56 @@ def tie_octets(n: int, step: float, seed: int = 0) -> torch.Tensor:
     k = torch.randint(-int(4 / step), int(4 / step) + 1, (n, 8),
                       generator=gen)
     return (k.double() * step).float()
+
+
+def _reciprocal_fails(x: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Where fp32 x / v (fp64 x, v exact in fp32) is not what the product
+    of x with v's fp64 reciprocal rounds to."""
+    return x.float() / v.float() != (x * (1.0 / v)).float()
+
+
+def subnormal_tie_inputs(block: int, d_out: int, seed: int = 0):
+    """(wb, ub, scales) of one matrix, (1, block, d_out), (1, block, block)
+    and (1, block) fp32 on the CPU, on which both divisions of every row,
+    y = x / s_i and err = (x - deq) / U_ii, land exactly halfway between
+    two fp32 subnormals.
+
+    s_i = 2 B_s and U = diag(2 B_u) (B_s, B_u odd); row i holds x = ±m B_s
+    B_u 2^-149 (m odd, m B_s B_u < 2^24), so y = ±m B_u 2^-150 rounds to
+    the E8 point 0 (deq ±0, no compensation: U is diagonal) and err = ±m
+    B_s 2^-150: each an odd multiple of 2^-150, which IEEE division rounds
+    to the even neighbour.  Each x is one where the product of x with the
+    fp64 reciprocal of either divisor rounds the other way: a division
+    formed so fails on every element, twice."""
+    odd = torch.arange(3, 1024, 2, dtype=torch.float64)
+    m = torch.arange(1, 4096, 2, dtype=torch.float64)
+    # divisors whose fp64 reciprocal misrounds the most such quotients
+    rate = _reciprocal_fails(m[None] * odd[:, None] * 2.0 ** -149,
+                             2.0 * odd[:, None]).double().mean(1)
+    picked = odd[torch.argsort(rate, descending=True, stable=True)[:24]]
+    rows = []
+    for bs in picked.tolist():
+        for bu in picked.tolist():
+            if bu == bs:
+                continue
+            mm = torch.arange(1, 2 ** 24 // int(bs * bu), 2,
+                              dtype=torch.float64)
+            x = mm * bs * bu * 2.0 ** -149  # exact in fp32
+            both = (_reciprocal_fails(x, torch.tensor(2.0 * bs,
+                                                      dtype=torch.float64))
+                    & _reciprocal_fails(x, torch.tensor(2.0 * bu,
+                                                        dtype=torch.float64)))
+            if int(both.sum()) >= 8:
+                rows.append((2.0 * bs, 2.0 * bu, x[both]))
+    gen = torch.Generator().manual_seed(seed)
+    wb = torch.empty((1, block, d_out), dtype=torch.float32)
+    ub = torch.zeros((1, block, block), dtype=torch.float32)
+    scales = torch.empty((1, block), dtype=torch.float32)
+    for i in range(block):
+        si, ui, xs = rows[i % len(rows)]
+        pick = torch.randint(len(xs), (d_out,), generator=gen)
+        sign = torch.randint(2, (d_out,), generator=gen) * 2.0 - 1.0
+        wb[0, i] = (xs[pick] * sign).float()
+        ub[0, i, i] = ui
+        scales[0, i] = si
+    return wb, ub, scales

@@ -88,8 +88,11 @@ from repro_torch.kernels.gptq_block.ref import (solve_block_ref,
 from repro_torch.kernels.gram.ops import weighted_gram
 from repro_torch.kernels.gram.ref import weighted_gram_ref
 from repro_torch.kernels.hadamard.ops import fwht
+from repro_torch.kernels.ldlq_block.kernel import plan as ldlq_plan
 from repro_torch.kernels.ldlq_block.ops import ldlq_block
-from repro_torch.kernels.ldlq_block.ref import ldlq_block_ref, tie_octets
+from repro_torch.kernels.ldlq_block.ref import (
+    ldlq_block_ref, subnormal_tie_inputs as ldlq_subnormal_tie_inputs,
+    tie_octets)
 from repro_torch.kernels.hadamard.ref import fwht_ref
 from repro_torch.kernels.quant_matmul.ops import (mla_latent_weights,
                                                   pack_weight, quant_matmul,
@@ -2193,11 +2196,12 @@ def _ldlq_inputs(cuda, n, block, d_out, seed):
 
 @pytest.mark.parametrize("n,block,d_out", [
     (1, 128, 8), (2, 24, 40), (3, 64, 576), (4, 96, 1000), (1, 128, 4096),
-    (2, 128, 1024), (4, 33, 64), (1, 128, 32768), (3, 1, 16)])
+    (2, 128, 1024), (4, 33, 64), (1, 128, 32768), (3, 1, 16),
+    (3, 127, 14336), (3, 33, 14336)])
 def test_ldlq_block_kernel_bitwise_plain(cuda, n, block, d_out):
     """N 1-4, blocks of 1-128 rows, d_out 8-32768 (a multiple of 8; not
-    of the kernel's 64 columns a block): deq and err bitwise the plain
-    loop's, one launch a call."""
+    of a block's 32-128 columns), N 3 at 14336 (the widest grid): deq and
+    err bitwise the plain loop's, one launch a call."""
     wb, ub, scales = _ldlq_inputs(cuda, n, block, d_out, block + d_out)
     before = ldlq_block.launches
     got = ldlq_block(wb, ub, scales)
@@ -2207,6 +2211,57 @@ def test_ldlq_block_kernel_bitwise_plain(cuda, n, block, d_out):
     for name, a, b in zip(("deq", "err"), got, want):
         assert a.shape == b.shape and a.dtype == b.dtype, name
         assert torch.equal(a, b), (name, _rel(a, b))
+
+
+def _ldlq_lanes_n(cuda, lanes, d_out):
+    """N matrices of d_out columns whose launch takes R = ``lanes`` on this
+    card (the plan: R 4 up to 32 columns an SM, R 2 up to 64, R 1
+    above)."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = {4: 1, 2: 64 * sms // d_out, 1: 64 * sms // d_out + 1}[lanes]
+    assert ldlq_plan(n, d_out)["lanes"] == lanes
+    return n
+
+
+@pytest.mark.parametrize("block", [1, 7, 33, 127])
+@pytest.mark.parametrize("d_out", [8, 24, 1000, 4104])
+@pytest.mark.parametrize("lanes", [4, 2, 1])
+def test_ldlq_block_every_instance_bitwise_plain(cuda, lanes, d_out, block):
+    """Every instance of the kernel, R = 4, 2 and 1 lanes a column, on
+    blocks that are not a whole number of its rounds (4 R rows) and at
+    d_out that leave a warp part-filled: deq and err bitwise the plain
+    loop's (the U tiles of three Hessians, repeated over the N
+    matrices)."""
+    n = _ldlq_lanes_n(cuda, lanes, d_out)
+    g = torch.Generator(device=cuda).manual_seed(block * d_out + lanes)
+    wb = torch.randn((n, block, d_out), generator=g, device=cuda)
+    ub = _solve_inputs(cuda, min(n, 3), block, 8, block)[1]
+    ub = ub.repeat(-(-n // ub.shape[0]), 1, 1)[:n].contiguous()
+    scales = (wb.square().mean(-1).sqrt() * 0.5).clamp_min(1e-8)
+    got = ldlq_block(wb, ub, scales)
+    want = ldlq_block_ref(wb, ub, scales)
+    for name, a, b in zip(("deq", "err"), got, want):
+        assert torch.equal(a, b), (name, _rel(a, b))
+
+
+@pytest.mark.parametrize("lanes", [4, 2, 1])
+def test_ldlq_block_subnormal_ties_bitwise_plain(cuda, lanes):
+    """Rows whose two divisions, x / s_i and (x - deq) / U_ii, land exactly
+    halfway between two fp32 subnormals (``subnormal_tie_inputs``), where
+    a product by the fp64 reciprocal rounds the other way: the kernel's
+    divisions round them to even as the plain loop's do, at R = 4, 2 and
+    1."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    d_out = {4: 256, 2: 64 * sms, 1: 128 * sms}[lanes]
+    assert ldlq_plan(1, d_out)["lanes"] == lanes
+    wb, ub, scales = (t.to(cuda) for t in ldlq_subnormal_tie_inputs(
+        128, d_out, seed=lanes))
+    got = ldlq_block(wb, ub, scales)
+    want = ldlq_block_ref(wb, ub, scales)
+    assert bool((want[1] != 0).all())
+    for name, a, b in zip(("deq", "err"), got, want):
+        assert torch.equal(a, b), (name, _rel(a, b))
+        assert torch.equal(torch.signbit(a), torch.signbit(b)), name
 
 
 @pytest.mark.parametrize("step", [0.5, 0.25])

@@ -23,7 +23,9 @@ Tolerances:
     tokens: each weight's dequantized values within 1e-5 relative in at
     least 99% of its octets, its proxy loss within 1%;
   * batched against one at a time, and the grouped layer solve against
-    each weight's own solve: bitwise on the CPU.
+    each weight's own solve: bitwise on the CPU;
+  * ``subnormal_tie_inputs``: both divisions of every row checked to be
+    ties between two fp32 subnormals, exactly.
 """
 import dataclasses
 
@@ -49,7 +51,9 @@ from repro_torch.core.ldlq import (e8_nearest, ldlq_quantize,
 from repro_torch.core.pipeline import (RSQConfig, RSQPipeline,
                                        quantize_layer_weights)
 from repro_torch.kernels.ldlq_block.ops import ldlq_block
-from repro_torch.kernels.ldlq_block.ref import ldlq_block_ref, tie_octets
+from repro_torch.kernels.ldlq_block.ref import (ldlq_block_ref,
+                                                subnormal_tie_inputs,
+                                                tie_octets)
 from repro_torch.launch.quantize import main as quantize_main
 from repro_torch.models.lm import Model
 
@@ -288,3 +292,28 @@ def test_pack_output_refused_for_ldlq(tmp_path):
     assert not out.exists()
     with pytest.raises(ValueError, match="unknown method"):
         RSQPipeline(Model(pcfg, "cpu"), RSQConfig(method="e8p"))
+
+
+@pytest.mark.parametrize("block,d_out", [(128, 96), (7, 8), (33, 1000),
+                                         (1, 8), (127, 24)])
+def test_subnormal_tie_inputs_land_halfway_between_subnormals(block, d_out):
+    """Both divisions of every row of ``subnormal_tie_inputs``, x / s_i and
+    the plain loop's err = (x - deq) / U_ii, are exact odd multiples of
+    2^-150: IEEE division rounds each to its even neighbour (a subnormal),
+    the product of x with the divisor's fp64 reciprocal rounds each the
+    other way, and deq is 0."""
+    wb, ub, scales = subnormal_tie_inputs(block, d_out, seed=block)
+    deq, err = ldlq_block_ref(wb, ub, scales)
+    assert torch.equal(deq.abs(), torch.zeros_like(deq))
+    x = wb[0].double()
+    for v, q in ((scales[0, :, None], wb[0] / scales[0, :, None]),
+                 (torch.diagonal(ub[0])[:, None], err[0])):
+        exact = x / v.double() * 2.0 ** 150  # exact in fp64
+        assert bool((exact.abs().remainder(2.0) == 1.0).all())
+        got = q.double() * 2.0 ** 150
+        assert bool(((got - exact).abs() == 1.0).all())
+        assert bool((got.remainder(2.0) == 0.0).all())  # to even
+        assert bool((q.abs() < torch.finfo(torch.float32).tiny).all())
+        recip = (x * (1.0 / v.double())).float()
+        assert bool((recip != q).all())
+
